@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the FaaSLight serving pipeline (``repro`` is the JAX
+reference it is held against).
+
+The port keeps the reference's module names and layout so every module has
+an obvious counterpart. It imports ``torch`` and never ``jax``; entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``. Ported so far: the
+after2 serving slice — configs → analyze → ``build_artifact`` →
+``cold_start(mode="after2")`` → ``GenerationEngine.generate`` — for the
+Mixtral family, with prefill attention in a hand-written CUDA kernel
+(``kernels/flash_attention``).
+"""

@@ -1,0 +1,31 @@
+"""yi-34b [dense] — 60L d_model=7168 56H (GQA kv=8) d_ff=20480 vocab=64000
+— llama-arch GQA. [arXiv:2403.04652; hf]"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b",
+    family="dense",
+    num_layers=60,
+    d_model=7168,
+    num_heads=56,
+    num_kv_heads=8,
+    d_ff=20480,
+    vocab_size=64000,
+    head_dim=128,
+    rope_theta=5_000_000.0,
+    source="arXiv:2403.04652; hf:01-ai/Yi-34B",
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(
+        name="yi-34b-reduced",
+        num_layers=2,
+        d_model=64,
+        num_heads=8,
+        num_kv_heads=2,
+        d_ff=128,
+        vocab_size=512,
+        head_dim=8,
+    )

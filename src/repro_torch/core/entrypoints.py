@@ -1,0 +1,57 @@
+"""② Application Entry Recognition (``repro.core.entrypoints`` counterpart).
+
+``DeploymentProfile`` is the deployment's declared entry set (the FaaSLight
+configuration file); ``recognize_entries`` filters the model's registered
+entries by their ``kind`` tag, and ``extra_entries`` is the explicit escape
+hatch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+from repro_torch.models.zoo import EntryPoint, Model
+
+
+@dataclass(frozen=True)
+class DeploymentProfile:
+    """What this deployment serves.
+
+    kinds              — entry kinds the service exposes.
+    modalities         — modal params outside this set become tier-1.
+    hot_vocab_fraction — fraction of vocab row-groups resident at cold start.
+    resident_experts   — experts resident per MoE layer at cold start
+                         (-1 = all; 0 = none).
+    """
+
+    name: str = "serving"
+    kinds: tuple = ("prefill", "decode")
+    modalities: tuple = ("text",)
+    hot_vocab_fraction: float = 0.25
+    resident_experts: int = 0
+    min_tier1_bytes: int = 1 << 20  # leaves smaller than this stay tier-0
+    vocab_row_group: int = 2048  # rows per on-demand vocab unit
+
+    @property
+    def is_training(self) -> bool:
+        return "train" in self.kinds
+
+
+def recognize_entries(
+    model: Model,
+    profile: DeploymentProfile,
+    *,
+    B: int = 1,
+    S: int = 128,
+    extra_entries: Sequence[EntryPoint] = (),
+) -> list[EntryPoint]:
+    """The model's entries whose kind the profile serves, plus ``extra_entries``."""
+    out = [ep for ep in model.entries(B=B, S=S) if ep.kind in profile.kinds]
+    out.extend(extra_entries)
+    if not out:
+        raise ValueError(
+            f"no entries recognized for profile {profile.name!r} "
+            f"(kinds={profile.kinds}); pass extra_entries explicitly"
+        )
+    return out

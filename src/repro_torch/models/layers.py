@@ -1,0 +1,74 @@
+"""Common layers: RMSNorm, RoPE, SwiGLU MLP, embeddings
+(``repro.models.layers`` counterpart, same numerics contract).
+
+All weights are 2D matrices (d_in, d_out); head structure is recovered by
+reshape at use time.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.spec import ParamSpec
+
+
+def rmsnorm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), ("embed",), init="ones")
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with fp32 variance accumulation and model-dtype elementwise math."""
+    var = torch.sum(x * x, dim=-1, keepdim=True, dtype=torch.float32) / x.shape[-1]
+    r = torch.rsqrt(var + eps).to(x.dtype)
+    return x * r * scale.to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    """(head_dim//2,) inverse frequencies."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    inv = rope_frequencies(hd, theta, x.device)
+    ang = positions[..., :, None].to(torch.float32) * inv  # (..., S, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_spec(d_model: int, d_ff: int) -> dict:
+    return {
+        "w_gate": ParamSpec((d_model, d_ff), ("embed", "ffn")),
+        "w_up": ParamSpec((d_model, d_ff), ("embed", "ffn")),
+        "w_down": ParamSpec((d_ff, d_model), ("ffn", "embed")),
+    }
+
+
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    g = x @ params["w_gate"].to(x.dtype)
+    u = x @ params["w_up"].to(x.dtype)
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    return h @ params["w_down"].to(x.dtype)
+
+
+def embedding_spec(vocab: int, d_model: int) -> ParamSpec:
+    # rows:0 — row-indexed access: vocab row-groups may be tiered
+    return ParamSpec((vocab, d_model), ("vocab", "embed"), scale=1.0, access="rows:0")
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype, d_model: int) -> torch.Tensor:
+    """Row lookup times sqrt(d_model), in the model dtype."""
+    x = table[tokens].to(dtype)
+    return x * torch.tensor(math.sqrt(d_model), dtype=torch.float32).to(dtype)
+
+
+def logits_from_embedding(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return x @ table.to(x.dtype).T

@@ -1,0 +1,105 @@
+"""Mixture-of-Experts layer: token-choice top-k routing with capacity-based
+gather/scatter dispatch (``repro.models.moe`` counterpart).
+
+The routed expert tables are the FaaSLight "optional functions"
+(``access="routed"``); the serving engine reads the per-layer usage mask to
+fault cold experts in. The slot order, the capacity rule and the usage mask
+follow the reference exactly: top-k in descending order, then a cumsum over
+the flattened (token, choice) list decides ``pos_in_expert`` — and so which
+tokens are dropped once a prefill exceeds 1024 tokens.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.layers import swiglu, swiglu_spec
+from repro_torch.models.spec import ParamSpec
+
+
+def moe_spec(cfg: ModelConfig) -> dict:
+    m: MoEConfig = cfg.moe
+    d, f, E = cfg.d_model, m.expert_d_ff, m.num_experts
+    spec = {
+        "router": ParamSpec((d, E), ("embed", None)),
+        "w_gate": ParamSpec((E, d, f), ("experts", "embed", "ffn"), access="routed"),
+        "w_up": ParamSpec((E, d, f), ("experts", "embed", "ffn"), access="routed"),
+        "w_down": ParamSpec((E, f, d), ("experts", "ffn", "embed"), access="routed"),
+    }
+    if m.num_shared_experts:
+        spec["shared"] = swiglu_spec(d, f * m.num_shared_experts)
+    return spec
+
+
+def router_probs(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """(..., E) softmax router probabilities (fp32)."""
+    logits = x.to(torch.float32) @ params["router"].to(torch.float32)
+    return torch.softmax(logits, dim=-1)
+
+
+def capacity(m: MoEConfig, T: int, *, serving: bool) -> int:
+    """Tokens per expert: dropless (C = T) for serving batches of at most
+    1024 tokens, a 2x capacity factor for longer serving prefills, the
+    config's factor for training."""
+    k, E = m.top_k, m.num_experts
+    if serving and T <= 1024:
+        return T
+    cf = max(m.capacity_factor, 2.0) if serving else m.capacity_factor
+    return max(1, min(T, int(math.ceil(k * T * cf / E))))
+
+
+def moe_forward(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    return_usage: bool = False,  # also return the (E,) bool "expert routed to" mask
+    serving: bool = False,
+):
+    m: MoEConfig = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.top_k
+    T = B * S
+    xf = x.reshape(T, d)
+
+    probs = router_probs(params, xf)  # (T, E)
+    gate_w, ids = torch.topk(probs, k, dim=-1)  # descending, like lax.top_k
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    C = capacity(m, T, serving=serving)
+
+    flat_ids = ids.reshape(-1)  # (T*k,)
+    onehot = F.one_hot(flat_ids, E)
+    pos_in_expert = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_ids[:, None])[:, 0]
+    keep = pos_in_expert < C
+    slot = torch.where(keep, flat_ids * C + pos_in_expert, E * C)  # E*C = drop sentinel
+
+    # (E*C,) dispatch table of token indices; empty slots point at a zero row
+    token_idx = torch.arange(T * k, device=x.device) // k
+    table = torch.full((E * C + 1,), T, dtype=torch.int64, device=x.device)
+    table = table.scatter(0, slot, token_idx)[: E * C]
+
+    xg = torch.cat([xf, xf.new_zeros(1, d)], dim=0)[table].reshape(E, C, d)
+    g = torch.bmm(xg, params["w_gate"].to(x.dtype))
+    u = torch.bmm(xg, params["w_up"].to(x.dtype))
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    yg = torch.bmm(h, params["w_down"].to(x.dtype))  # (E, C, d)
+
+    # combine: each (token, choice) slot's output, gate-weighted, summed over k
+    yflat = torch.cat([yg.reshape(E * C, d), yg.new_zeros(1, d)], dim=0)
+    per_slot = yflat[torch.clamp(slot, max=E * C)]
+    per_slot = torch.where(keep[:, None], per_slot, torch.zeros_like(per_slot))
+    y = (per_slot.reshape(T, k, d) * gate_w[..., None].to(x.dtype)).sum(dim=1)
+
+    if m.num_shared_experts:
+        y = y + swiglu(params["shared"], xf)
+    y = y.reshape(B, S, d)
+    if not return_usage:
+        return y
+    # experts this batch routed to, pre-capacity (a safe over-approximation
+    # for the engine's expert pre-fault)
+    usage = torch.zeros(E, dtype=torch.bool, device=x.device).scatter(0, flat_ids, True)
+    return y, usage

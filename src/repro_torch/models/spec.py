@@ -1,0 +1,85 @@
+"""Parameter-spec machinery: a model is defined once as a nested dict of
+``ParamSpec`` leaves, from which we derive concrete initialization, abstract
+(``meta``-device) parameters for the analyzer, logical axes, and FaaSLight
+access annotations (``repro.models.spec`` counterpart).
+
+Initialization draws from one explicit ``torch.Generator`` leaf by leaf in
+path order; it does not reproduce ``jax.random`` numbers (weights shared
+with the reference travel through an artifact or ``convert.params_from_numpy``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
+
+Axes = Tuple[Optional[str], ...]
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Axes  # logical axis names, len == len(shape)
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0
+    dtype: torch.dtype = torch.float32
+    # FaaSLight access annotation: dense | rows:<axis> | routed | modal:<name>
+    access: str = "dense"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+
+def _init_leaf(spec: ParamSpec, gen: torch.Generator, device, dtype) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init != "normal":
+        raise NotImplementedError(f"init {spec.init!r} is not ported")
+    # fan-in scaled normal; stacking prepends layer dims, so fan-in is shape[-2]
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else 1
+    std = spec.scale / max(math.sqrt(fan_in), 1.0)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    # draw in fp32 one layer slice at a time: a full-width stacked expert
+    # table would otherwise need a 4-byte copy of the whole leaf
+    flat = out.view(-1, *spec.shape[-2:]) if len(spec.shape) > 2 else out.view(1, *out.shape)
+    for i in range(flat.shape[0]):
+        draw = torch.randn(flat.shape[1:], generator=gen, dtype=torch.float32, device=device)
+        flat[i].copy_(draw.mul_(std))
+    return out
+
+
+def init_params(spec_tree: Any, gen: torch.Generator, *, device, dtype_override=None) -> dict:
+    out = {}
+    for path, spec in flatten_with_paths(spec_tree):
+        dt = dtype_override if dtype_override is not None else spec.dtype
+        out[path] = _init_leaf(spec, gen, device, dt)
+    return tree_from_flat(out)
+
+
+def abstract_params(spec_tree: Any, dtype_override=None) -> dict:
+    """Shape/dtype-only parameters on the ``meta`` device (nothing allocated)."""
+    out = {}
+    for path, spec in flatten_with_paths(spec_tree):
+        dt = dtype_override if dtype_override is not None else spec.dtype
+        out[path] = torch.empty(spec.shape, dtype=dt, device="meta")
+    return tree_from_flat(out)
+
+
+def access_annotations(spec_tree: Any) -> dict[str, str]:
+    """dotted-path -> access kind, for the FaaSLight partitioner."""
+    return {p: s.access for p, s in flatten_with_paths(spec_tree)}
+
+
+def stack_specs(spec_tree: Any, n: int, axis_name: Optional[str] = "layers") -> Any:
+    """Prepend a stacking dim of size ``n`` to every spec leaf."""
+    return tree_map(
+        lambda s: replace(s, shape=(n,) + s.shape, axes=(axis_name,) + s.axes), spec_tree
+    )

@@ -1,0 +1,195 @@
+"""Decoder-stack assembly for uniform attention stacks with a dense (SwiGLU)
+or MoE MLP — the Mixtral family plus the dense Yi / Phi-3 / Mistral-Large
+configs (``repro.models.transformer`` counterpart).
+
+Layers are grouped into scanned units with stacked parameters
+(``groups.u{j}.*``, leading axis = group), exactly as the reference lays
+them out, so one artifact serves both packages. A Python loop over the
+groups takes the place of ``lax.scan``.
+
+Entry points: ``prefill`` (last-token logits + caches) and ``decode_step``
+(one token against the caches).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import (
+    embed,
+    embedding_spec,
+    logits_from_embedding,
+    rmsnorm,
+    rmsnorm_spec,
+    swiglu,
+    swiglu_spec,
+)
+from repro_torch.models.spec import ParamSpec, stack_specs
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port covers uniform self-attention stacks (GQA) with dense or
+    routed MLPs; other families are still to be ported."""
+    unsupported = [name for name in ("mla", "recurrent", "xlstm", "encdec", "vlm",
+                                     "local_global_pattern") if getattr(cfg, name) is not None]
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        unsupported.append("moe.first_dense_layers")
+    if unsupported:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(unsupported)} not ported yet")
+
+
+def _mlp_spec(cfg: ModelConfig) -> dict:
+    if cfg.moe is not None:
+        return {"moe": moe_mod.moe_spec(cfg)}
+    return {"dense": swiglu_spec(cfg.d_model, cfg.d_ff)}
+
+
+def block_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    spec = {
+        "norm1": rmsnorm_spec(d),
+        "attn": attn.gqa_spec(d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim),
+        "norm2": rmsnorm_spec(d),
+    }
+    spec.update(_mlp_spec(cfg))
+    return spec
+
+
+@dataclass(frozen=True)
+class StackLayout:
+    unit_kinds: tuple  # kinds inside one scanned group
+    n_groups: int
+
+
+def stack_layout(cfg: ModelConfig) -> StackLayout:
+    check_supported(cfg)
+    lpu = max(cfg.layers_per_unit, 1)
+    unit = lpu if cfg.num_layers % lpu == 0 else 1
+    return StackLayout(("self",) * unit, cfg.num_layers // unit)
+
+
+def stack_spec(cfg: ModelConfig) -> dict:
+    lay = stack_layout(cfg)
+    spec: dict = {"embed": embedding_spec(cfg.vocab_size, cfg.d_model)}
+    if cfg.tie_embeddings:
+        # tied tables are consumed densely by the logits matmul -> tier-0
+        e = spec["embed"]
+        spec["embed"] = ParamSpec(e.shape, e.axes, e.init, e.scale, e.dtype, access="dense")
+    else:
+        spec["head"] = ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))
+    unit_spec = {f"u{j}": block_spec(cfg) for j in range(len(lay.unit_kinds))}
+    spec["groups"] = stack_specs(unit_spec, lay.n_groups)
+    spec["final_norm"] = rmsnorm_spec(cfg.d_model)
+    return spec
+
+
+def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool):
+    """Returns (y, usage): usage is the (E,) expert-routed mask when the
+    config collects router stats (the engine's fault signal), else None."""
+    if "moe" in params:
+        if cfg.collect_moe_usage:
+            return moe_mod.moe_forward(params["moe"], x, cfg, return_usage=True, serving=serving)
+        return moe_mod.moe_forward(params["moe"], x, cfg, serving=serving), None
+    return swiglu(params["dense"], x), None
+
+
+def _block_forward(cfg, params, x, positions, collect_cache):
+    cache = {}
+    h = rmsnorm(x, params["norm1"], cfg.norm_eps)
+    o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg,
+                                 causal=True, window=cfg.sliding_window)
+    if collect_cache:
+        cache["k"], cache["v"] = k, v
+    x = x + o
+    h2 = rmsnorm(x, params["norm2"], cfg.norm_eps)
+    y, usage = _mlp_apply(cfg, params, h2, serving=collect_cache)
+    x = x + y
+    if collect_cache and usage is not None:
+        cache["moe_usage"] = usage  # rides the cache; the engine strips it
+    return x, cache
+
+
+def _block_decode(cfg, params, x, pos, cache):
+    new_cache = dict(cache)
+    h = rmsnorm(x, params["norm1"], cfg.norm_eps)
+    window = cfg.sliding_window
+    rolling = window if (window is not None and cache["k"].shape[1] == window) else None
+    o, new_cache["k"], new_cache["v"] = attn.gqa_decode(
+        params["attn"], h, pos, cache["k"], cache["v"], cfg, rolling_window=rolling)
+    x = x + o
+    h2 = rmsnorm(x, params["norm2"], cfg.norm_eps)
+    y, usage = _mlp_apply(cfg, params, h2, serving=True)
+    x = x + y
+    if usage is not None:
+        new_cache["moe_usage"] = usage
+    return x, new_cache
+
+
+def _select(tree: Any, i: int) -> Any:
+    """Group ``i`` of a stacked tree (leading axis)."""
+    if isinstance(tree, dict):
+        return {k: _select(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list) -> Any:
+    """Inverse of ``_select`` over a list of per-group trees."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, collect_cache: bool = False):
+    """Embed + full stack. Returns (hidden (B, S, D), caches or None)."""
+    lay = stack_layout(cfg)
+    B, S = tokens.shape
+    x = embed(params["embed"], tokens, _model_dtype(cfg), cfg.d_model)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    group_caches = []
+    for gi in range(lay.n_groups):
+        gp = _select(params["groups"], gi)
+        cs = {}
+        for j in range(len(lay.unit_kinds)):
+            x, cs[f"u{j}"] = _block_forward(cfg, gp[f"u{j}"], x, positions, collect_cache)
+        group_caches.append(cs)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, ({"groups": _stack(group_caches)} if collect_cache else None)
+
+
+def _logits_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict):
+    """Returns (last-token logits (B, V), caches)."""
+    hidden, caches = forward_hidden(cfg, params, batch["tokens"], collect_cache=True)
+    return logits_from_embedding(hidden[:, -1, :], _logits_table(cfg, params)), caches
+
+
+def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
+    """batch: tokens (B, 1), pos (B,). Returns (logits (B, V), new caches)."""
+    lay = stack_layout(cfg)
+    tokens, pos = batch["tokens"], batch["pos"]
+    x = embed(params["embed"], tokens, _model_dtype(cfg), cfg.d_model)
+    new_groups = []
+    for gi in range(lay.n_groups):
+        gp = _select(params["groups"], gi)
+        gc = _select(caches["groups"], gi)
+        cs = {}
+        for j in range(len(lay.unit_kinds)):
+            x, cs[f"u{j}"] = _block_decode(cfg, gp[f"u{j}"], x, pos, gc[f"u{j}"])
+        new_groups.append(cs)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = logits_from_embedding(x[:, 0, :], _logits_table(cfg, params))
+    return logits, {"groups": _stack(new_groups)}
+

@@ -1,0 +1,111 @@
+"""Model facade: one object per architecture binding config → params,
+entries, caches, and FaaSLight metadata (``repro.models.zoo`` counterpart,
+for the families ``transformer.check_supported`` accepts).
+
+``Model.entries()`` is the Application Entry Recognition surface: each entry
+is a function plus ``meta``-device example arguments, which the Program
+Analyzer traces without allocating.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.spec import abstract_params, access_annotations, init_params
+from repro_torch.utils.tree import flatten_with_paths, tree_map
+
+
+@dataclass(frozen=True)
+class CacheLeaf:
+    shape: tuple
+    dtype: torch.dtype
+
+
+@dataclass(frozen=True)
+class EntryPoint:
+    """(name, fn, abstract args) — the FaaSLight 'serverless function'."""
+
+    name: str
+    fn: Callable  # fn(params, *args)
+    args: tuple  # example argument trees on the meta device
+    kind: str  # prefill | decode
+
+
+class Model:
+    """``param_dtype`` is the stored weights' dtype (default: the spec's
+    float32, as the reference stores them); compute runs in ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig, *, param_dtype: Optional[torch.dtype] = None):
+        cfg.validate()
+        self.cfg = cfg
+        self.param_dtype = param_dtype
+        self.spec = tf.stack_spec(cfg)
+        self.layout = tf.stack_layout(cfg)
+
+    # -- params ------------------------------------------------------------
+    def init(self, gen: torch.Generator, *, device="cuda", dtype=None) -> dict:
+        return init_params(self.spec, gen, device=device,
+                           dtype_override=dtype or self.param_dtype)
+
+    def abstract(self, dtype=None) -> dict:
+        return abstract_params(self.spec, dtype_override=dtype or self.param_dtype)
+
+    def access(self) -> dict[str, str]:
+        return access_annotations(self.spec)
+
+    def axes(self) -> dict[str, tuple]:
+        """dotted-path -> logical axes tuple (ParamSpec.axes)."""
+        return {p: s.axes for p, s in flatten_with_paths(self.spec)}
+
+    # -- forward fns ---------------------------------------------------------
+    def prefill(self, params, batch):
+        return tf.prefill(self.cfg, params, batch)
+
+    def decode_step(self, params, caches, batch):
+        return tf.decode_step(self.cfg, params, caches, batch)
+
+    # -- caches --------------------------------------------------------------
+    def cache_template(self, B: int, S_max: int) -> dict:
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        window = cfg.sliding_window
+        Skv = min(S_max, window) if window else S_max
+        leaf = CacheLeaf((self.layout.n_groups, B, Skv, cfg.num_kv_heads, cfg.resolved_head_dim), dt)
+        unit = {f"u{j}": {"k": leaf, "v": leaf} for j in range(len(self.layout.unit_kinds))}
+        return {"groups": unit}
+
+    def abstract_cache(self, B: int, S_max: int) -> dict:
+        return tree_map(lambda c: torch.empty(c.shape, dtype=c.dtype, device="meta"),
+                        self.cache_template(B, S_max))
+
+    def init_cache(self, B: int, S_max: int, *, device="cuda") -> dict:
+        return tree_map(lambda c: torch.zeros(c.shape, dtype=c.dtype, device=device),
+                        self.cache_template(B, S_max))
+
+    # -- batches -------------------------------------------------------------
+    def prefill_batch_spec(self, B: int, S: int) -> dict:
+        return {"tokens": torch.empty((B, S), dtype=torch.int64, device="meta")}
+
+    def decode_batch_spec(self, B: int) -> dict:
+        return {
+            "tokens": torch.empty((B, 1), dtype=torch.int64, device="meta"),
+            "pos": torch.empty((B,), dtype=torch.int64, device="meta"),
+        }
+
+    # -- entry registry (Application Entry Recognition) ----------------------
+    def entries(self, B: int = 1, S: int = 128) -> list[EntryPoint]:
+        """The serving entries at a given (B, S)."""
+        return [
+            EntryPoint("prefill", self.prefill, (self.prefill_batch_spec(B, S),), "prefill"),
+            EntryPoint("decode_step", self.decode_step,
+                       (self.abstract_cache(B, S), self.decode_batch_spec(B)), "decode"),
+        ]
+
+
+def build_model(cfg: ModelConfig, *, param_dtype: Optional[torch.dtype] = None) -> Model:
+    return Model(cfg, param_dtype=param_dtype)

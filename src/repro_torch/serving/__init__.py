@@ -1,0 +1,15 @@
+"""Serving: the after2 cold-start manager and the batched generation engine
+with on-demand fault-in."""
+
+from repro_torch.serving.cold_start import RESIDENCY_PRESETS, ColdStartReport, ColdStartServer, cold_start
+from repro_torch.serving.engine import MAX_FAULT_RETRIES, GenerationEngine, RequestStats
+
+__all__ = [
+    "RESIDENCY_PRESETS",
+    "ColdStartReport",
+    "ColdStartServer",
+    "cold_start",
+    "GenerationEngine",
+    "MAX_FAULT_RETRIES",
+    "RequestStats",
+]

@@ -1,0 +1,80 @@
+"""Program Analyzer parity of the PyTorch port: the tier plan (tier,
+granularity, reason, bytes, unit keys, resident units) equals the JAX
+reference's for the serve launcher's strict / stats / full profiles, and the
+traced reachability equals the jaxpr liveness leaf for leaf."""
+
+import pytest
+import torch
+
+from repro.configs import get_reduced as ref_get_reduced
+from repro.core import DeploymentProfile as RefProfile
+from repro.core import analyze as ref_analyze
+from repro.data import DataConfig, SyntheticTokenPipeline
+from repro.models.zoo import build_model as ref_build_model
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.core import DeploymentProfile, analyze
+from repro_torch.core.param_graph import live_placeholders
+from repro_torch.models import build_model
+
+
+def _profiles(cfg):
+    """(profile kwargs, hot-unit stats) per policy, as the serve launcher builds them."""
+    row_group = max(64, cfg.vocab_size // 16)
+    pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 128, 8))
+    return {
+        "strict": (dict(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                        vocab_row_group=row_group), None),
+        "full": (dict(resident_experts=-1, hot_vocab_fraction=1.0), None),
+        "stats": (dict(resident_experts=1, hot_vocab_fraction=0.25, min_tier1_bytes=1 << 14,
+                       vocab_row_group=row_group), pipe.vocab_row_stats(row_group=row_group)),
+    }
+
+
+def _decisions(plan):
+    return {
+        p: (d.tier, d.granularity, d.reason, d.nbytes, [(u.key, u.sel, u.rows, u.nbytes) for u in d.units],
+            list(d.resident_units))
+        for p, d in plan.decisions.items()
+    }
+
+
+@pytest.mark.parametrize("policy", ["strict", "stats", "full"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b"])
+def test_tier_plan_matches_reference(arch, policy):
+    ref_cfg = ref_get_reduced(arch).replace(collect_moe_usage=True)
+    cfg = get_reduced(arch).replace(collect_moe_usage=True)
+    kwargs, stats = _profiles(cfg)[policy]
+    ref = ref_analyze(ref_build_model(ref_cfg), RefProfile(**kwargs), hot_units_stats=stats,
+                      trace_B=1, trace_S=32)
+    mine = analyze(build_model(cfg), DeploymentProfile(**kwargs), hot_units_stats=stats,
+                   trace_B=1, trace_S=32)
+    assert mine.reach.entry_names == ref.reach.entry_names
+    assert mine.reach.reachable == ref.reach.reachable
+    assert _decisions(mine.plan) == _decisions(ref.plan)
+    assert mine.summary() == ref.summary()
+
+
+def test_liveness_leaves_unused_inputs_dead():
+    """A leaf the entry never reads is statically optional, as in the
+    reference's whisper-decode case."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    def fn(a, b, c):
+        return (a @ b).sum(), c.shape[0]
+
+    gm = make_fx(fn)(torch.ones(2, 2), torch.ones(2, 2), torch.ones(3))
+    assert live_placeholders(gm) == [True, True, False]
+
+
+def test_analysis_allocates_nothing_at_full_width():
+    """Full-width Mixtral (2 of 56 layers) analyzes on shape-only stand-ins."""
+    full = get_config("mixtral-8x22b").replace(num_layers=2, collect_moe_usage=True)
+    model = build_model(full, param_dtype=torch.bfloat16)
+    res = analyze(model, DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0,
+                                           min_tier1_bytes=1 << 14, vocab_row_group=2048),
+                  trace_B=1, trace_S=32)
+    plan = res.plan
+    assert plan.total_bytes > 10 * 2**30  # ≈10.8 GB of bf16 weights, none allocated
+    assert plan.decisions["groups.u0.moe.w_gate"].units[0].key == "groups.u0.moe.w_gate#l0e0"
+    assert len(plan.decisions["embed"].units) == 16
+    assert plan.decisions["head"].tier == 0

@@ -1,0 +1,142 @@
+"""Model parity of the PyTorch port against the JAX reference: configs field
+for field, parameter paths and shapes, and — on reference weights carried
+over by ``convert.params_from_numpy`` — prefill logits, caches and MoE usage
+masks, then decode steps across the sliding window, at float32 on CPU."""
+
+import dataclasses
+import gc
+import weakref
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS
+from repro.configs import get_config as ref_get_config
+from repro.configs import get_reduced as ref_get_reduced
+from repro.models.zoo import build_model as ref_build_model
+from repro.serving.engine import _graft_prefill_cache as ref_graft
+from repro.serving.engine import _strip_usage as ref_strip
+from repro.utils.tree import flatten_with_paths as ref_flatten
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.convert import params_from_numpy, tensor_from_numpy
+from repro_torch.models import build_model
+from repro_torch.serving.engine import _graft_prefill_cache, _strip_usage
+from repro_torch.utils.tree import flatten_with_paths, tree_from_flat
+
+PORTED = ["mixtral-8x22b", "yi-34b", "phi3-medium-14b", "mistral-large-123b"]
+
+# fp32 tolerance: each logit is a few layers of D=64..128-term dot products,
+# so the two frameworks' reduction orders differ by O(10) ulps of O(1)
+# values (observed ≤ 16·eps on logits and caches); 256·eps ≈ 3e-5 leaves
+# a >10x margin while still catching any real numerical divergence.
+EPS = float(np.finfo(np.float32).eps)
+TOL = 256 * EPS
+
+
+def _reference(arch):
+    cfg = ref_get_reduced(arch).replace(dtype="float32", collect_moe_usage=True)
+    model = ref_build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    return model, params, {p: np.asarray(v) for p, v in ref_flatten(params)}
+
+
+def _port(arch, flat):
+    cfg = get_reduced(arch).replace(dtype="float32", collect_moe_usage=True)
+    return build_model(cfg), params_from_numpy(flat, "cpu")
+
+
+def _assert_trees_match(ref_tree, port_tree):
+    ref_flat, port_flat = dict(ref_flatten(ref_tree)), dict(flatten_with_paths(port_tree))
+    assert list(ref_flat) == list(port_flat)
+    for path, ref in ref_flat.items():
+        ref, got = np.asarray(ref), port_flat[path].numpy()
+        assert got.shape == ref.shape, path
+        if ref.dtype == bool:
+            np.testing.assert_array_equal(got, ref, err_msg=path)  # usage masks: exact
+        else:
+            np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL, err_msg=path)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_configs_equal_reference(arch):
+    for mine, ref in ((get_config(arch), ref_get_config(arch)), (get_reduced(arch), ref_get_reduced(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_param_paths_and_shapes_equal_reference(arch):
+    ref = ref_build_model(ref_get_reduced(arch)).abstract()
+    mine = build_model(get_reduced(arch)).abstract()
+    assert [(p, tuple(v.shape)) for p, v in ref_flatten(ref)] == \
+        [(p, tuple(v.shape)) for p, v in flatten_with_paths(mine)]
+    assert build_model(get_reduced(arch)).access() == ref_build_model(ref_get_reduced(arch)).access()
+
+
+def test_unported_family_raises():
+    with pytest.raises(NotImplementedError, match="mla"):
+        build_model(get_reduced("deepseek-v2-lite-16b"))
+
+
+@pytest.mark.parametrize("arch", PORTED[:3])
+def test_prefill_and_decode_match_reference(arch):
+    ref_model, ref_params, flat = _reference(arch)
+    model, params = _port(arch, flat)
+    B, S, S_max, steps = 2, 28, 64, 6  # decode crosses Mixtral's 32-token window
+    tokens = np.random.default_rng(7).integers(0, model.cfg.vocab_size, (B, S))
+
+    ref_decode = jax.jit(ref_model.decode_step)
+    ref_logits, ref_caches = jax.jit(ref_model.prefill)(ref_params, {"tokens": jnp.asarray(tokens, jnp.int32)})
+    logits, caches = model.prefill(params, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=TOL, rtol=TOL)
+    _assert_trees_match(ref_caches, caches)
+    if model.cfg.moe is not None:
+        assert any(p.endswith("moe_usage") for p, _ in flatten_with_paths(caches))
+
+    ref_caches = ref_graft(ref_model.init_cache(B, S_max, multimodal=False), ref_strip(ref_caches))
+    caches = _graft_prefill_cache(model.init_cache(B, S_max, device="cpu"), _strip_usage(caches))
+    tok = np.argmax(np.asarray(ref_logits), -1)
+    for step in range(steps):
+        ref_logits, ref_caches = ref_decode(ref_params, ref_caches, {
+            "tokens": jnp.asarray(tok[:, None], jnp.int32), "pos": jnp.full((B,), S + step, jnp.int32)})
+        logits, caches = model.decode_step(params, caches, {
+            "tokens": torch.from_numpy(tok[:, None]), "pos": torch.full((B,), S + step)})
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=TOL, rtol=TOL)
+        _assert_trees_match(ref_caches, caches)
+        ref_caches, caches = ref_strip(ref_caches), _strip_usage(caches)
+        tok = np.argmax(np.asarray(ref_logits), -1)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16, np.int32], ids=str)
+def test_convert_round_trip(dtype):
+    rs = np.random.default_rng(0)
+    flat = {"a.b": rs.standard_normal((3, 4)).astype(dtype), "a.c": rs.standard_normal(5).astype(dtype),
+            "d": rs.standard_normal((2, 2, 2)).astype(dtype)}
+    tree = params_from_numpy(flat, "cpu")
+    assert set(tree) == {"a", "d"} and set(tree["a"]) == {"b", "c"}
+    for path, t in flatten_with_paths(tree):
+        back = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16) if t.dtype == torch.bfloat16 else t.numpy()
+        np.testing.assert_array_equal(back, flat[path])
+        assert back.dtype == flat[path].dtype
+    assert tensor_from_numpy(flat["d"], "cpu").is_contiguous()
+
+
+def test_tree_flatten_matches_reference_and_frees_leaves():
+    tree = {"b": {"u1": torch.ones(2), "u0": {"z": torch.ones(1), "a": torch.ones(3)}}, "a": torch.zeros(1)}
+    ref_tree = {"b": {"u1": np.ones(2), "u0": {"z": np.ones(1), "a": np.ones(3)}}, "a": np.zeros(1)}
+    paths = [p for p, _ in flatten_with_paths(tree)]
+    assert paths == [p for p, _ in ref_flatten(ref_tree)] == ["a", "b.u0.a", "b.u0.z", "b.u1"]
+    assert [p for p, _ in flatten_with_paths(tree_from_flat(dict(flatten_with_paths(tree))))] == paths
+    # flattening must not create reference cycles: a served model's weights
+    # would otherwise outlive their last user until the cyclic GC runs
+    leaf = weakref.ref(tree["b"]["u1"])
+    gc.disable()
+    try:
+        flatten_with_paths(tree)
+        del tree
+        assert leaf() is None
+    finally:
+        gc.enable()
