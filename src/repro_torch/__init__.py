@@ -6,6 +6,7 @@ an obvious counterpart. It imports ``torch`` and never ``jax``; entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``. Ported so far: the
 after2 serving slice — configs → analyze → ``build_artifact`` →
 ``cold_start(mode="after2")`` → ``GenerationEngine.generate`` — for the
-Mixtral family, with prefill attention in a hand-written CUDA kernel
-(``kernels/flash_attention``).
+Mixtral family and RecurrentGemma, with prefill attention and the RG-LRU
+scan in hand-written CUDA kernels (``kernels/flash_attention``,
+``kernels/rglru_scan``).
 """

@@ -27,6 +27,21 @@
 //     stores), so the wrapper needs no padding copies;
 //   * Q, K, V, O are read and written in the model's (B, S, H, hd) layout.
 // Simple by design: single-buffered synchronous loads, no TMA, no wgmma.
+//
+// head_dim 256 (RecurrentGemma's local MQA attention) takes a second layout
+// of the same kernel. Its fp32 accumulator alone is 16×256 per warp, 128
+// registers a thread, and the S tile 32 more; holding Q's fragments in
+// registers as well (64 more) would pass the 255-register limit and spill.
+// So at hd 256 the block stages its Q tile once in shared memory and each
+// warp reads Q's A fragment per k16 chunk inside the S product (4 shared
+// loads per chunk, conflict-free for the same padded row stride as K).
+// Q, K and V tiles then need (64 + 2·64)·264·2 = 101,376 bytes, over the
+// 48 KB static limit, so that layout uses dynamic shared memory, opted in
+// once through cudaFuncSetAttribute; two blocks still fit one SM. The
+// alternative, BK = 32 with Q kept in registers, would fit the shared
+// memory statically but leaves 64 + 128 + 16 registers of live state, too
+// close to the limit to stay free of spills. hd 64 and 128 keep Q in
+// registers and static shared memory, as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +74,15 @@ __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi)
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
+// Q stays in registers up to hd 128; at hd 256 it is staged in shared memory
+template <int HD>
+__host__ __device__ constexpr bool q_in_smem() { return HD > 128; }
+
+template <int HD>
+__host__ __device__ constexpr int dyn_smem_bytes() {
+  return q_in_smem<HD>() ? (BQ + 2 * BK) * (HD + 8) * static_cast<int>(sizeof(__nv_bfloat16)) : 0;
+}
+
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -69,8 +93,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   constexpr int KCH = HD / 16;  // k16 chunks of the head dim
   constexpr int DT = HD / 8;    // n8 tiles of the head dim
   constexpr int NT = BK / 8;    // n8 tiles of a key tile
-  __shared__ __align__(16) __nv_bfloat16 sK[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 sV[BK * LD];
+  constexpr bool QS = q_in_smem<HD>();
+  __nv_bfloat16 *sQ = nullptr, *sK, *sV;
+  if constexpr (QS) {
+    extern __shared__ __align__(16) __nv_bfloat16 dyn[];
+    sQ = dyn;
+    sK = dyn + BQ * LD;
+    sV = sK + BK * LD;
+  } else {
+    __shared__ __align__(16) __nv_bfloat16 stK[BK * LD];
+    __shared__ __align__(16) __nv_bfloat16 stV[BK * LD];
+    sK = stK;
+    sV = stV;
+  }
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -90,16 +125,28 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int r0 = qt * BQ + warp * 16 + g, r1 = r0 + 8;
   const int qpos0 = r0 + q_offset, qpos1 = r1 + q_offset;
 
-  // Q fragments for the whole key loop (rows past Sq read as zero)
-  uint32_t qa[KCH][4];
+  // Q fragments for the whole key loop (rows past Sq read as zero): in
+  // registers, or (hd 256) the block's Q tile in shared memory; the first
+  // __syncthreads of the key loop publishes it
+  uint32_t qa[QS ? 1 : KCH][4];
+  if constexpr (QS) {
+    for (int c = threadIdx.x; c < BQ * (HD / 8); c += NTHREADS) {
+      const int row = c / (HD / 8), col = (c % (HD / 8)) * 8;
+      const int qr = qt * BQ + row;
+      uint4 q4 = make_uint4(0, 0, 0, 0);
+      if (qr < Sq) q4 = *reinterpret_cast<const uint4*>(qb + qr * q_row + col);
+      *reinterpret_cast<uint4*>(sQ + row * LD + col) = q4;
+    }
+  } else {
 #pragma unroll
-  for (int kc = 0; kc < KCH; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    const uint32_t z = 0;
-    qa[kc][0] = r0 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_row + c) : z;
-    qa[kc][1] = r1 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_row + c) : z;
-    qa[kc][2] = r0 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_row + c + 8) : z;
-    qa[kc][3] = r1 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_row + c + 8) : z;
+    for (int kc = 0; kc < KCH; ++kc) {
+      const int c = kc * 16 + t4 * 2;
+      const uint32_t z = 0;
+      qa[kc][0] = r0 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_row + c) : z;
+      qa[kc][1] = r1 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_row + c) : z;
+      qa[kc][2] = r0 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_row + c + 8) : z;
+      qa[kc][3] = r1 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_row + c + 8) : z;
+    }
   }
 
   float acc[DT][4];
@@ -137,11 +184,25 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < KCH; ++kc) {
+      if constexpr (QS) {
+        const __nv_bfloat16* qr = sQ + (warp * 16 + g) * LD + kc * 16 + t4 * 2;
+        const uint32_t qf[4] = {*reinterpret_cast<const uint32_t*>(qr),
+                                *reinterpret_cast<const uint32_t*>(qr + 8 * LD),
+                                *reinterpret_cast<const uint32_t*>(qr + 8),
+                                *reinterpret_cast<const uint32_t*>(qr + 8 * LD + 8)};
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kr = sK + (n * 8 + g) * LD + kc * 16 + t4 * 2;
-        mma_16x8x16(s[n], qa[kc], *reinterpret_cast<const uint32_t*>(kr),
-                    *reinterpret_cast<const uint32_t*>(kr + 8));
+        for (int n = 0; n < NT; ++n) {
+          const __nv_bfloat16* kr = sK + (n * 8 + g) * LD + kc * 16 + t4 * 2;
+          mma_16x8x16(s[n], qf, *reinterpret_cast<const uint32_t*>(kr),
+                      *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const __nv_bfloat16* kr = sK + (n * 8 + g) * LD + kc * 16 + t4 * 2;
+          mma_16x8x16(s[n], qa[kc], *reinterpret_cast<const uint32_t*>(kr),
+                      *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
       }
     }
 
@@ -232,8 +293,14 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                    int H, int Hkv, int causal, int window, float softcap, int q_offset, float scale,
                    cudaStream_t stream) {
+  constexpr int smem = dyn_smem_bytes<HD>();
+  if constexpr (smem > 48 * 1024) {
+    static cudaError_t opted = cudaFuncSetAttribute(
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (opted != cudaSuccess) return opted;
+  }
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<HD><<<grid, NTHREADS, 0, stream>>>(
+  flash_fwd_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, Hkv,
       causal, window, softcap, q_offset, scale);
@@ -256,6 +323,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
       return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, softcap, q_offset, scale, s);
     case 128:
       return launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, softcap, q_offset, scale, s);
+    case 256:
+      return launch<256>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, softcap, q_offset, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

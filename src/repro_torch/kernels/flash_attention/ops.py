@@ -6,30 +6,28 @@ flash_attention`` (q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd), GQA by
 ``kv_head = head // (H // Hkv)``, causal, sliding ``window``, tanh
 ``softcap``, ``q_offset``). For a CPU tensor it runs
 ``flash_attention_plain``; for a CUDA tensor it launches the kernel in
-``csrc/flash_attention.cu`` (bf16, hd 64 or 128) or raises. There is no
+``csrc/flash_attention.cu`` (bf16, hd 64, 128 or 256) or raises. There is no
 fallback between the two.
 
 The kernel is compiled with ``nvcc`` at first use, from the source in this
-package, into ``<repo>/build/flash_attention/`` and loaded with ``ctypes``.
+package, into ``<repo>/build/flash_attention/`` and loaded with ``ctypes``
+(``kernels.nvcc``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import nvcc
+
 NEG_INF = -1.0e30
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "flash_attention"
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _lib: Optional[ctypes.CDLL] = None
 # q rows per masked softmax in the plain version
 PLAIN_CHUNK_Q = 512
@@ -88,35 +86,13 @@ def flash_attention_plain(
 def build() -> tuple[Path, str]:
     """Compile the kernel (once per source version) and return the shared
     library's path and the compiler's register/shared-memory report."""
-    src = _SRC.read_bytes()
-    out = _BUILD_DIR / f"libflash_attention-{hashlib.sha256(src).hexdigest()[:12]}.so"
-    log_path = out.with_suffix(".log")
-    if out.exists() and log_path.exists():
-        return out, log_path.read_text()
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        from torch.utils.cpp_extension import CUDA_HOME
-
-        if CUDA_HOME is None:
-            raise RuntimeError("nvcc not found: the flash-attention kernel cannot be built")
-        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.partial")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    log_path.write_text(res.stdout + res.stderr)
-    return out, res.stdout + res.stderr
+    return nvcc.build("flash_attention", _SRC)
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
+        lib = nvcc.load("flash_attention", _SRC)
         fn = lib.flash_attention_fwd_bf16
         # q, k, v, o | B, Sq, Sk, H, Hkv, hd, causal, window | softcap, q_offset, scale, stream
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8

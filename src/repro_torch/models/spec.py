@@ -25,7 +25,7 @@ Axes = Tuple[Optional[str], ...]
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Axes  # logical axis names, len == len(shape)
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | lru_a
     scale: float = 1.0
     dtype: torch.dtype = torch.float32
     # FaaSLight access annotation: dense | rows:<axis> | routed | modal:<name>
@@ -41,6 +41,12 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device, dtype) -> torch.Te
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "lru_a":
+        # RG-LRU recurrence parameter Λ (Griffin init): a² ~ U[0.9, 0.999],
+        # Λ such that sigmoid(Λ) = a^(1/c), c = 8 — the reference's formula
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32, device=device) * (0.999 - 0.9) + 0.9
+        root = torch.sqrt(u) ** (1 / 8.0)
+        return (torch.log(root) - torch.log1p(-root)).to(dtype)
     if spec.init != "normal":
         raise NotImplementedError(f"init {spec.init!r} is not ported")
     # fan-in scaled normal; stacking prepends layer dims, so fan-in is shape[-2]

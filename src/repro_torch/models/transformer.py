@@ -1,11 +1,13 @@
 """Decoder-stack assembly for uniform attention stacks with a dense (SwiGLU)
 or MoE MLP — the Mixtral family plus the dense Yi / Phi-3 / Mistral-Large
-configs (``repro.models.transformer`` counterpart).
+configs — and for RecurrentGemma's hybrid rec/rec/attn stack
+(``repro.models.transformer`` counterpart).
 
 Layers are grouped into scanned units with stacked parameters
-(``groups.u{j}.*``, leading axis = group), exactly as the reference lays
-them out, so one artifact serves both packages. A Python loop over the
-groups takes the place of ``lax.scan``.
+(``groups.u{j}.*``, leading axis = group), plus unscanned ``lead.b{i}`` /
+``tail.b{i}`` blocks where the depth is not a whole number of units,
+exactly as the reference lays them out, so one artifact serves both
+packages. A Python loop over the groups takes the place of ``lax.scan``.
 
 Entry points: ``prefill`` (last-token logits + caches) and ``decode_step``
 (one token against the caches).
@@ -14,13 +16,14 @@ Entry points: ``prefill`` (last-token logits + caches) and ``decode_step``
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.layers import (
     embed,
     embedding_spec,
@@ -35,8 +38,9 @@ from repro_torch.models.spec import ParamSpec, stack_specs
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port covers uniform self-attention stacks (GQA) with dense or
-    routed MLPs; other families are still to be ported."""
-    unsupported = [name for name in ("mla", "recurrent", "xlstm", "encdec", "vlm",
+    routed MLPs and the RG-LRU hybrid; other families are still to be
+    ported."""
+    unsupported = [name for name in ("mla", "xlstm", "encdec", "vlm",
                                      "local_global_pattern") if getattr(cfg, name) is not None]
     if cfg.moe is not None and cfg.moe.first_dense_layers:
         unsupported.append("moe.first_dense_layers")
@@ -50,28 +54,36 @@ def _mlp_spec(cfg: ModelConfig) -> dict:
     return {"dense": swiglu_spec(cfg.d_model, cfg.d_ff)}
 
 
-def block_spec(cfg: ModelConfig) -> dict:
+def block_spec(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
-    spec = {
-        "norm1": rmsnorm_spec(d),
-        "attn": attn.gqa_spec(d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim),
-        "norm2": rmsnorm_spec(d),
-    }
-    spec.update(_mlp_spec(cfg))
-    return spec
+    if kind in ("self", "attn"):
+        mixer = {"attn": attn.gqa_spec(d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)}
+    elif kind == "rec":
+        mixer = {"rglru": rec_mod.rglru_block_spec(cfg)}
+    else:
+        raise ValueError(f"block kind {kind!r} is not ported")
+    return {"norm1": rmsnorm_spec(d), **mixer, "norm2": rmsnorm_spec(d), **_mlp_spec(cfg)}
 
 
 @dataclass(frozen=True)
 class StackLayout:
+    lead_kinds: tuple  # unscanned blocks before the groups
     unit_kinds: tuple  # kinds inside one scanned group
     n_groups: int
+    tail_kinds: tuple  # unscanned blocks after the groups
 
 
 def stack_layout(cfg: ModelConfig) -> StackLayout:
     check_supported(cfg)
-    lpu = max(cfg.layers_per_unit, 1)
-    unit = lpu if cfg.num_layers % lpu == 0 else 1
-    return StackLayout(("self",) * unit, cfg.num_layers // unit)
+    kinds = list(cfg.attn_kinds)
+    lead = cfg.moe.first_dense_layers if cfg.moe else 0
+    rest = kinds[lead:]
+    if cfg.recurrent is not None:
+        unit = len(cfg.recurrent.pattern)
+    else:
+        unit = cfg.layers_per_unit if len(rest) % max(cfg.layers_per_unit, 1) == 0 else 1
+    n_groups = len(rest) // unit
+    return StackLayout(tuple(kinds[:lead]), tuple(rest[:unit]), n_groups, tuple(rest[n_groups * unit:]))
 
 
 def stack_spec(cfg: ModelConfig) -> dict:
@@ -83,10 +95,21 @@ def stack_spec(cfg: ModelConfig) -> dict:
         spec["embed"] = ParamSpec(e.shape, e.axes, e.init, e.scale, e.dtype, access="dense")
     else:
         spec["head"] = ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))
-    unit_spec = {f"u{j}": block_spec(cfg) for j in range(len(lay.unit_kinds))}
-    spec["groups"] = stack_specs(unit_spec, lay.n_groups)
+    if lay.lead_kinds:
+        spec["lead"] = {f"b{i}": block_spec(cfg, k) for i, k in enumerate(lay.lead_kinds)}
+    if lay.n_groups:
+        unit_spec = {f"u{j}": block_spec(cfg, k) for j, k in enumerate(lay.unit_kinds)}
+        spec["groups"] = stack_specs(unit_spec, lay.n_groups)
+    if lay.tail_kinds:
+        spec["tail"] = {f"b{i}": block_spec(cfg, k) for i, k in enumerate(lay.tail_kinds)}
     spec["final_norm"] = rmsnorm_spec(cfg.d_model)
     return spec
+
+
+def _kind_window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    if kind == "attn":  # RecurrentGemma's local attention
+        return cfg.recurrent.window
+    return cfg.sliding_window  # "self": SWA if the config sets it (Mixtral)
 
 
 def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool):
@@ -99,13 +122,17 @@ def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool
     return swiglu(params["dense"], x), None
 
 
-def _block_forward(cfg, params, x, positions, collect_cache):
+def _block_forward(cfg, kind, params, x, positions, collect_cache):
     cache = {}
     h = rmsnorm(x, params["norm1"], cfg.norm_eps)
-    o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg,
-                                 causal=True, window=cfg.sliding_window)
+    if kind == "rec":
+        o, c = rec_mod.rglru_block_forward(params["rglru"], h, cfg)
+    else:
+        o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg,
+                                     causal=True, window=_kind_window(cfg, kind))
+        c = {"k": k, "v": v}
     if collect_cache:
-        cache["k"], cache["v"] = k, v
+        cache.update(c)
     x = x + o
     h2 = rmsnorm(x, params["norm2"], cfg.norm_eps)
     y, usage = _mlp_apply(cfg, params, h2, serving=collect_cache)
@@ -115,13 +142,17 @@ def _block_forward(cfg, params, x, positions, collect_cache):
     return x, cache
 
 
-def _block_decode(cfg, params, x, pos, cache):
+def _block_decode(cfg, kind, params, x, pos, cache):
     new_cache = dict(cache)
     h = rmsnorm(x, params["norm1"], cfg.norm_eps)
-    window = cfg.sliding_window
-    rolling = window if (window is not None and cache["k"].shape[1] == window) else None
-    o, new_cache["k"], new_cache["v"] = attn.gqa_decode(
-        params["attn"], h, pos, cache["k"], cache["v"], cfg, rolling_window=rolling)
+    if kind == "rec":
+        o, c = rec_mod.rglru_block_decode(params["rglru"], h, cache, cfg)
+        new_cache.update(c)
+    else:
+        window = _kind_window(cfg, kind)
+        rolling = window if (window is not None and cache["k"].shape[1] == window) else None
+        o, new_cache["k"], new_cache["v"] = attn.gqa_decode(
+            params["attn"], h, pos, cache["k"], cache["v"], cfg, rolling_window=rolling)
     x = x + o
     h2 = rmsnorm(x, params["norm2"], cfg.norm_eps)
     y, usage = _mlp_apply(cfg, params, h2, serving=True)
@@ -155,15 +186,30 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, coll
     B, S = tokens.shape
     x = embed(params["embed"], tokens, _model_dtype(cfg), cfg.d_model)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    group_caches = []
-    for gi in range(lay.n_groups):
-        gp = _select(params["groups"], gi)
-        cs = {}
-        for j in range(len(lay.unit_kinds)):
-            x, cs[f"u{j}"] = _block_forward(cfg, gp[f"u{j}"], x, positions, collect_cache)
-        group_caches.append(cs)
+    caches: dict = {}
+
+    def unscanned(section, kinds):
+        nonlocal x
+        sec = {}
+        for i, kind in enumerate(kinds):
+            x, sec[f"b{i}"] = _block_forward(cfg, kind, params[section][f"b{i}"], x, positions, collect_cache)
+        caches[section] = sec
+
+    if lay.lead_kinds:
+        unscanned("lead", lay.lead_kinds)
+    if lay.n_groups:
+        group_caches = []
+        for gi in range(lay.n_groups):
+            gp = _select(params["groups"], gi)
+            cs = {}
+            for j, kind in enumerate(lay.unit_kinds):
+                x, cs[f"u{j}"] = _block_forward(cfg, kind, gp[f"u{j}"], x, positions, collect_cache)
+            group_caches.append(cs)
+        caches["groups"] = _stack(group_caches)
+    if lay.tail_kinds:
+        unscanned("tail", lay.tail_kinds)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x, ({"groups": _stack(group_caches)} if collect_cache else None)
+    return x, (caches if collect_cache else None)
 
 
 def _logits_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
@@ -181,15 +227,31 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
     lay = stack_layout(cfg)
     tokens, pos = batch["tokens"], batch["pos"]
     x = embed(params["embed"], tokens, _model_dtype(cfg), cfg.d_model)
-    new_groups = []
-    for gi in range(lay.n_groups):
-        gp = _select(params["groups"], gi)
-        gc = _select(caches["groups"], gi)
-        cs = {}
-        for j in range(len(lay.unit_kinds)):
-            x, cs[f"u{j}"] = _block_decode(cfg, gp[f"u{j}"], x, pos, gc[f"u{j}"])
-        new_groups.append(cs)
+    new_caches: dict = {}
+
+    def unscanned(section, kinds):
+        nonlocal x
+        sec = {}
+        for i, kind in enumerate(kinds):
+            key = f"b{i}"
+            x, sec[key] = _block_decode(cfg, kind, params[section][key], x, pos, caches[section][key])
+        new_caches[section] = sec
+
+    if lay.lead_kinds:
+        unscanned("lead", lay.lead_kinds)
+    if lay.n_groups:
+        new_groups = []
+        for gi in range(lay.n_groups):
+            gp = _select(params["groups"], gi)
+            gc = _select(caches["groups"], gi)
+            cs = {}
+            for j, kind in enumerate(lay.unit_kinds):
+                x, cs[f"u{j}"] = _block_decode(cfg, kind, gp[f"u{j}"], x, pos, gc[f"u{j}"])
+            new_groups.append(cs)
+        new_caches["groups"] = _stack(new_groups)
+    if lay.tail_kinds:
+        unscanned("tail", lay.tail_kinds)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_from_embedding(x[:, 0, :], _logits_table(cfg, params))
-    return logits, {"groups": _stack(new_groups)}
+    return logits, new_caches
 

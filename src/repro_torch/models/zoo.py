@@ -15,6 +15,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.spec import abstract_params, access_annotations, init_params
 from repro_torch.utils.tree import flatten_with_paths, tree_map
@@ -70,14 +71,29 @@ class Model:
         return tf.decode_step(self.cfg, params, caches, batch)
 
     # -- caches --------------------------------------------------------------
-    def cache_template(self, B: int, S_max: int) -> dict:
+    def _block_cache_template(self, kind: str, B: int, S_max: int) -> dict:
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
-        window = cfg.sliding_window
+        if kind == "rec":
+            return {k: CacheLeaf(shape, dt) for k, shape in rec_mod.rglru_cache_shapes(cfg, B).items()}
+        window = tf._kind_window(cfg, kind)
         Skv = min(S_max, window) if window else S_max
-        leaf = CacheLeaf((self.layout.n_groups, B, Skv, cfg.num_kv_heads, cfg.resolved_head_dim), dt)
-        unit = {f"u{j}": {"k": leaf, "v": leaf} for j in range(len(self.layout.unit_kinds))}
-        return {"groups": unit}
+        leaf = CacheLeaf((B, Skv, cfg.num_kv_heads, cfg.resolved_head_dim), dt)
+        return {"k": leaf, "v": leaf}
+
+    def cache_template(self, B: int, S_max: int) -> dict:
+        """Text-only caches per block kind, in the params' lead / groups /
+        tail sections (group leaves stacked on a leading axis)."""
+        lay = self.layout
+        tpl: dict = {}
+        if lay.lead_kinds:
+            tpl["lead"] = {f"b{i}": self._block_cache_template(k, B, S_max) for i, k in enumerate(lay.lead_kinds)}
+        if lay.n_groups:
+            unit = {f"u{j}": self._block_cache_template(k, B, S_max) for j, k in enumerate(lay.unit_kinds)}
+            tpl["groups"] = tree_map(lambda c: CacheLeaf((lay.n_groups,) + c.shape, c.dtype), unit)
+        if lay.tail_kinds:
+            tpl["tail"] = {f"b{i}": self._block_cache_template(k, B, S_max) for i, k in enumerate(lay.tail_kinds)}
+        return tpl
 
     def abstract_cache(self, B: int, S_max: int) -> dict:
         return tree_map(lambda c: torch.empty(c.shape, dtype=c.dtype, device="meta"),

@@ -39,7 +39,7 @@ def _decisions(plan):
 
 
 @pytest.mark.parametrize("policy", ["strict", "stats", "full"])
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b", "recurrentgemma-9b"])
 def test_tier_plan_matches_reference(arch, policy):
     ref_cfg = ref_get_reduced(arch).replace(collect_moe_usage=True)
     cfg = get_reduced(arch).replace(collect_moe_usage=True)
@@ -78,3 +78,17 @@ def test_analysis_allocates_nothing_at_full_width():
     assert plan.decisions["groups.u0.moe.w_gate"].units[0].key == "groups.u0.moe.w_gate#l0e0"
     assert len(plan.decisions["embed"].units) == 16
     assert plan.decisions["head"].tier == 0
+
+
+def test_tied_dense_hybrid_has_empty_tier1():
+    """RecurrentGemma ties its embeddings (the table is consumed densely by
+    the logits) and every other leaf is dense and reached by prefill: the
+    strict plan puts everything in tier-0, as the reference's does."""
+    cfg = get_reduced("recurrentgemma-9b")
+    kwargs, _ = _profiles(cfg)["strict"]
+    res = analyze(build_model(cfg), DeploymentProfile(**kwargs), trace_B=1, trace_S=32)
+    summary = res.plan.summary()
+    assert summary["units"] == 0 and summary["tier1_leaves"] == 0 and summary["tier1_bytes"] == 0
+    assert summary["tier0_fraction"] == 1.0
+    assert res.plan.decisions["embed"].tier == 0
+    assert all(res.reach.reachable[p] for p in res.reach.reachable)

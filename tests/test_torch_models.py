@@ -27,7 +27,11 @@ from repro_torch.models import build_model
 from repro_torch.serving.engine import _graft_prefill_cache, _strip_usage
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat
 
-PORTED = ["mixtral-8x22b", "yi-34b", "phi3-medium-14b", "mistral-large-123b"]
+PORTED = ["mixtral-8x22b", "yi-34b", "phi3-medium-14b", "mistral-large-123b", "recurrentgemma-9b"]
+# depth of the parity runs where the reduced config's would skip a layout
+# section: 5 RecurrentGemma layers are one (rec, rec, attn) group plus a
+# (rec, rec) tail
+PARITY_LAYERS = {"recurrentgemma-9b": 5}
 
 # fp32 tolerance: each logit is a few layers of D=64..128-term dot products,
 # so the two frameworks' reduction orders differ by O(10) ulps of O(1)
@@ -39,6 +43,7 @@ TOL = 256 * EPS
 
 def _reference(arch):
     cfg = ref_get_reduced(arch).replace(dtype="float32", collect_moe_usage=True)
+    cfg = cfg.replace(num_layers=PARITY_LAYERS.get(arch, cfg.num_layers))
     model = ref_build_model(cfg)
     params = model.init(jax.random.PRNGKey(0))
     return model, params, {p: np.asarray(v) for p, v in ref_flatten(params)}
@@ -46,6 +51,7 @@ def _reference(arch):
 
 def _port(arch, flat):
     cfg = get_reduced(arch).replace(dtype="float32", collect_moe_usage=True)
+    cfg = cfg.replace(num_layers=PARITY_LAYERS.get(arch, cfg.num_layers))
     return build_model(cfg), params_from_numpy(flat, "cpu")
 
 
@@ -76,16 +82,32 @@ def test_param_paths_and_shapes_equal_reference(arch):
     assert build_model(get_reduced(arch)).access() == ref_build_model(ref_get_reduced(arch)).access()
 
 
+def test_full_depth_layout_equals_reference():
+    """Full-size RecurrentGemma-9B (38 layers: 12 rec/rec/attn groups and a
+    rec/rec tail) lays out the reference's paths, shapes and access."""
+    arch = "recurrentgemma-9b"
+    ref = ref_build_model(ref_get_config(arch))
+    mine = build_model(get_config(arch), param_dtype=torch.bfloat16)
+    assert (mine.layout.unit_kinds, mine.layout.n_groups, mine.layout.tail_kinds) == \
+        (("rec", "rec", "attn"), 12, ("rec", "rec"))
+    assert [(p, tuple(v.shape)) for p, v in ref_flatten(ref.abstract())] == \
+        [(p, tuple(v.shape)) for p, v in flatten_with_paths(mine.abstract())]
+    assert mine.access() == ref.access()
+    assert sum(v.numel() for _, v in flatten_with_paths(mine.abstract())) == ref.num_params()
+    assert [(p, tuple(c.shape)) for p, c in flatten_with_paths(mine.abstract_cache(2, 1048))] == \
+        [(p, tuple(c.shape)) for p, c in ref_flatten(ref.abstract_cache(2, 1048, multimodal=False))]
+
+
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="mla"):
         build_model(get_reduced("deepseek-v2-lite-16b"))
 
 
-@pytest.mark.parametrize("arch", PORTED[:3])
+@pytest.mark.parametrize("arch", PORTED[:3] + ["recurrentgemma-9b"])
 def test_prefill_and_decode_match_reference(arch):
     ref_model, ref_params, flat = _reference(arch)
     model, params = _port(arch, flat)
-    B, S, S_max, steps = 2, 28, 64, 6  # decode crosses Mixtral's 32-token window
+    B, S, S_max, steps = 2, 28, 64, 6  # decode crosses Mixtral's (and RecurrentGemma's) 32-token window
     tokens = np.random.default_rng(7).integers(0, model.cfg.vocab_size, (B, S))
 
     ref_decode = jax.jit(ref_model.decode_step)

@@ -1,7 +1,8 @@
 """The PyTorch port's serving slice end to end against the JAX reference, on
-reduced Mixtral at float32 under the strict residency policy: the port
-cold-starts an artifact the reference wrote and produces the same greedy
-tokens, the same LoadEvent key/byte sequence and the same faulted units; an
+reduced Mixtral and reduced RecurrentGemma at float32 under the strict
+residency policy: the port cold-starts an artifact the reference wrote and
+produces the same greedy tokens, the same LoadEvent key/byte sequence and
+the same faulted units (none for RecurrentGemma, whose tier-1 is empty); an
 artifact the port builds from the same weights equals the reference's byte
 for byte."""
 
@@ -27,8 +28,9 @@ from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import DeploymentProfile, analyze, build_artifact
 from repro_torch.core.on_demand import COLD
-from repro_torch.core.optional_store import CorruptFrameError
+from repro_torch.core.optional_store import CorruptFrameError, OptionalStore
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.models import build_model
 from repro_torch.serving import MAX_FAULT_RETRIES, GenerationEngine, cold_start
 
@@ -156,3 +158,72 @@ def test_failed_fault_rolls_back_to_cold(reference, tmp_path):
         assert not tiered.leaf("groups.u0.moe.w_up").any()
         tiered.ensure(keys[:1])
         assert tiered.is_resident(keys[0])
+
+
+# RecurrentGemma at 5 layers: one (rec, rec, attn) group and a (rec, rec) tail
+RG_ARCH, RG_LAYERS = "recurrentgemma-9b", 5
+
+
+@pytest.fixture(scope="module")
+def rg_reference(tmp_path_factory):
+    """The reference's strict artifact of reduced RecurrentGemma (tier-1 empty)."""
+    cfg = ref_get_reduced(RG_ARCH).replace(dtype="float32", num_layers=RG_LAYERS)
+    model = ref_build_model(cfg)
+    result = ref_analyze(model, RefProfile(**_strict(cfg)), trace_B=1, trace_S=32)
+    params = model.init(jax.random.PRNGKey(1))
+    outdir = str(tmp_path_factory.mktemp("ref_rg_artifact"))
+    ref_build_artifact(params, result, outdir)
+    return model, result, params, outdir
+
+
+def _rg_port_model():
+    cfg = get_reduced(RG_ARCH).replace(dtype="float32", num_layers=RG_LAYERS)
+    model = build_model(cfg)
+    return model, analyze(model, DeploymentProfile(**_strict(cfg)), trace_B=1, trace_S=32)
+
+
+def test_port_serves_reference_recurrentgemma_artifact_identically(rg_reference):
+    ref_model, ref_result, _, outdir = rg_reference
+    B, S, steps = 2, 12, 6  # the prompt stays inside the 32-token local window
+    tokens = np.random.default_rng(11).integers(0, ref_model.cfg.vocab_size, (B, S))
+    ref_server = ref_cold_start(ref_model, outdir, ref_result, mode="after2", residency="strict",
+                                compile_warm_set=False)
+    ref_out, ref_stats = RefEngine(ref_server, max_seq=S + steps + 4).generate(
+        jnp.asarray(tokens, jnp.int32), steps)
+    ref_server.close()
+
+    model, result = _rg_port_model()
+    assert result.plan.summary() == ref_result.plan.summary()
+    assert result.plan.summary()["units"] == 0
+    launches = (fa_ops.flash_attention.launches, lru_ops.rglru_scan.launches)
+    with cold_start(model, outdir, result, residency="strict", warm_shapes=((B, S),),
+                    device="cpu") as server:
+        assert server.report.bytes_read == ref_server.report.bytes_read == result.plan.tier0_bytes
+        assert server.tiered.residency.budget_bytes == ref_server.tiered.residency.budget_bytes
+        out, stats = GenerationEngine(server, max_seq=S + steps + 4).generate(torch.from_numpy(tokens), steps)
+        np.testing.assert_array_equal(out, ref_out)
+        assert _events(server.tiered.stats) == _events(ref_server.tiered.stats) == []
+        assert stats.faulted_units == ref_stats.faulted_units == 0
+        assert stats.faulted_bytes == ref_stats.faulted_bytes == 0
+        assert (stats.prefill_retries, stats.decode_retries) == (0, 0)
+        assert stats.prefill_runs == 1
+    assert (fa_ops.flash_attention.launches, lru_ops.rglru_scan.launches) == launches  # CPU: plain only
+
+
+def test_port_recurrentgemma_artifact_equals_reference(rg_reference, tmp_path):
+    _, ref_result, ref_params, ref_dir = rg_reference
+    model, result = _rg_port_model()
+    params = params_from_numpy({p: np.asarray(v) for p, v in ref_flatten(ref_params)}, "cpu")
+    meta = build_artifact(params, result, str(tmp_path))
+    with open(os.path.join(ref_dir, "artifact.json")) as f:
+        assert json.load(f) == meta
+    assert meta["tier1_raw_bytes"] == meta["tier1_compressed_bytes"] == 0
+    for name in ("artifact.json", "tier0.bin", "tier0.index.json", "optional.blob",
+                 "optional.blob.manifest.json"):
+        with open(os.path.join(ref_dir, name), "rb") as f1, open(tmp_path / name, "rb") as f2:
+            assert f1.read() == f2.read(), name
+    store = OptionalStore(str(tmp_path / "optional.blob"))
+    try:
+        assert store.entries == {} and store.raw_bytes == 0  # a store with no frames
+    finally:
+        store.close()
