@@ -5,10 +5,10 @@
 
 Phases (any failure exits non-zero before the result line):
 
-1. build — print the card's name and power limit, compile the flash-attention
-   and RG-LRU scan kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
-   (one nvcc per source, started together), print ptxas's register and
-   spill lines.
+1. build — print the card's name and power limit, compile the flash-attention,
+   RG-LRU scan, decode-attention and tiered-gather kernels from
+   ``src/repro_torch/kernels/*/csrc`` with nvcc (one nvcc per source, all
+   started together), print ptxas's register and spill lines.
 2. kernel — each kernel against its plain PyTorch version on the card, at the
    shapes the served prefills give it and at a longer one:
    flash attention in bf16 at Mixtral-8x22B widths (H=48, Hkv=8, hd=128) and
@@ -19,19 +19,49 @@ Phases (any failure exits non-zero before the result line):
    attention ``F.scaled_dot_product_attention`` on the same function
    (``is_causal``, or a boolean mask where the window cuts; the port never
    calls it). No single PyTorch call computes the scan.
-3. serve — Mixtral-8x22B at full width, depth cut from 56 to 2 layers, bf16
+   Then the four kernels that no served path reaches: dense decode attention
+   (Mixtral widths at B=2 × 1040 and B=8 × 32768, RecurrentGemma widths
+   rolling at B=2 × 2048), paged decode attention (page size 16, 8 slots
+   of ragged length through a ``PagePool`` table whose pages are out of
+   order, hd 128 and hd 256), the tiered gather (Mixtral's 32768 × 6144
+   bf16 table, row groups of 2048, N = 2048 and 2, all / half / none of the
+   groups resident, ids -1 and V included) bit for bit, and the tiered
+   gather-matmul (the same table times a 6144 × 16384 expert weight, N=512)
+   within 1e-2 per unit of max(1, |plain|); miss masks exact, miss rows
+   zero. Decode outputs (dense and paged) sit well below 1, so they are
+   held within 1e-2 of max |plain output| instead.
+   Every kernel's and library call's time is a device time: 20 calls (5
+   for masked SDPA) captured in a CUDA graph and replayed; an eager loop of
+   µs-sized calls would time the host, and it is kept as ``eager_ms``.
+   Plain versions are timed by an eager loop. Yardsticks: SDPA with a kv_len mask (dense),
+   densify + SDPA (paged, two calls; no single call reads a page table),
+   ``index_select`` (gather, all resident, ids in range), ``index_select``
+   + ``matmul`` (gather-matmul, all resident; two calls).
+3. paged decode — one Mixtral-8x22B attention layer at full width (bf16
+   weights from a seeded ``torch.Generator``), 8 slots with ragged prefixes
+   written into both a dense cache and the pages a ``PagePool`` granted,
+   then 16 decode steps each through ``paged_gqa_decode`` (the paged kernel)
+   and ``gqa_decode`` (the plain dense decode) on the same input: outputs
+   within the kernel tolerance, densified pages equal to the dense cache
+   bit for bit after every write, exactly one paged launch per step. Once
+   with a linear cache and once rolling, with the pages holding exactly the
+   4096-token window.
+4. serve — Mixtral-8x22B at full width, depth cut from 56 to 2 layers, bf16
    weights from a seeded ``torch.Generator``: analyze → build_artifact →
    cold_start(after2, strict) → generate (B=2, prompt 1024, 16 new tokens).
    Launch counts are zeroed just before and read just after; every prefill
    of the run must have gone through the kernel in both layers. One more
    prefill of the same live weights through the plain attention checks the
    kernel path's logits.
-4. serve — RecurrentGemma-9B at full width and full depth (38 layers: 12
+5. serve — RecurrentGemma-9B at full width and full depth (38 layers: 12
    rec/rec/attn groups and a rec/rec tail), the same path and request. Its
    tier-1 is empty (tied embeddings, dense MLPs), so nothing faults. Every
    prefill run must launch the scan once per rec layer (26) and flash
    attention once per attention layer (12). One more prefill through both
    plain versions checks the kernel path's logits.
+   Every wrapper's count is read on both serve paths: neither may launch
+   the decode or gather kernels (the served decode is the plain dense one,
+   as in the reference), and Mixtral's may not launch the scan.
 
 The last lines: ``nvidia-smi`` name and power limit, a JSON line with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``.
@@ -59,6 +89,13 @@ PEAK_HBM_BYTES = 3.35e12
 # up to m·2^-9 (P·V from bf16 P adds about as much): the limit is 1e-2 per
 # unit of max(1, |plain output|), i.e. 1e-2 absolute at unit-scale values
 KERNEL_TOL = 1e-2
+# decode (dense and paged): one query over many keys averages V, so outputs
+# sit well below 1 (≈ sqrt(e / kv_len) for random inputs) and a limit per
+# unit of max(1, |plain|) would be as large as a typical value. Both versions
+# round to bf16, so they differ by up to one bf16 ulp of the largest output,
+# m·2^-7 ≈ 0.0078·m (P rounded to bf16 in the kernel moves the fp32 value by
+# far less): the limit is 1e-2 of max |plain output|
+DECODE_TOL = 1e-2
 # served prefill: bf16 logits of O(1) after two layers whose attention
 # outputs differ by bf16 rounding (kernel: P·V from bf16 P; plain: fp32)
 LOGITS_TOL = 5e-2
@@ -73,6 +110,13 @@ SCAN_TOL = 1e-5
 # moved the final hidden state by 3.8% and the logits by 3.5-4.3% of their
 # max, so 10% leaves a 2x margin and still catches a wrong kernel
 RG_LOGITS_REL_TOL = 0.1
+
+# paged KV: the scheduler's default page size, and 8 slots of ragged length
+PAGE_SIZE = 16
+PAGED_LENS = (4096, 3000, 2048, 1500, 1024, 700, 100, 17)
+# the rolling paged path: slot 0 starts past the 4096 window, slot 1 wraps
+ROLLING_PREFIXES = (5000, 4090, 2048, 1500, 1024, 700, 100, 17)
+VOCAB, D_MODEL, D_FF, ROW_GROUP = 32768, 6144, 16384, 2048  # Mixtral's table, expert and vocab_row_group
 
 H, HKV, HD = 48, 8, 128  # Mixtral-8x22B attention widths
 PROMPT, NEW_TOKENS, BATCH, LAYERS = 1024, 16, 2, 2
@@ -98,6 +142,63 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph and
+    replayed ``reps`` times between CUDA events, so no host work (argument
+    checks, allocation, the ctypes call) sits in the timed region."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _errors(out, ref) -> tuple[float, float]:
+    """Max abs error and max error per unit of max(1, |ref|)."""
+    diff = (out.float() - ref.float()).abs()
+    return diff.max().item(), (diff / ref.float().abs().clamp_min(1.0)).max().item()
+
+
+def _check_decode(what: str, out, ref) -> tuple[float, float]:
+    """Max abs error and max |ref|; raises past DECODE_TOL of max |ref|."""
+    err, scale = (out.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+    if not err <= DECODE_TOL * scale:
+        raise AssertionError(f"{what}: max abs err {err} past {DECODE_TOL} of max |plain| {scale}")
+    return err, scale
+
+
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _print_row(kind: str, label: str, row: dict) -> None:
+    lib = row.get("library_ms", row.get("yardstick_ms"))
+    scale = f" (max |plain| {row['max_abs_plain']:.3g})" if "max_abs_plain" in row else ""
+    print(f"[kernel] {kind} {label}: max_abs_err={row['max_abs_err']:.3g}{scale} kernel {row['ms']:.4f} ms "
+          f"(eager {row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, library {lib} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
 
 
 def _pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -133,31 +234,35 @@ def flash_phase(fa_ops, widths: tuple, shapes: list) -> list[dict]:
         if not scaled <= KERNEL_TOL:
             raise AssertionError(f"kernel vs plain at B={B} S={S} window={window}: max abs err {err}, "
                                  f"{scaled} per unit of output magnitude")
-        ms = _time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True, window=window), iters=20)
+        def kernel():
+            return fa_ops.flash_attention(q, k, v, causal=True, window=window)
+
+        ms, eager_ms = _time_graph_ms(kernel), _time_ms(kernel, iters=20)
         qf, kf, vf = q.float(), k.float(), v.float()
         plain_ms = _time_ms(lambda: fa_ops.flash_attention_plain(qf, kf, vf, causal=True, window=window),
                             iters=3, warmup=1)
         del qf, kf, vf
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if window is None or window >= S:  # the window cuts nothing: plain causal attention
-            library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+            library_ms = _time_graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
         else:  # causal sliding window as a boolean mask, built outside the timed calls
             pos = torch.arange(S, device="cuda")
             rel = pos[:, None] - pos[None, :]
             mask = (rel >= 0) & (rel < window)
-            library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=5, warmup=1)
+            library_ms = _time_graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=5, reps=2)
             del pos, rel, mask
         del qt, kt, vt
         flops = 4 * B * H * HD * _pairs(S, S, True, window)
         nbytes = 2 * (2 * B * S * H * HD + 2 * B * S * HKV * HD)  # q, o, k, v once each
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
         rows.append(dict(B=B, S=S, H=H, Hkv=HKV, hd=HD, window=window, max_abs_err=err, max_scaled_err=scaled,
-                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                         ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes else "bytes"))
-        print(f"[kernel] flash hd={HD} H={H} Hkv={HKV} B={B} S={S} window={window}: max_abs_err={err:.3g} kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms} ms, bound {rows[-1]['bound_ms']:.4f} ms "
+        print(f"[kernel] flash hd={HD} H={H} Hkv={HKV} B={B} S={S} window={window}: max_abs_err={err:.3g} kernel {ms:.4f} ms "
+              f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, sdpa {library_ms} ms, bound {rows[-1]['bound_ms']:.4f} ms "
               f"({rows[-1]['bound_by']})", flush=True)
         del q, k, v, out
     torch.cuda.empty_cache()
@@ -185,25 +290,334 @@ def scan_phase(lru_ops) -> list[dict]:
         if not scaled <= SCAN_TOL:
             raise AssertionError(f"scan kernel vs plain at B={B} S={S} W={W}: max abs err {err}, "
                                  f"{scaled} per unit of state magnitude")
-        ms = _time_ms(lambda: lru_ops.rglru_scan(a, b), iters=20)
+        def kernel():
+            return lru_ops.rglru_scan(a, b)
+
+        ms, eager_ms = _time_graph_ms(kernel), _time_ms(kernel, iters=20)
         plain_ms = _time_ms(lambda: lru_ops.rglru_scan_plain(a, b), iters=3, warmup=1)
         n = B * S * W
         t_bytes = 3 * n * 4 / PEAK_HBM_BYTES * 1e3  # a, b read once, s written once
         t_ops = 2 * n / PEAK_FP32_FLOPS * 1e3  # one multiply and one add per element
         lanes = B * W
-        rows.append(dict(B=B, S=S, W=W, max_abs_err=err, max_scaled_err=scaled, ms=ms, plain_ms=plain_ms,
+        rows.append(dict(B=B, S=S, W=W, max_abs_err=err, max_scaled_err=scaled, ms=ms, eager_ms=eager_ms,
+                         plain_ms=plain_ms,
                          library_ms=None, bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes else "bytes",
                          lanes=lanes, blocks=(W + 63) // 64 * B, threads_per_block=64))
-        print(f"[kernel] rglru_scan B={B} S={S} W={W}: max_abs_err={err:.3g} kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); "
+        print(f"[kernel] rglru_scan B={B} S={S} W={W}: max_abs_err={err:.3g} kernel {ms:.4f} ms "
+              f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); "
               f"{lanes} lanes in {rows[-1]['blocks']} blocks of 64 threads", flush=True)
         del a, b
     torch.cuda.empty_cache()
     return rows
 
 
-def serve_phase(fa_ops, workdir: Path) -> dict:
+def decode_phase(da_ops) -> list[dict]:
+    """Dense decode kernel vs plain at the served decode's last step (Mixtral
+    widths, B=2, 1024 + 16 positions), at a long cache (B=8 × 32768) and at
+    RecurrentGemma's rolling window (hd 256, MQA)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    rows = []
+    shapes = ((H, HKV, HD, BATCH, PROMPT + NEW_TOKENS, False, PROMPT + NEW_TOKENS),
+              (H, HKV, HD, 8, 32768, False, 32768),
+              (RG_H, RG_HKV, RG_HD, BATCH, RG_WINDOW, True, RG_WINDOW + 100))
+    for h, hkv, hd, B, Skv, rolling, kv in shapes:
+        q = torch.randn(B, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn(B, Skv, hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn(B, Skv, hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        kv_len = torch.full((B,), kv, dtype=torch.int32, device="cuda")
+        n = min(kv, Skv)
+
+        def kernel():
+            return da_ops.decode_attention(q, k, v, kv_len, rolling=rolling)
+
+        def plain():
+            return da_ops.decode_attention_plain(q, k, v, kv_len.clamp(max=Skv), rolling=rolling)
+
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, scale = _check_decode(f"decode kernel vs plain at B={B} Skv={Skv} hd={hd}", out, ref)
+        qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = (torch.arange(Skv, device="cuda") < n)[None, None, None, :].expand(B, 1, 1, Skv)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        _, lib_scaled = _errors(sdpa()[:, :, 0], ref)
+        row = dict(B=B, Skv=Skv, kv_len=kv, H=h, Hkv=hkv, hd=hd, rolling=rolling,
+                   splits=da_ops.split_plan(B, hkv, Skv, da_ops.sm_count(q.device))[1],
+                   max_abs_err=err, max_abs_plain=scale, ms=_time_graph_ms(kernel),
+                   eager_ms=_time_ms(kernel, iters=20), plain_ms=_time_ms(plain, iters=3, warmup=1),
+                   library_ms=_time_graph_ms(sdpa), library_max_scaled_err=lib_scaled,
+                   **_bound(4 * B * h * hd * n, 2 * (2 * B * hkv * n * hd + 2 * B * h * hd)))
+        rows.append(row)
+        _print_row("decode", f"hd={hd} H={h} Hkv={hkv} B={B} Skv={Skv} kv_len={kv} splits={row['splits']}", row)
+        del q, k, v, qt, kt, vt, mask, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _granted_table(tokens, ps: int):
+    """A ``PagePool`` grant of ``tokens[b]`` positions to each slot b, made so
+    that the physical pages are out of order: slots are granted last to
+    first, and before each grant a spacer slot takes the page after the
+    free list's top one and keeps it until all grants are done, so each slot
+    of two pages or more skips a page. Returns the pool and its table."""
+    from repro_torch.serving import PagePool
+
+    B = len(tokens)
+    pool = PagePool(sum(-(-n // ps) for n in tokens) + 2 * B, ps, 3 * B)
+    for b in reversed(range(B)):
+        pool.alloc(B + b, 1)  # the page this slot's grant starts with
+        pool.alloc(2 * B + b, 1)  # the page it must skip
+        pool.free(B + b)
+        assert pool.alloc(b, tokens[b])
+    for b in range(B):
+        pool.free(2 * B + b)
+    pool.assert_consistent()
+    owned = [pool.owned(b) for b in range(B)]
+    if all(p == list(range(p[0], p[0] + len(p))) for p in owned):
+        raise AssertionError("the grants came out as contiguous runs: the table tests nothing")
+    return pool, pool.page_table(np_max=max(len(p) for p in owned))[:B]
+
+
+def paged_phase(da_ops) -> list[dict]:
+    """Paged decode kernel vs plain: 8 slots of ragged length in pages of 16
+    at Mixtral widths and at hd 256 / G 16."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    rows = []
+    for h, hkv, hd in ((H, HKV, HD), (RG_H, RG_HKV, RG_HD)):
+        pool, pt_np = _granted_table(PAGED_LENS, PAGE_SIZE)
+        B, NP = pt_np.shape
+        P = pool.n_pages
+        pt = torch.from_numpy(pt_np).cuda()
+        q = torch.randn(B, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn(P, PAGE_SIZE, hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn(P, PAGE_SIZE, hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        kv_len = torch.tensor(PAGED_LENS, dtype=torch.int32, device="cuda")
+        ptc = da_ops.clamp_page_table(pt, kv_len, P, PAGE_SIZE)
+
+        def kernel():
+            return da_ops.paged_decode_attention(q, k, v, pt, kv_len)
+
+        def plain():
+            return da_ops.paged_decode_attention_plain(q, k, v, ptc, kv_len)
+
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, scale = _check_decode(f"paged decode kernel vs plain at hd={hd}", out, ref)
+        S = NP * PAGE_SIZE
+        mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None].long())[:, None, None, :]
+
+        def densify_sdpa():
+            kd, vd = da_ops.densify_pages(k, ptc), da_ops.densify_pages(v, ptc)
+            return F.scaled_dot_product_attention(q[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2),
+                                                  attn_mask=mask, enable_gqa=True)
+
+        pages = sum(-(-n // PAGE_SIZE) for n in PAGED_LENS)  # whole pages move
+        row = dict(B=B, H=h, Hkv=hkv, hd=hd, page_size=PAGE_SIZE, kv_len=list(PAGED_LENS), pool_pages=P,
+                   table_pages=NP, splits=da_ops.split_plan(B, hkv, S, da_ops.sm_count(q.device))[1],
+                   max_abs_err=err, max_abs_plain=scale, ms=_time_graph_ms(kernel),
+                   eager_ms=_time_ms(kernel, iters=20), plain_ms=_time_ms(plain, iters=3, warmup=1),
+                   library_ms=None, yardstick="densify + SDPA (two calls)", yardstick_ms=_time_graph_ms(densify_sdpa),
+                   **_bound(4 * h * hd * sum(PAGED_LENS), 2 * (2 * pages * PAGE_SIZE * hkv * hd + 2 * B * h * hd)))
+        rows.append(row)
+        _print_row("paged_decode", f"hd={hd} H={h} Hkv={hkv} B={B} ps={PAGE_SIZE} NP={NP} splits={row['splits']}", row)
+        del q, k, v, out, ref, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gather_phase(tg_ops) -> list[dict]:
+    """Tiered gather vs plain (bit for bit) on Mixtral's embedding table."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    table = torch.randn(VOCAB, D_MODEL, generator=gen, device="cuda").to(torch.bfloat16)
+    G = VOCAB // ROW_GROUP
+    masks = {"all": torch.ones(G, dtype=torch.int32, device="cuda"),
+             "half": (torch.arange(G, device="cuda") % 2 == 0).to(torch.int32),
+             "none": torch.zeros(G, dtype=torch.int32, device="cuda")}
+    rows = []
+    # N = 2048 is one B=2 × 1024 prefill, N = 2 one decode step; the first row is the main one
+    for N, resident, edge in ((2048, "all", False), (2048, "all", True), (2048, "half", True),
+                              (2048, "none", True), (2, "all", False), (2, "half", True)):
+        ids = torch.randint(0, VOCAB, (N,), generator=gen, device="cuda", dtype=torch.int32)
+        if edge:
+            ids[:2] = torch.tensor([-1, VOCAB], device="cuda")
+        mask = masks[resident]
+
+        def kernel():
+            return tg_ops.tiered_gather(table, ids, mask, group_size=ROW_GROUP)
+
+        def plain():
+            return tg_ops.tiered_gather_plain(table, ids, mask, group_size=ROW_GROUP)
+
+        (out, miss), (ref, ref_miss) = kernel(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(miss, ref_miss) and bool((out[miss == 1] == 0).all())):
+            raise AssertionError(f"gather kernel differs from plain at N={N} {resident} edge={edge}")
+        n_ok = int((miss == 0).sum())
+        library_ms = None
+        if resident == "all" and not edge:  # only then does index_select compute the same function
+            library_ms = _time_graph_ms(lambda: torch.index_select(table, 0, ids))
+        row = dict(N=N, V=VOCAB, D=D_MODEL, group_size=ROW_GROUP, resident=resident, edge_ids=edge, hits=n_ok,
+                   max_abs_err=(out.float() - ref.float()).abs().max().item(), ms=_time_graph_ms(kernel),
+                   eager_ms=_time_ms(kernel, iters=20), plain_ms=_time_ms(plain, iters=20), library_ms=library_ms,
+                   **_bound(0, (n_ok + N) * D_MODEL * 2 + 8 * N))
+        rows.append(row)
+        _print_row("tiered_gather", f"N={N} resident={resident} edge_ids={edge} hits={n_ok}", row)
+    del table
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gather_matmul_phase(tg_ops) -> list[dict]:
+    """Tiered gather-matmul vs plain: Mixtral's table times one expert's
+    (6144, 16384) weight, N=512, half the row groups resident (with ids -1
+    and V), then all resident with ids in range (the two-call yardstick)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(9753)
+    table = torch.randn(VOCAB, D_MODEL, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(D_MODEL, D_FF, generator=gen, device="cuda") * D_MODEL**-0.5).to(torch.bfloat16)
+    G = VOCAB // ROW_GROUP
+    N = 512
+    rows = []
+    for resident in ("half", "all"):
+        ids = torch.randint(0, VOCAB, (N,), generator=gen, device="cuda", dtype=torch.int32)
+        if resident == "half":
+            mask = (torch.arange(G, device="cuda") % 2 == 0).to(torch.int32)
+            ids[:2] = torch.tensor([-1, VOCAB], device="cuda")
+        else:
+            mask = torch.ones(G, dtype=torch.int32, device="cuda")
+
+        def kernel():
+            return tg_ops.tiered_gather_matmul(table, w, ids, mask, group_size=ROW_GROUP)
+
+        def plain():
+            return tg_ops.tiered_gather_matmul_plain(table, w, ids, mask, group_size=ROW_GROUP)
+
+        (out, miss), (ref, ref_miss) = kernel(), plain()
+        torch.cuda.synchronize()
+        err, scaled = _errors(out, ref)
+        if not (torch.equal(miss, ref_miss) and bool((out[miss == 1] == 0).all()) and scaled <= KERNEL_TOL):
+            raise AssertionError(f"gather-matmul kernel vs plain ({resident} resident): miss masks equal "
+                                 f"{torch.equal(miss, ref_miss)}, max abs err {err} ({scaled} per unit)")
+        n_ok = int((miss == 0).sum())
+        row = dict(N=N, V=VOCAB, D=D_MODEL, F=D_FF, group_size=ROW_GROUP, resident=resident, hits=n_ok,
+                   max_abs_err=err, max_scaled_err=scaled, ms=_time_graph_ms(kernel),
+                   eager_ms=_time_ms(kernel, iters=20), plain_ms=_time_ms(plain, iters=3, warmup=1),
+                   library_ms=None,
+                   **_bound(2 * n_ok * D_MODEL * D_FF, (D_MODEL * D_FF + n_ok * D_MODEL + N * D_FF) * 2 + 8 * N))
+        if resident == "all":
+            row["yardstick"] = "index_select + matmul (two calls)"
+            row["yardstick_ms"] = _time_graph_ms(lambda: torch.index_select(table, 0, ids) @ w)
+        rows.append(row)
+        _print_row("tiered_gather_matmul", f"N={N} resident={resident} hits={n_ok}", row)
+        del out, ref
+    del table, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def paged_path_phase(wrappers: dict, rolling: bool) -> dict:
+    """One Mixtral-8x22B attention layer at full width, 8 slots with ragged
+    prefixes: 16 decode steps through ``paged_gqa_decode`` (kernel) and
+    ``gqa_decode`` (plain dense) on the same inputs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import densify_pages
+    from repro_torch.models.attention import gqa_decode, paged_gqa_decode
+
+    cfg = get_config("mixtral-8x22b")
+    D, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(4242 + rolling)
+
+    def weight(shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * shape[0] ** -0.5).to(torch.bfloat16)
+
+    params = {"wq": weight((D, h * hd)), "wk": weight((D, hkv * hd)), "wv": weight((D, hkv * hd)),
+              "wo": weight((h * hd, D))}
+    window = cfg.sliding_window if rolling else None
+    prefixes = ROLLING_PREFIXES if rolling else PAGED_LENS
+    B, ps = len(prefixes), PAGE_SIZE
+    # rolling: every slot's pages hold exactly the window (NP·ps = window)
+    Skv = window if rolling else max(prefixes) + NEW_TOKENS
+    pool, pt_np = _granted_table([window] * B if rolling else [n + NEW_TOKENS for n in prefixes], ps)
+    if rolling and pt_np.shape[1] * ps != window:
+        raise AssertionError("the rolling pages must hold exactly the window")
+    pt = torch.from_numpy(pt_np).cuda()
+    k_pages = torch.zeros(pool.n_pages, ps, hkv, hd, dtype=torch.bfloat16, device="cuda")
+    v_pages = torch.zeros_like(k_pages)
+    k_cache = torch.zeros(B, Skv, hkv, hd, dtype=torch.bfloat16, device="cuda")
+    v_cache = torch.zeros_like(k_cache)
+    for b, n in enumerate(prefixes):  # the prefix's K/V (its last `window` positions when rolling)
+        positions = torch.arange(max(0, n - Skv) if rolling else 0, n, device="cuda")
+        slots = positions % window if rolling else positions
+        kb = torch.randn(len(positions), hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        vb = torch.randn(len(positions), hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        k_cache[b, slots], v_cache[b, slots] = kb, vb
+        phys, off = pt[b, slots // ps].long(), slots % ps
+        k_pages[phys, off], v_pages[phys, off] = kb, vb
+    caps = [min(Skv, len(pool.owned(b)) * ps) for b in range(B)]
+
+    def check_pages(when: str) -> None:
+        kd, vd = densify_pages(k_pages, pt), densify_pages(v_pages, pt)
+        for b, cap in enumerate(caps):
+            if not (torch.equal(kd[b, :cap], k_cache[b, :cap]) and torch.equal(vd[b, :cap], v_cache[b, :cap])):
+                raise AssertionError(f"densified pages differ from the dense cache for slot {b} {when}")
+
+    check_pages("after the prefix")
+    pos0 = torch.tensor(prefixes, device="cuda")
+    xs = [torch.randn(B, 1, D, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(NEW_TOKENS)]
+    for fn in wrappers.values():
+        fn.launches = 0  # the paged-decode path starts here
+    errs, scales, paged_ms, dense_ms = [], [], [], []
+    with torch.inference_mode():
+        for t in range(NEW_TOKENS):
+            pos = pos0 + t
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_p, k_pages, v_pages = paged_gqa_decode(params, xs[t], pos, k_pages, v_pages, pt, cfg,
+                                                       rolling_window=window)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out_d, k_cache, v_cache = gqa_decode(params, xs[t], pos, k_cache, v_cache, cfg, rolling_window=window)
+            torch.cuda.synchronize()
+            paged_ms.append((t1 - t0) * 1e3)
+            dense_ms.append((time.perf_counter() - t1) * 1e3)
+            if not torch.isfinite(out_p).all():
+                raise AssertionError(f"non-finite paged output at step {t}")
+            err, scaled = _errors(out_p, out_d)
+            if not scaled <= KERNEL_TOL:
+                raise AssertionError(f"paged vs dense decode at step {t}: max abs err {err} ({scaled} per unit)")
+            errs.append(err)
+            scales.append(out_d.float().abs().max().item())
+            check_pages(f"after step {t}")
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the paged-decode path ends here
+    expected = {name: NEW_TOKENS if name == "paged_decode_attention" else 0 for name in wrappers}
+    if counts != expected:
+        raise AssertionError(f"paged-decode path launches {counts}, expected {expected}")
+    summary = dict(mode="rolling" if rolling else "linear", window=window, B=B, prefixes=list(prefixes),
+                   steps=NEW_TOKENS, pool_pages=pool.n_pages, table_pages=int(pt_np.shape[1]), launches=counts,
+                   max_abs_err=max(errs), max_abs_out=max(scales),
+                   paged_step_ms_median=sorted(paged_ms)[NEW_TOKENS // 2],
+                   dense_step_ms_median=sorted(dense_ms)[NEW_TOKENS // 2])
+    print("[paged] " + json.dumps(summary), flush=True)
+    return summary
+
+
+def serve_phase(fa_ops, wrappers: dict, workdir: Path) -> dict:
     import torch
 
     from repro_torch.configs import get_config
@@ -227,7 +641,8 @@ def serve_phase(fa_ops, workdir: Path) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(7)).cuda()
 
-    fa_ops.flash_attention.launches = 0  # the main path starts here
+    for fn in wrappers.values():
+        fn.launches = 0  # the main path starts here
     t0 = time.perf_counter()
     result = analyze(model, profile, trace_B=1, trace_S=32)
     t1 = time.perf_counter()
@@ -241,7 +656,8 @@ def serve_phase(fa_ops, workdir: Path) -> dict:
     t3 = time.perf_counter()
     out, stats = engine.generate(tokens, NEW_TOKENS)
     t4 = time.perf_counter()
-    launches = fa_ops.flash_attention.launches  # the main path ends here
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the main path ends here
+    launches = counts["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
 
     tiered = server.tiered
@@ -265,7 +681,7 @@ def serve_phase(fa_ops, workdir: Path) -> dict:
         evicted_bytes=tiered.stats.evicted_bytes, refaults=tiered.stats.refaults,
         overshoots=tiered.residency.overshoot_events,
         max_resident_bytes=tiered.residency.max_resident_bytes,
-        peak_device_bytes=peak, flash_launches=launches, prefill_runs=prefill_runs,
+        peak_device_bytes=peak, flash_launches=launches, launches=counts, prefill_runs=prefill_runs,
         loads_by_phase=by_phase,
     )
     print("[serve] " + json.dumps(summary, default=str), flush=True)
@@ -305,7 +721,7 @@ def serve_phase(fa_ops, workdir: Path) -> dict:
     return summary
 
 
-def recurrentgemma_phase(fa_ops, lru_ops, workdir: Path) -> dict:
+def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict:
     """RecurrentGemma-9B at full width and depth through the after2 path."""
     import torch
 
@@ -337,8 +753,8 @@ def recurrentgemma_phase(fa_ops, lru_ops, workdir: Path) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(7)).cuda()
 
-    fa_ops.flash_attention.launches = 0  # the main path starts here
-    lru_ops.rglru_scan.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0  # the main path starts here
     t0 = time.perf_counter()
     result = analyze(model, profile, trace_B=1, trace_S=32)
     t1 = time.perf_counter()
@@ -352,8 +768,8 @@ def recurrentgemma_phase(fa_ops, lru_ops, workdir: Path) -> dict:
     t3 = time.perf_counter()
     out, stats = engine.generate(tokens, NEW_TOKENS)
     t4 = time.perf_counter()
-    flash_launches = fa_ops.flash_attention.launches  # the main path ends here
-    scan_launches = lru_ops.rglru_scan.launches
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the main path ends here
+    flash_launches, scan_launches = counts["flash_attention"], counts["rglru_scan"]
     peak = torch.cuda.max_memory_allocated()
 
     prefill_runs = len(warm_shapes) + stats.prefill_runs
@@ -364,7 +780,7 @@ def recurrentgemma_phase(fa_ops, lru_ops, workdir: Path) -> dict:
         faulted_units=stats.faulted_units, faulted_bytes=stats.faulted_bytes,
         fault_s=stats.fault_s, prefill_s=stats.prefill_s, decode_s=stats.decode_s,
         loads=len(server.tiered.stats.events), peak_device_bytes=peak, n_params=n_params,
-        flash_launches=flash_launches, scan_launches=scan_launches, prefill_runs=prefill_runs,
+        flash_launches=flash_launches, scan_launches=scan_launches, launches=counts, prefill_runs=prefill_runs,
     )
     print("[serve] " + json.dumps(summary, default=str), flush=True)
     if out.shape != (BATCH, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
@@ -412,17 +828,24 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO / "src"))
     try:
+        from repro_torch.kernels.decode_attention import ops as da_ops
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.rglru_scan import ops as lru_ops
+        from repro_torch.kernels.tiered_gather import ops as tg_ops
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this script ({e})", file=sys.stderr)
         return 2
+    wrappers = {"flash_attention": fa_ops.flash_attention, "rglru_scan": lru_ops.rglru_scan,
+                "decode_attention": da_ops.decode_attention, "paged_decode_attention": da_ops.paged_decode_attention,
+                "tiered_gather": tg_ops.tiered_gather, "tiered_gather_matmul": tg_ops.tiered_gather_matmul}
 
     gpu = _gpu_line()
     print(f"[build] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, started together
-        builds = {name: ex.submit(ops.build) for name, ops in (("flash_attention", fa_ops), ("rglru_scan", lru_ops))}
+    sources = (("flash_attention", fa_ops), ("rglru_scan", lru_ops), ("decode_attention", da_ops),
+               ("tiered_gather", tg_ops))
+    with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source, started together
+        builds = {name: ex.submit(ops.build) for name, ops in sources}
         for name, fut in builds.items():
             path, log = fut.result()
             print(f"[build] {path.name} ready {time.perf_counter() - t0:.1f} s after the start", flush=True)
@@ -435,41 +858,44 @@ def main() -> int:
     ])
     rows_256 = flash_phase(fa_ops, (RG_H, RG_HKV, RG_HD), [(BATCH, PROMPT, RG_WINDOW), (1, 8192, RG_WINDOW)])
     scan_rows = scan_phase(lru_ops)
+    decode_rows = decode_phase(da_ops)
+    paged_rows = paged_phase(da_ops)
+    gather_rows = gather_phase(tg_ops)
+    gm_rows = gather_matmul_phase(tg_ops)
+    paths = {f"paged-decode-{mode}": paged_path_phase(wrappers, rolling=mode == "rolling")["launches"]
+             for mode in ("linear", "rolling")}
     workdir = REPO / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
-    summary = serve_phase(fa_ops, workdir)
-    rg_summary = recurrentgemma_phase(fa_ops, lru_ops, workdir)
+    paths["mixtral-8x22b"] = serve_phase(fa_ops, wrappers, workdir)["launches"]
+    paths["recurrentgemma-9b"] = recurrentgemma_phase(fa_ops, lru_ops, wrappers, workdir)["launches"]
+    # the served decode is the plain dense one, as in the reference, and Mixtral has no recurrent layer
+    for path, served in (("mixtral-8x22b", {"flash_attention"}),
+                         ("recurrentgemma-9b", {"flash_attention", "rglru_scan"})):
+        stray = {name: n for name, n in paths[path].items() if n and name not in served}
+        if stray:
+            raise AssertionError(f"the {path} serve path launched {stray}")
 
-    main_row, scan_row = rows[0], scan_rows[0]
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        "launches": summary["flash_launches"] + rg_summary["flash_launches"],
-        "launches_by_path": {"mixtral-8x22b": summary["flash_launches"],
-                             "recurrentgemma-9b": rg_summary["flash_launches"]},
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": rows + rows_256,
-    }, {
-        "name": "rglru_scan",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
-        "replaces": "src/repro/kernels/rglru_scan/kernel.py:50",
-        "launches": rg_summary["scan_launches"],
-        "max_abs_err": scan_row["max_abs_err"],
-        "ms": scan_row["ms"],
-        "plain_ms": scan_row["plain_ms"],
-        "bound_ms": scan_row["bound_ms"],
-        "bound_by": scan_row["bound_by"],
-        "library_ms": None,
-        "shapes": scan_rows,
-    }]
+    def entry(name: str, source: str, replaces: str, shapes: list, main_row: dict, **extra) -> dict:
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
+                "replaces": f"src/repro/kernels/{replaces}", "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **{k: main_row[k] for k in keys}, **extra, "shapes": shapes}
+
+    kernels = [
+        entry("flash_attention", "flash_attention/csrc/flash_attention.cu", "flash_attention/kernel.py:103",
+              rows + rows_256, rows[0]),
+        entry("rglru_scan", "rglru_scan/csrc/rglru_scan.cu", "rglru_scan/kernel.py:50", scan_rows, scan_rows[0]),
+        entry("decode_attention", "decode_attention/csrc/decode_attention.cu", "decode_attention/kernel.py:201",
+              decode_rows, decode_rows[0]),
+        entry("paged_decode_attention", "decode_attention/csrc/decode_attention.cu",
+              "decode_attention/kernel.py:141", paged_rows, paged_rows[0],
+              yardstick=paged_rows[0]["yardstick"], yardstick_ms=paged_rows[0]["yardstick_ms"]),
+        entry("tiered_gather_matmul", "tiered_gather/csrc/tiered_gather.cu", "tiered_gather/kernel.py:86",
+              gm_rows, gm_rows[0], yardstick=gm_rows[1]["yardstick"], yardstick_ms=gm_rows[1]["yardstick_ms"]),
+        entry("tiered_gather", "tiered_gather/csrc/tiered_gather.cu", "tiered_gather/kernel.py:154",
+              gather_rows, gather_rows[0]),
+    ]
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

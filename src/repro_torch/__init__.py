@@ -8,5 +8,9 @@ after2 serving slice — configs → analyze → ``build_artifact`` →
 ``cold_start(mode="after2")`` → ``GenerationEngine.generate`` — for the
 Mixtral family and RecurrentGemma, with prefill attention and the RG-LRU
 scan in hand-written CUDA kernels (``kernels/flash_attention``,
-``kernels/rglru_scan``).
+``kernels/rglru_scan``); the model layer's paged-KV decode
+(``serving/paged_kv.PagePool``, ``models/attention.paged_gqa_decode``)
+through the paged decode kernel (``kernels/decode_attention``); and the
+dense decode and tiered gather kernels as ops (``kernels/decode_attention``,
+``kernels/tiered_gather``) that, as in the reference, no served path calls.
 """

@@ -1,0 +1,294 @@
+"""One-token decode attention over a dense or a paged KV cache: the
+hand-written CUDA kernel, its plain PyTorch versions, and the wrappers that
+pick between them by device.
+
+``decode_attention`` has the contract of ``repro.kernels.decode_attention.
+ops.decode_attention`` (q (B, H, hd), cache (B, Skv, Hkv, hd), GQA by
+``kv_head = head // (H // Hkv)``, ``kv_len`` scalar or (B,), clamped to
+Skv for linear and rolling caches alike, tanh ``softcap``);
+``paged_decode_attention`` that of ``...ops.paged_decode_attention`` (pool
+(P, ps, Hkv, hd), table (B, NP), kv_len clamped to NP·ps, the table's
+logical tail clamped to the slot's last occupied page and every entry to
+[0, P-1]). For a CPU tensor each runs its plain version after those clamps;
+for a CUDA tensor it launches the kernel in ``csrc/decode_attention.cu``
+(bf16, hd 64, 128 or 256, G = H / Hkv up to 16), which applies the same
+clamps per slot, or raises. There is no fallback between the two. A slot
+with kv_len 0 is held to nothing: the plain version returns the mean of V
+there and the kernel 0 (every caller passes kv_len = pos + 1 >= 1).
+
+The served decode (``models.attention.gqa_decode``) calls
+``decode_attention_plain`` directly, as the reference's calls
+``decode_attention_jnp``; only ``paged_gqa_decode`` reaches a kernel here.
+
+The kernel is compiled with ``nvcc`` at first use, from the source in this
+package, into ``<repo>/build/decode_attention/`` and loaded with ``ctypes``
+(``kernels.nvcc``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.kernels import nvcc
+
+NEG_INF = -1.0e30
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
+_HEAD_DIMS = (64, 128, 256)
+_MAX_GROUP = 16  # query heads per KV head: the rows of the kernel's mma tile
+_TILE = 64  # keys per block tile; a split's chunk is a multiple of it
+# blocks to aim for when splitting the KV axis, per SM of the card: short
+# caches and small batches still cover it, and a long slot among short ones
+# (paged, ragged kv_len) spreads over many blocks; splits past a slot's
+# kv_len exit at once
+_BLOCKS_PER_SM = 8
+_MAX_SPLITS = 1024  # the merge pass keeps one weight per split in shared memory
+_lib: Optional[ctypes.CDLL] = None
+
+Lengths = Union[int, torch.Tensor]
+
+
+def _softcap(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    return s if cap is None else cap * torch.tanh(s / cap)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,  # (B, H, hd), roped
+    k_cache: torch.Tensor,  # (B, Skv, Hkv, hd)
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,  # (B,) number of valid cache entries
+    *,
+    rolling: bool = False,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token attention over a KV cache, in fp32 (``decode_attention_jnp``).
+    For a rolling cache every slot is valid once kv_len >= Skv."""
+    B, H, hd = q.shape
+    _, Skv, Hkv, _ = k_cache.shape
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, hd).to(torch.float32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32))
+    s = _softcap(s * hd**-0.5, softcap)
+    idx = torch.arange(Skv, device=q.device)
+    limit = torch.clamp(kv_len, max=Skv) if rolling else kv_len
+    valid = idx[None, :] < limit[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def densify_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """(P, ps, Hkv, hd) pool + (B, NP) table -> (B, NP·ps, Hkv, hd) dense
+    cache in logical order (``repro.models.attention.densify_pages``)."""
+    B, NP = page_table.shape
+    _, ps, Hkv, hd = pages.shape
+    return pages[page_table.long()].reshape(B, NP * ps, Hkv, hd)
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,  # (B, H, hd), roped
+    k_pages: torch.Tensor,  # (P, ps, Hkv, hd)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, NP), entries in [0, P)
+    kv_len: torch.Tensor,  # (B,)
+    *,
+    rolling: bool = False,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Densify through the page table, then the dense plain version
+    (``decode_attention_paged_jnp``)."""
+    return decode_attention_plain(q, densify_pages(k_pages, page_table), densify_pages(v_pages, page_table),
+                                  kv_len, rolling=rolling, softcap=softcap)
+
+
+def _lengths(kv_len: Lengths, B: int, device: torch.device) -> torch.Tensor:
+    kv_len = torch.as_tensor(kv_len, device=device).to(torch.int32)
+    if kv_len.dim() == 0:
+        kv_len = kv_len.expand(B)
+    if kv_len.shape != (B,):
+        raise ValueError(f"kv_len must be a scalar or ({B},), got {tuple(kv_len.shape)}")
+    return kv_len.contiguous()
+
+
+def clamp_page_table(page_table: torch.Tensor, kv_len: torch.Tensor, n_pages: int, ps: int) -> torch.Tensor:
+    """The reference wrapper's table clamp: logical pages past the slot's
+    last occupied one repeat it, and every entry is clipped to [0, P-1].
+    ``kv_len`` is already clamped to NP·ps."""
+    NP = page_table.shape[1]
+    last = torch.clamp((kv_len.long() + ps - 1) // ps - 1, min=0)
+    logical = torch.minimum(torch.arange(NP, device=page_table.device)[None, :], last[:, None])
+    return torch.gather(page_table.long(), 1, logical).clamp(0, n_pages - 1)
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernel (once per source version) and return the shared
+    library's path and the compiler's register/shared-memory report."""
+    return nvcc.build("decode_attention", _SRC)
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = nvcc.load("decode_attention", _SRC)
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, kv_len, o, o_part, lse | B, H, Hkv, hd, Skv, chunk, splits | softcap, scale, stream
+        lib.decode_attention_bf16.argtypes = [ptr] * 7 + [i32] * 7 + [f32, f32, ptr]
+        # q, k_pages, v_pages, page_table, kv_len, o, o_part, lse | B, H, Hkv, hd, P, ps, NP, chunk,
+        # splits | softcap, scale, stream
+        lib.paged_decode_attention_bf16.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, ptr]
+        lib.decode_attention_bf16.restype = lib.paged_decode_attention_bf16.restype = i32
+        _lib = lib
+    return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_plan(B: int, Hkv: int, cap: int, n_sms: int) -> tuple[int, int]:
+    """(chunk, splits): the KV positions each block owns and the number of
+    blocks per (slot, KV head), so that B·Hkv·splits covers a card of
+    ``n_sms`` SMs."""
+    tiles = -(-cap // _TILE)
+    want = min(-(-(_BLOCKS_PER_SM * n_sms) // (B * Hkv)), _MAX_SPLITS)
+    chunk = -(-tiles // max(1, min(tiles, want))) * _TILE
+    return chunk, -(-cap // chunk)
+
+
+def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, softcap, *extra) -> None:
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"decode attention wants q (B, H, hd) and k, v of one 4-d shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, hd = q.shape
+    Hkv = k.shape[2]
+    if k.shape[3] != hd or B == 0 or Hkv == 0 or H % Hkv:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, cache {tuple(k.shape)}")
+    if H // Hkv > _MAX_GROUP:
+        raise ValueError(f"the CUDA kernel takes up to {_MAX_GROUP} query heads per KV head, got {H // Hkv}")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel supports head_dim {_HEAD_DIMS}, got {hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernel takes bfloat16, {name} is {t.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    for name, t in extra:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+
+
+def _scratch(q: torch.Tensor, Hkv: int, splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    B, H, hd = q.shape
+    if splits == 1:
+        empty = torch.empty(0, dtype=torch.float32, device=q.device)
+        return empty, empty
+    G = H // Hkv
+    return (torch.empty(B * Hkv * splits * G * hd, dtype=torch.float32, device=q.device),
+            torch.empty(B * Hkv * splits * G, dtype=torch.float32, device=q.device))
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, hd)
+    k_cache: torch.Tensor,  # (B, Skv, Hkv, hd)
+    v_cache: torch.Tensor,
+    kv_len: Lengths,  # scalar or (B,)
+    *,
+    rolling: bool = False,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Dense-cache decode: ``decode_attention_plain`` for CPU tensors, the
+    CUDA kernel for CUDA tensors (``decode_attention.launches`` counts
+    launches). ``rolling`` changes nothing once kv_len is clamped to Skv;
+    it is kept for the reference's signature."""
+    B, H, hd = q.shape
+    Skv = k_cache.shape[1]
+    if q.device.type == "cpu":
+        kv_len = torch.clamp(_lengths(kv_len, B, q.device), max=Skv)
+        return decode_attention_plain(q, k_cache, v_cache, kv_len, rolling=rolling, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
+    _check_cuda_inputs(q, k_cache, v_cache, softcap)
+    if Skv == 0:
+        raise ValueError("the cache holds no position")
+    kv_len = _lengths(kv_len, B, q.device)
+    Hkv = k_cache.shape[2]
+    chunk, splits = split_plan(B, Hkv, Skv, sm_count(q.device))
+    o = torch.empty_like(q)
+    o_part, lse = _scratch(q, Hkv, splits)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.decode_attention_bf16(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
+            o_part.data_ptr() or None, lse.data_ptr() or None, B, H, Hkv, hd, Skv, chunk, splits,
+            float(softcap or 0.0), hd**-0.5, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "decode-attention")
+    decode_attention.launches += 1
+    return o
+
+
+decode_attention.launches = 0
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # (B, H, hd)
+    k_pages: torch.Tensor,  # (P, ps, Hkv, hd)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, NP)
+    kv_len: Lengths,  # scalar or (B,)
+    *,
+    rolling: bool = False,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Paged decode: the clamps, then ``paged_decode_attention_plain`` for
+    CPU tensors; the CUDA kernel for CUDA tensors
+    (``paged_decode_attention.launches`` counts launches)."""
+    B, H, hd = q.shape
+    P, ps = k_pages.shape[:2]
+    NP = page_table.shape[1]
+    if q.device.type == "cpu":
+        kv_len = torch.clamp(_lengths(kv_len, B, q.device), max=NP * ps)
+        pt = clamp_page_table(page_table, kv_len, P, ps)
+        return paged_decode_attention_plain(q, k_pages, v_pages, pt, kv_len, rolling=rolling, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cpu or cuda, not {q.device}")
+    page_table = page_table.to(torch.int32)
+    _check_cuda_inputs(q, k_pages, v_pages, softcap, ("page_table", page_table))
+    if page_table.dim() != 2 or page_table.shape[0] != B or NP == 0 or P == 0 or ps == 0:
+        raise ValueError(f"bad pool or table: pool {tuple(k_pages.shape)}, table {tuple(page_table.shape)}")
+    kv_len = _lengths(kv_len, B, q.device)
+    Hkv = k_pages.shape[2]
+    chunk, splits = split_plan(B, Hkv, NP * ps, sm_count(q.device))
+    o = torch.empty_like(q)
+    o_part, lse = _scratch(q, Hkv, splits)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.paged_decode_attention_bf16(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
+            o.data_ptr(), o_part.data_ptr() or None, lse.data_ptr() or None, B, H, Hkv, hd, P, ps, NP,
+            chunk, splits, float(softcap or 0.0), hd**-0.5, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "paged decode-attention")
+    paged_decode_attention.launches += 1
+    return o
+
+
+paged_decode_attention.launches = 0

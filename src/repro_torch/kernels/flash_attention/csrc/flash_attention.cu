@@ -43,36 +43,17 @@
 // close to the limit to stay free of spills. hd 64 and 128 keep Q in
 // registers and static shared memory, as before.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int BQ = 64;       // q rows per block
 constexpr int BK = 64;       // keys per tile
 constexpr int NWARPS = BQ / 16;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1.0e30f;
-
-__device__ __forceinline__ void mma_16x8x16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> packed bf16x2, first argument in the low half (lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
 
 // Q stays in registers up to hd 128; at hd 256 it is staged in shared memory
 template <int HD>

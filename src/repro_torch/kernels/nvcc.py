@@ -3,9 +3,10 @@ plain C interface, and load it with ``ctypes``.
 
 Each kernel package calls ``build`` at its first CUDA launch (never at
 import: the CPU tests import every module). The library lands in
-``<repo>/build/<name>/`` under a name keyed on the source's hash, so an
-edited source builds anew and an unchanged one is reused; ptxas's register,
-shared-memory and spill report is kept beside it.
+``<repo>/build/<name>/`` under a name keyed on the hash of the source and
+of the shared headers in ``kernels/csrc`` (on the include path), so an
+edited source or header builds anew and an unchanged one is reused;
+ptxas's register, shared-memory and spill report is kept beside it.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import subprocess
 from pathlib import Path
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(INCLUDE_DIR))
 
 
 def _nvcc() -> str:
@@ -34,11 +36,13 @@ def _nvcc() -> str:
 
 
 def build(name: str, src: Path) -> tuple[Path, str]:
-    """Compile ``src`` (once per source version) into
+    """Compile ``src`` (once per version of it and the shared headers) into
     ``build/<name>/lib<name>-<hash>.so``; returns its path and ptxas's
     report. Raises with nvcc's output when the compile fails."""
-    text = src.read_bytes()
-    out = BUILD_ROOT / name / f"lib{name}-{hashlib.sha256(text).hexdigest()[:12]}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    out = BUILD_ROOT / name / f"lib{name}-{digest.hexdigest()[:12]}.so"
     log_path = out.with_suffix(".log")
     if out.exists() and log_path.exists():
         return out, log_path.read_text()

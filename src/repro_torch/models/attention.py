@@ -1,10 +1,14 @@
 """GQA attention with RoPE: prefill (causal / sliding window) through the
-flash-attention wrapper, and one-token decode over linear and rolling KV
-caches (``repro.models.attention`` counterpart, GQA only).
+flash-attention wrapper, one-token decode over linear and rolling KV
+caches, and one-token decode over a paged KV pool (``repro.models.attention``
+counterpart, GQA only).
 
 Prefill attention goes through ``kernels.flash_attention.ops.
-flash_attention`` by device: the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors. ``cfg.use_pallas`` is not consulted.
+flash_attention`` and paged decode through ``kernels.decode_attention.ops.
+paged_decode_attention``, each by device: the CUDA kernel for CUDA tensors,
+its plain version for CPU tensors. ``cfg.use_pallas`` is not consulted. The
+dense decode calls ``decode_attention_plain`` on every device, as the
+reference's calls ``decode_attention_jnp``.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.ops import NEG_INF, flash_attention
+from repro_torch.kernels.decode_attention.ops import decode_attention_plain, paged_decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.spec import ParamSpec
 
@@ -31,10 +36,6 @@ def gqa_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int) -> 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, s, _ = x.shape
     return x.reshape(b, s, n_heads, -1)
-
-
-def _softcap(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
-    return s if cap is None else cap * torch.tanh(s / cap)
 
 
 def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
@@ -61,32 +62,6 @@ def gqa_forward(
     o = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_logit_softcap)
     out = o.reshape(*o.shape[:2], H * hd) @ params["wo"].to(x.dtype)
     return out, (k, v)
-
-
-def decode_attention_plain(
-    q: torch.Tensor,  # (B, H, hd), roped
-    k_cache: torch.Tensor,  # (B, Skv, Hkv, hd)
-    v_cache: torch.Tensor,
-    kv_len: torch.Tensor,  # (B,) number of valid cache entries
-    *,
-    rolling: bool = False,
-    softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """One-token attention over a KV cache, in fp32 (``decode_attention_jnp``).
-    For a rolling cache every slot is valid once kv_len >= Skv."""
-    B, H, hd = q.shape
-    _, Skv, Hkv, _ = k_cache.shape
-    G = H // Hkv
-    qg = q.reshape(B, Hkv, G, hd).to(torch.float32)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32))
-    s = _softcap(s * hd**-0.5, softcap)
-    idx = torch.arange(Skv, device=q.device)
-    limit = torch.clamp(kv_len, max=Skv) if rolling else kv_len
-    valid = idx[None, :] < limit[:, None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
-    return o.reshape(B, H, hd).to(q.dtype)
 
 
 def _scatter_rows(cache: torch.Tensor, slot: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
@@ -121,3 +96,53 @@ def gqa_decode(
     )
     out = o.reshape(B, H * hd) @ params["wo"].to(x.dtype)
     return out[:, None, :], k_cache, v_cache
+
+
+def paged_kv_write(
+    k_pages: torch.Tensor,  # (P, ps, Hkv, hd)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, NP)
+    slot: torch.Tensor,  # (B,) logical cache slot (pos, or pos % window)
+    k_new: torch.Tensor,  # (B, Hkv, hd)
+    v_new: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write one token's K/V at logical slot ``slot[b]`` of each sequence:
+    physical page ``page_table[b, slot // ps]``, offset ``slot % ps``.
+    Unlike the reference's functional update, the pool is written in place
+    (a copy of the whole pool per token would dwarf the step) and the same
+    tensors are returned. Distinct sequences own disjoint pages, so the
+    writes never collide."""
+    ps = k_pages.shape[1]
+    phys = torch.gather(page_table.long(), 1, (slot // ps).long()[:, None])[:, 0]
+    off = (slot % ps).long()
+    k_pages[phys, off] = k_new.to(k_pages.dtype)
+    v_pages[phys, off] = v_new.to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def paged_gqa_decode(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, D)
+    pos: torch.Tensor,  # (B,) absolute position of the new token
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    rolling_window: Optional[int] = None,
+):
+    """One decode step over a paged KV cache; returns (out, k_pages,
+    v_pages). The contract of ``gqa_decode`` with the (B, Skv, ...) slot
+    cache replaced by pool + page table; the attention is
+    ``paged_decode_attention`` (the reference's ``use_pallas`` branch)."""
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    B = x.shape[0]
+    q, k, v = _qkv(params, x, pos[:, None], cfg)
+    slot = pos % rolling_window if rolling_window else pos
+    k_pages, v_pages = paged_kv_write(k_pages, v_pages, page_table, slot, k[:, 0], v[:, 0])
+    o = paged_decode_attention(
+        q[:, 0], k_pages, v_pages, page_table, pos + 1,
+        rolling=rolling_window is not None, softcap=cfg.attn_logit_softcap,
+    )
+    out = o.reshape(B, H * hd) @ params["wo"].to(x.dtype)
+    return out[:, None, :], k_pages, v_pages

@@ -1,8 +1,9 @@
 """Serving: the after2 cold-start manager and the batched generation engine
-with on-demand fault-in."""
+with on-demand fault-in, and the paged KV pool."""
 
 from repro_torch.serving.cold_start import RESIDENCY_PRESETS, ColdStartReport, ColdStartServer, cold_start
 from repro_torch.serving.engine import MAX_FAULT_RETRIES, GenerationEngine, RequestStats
+from repro_torch.serving.paged_kv import PagePool, PagePoolStats
 
 __all__ = [
     "RESIDENCY_PRESETS",
@@ -12,4 +13,6 @@ __all__ = [
     "GenerationEngine",
     "MAX_FAULT_RETRIES",
     "RequestStats",
+    "PagePool",
+    "PagePoolStats",
 ]

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels (flash attention, RG-LRU scan) against their
+"""The hand-written CUDA kernels (flash attention, RG-LRU scan, dense and
+paged decode attention, tiered gather and gather-matmul) against their
 plain PyTorch versions, on the card. Needs an NVIDIA GPU and nvcc (the kernel has no CPU
 mode); skips elsewhere. Imports no JAX (and ``--noconftest`` skips the
 JAX fixtures of tests/conftest.py), so it runs where only torch is
@@ -11,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rglru_scan import ops as lru_ops
+from repro_torch.kernels.tiered_gather import ops as tg_ops
+from repro_torch.serving import PagePool
 
 # B, Sq, Sk, H, Hkv, hd, causal, window, softcap, q_offset
 CASES = [
@@ -86,3 +90,159 @@ def test_rglru_kernel_rejects_what_it_does_not_take(card):
     a = torch.zeros(1, 16, 8, device=card).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         lru_ops.rglru_scan(a, a)
+
+
+def _scaled_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    # bf16 output rounding: 1e-2 per unit of max(1, |plain output|)
+    return ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max().item()
+
+
+def _randn(rs, shape, card, dtype=torch.bfloat16):
+    return torch.from_numpy(rs.standard_normal(shape, dtype=np.float32)).to(card, dtype)
+
+
+# B, H, Hkv, hd, Skv, softcap, kv_len (past Skv is clamped; one split when
+# the cache is a single 64-key tile)
+DECODE_CASES = [
+    (2, 48, 8, 128, 1040, None, [1040, 517]),
+    (2, 16, 1, 256, 300, None, [300 + 45, 1]),
+    (3, 4, 4, 64, 50, 30.0, [50, 7, 64]),
+    (1, 12, 2, 128, 4100, 20.0, [4099]),
+    (4, 16, 1, 64, 129, None, [129, 64, 65, 2]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_decode_kernel_matches_plain_on_card(card, case):
+    B, H, Hkv, hd, Skv, softcap, lens = case
+    rs = np.random.default_rng(2)
+    q, k, v = (_randn(rs, s, card) for s in ((B, H, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd)))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = da_ops.decode_attention.launches
+    out = da_ops.decode_attention(q, k, v, kv_len, softcap=softcap)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1
+    ref = da_ops.decode_attention_plain(q, k, v, kv_len.clamp(max=Skv), softcap=softcap)
+    assert _scaled_err(out, ref) <= 1e-2
+
+
+def _granted_table(B, NP, ps, card):
+    """A table from a pool that granted and freed other slots first."""
+    pool = PagePool(B * NP + 5, ps, B + 1)
+    pool.alloc(B, 3 * ps)
+    for b in range(B):
+        assert pool.alloc(b, NP * ps)
+        if b == 0:
+            pool.free(B)
+    return pool.n_pages, torch.from_numpy(pool.page_table(np_max=NP)[:B]).to(card)
+
+
+# B, Hkv, G, hd, ps, NP, softcap, kv_len
+PAGED_CASES = [
+    (8, 8, 6, 128, 16, 40, None, [640, 600, 513, 300, 100, 64, 17, 1]),
+    (2, 1, 16, 256, 16, 20, None, [320, 150]),
+    (3, 2, 3, 64, 12, 9, 25.0, [108 + 30, 50, 12]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_CASES, ids=str)
+def test_paged_decode_kernel_matches_plain_on_card(card, case):
+    B, Hkv, G, hd, ps, NP, softcap, lens = case
+    P, pt = _granted_table(B, NP, ps, card)
+    rs = np.random.default_rng(3)
+    q = _randn(rs, (B, Hkv * G, hd), card)
+    k, v = (_randn(rs, (P, ps, Hkv, hd), card) for _ in range(2))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=card)
+    # the tail past each slot's last occupied page is never followed
+    last = (kv_len.clamp(max=NP * ps).long() + ps - 1) // ps
+    cols = torch.arange(NP, device=card)[None, :]
+    garbage = torch.where(cols % 2 == 0, -1, P + 100).to(torch.int32)
+    raw = torch.where(cols >= last[:, None], garbage, pt)
+    before = da_ops.paged_decode_attention.launches
+    out = da_ops.paged_decode_attention(q, k, v, raw, kv_len, softcap=softcap)
+    torch.cuda.synchronize()
+    assert da_ops.paged_decode_attention.launches == before + 1
+    kv = kv_len.clamp(max=NP * ps)
+    ref = da_ops.paged_decode_attention_plain(q, k, v, da_ops.clamp_page_table(raw, kv, P, ps), kv,
+                                              softcap=softcap)
+    assert _scaled_err(out, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_decode_kernels_reject_what_they_do_not_take(card):
+    q = torch.zeros(1, 4, 128, device=card)
+    k = torch.zeros(1, 8, 2, 128, device=card)
+    with pytest.raises(TypeError, match="bfloat16"):
+        da_ops.decode_attention(q, k, k, 3)
+    q, k = q.bfloat16(), k.bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):
+        da_ops.decode_attention(q[..., :96].contiguous(), k[..., :96].contiguous(), k[..., :96].contiguous(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        da_ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), k, 3)
+    with pytest.raises(ValueError, match="query heads"):
+        da_ops.decode_attention(torch.zeros(1, 34, 128, device=card, dtype=torch.bfloat16), k, k, 3)
+    pages = torch.zeros(4, 16, 2, 128, device=card, dtype=torch.bfloat16)
+    table = torch.zeros(1, 8, dtype=torch.int32, device=card)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        da_ops.paged_decode_attention(q, pages, pages, table, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("D", [6144, 100, 3], ids=str)  # 16-, 4- and 2-byte word copies
+def test_gather_kernel_matches_plain_bitwise_on_card(card, dtype, D):
+    rs = np.random.default_rng(4)
+    V, gs, N = 1000, 64, 300
+    table = _randn(rs, (V, D), card, dtype)
+    ids = torch.from_numpy(rs.integers(-3, V + 3, N)).to(card)
+    ids[:3] = torch.tensor([-1, V, 2**31 - 1])
+    mask = torch.from_numpy(rs.integers(0, 2, -(-V // gs))).to(card)
+    before = tg_ops.tiered_gather.launches
+    out, miss = tg_ops.tiered_gather(table, ids, mask, group_size=gs)
+    torch.cuda.synchronize()
+    assert tg_ops.tiered_gather.launches == before + 1
+    ref, ref_miss = tg_ops.tiered_gather_plain(table, ids.int(), mask.int(), group_size=gs)
+    assert torch.equal(miss, ref_miss) and torch.equal(out, ref)
+    assert bool((out[miss == 1] == 0).all()) and miss[:3].tolist() == [1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1000, 256, 384, 130, 64), (64, 40, 136, 7, 8), (4096, 1024, 2048, 512, 256)],
+                         ids=str)
+@pytest.mark.parametrize("kind", ["all", "half", "none"])
+def test_gather_matmul_kernel_matches_plain_on_card(card, shape, kind):
+    V, D, F, N, gs = shape
+    rs = np.random.default_rng(5)
+    table, w = _randn(rs, (V, D), card), _randn(rs, (D, F), card) * D**-0.5
+    ids = torch.from_numpy(rs.integers(-2, V + 2, N)).to(card)
+    G = -(-V // gs)
+    mask = {"all": torch.ones(G), "none": torch.zeros(G),
+            "half": torch.from_numpy(rs.integers(0, 2, G))}[kind].to(card)
+    before = tg_ops.tiered_gather_matmul.launches
+    out, miss = tg_ops.tiered_gather_matmul(table, w, ids, mask, group_size=gs)
+    torch.cuda.synchronize()
+    assert tg_ops.tiered_gather_matmul.launches == before + 1
+    ref, ref_miss = tg_ops.tiered_gather_matmul_plain(table, w, ids.int(), mask.int(), group_size=gs)
+    assert torch.equal(miss, ref_miss)
+    assert bool((out[miss == 1] == 0).all())
+    assert _scaled_err(out, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_gather_kernels_reject_what_they_do_not_take(card):
+    ids = torch.zeros(4, dtype=torch.int32, device=card)
+    mask = torch.ones(2, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="2- or 4-byte"):
+        tg_ops.tiered_gather(torch.zeros(16, 8, device=card, dtype=torch.float64), ids, mask, group_size=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg_ops.tiered_gather(torch.zeros(8, 16, device=card).t(), ids, mask, group_size=8)
+    with pytest.raises(ValueError, match="group_mask"):
+        tg_ops.tiered_gather(torch.zeros(16, 8, device=card), ids, mask[:1], group_size=8)
+    table = torch.zeros(16, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tg_ops.tiered_gather_matmul(table.float(), torch.zeros(64, 32, device=card), ids, mask, group_size=8)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tg_ops.tiered_gather_matmul(table, torch.zeros(64, 30, device=card, dtype=torch.bfloat16), ids, mask,
+                                    group_size=8)
