@@ -8,17 +8,22 @@ Phases (any failure exits non-zero before the result line):
 1. build — print the card's name and power limit, compile the flash-attention,
    RG-LRU scan, decode-attention and tiered-gather kernels from
    ``src/repro_torch/kernels/*/csrc`` with nvcc (one nvcc per source, all
-   started together), print ptxas's register and spill lines.
+   started together), print when each is ready and ptxas's register, spill
+   and wgmma-serialisation lines for every kernel instantiation.
 2. kernel — each kernel against its plain PyTorch version on the card, at the
    shapes the served prefills give it and at a longer one:
-   flash attention in bf16 at Mixtral-8x22B widths (H=48, Hkv=8, hd=128) and
-   at RecurrentGemma-9B's (H=16, Hkv=1, hd=256); error ≤ 1e-2 per unit of
-   max(1, |output|) (bf16 output rounding). The RG-LRU scan in fp32 at
+   flash attention in bf16 at Mixtral-8x22B widths (H=48, Hkv=8, hd=128:
+   causal rows and one full-width row that is not causal and has a softcap,
+   so the unmasked tiles and the softcap kernel are held too) and at
+   RecurrentGemma-9B's (H=16, Hkv=1, hd=256); error ≤ 1e-2 per unit of
+   max(1, |output|) (bf16 output rounding); each row prints its TFLOP/s and
+   its share of the bound. The RG-LRU scan in fp32 at
    (B, S, W) = (2, 1024, 4096) and (1, 8192, 4096); error ≤ 1e-5 per unit of
    max(1, |s|). Times with CUDA events: kernel, plain version, and for
    attention ``F.scaled_dot_product_attention`` on the same function
-   (``is_causal``, or a boolean mask where the window cuts; the port never
-   calls it). No single PyTorch call computes the scan.
+   (``is_causal``, or a boolean mask where the window cuts; none for the
+   softcap row, which no single call computes; the port never calls it). No
+   single PyTorch call computes the scan.
    Then the four kernels that no served path reaches: dense decode attention
    (Mixtral widths at B=2 × 1040 and B=8 × 32768, RecurrentGemma widths
    rolling at B=2 × 2048), paged decode attention (page size 16, 8 slots
@@ -121,6 +126,15 @@ VOCAB, D_MODEL, D_FF, ROW_GROUP = 32768, 6144, 16384, 2048  # Mixtral's table, e
 H, HKV, HD = 48, 8, 128  # Mixtral-8x22B attention widths
 PROMPT, NEW_TOKENS, BATCH, LAYERS = 1024, 16, 2, 2
 RG_H, RG_HKV, RG_HD, RG_WINDOW, RG_WIDTH = 16, 1, 256, 2048, 4096  # RecurrentGemma-9B
+# flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
+FLASH_ROWS = (
+    ((H, HKV, HD), [(BATCH, PROMPT, 4096, True, None),
+                    (1, 8192, 4096, True, None),
+                    (2, 2048, None, True, None),
+                    (1, 2048, None, False, 50.0)]),  # every key tile unmasked, the softcap on
+    ((RG_H, RG_HKV, RG_HD), [(BATCH, PROMPT, RG_WINDOW, True, None),
+                             (1, 8192, RG_WINDOW, True, None)]),
+)
 
 
 def _gpu_line() -> str:
@@ -213,57 +227,59 @@ def _pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 def flash_phase(fa_ops, widths: tuple, shapes: list) -> list[dict]:
     """Kernel vs plain flash attention at (H, Hkv, hd) = ``widths`` for each
-    (B, S, window) of ``shapes`` (the served prefill first)."""
+    (B, S, window, causal, softcap) of ``shapes`` (the served prefill first)."""
     import torch
     import torch.nn.functional as F
 
     H, HKV, HD = widths
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = []
-    for B, S, window in shapes:
+    for B, S, window, causal, softcap in shapes:
+        opts = dict(causal=causal, window=window, softcap=softcap)
         q = torch.randn(B, S, H, HD, generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn(B, S, HKV, HD, generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn(B, S, HKV, HD, generator=gen, device="cuda").to(torch.bfloat16)
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        out = fa_ops.flash_attention(q, k, v, **opts)
         torch.cuda.synchronize()
-        ref = fa_ops.flash_attention_plain(q.float(), k.float(), v.float(), causal=True, window=window)
+        ref = fa_ops.flash_attention_plain(q.float(), k.float(), v.float(), **opts)
         diff = (out.float() - ref).abs()
         err = diff.max().item()
         scaled = (diff / ref.abs().clamp_min(1.0)).max().item()
         del ref, diff
         if not scaled <= KERNEL_TOL:
-            raise AssertionError(f"kernel vs plain at B={B} S={S} window={window}: max abs err {err}, "
+            raise AssertionError(f"kernel vs plain at B={B} S={S} {opts}: max abs err {err}, "
                                  f"{scaled} per unit of output magnitude")
         def kernel():
-            return fa_ops.flash_attention(q, k, v, causal=True, window=window)
+            return fa_ops.flash_attention(q, k, v, **opts)
 
         ms, eager_ms = _time_graph_ms(kernel), _time_ms(kernel, iters=20)
         qf, kf, vf = q.float(), k.float(), v.float()
-        plain_ms = _time_ms(lambda: fa_ops.flash_attention_plain(qf, kf, vf, causal=True, window=window),
-                            iters=3, warmup=1)
+        plain_ms = _time_ms(lambda: fa_ops.flash_attention_plain(qf, kf, vf, **opts), iters=3, warmup=1)
         del qf, kf, vf
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if window is None or window >= S:  # the window cuts nothing: plain causal attention
+        if softcap is not None:  # no single PyTorch call applies a logit softcap
+            library_ms = None
+        elif window is None or window >= S:  # the window cuts nothing: plain (causal) attention
             library_ms = _time_graph_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-        else:  # causal sliding window as a boolean mask, built outside the timed calls
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+        else:  # sliding window as a boolean mask, built outside the timed calls
             pos = torch.arange(S, device="cuda")
             rel = pos[:, None] - pos[None, :]
-            mask = (rel >= 0) & (rel < window)
+            mask = (rel < window) & (rel >= 0 if causal else True)
             library_ms = _time_graph_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=5, reps=2)
             del pos, rel, mask
         del qt, kt, vt
-        flops = 4 * B * H * HD * _pairs(S, S, True, window)
+        flops = 4 * B * H * HD * _pairs(S, S, causal, window)
         nbytes = 2 * (2 * B * S * H * HD + 2 * B * S * HKV * HD)  # q, o, k, v once each
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-        rows.append(dict(B=B, S=S, H=H, Hkv=HKV, hd=HD, window=window, max_abs_err=err, max_scaled_err=scaled,
-                         ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes"))
-        print(f"[kernel] flash hd={HD} H={H} Hkv={HKV} B={B} S={S} window={window}: max_abs_err={err:.3g} kernel {ms:.4f} ms "
-              f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, sdpa {library_ms} ms, bound {rows[-1]['bound_ms']:.4f} ms "
-              f"({rows[-1]['bound_by']})", flush=True)
+        rows.append(dict(B=B, S=S, H=H, Hkv=HKV, hd=HD, window=window, causal=causal, softcap=softcap,
+                         max_abs_err=err, max_scaled_err=scaled, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, tflops=flops / ms / 1e9, **_bound(flops, nbytes)))
+        r = rows[-1]
+        print(f"[kernel] flash hd={HD} H={H} Hkv={HKV} B={B} S={S} window={window} causal={causal} "
+              f"softcap={softcap}: max_abs_err={err:.3g} kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
+              f"{r['tflops']:.1f} TFLOP/s, {100 * r['bound_ms'] / ms:.1f}% of bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); plain {plain_ms:.4f} ms, sdpa {library_ms} ms", flush=True)
         del q, k, v, out
     torch.cuda.empty_cache()
     return rows
@@ -816,7 +832,7 @@ def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict
 
 def _print_ptxas(name: str, log: str) -> None:
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss", "setmaxnreg")):
             print(f"[build] {name} ptxas: {line.strip()}", flush=True)
 
 
@@ -851,12 +867,7 @@ def main() -> int:
             print(f"[build] {path.name} ready {time.perf_counter() - t0:.1f} s after the start", flush=True)
             _print_ptxas(name, log)
 
-    rows = flash_phase(fa_ops, (H, HKV, HD), [  # (B, S, window) — the served prefill first
-        (BATCH, PROMPT, 4096),
-        (1, 8192, 4096),
-        (2, 2048, None),
-    ])
-    rows_256 = flash_phase(fa_ops, (RG_H, RG_HKV, RG_HD), [(BATCH, PROMPT, RG_WINDOW), (1, 8192, RG_WINDOW)])
+    rows, rows_256 = [flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)
     decode_rows = decode_phase(da_ops)
     paged_rows = paged_phase(da_ops)

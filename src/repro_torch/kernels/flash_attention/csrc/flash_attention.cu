@@ -6,42 +6,61 @@
 // attention with causal and sliding-window masks, tanh softcap and q_offset,
 // skipping fully masked key tiles.
 //
-// What bounds it on an H100: at prefill lengths the (q, k) pair count makes
-// it compute-bound (4·hd FLOP per unmasked pair against 2·hd bytes per
-// row moved once), so the design keeps everything after the Q/K/V loads on
-// chip and on the tensor cores:
-//   * one thread block owns one (batch·head, 64-row q tile); its 4 warps own
-//     16 q rows each, held as mma.sync A fragments in registers for the
-//     whole key loop;
-//   * the block walks only the key tiles that the causal and window bounds
-//     admit, computed up front from the tile's first and last q position
-//     (the TPU grid instead visits every tile and skips with pl.when);
-//   * S = Q·Kᵀ and O += P·V run on mma.sync m16n8k16 bf16 → fp32; the S
-//     accumulator's register layout is reused directly as P's A fragment;
-//   * running max and denominator stay in fp32 registers (one row pair per
-//     thread, reduced across the 4 threads of a quad with shuffles);
-//   * K/V tiles are staged through padded shared memory (conflict-free
-//     fragment reads); GQA maps q head h to kv head h / G, so a K/V tile
-//     is read from global memory once per q tile of each head;
-//   * ragged Sq/Sk are masked in-kernel (zero-filled rows, predicated
-//     stores), so the wrapper needs no padding copies;
-//   * Q, K, V, O are read and written in the model's (B, S, H, hd) layout.
-// Simple by design: single-buffered synchronous loads, no TMA, no wgmma.
+// What bounds it on an H100: operations. At prefill lengths each (q, k)
+// pair costs 4·hd FLOP while each row of Q, K, V and O crosses device memory
+// once (2·hd bytes): a 1024-token causal prefill at Mixtral's widths does
+// ~440 FLOP a byte, above the card's ~295 FLOP-per-byte ridge. The kernel
+// must keep the tensor cores fed: only wgmma reaches their full rate, the
+// loads must never stall them, and the softmax between the two products
+// must not leave them idle.
 //
-// head_dim 256 (RecurrentGemma's local MQA attention) takes a second layout
-// of the same kernel. Its fp32 accumulator alone is 16×256 per warp, 128
-// registers a thread, and the S tile 32 more; holding Q's fragments in
-// registers as well (64 more) would pass the 255-register limit and spill.
-// So at hd 256 the block stages its Q tile once in shared memory and each
-// warp reads Q's A fragment per k16 chunk inside the S product (4 shared
-// loads per chunk, conflict-free for the same padded row stride as K).
-// Q, K and V tiles then need (64 + 2·64)·264·2 = 101,376 bytes, over the
-// 48 KB static limit, so that layout uses dynamic shared memory, opted in
-// once through cudaFuncSetAttribute; two blocks still fit one SM. The
-// alternative, BK = 32 with Q kept in registers, would fit the shared
-// memory statically but leaves 64 + 128 + 16 registers of live state, too
-// close to the limit to stay free of spills. hd 64 and 128 keep Q in
-// registers and static shared memory, as before.
+// The design:
+//   * one block owns one (batch·head, 128-row q tile) and has three
+//     warpgroups: two consumers of 64 q rows each and a producer.
+//     setmaxnreg moves registers from the producer (24 a thread) to the
+//     consumers (240), which hold O (hd/2 fp32 a thread) and S in registers;
+//   * one producer thread loads through TMA: Q once, then K and V tiles into
+//     a two-stage ring in shared memory. K and V complete on mbarriers of
+//     their own, and the consumers release K as soon as S is done and V as
+//     soon as P·V is done, so the next K is in flight before this V retires;
+//   * tensor maps are 4-D over the model's (B, S, H, hd) layout, i.e.
+//     (hd, heads, S, B), built on the host in the C entry with
+//     cuTensorMapEncodeTiled (reached through the runtime's driver entry
+//     point) and passed as __grid_constant__ parameters. Boxes are 64 bf16
+//     wide (128 bytes) with the 128-byte swizzle that wgmma reads; hd 128
+//     takes 2 boxes a tile, hd 256 four. TMA's out-of-bounds zero fill
+//     covers the ragged ends of Sq and Sk, so there are no padding copies;
+//   * S = Q·Kᵀ is wgmma with both operands in shared memory (K-major); P
+//     is S's accumulator rounded to bf16 in registers, whose layout is
+//     wgmma's A-fragment layout, and O += P·V reads V from shared memory
+//     through the descriptor's transpose bit (V is never transposed);
+//   * FlashAttention-3's pipeline inside each consumer: iteration i issues
+//     S_i and then P_{i-1}·V_{i-1}, and runs tile i's softmax while the
+//     second product is on the tensor cores (S, P and O all stay in
+//     registers: 0 spills at every head dim). At hd 64/128 the two consumers
+//     also take turns issuing their products (ping-pong on named barriers),
+//     so one's softmax overlaps the other's products; at hd 256 the turns
+//     measured 1-5% slower and are off;
+//   * the block walks only the key tiles the causal and window bounds admit
+//     (computed up front from the tile's first and last q position); within
+//     them only tiles that straddle the causal diagonal, the window edge or
+//     the end of Sk run the masked softmax (each row's admitted keys as one
+//     [lo, hi] range), interior tiles carry no mask code. The softcap is a
+//     template parameter, so the plain kernels carry no softcap code either;
+//   * softmax runs in the log2 domain (scale prescaled by log2 e, ex2.approx);
+//     the softcap's tanh is 1 - 2/(1 + e^2y) from ex2.approx, accurate to
+//     ~1e-6 absolute where tanh.approx.f32 would cost up to 2^-11 relative;
+//   * q tiles launch heaviest first (reversed tile index, tile index the
+//     slow grid axis), so the causal tail does not sit alone on a few SMs.
+// Tiles: BQ 128 always; BK 128 at hd 64/128 (Q 32 KB + 2 × 64 KB of K/V at
+// hd 128), BK 64 at hd 256 (Q 64 KB + 2 × 64 KB); one block per SM.
+// Not here yet: a persistent tile scheduler and a TMA store of O (O is
+// stored from registers as bf16 pairs).
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <limits>
 
 #include "sm90_common.cuh"
 
@@ -49,243 +68,648 @@ namespace {
 
 using namespace sm90;
 
-constexpr int BQ = 64;       // q rows per block
-constexpr int BK = 64;       // keys per tile
-constexpr int NWARPS = BQ / 16;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1.0e30f;
-
-// Q stays in registers up to hd 128; at hd 256 it is staged in shared memory
-template <int HD>
-__host__ __device__ constexpr bool q_in_smem() { return HD > 128; }
+constexpr int BQ = 128;                    // q rows per block (two consumer warpgroups)
+constexpr int NTHREADS = 3 * 128;          // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr int STAGES = 2;                  // K/V ring depth (3 measured no faster at hd 128)
+constexpr int BOX = 64;                    // bf16 columns per TMA box (128 bytes, the swizzle width)
+constexpr float NEG_INF = -std::numeric_limits<float>::infinity();
 
 template <int HD>
-__host__ __device__ constexpr int dyn_smem_bytes() {
-  return q_in_smem<HD>() ? (BQ + 2 * BK) * (HD + 8) * static_cast<int>(sizeof(__nv_bfloat16)) : 0;
+__host__ __device__ constexpr int block_k() { return HD > 128 ? 64 : 128; }
+
+template <int HD>
+struct Smem {
+  static constexpr int BK = block_k<HD>();
+  static constexpr int NBOX = HD / BOX;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;          // one K or one V tile
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES);  // mbarriers
+  static constexpr int ALLOC = BYTES + 1024;            // room to align the base to 1024
+};
+
+// ---- PTX wrappers: mbarriers, TMA, wgmma -----------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map -> shared memory, completion counted on bar
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout type 1
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma m64nNk16, fp32 accumulators, bf16 operands. _ss: A and B from shared
+// memory, both K-major; _ss_zero overwrites D (scale-d false) and takes it as
+// output only, so the previous tile's values are not kept alive for it. _rs:
+// A from registers (the m16n8k16 A-fragment layout of each warp's 16 rows),
+// B from shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_zero(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_zero(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]),
+        "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]),
+        "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]),
+        "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- the kernel ------------------------------------------------------------
+
+struct Params {
+  int Sq, Sk, H, Hkv, causal, window, q_offset;
+  float scale_log2;        // hd^-0.5 · log2(e)
+  float cap_scale;         // hd^-0.5 / softcap (softcap kernels only)
+  float cap_log2;          // softcap · log2(e)
+};
+
+// Named barriers 1 and 2 (256 threads: both consumers) make the consumers
+// take turns at the tensor cores: consumer w waits on barrier 1 + w before
+// issuing its products and lets the other go once it has issued them.
+// ON = false turns both into no-ops (hd 256, where the turns measured slower).
+template <bool ON>
+__device__ __forceinline__ void wait_turn(int wg) {
+  if constexpr (ON) {
+    if (wg == 0)
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    else
+      asm volatile("bar.sync 2, 256;\n" ::: "memory");
+  }
+}
+template <bool ON>
+__device__ __forceinline__ void pass_turn(int wg) {
+  if constexpr (ON) {
+    if (wg == 0)
+      asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+    else
+      asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+  }
+}
+
+// S = Q·Kᵀ for one warpgroup's 64 rows: hd/16 wgmmas, both operands K-major
+// in 128-byte-swizzled boxes of 64 columns (8-row groups 1024 bytes apart)
+template <int HD, int BK>
+__device__ __forceinline__ void issue_s(float (&sacc)[BK / 2], uint32_t q_base, uint32_t k_base) {
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) {
+    const uint32_t off = (kc % 4) * 32;  // k16 step inside a 128-byte swizzle row
+    const uint64_t da = desc_sw128(q_base + (kc / 4) * BQ * 128 + off, 16, 1024);
+    const uint64_t db = desc_sw128(k_base + (kc / 4) * BK * 128 + off, 16, 1024);
+    if (kc == 0)
+      wgmma_ss_zero(sacc, da, db);
+    else
+      wgmma_ss(sacc, da, db);
+  }
+}
+
+// O += P·V: V MN-major (transposed), boxes of 64 columns BK·128 bytes apart,
+// 16 keys (two 8-row groups, 2048 bytes) a k-step
+template <int HD, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2], uint32_t (&pa)[BK / 16][4], uint32_t v_base) {
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) wgmma_rs(acc, pa[kc], desc_sw128(v_base + kc * 2048, BK * 128, 1024));
+}
+
+// One consumer thread's online-softmax state for its rows r and r + 8
+struct RowState {
+  float m0, m1, l0, l1;  // running max (log2 domain) and partial sums
+  float alpha0, alpha1;  // rescale of O owed for the last tile's new max
+  int lo0, hi0, lo1, hi1;  // admitted keys of each row: lo <= k <= hi
+};
+
+// Tile softmax: leaves 2^(x·c - m) in sacc, where x is the score (CAP: the
+// softcapped score in log2 units, c = 1; else the raw score, c = scale·log2
+// e); updates the running max and sums. EDGE tiles mask keys outside each
+// row's [lo, hi]; interior tiles carry no mask code at all.
+template <int BK, bool EDGE, bool CAP>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[BK / 2], RowState& st, const Params& p, int k0,
+                                             int t4) {
+  const float c = CAP ? 1.f : p.scale_log2;
+  // row bounds relative to this thread's first column in the tile
+  const int off = k0 + 2 * t4;
+  const int a0 = st.lo0 - off, b0 = st.hi0 - off, a1 = st.lo1 - off, b1 = st.hi1 - off;
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sacc[4 * j + e];
+      if constexpr (CAP) {
+        const float y = ex2(x * p.cap_scale * 2.8853900817779268f);  // e^(2·s·scale/cap)
+        x = p.cap_log2 * (1.f - __fdividef(2.f, 1.f + y));          // cap·tanh(s·scale/cap)·log2 e
+      }
+      if constexpr (EDGE) {
+        const int col = 8 * j + (e & 1);
+        const bool ok = e < 2 ? (col >= a0 && col <= b0) : (col >= a1 && col <= b1);
+        x = ok ? x : NEG_INF;
+      }
+      sacc[4 * j + e] = x;
+    }
+    mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  const float mn0 = fmaxf(st.m0, mx0 * c), mn1 = fmaxf(st.m1, mx1 * c);
+  // a row with no admitted key yet keeps m = -inf: exponentiate against 0
+  const float base0 = mn0 == NEG_INF ? 0.f : mn0, base1 = mn1 == NEG_INF ? 0.f : mn1;
+  st.alpha0 = ex2(st.m0 - base0);
+  st.alpha1 = ex2(st.m1 - base1);
+  st.m0 = mn0;
+  st.m1 = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    sacc[4 * j] = ex2(fmaf(sacc[4 * j], c, -base0));
+    sacc[4 * j + 1] = ex2(fmaf(sacc[4 * j + 1], c, -base0));
+    sacc[4 * j + 2] = ex2(fmaf(sacc[4 * j + 2], c, -base1));
+    sacc[4 * j + 3] = ex2(fmaf(sacc[4 * j + 3], c, -base1));
+    ps0 += sacc[4 * j] + sacc[4 * j + 1];
+    ps1 += sacc[4 * j + 2] + sacc[4 * j + 3];
+  }
+  st.l0 = st.l0 * st.alpha0 + ps0;
+  st.l1 = st.l1 * st.alpha1 + ps1;
+}
+
+// P as bf16 A fragments: S's accumulator layout is wgmma's A-fragment layout
+template <int BK>
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[BK / 16][4], const float (&sacc)[BK / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kc][r] = pack_bf16(sacc[8 * kc + 2 * r], sacc[8 * kc + 2 * r + 1]);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 int Sq, int Sk, int H, int Hkv, int causal, int window, float softcap,
-                 int q_offset, float scale) {
-  constexpr int LD = HD + 8;  // padded smem row (bf16 elements)
-  constexpr int KCH = HD / 16;  // k16 chunks of the head dim
-  constexpr int DT = HD / 8;    // n8 tiles of the head dim
-  constexpr int NT = BK / 8;    // n8 tiles of a key tile
-  constexpr bool QS = q_in_smem<HD>();
-  __nv_bfloat16 *sQ = nullptr, *sK, *sV;
-  if constexpr (QS) {
-    extern __shared__ __align__(16) __nv_bfloat16 dyn[];
-    sQ = dyn;
-    sK = dyn + BQ * LD;
-    sV = sK + BK * LD;
-  } else {
-    __shared__ __align__(16) __nv_bfloat16 stK[BK * LD];
-    __shared__ __align__(16) __nv_bfloat16 stV[BK * LD];
-    sK = stK;
-    sV = stV;
-  }
-
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-
-  const size_t q_row = static_cast<size_t>(H) * HD;    // stride between q positions
-  const size_t kv_row = static_cast<size_t>(Hkv) * HD;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Sq * q_row + static_cast<size_t>(h) * HD;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Sk * kv_row + static_cast<size_t>(kvh) * HD;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Sk * kv_row + static_cast<size_t>(kvh) * HD;
-  __nv_bfloat16* ob = o + static_cast<size_t>(b) * Sq * q_row + static_cast<size_t>(h) * HD;
-
-  // this thread's two q rows (local index within the block) and positions
-  const int r0 = qt * BQ + warp * 16 + g, r1 = r0 + 8;
-  const int qpos0 = r0 + q_offset, qpos1 = r1 + q_offset;
-
-  // Q fragments for the whole key loop (rows past Sq read as zero): in
-  // registers, or (hd 256) the block's Q tile in shared memory; the first
-  // __syncthreads of the key loop publishes it
-  uint32_t qa[QS ? 1 : KCH][4];
-  if constexpr (QS) {
-    for (int c = threadIdx.x; c < BQ * (HD / 8); c += NTHREADS) {
-      const int row = c / (HD / 8), col = (c % (HD / 8)) * 8;
-      const int qr = qt * BQ + row;
-      uint4 q4 = make_uint4(0, 0, 0, 0);
-      if (qr < Sq) q4 = *reinterpret_cast<const uint4*>(qb + qr * q_row + col);
-      *reinterpret_cast<uint4*>(sQ + row * LD + col) = q4;
-    }
-  } else {
+__device__ __forceinline__ void rescale(float (&acc)[HD / 2], const RowState& st) {
 #pragma unroll
-    for (int kc = 0; kc < KCH; ++kc) {
-      const int c = kc * 16 + t4 * 2;
-      const uint32_t z = 0;
-      qa[kc][0] = r0 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_row + c) : z;
-      qa[kc][1] = r1 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_row + c) : z;
-      qa[kc][2] = r0 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_row + c + 8) : z;
-      qa[kc][3] = r1 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_row + c + 8) : z;
-    }
+  for (int j = 0; j < HD / 8; ++j) {
+    acc[4 * j] *= st.alpha0;
+    acc[4 * j + 1] *= st.alpha0;
+    acc[4 * j + 2] *= st.alpha1;
+    acc[4 * j + 3] *= st.alpha1;
   }
+}
 
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                 const Params p) {
+  using L = Smem<HD>;
+  constexpr int BK = L::BK;
+  constexpr int NBOX = L::NBOX;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::Q_OFF, sK = base + L::K_OFF, sV = base + L::V_OFF;
+  // barriers: q_full, k_full[STAGES], v_full[STAGES], k_empty[STAGES], v_empty[STAGES]
+  const uint32_t bar_q = base + L::BAR_OFF;
+  auto k_full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
+  auto k_empty = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bar_q + 8u * (1 + 3 * STAGES + s); };
 
-  // key range the block's q rows can attend to, fixed up front
-  const int q_first = qt * BQ + q_offset;
-  const int q_last = min(qt * BQ + BQ, Sq) - 1 + q_offset;
-  int k_lo = 0, k_hi = Sk - 1;
-  if (window > 0) k_lo = max(0, q_first - window + 1);
-  if (causal) k_hi = min(k_hi, q_last);
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest q tiles first
+  const int b = bh / p.H, h = bh % p.H;
+  const int kvh = h / (p.H / p.Hkv);
+
+  // key tiles the block's q rows can attend to, fixed up front
+  const int q_first = qt * BQ + p.q_offset;
+  const int q_last = min(qt * BQ + BQ, p.Sq) - 1 + p.q_offset;
+  int k_lo = 0, k_hi = p.Sk - 1;
+  if (p.window > 0) k_lo = max(0, q_first - p.window + 1);
+  if (p.causal) k_hi = min(k_hi, q_last);
   const int t_lo = k_lo / BK;
-  const int t_hi = k_hi >= k_lo ? k_hi / BK : t_lo - 1;
+  const int n_tiles = k_hi >= k_lo ? k_hi / BK - t_lo + 1 : 0;
 
-  for (int tile = t_lo; tile <= t_hi; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();  // previous tile's readers are done
-    for (int c = threadIdx.x; c < BK * (HD / 8); c += NTHREADS) {
-      const int row = c / (HD / 8), col = (c % (HD / 8)) * 8;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (k0 + row < Sk) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (k0 + row) * kv_row + col);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (k0 + row) * kv_row + col);
-      }
-      *reinterpret_cast<uint4*>(sK + row * LD + col) = kv4;
-      *reinterpret_cast<uint4*>(sV + row * LD + col) = vv4;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);  // lane 0 of each consumer warp
+      mbar_init(v_empty(s), 8);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q Kᵀ for this warp's 16 rows × BK keys
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KCH; ++kc) {
-      if constexpr (QS) {
-        const __nv_bfloat16* qr = sQ + (warp * 16 + g) * LD + kc * 16 + t4 * 2;
-        const uint32_t qf[4] = {*reinterpret_cast<const uint32_t*>(qr),
-                                *reinterpret_cast<const uint32_t*>(qr + 8 * LD),
-                                *reinterpret_cast<const uint32_t*>(qr + 8),
-                                *reinterpret_cast<const uint32_t*>(qr + 8 * LD + 8)};
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const __nv_bfloat16* kr = sK + (n * 8 + g) * LD + kc * 16 + t4 * 2;
-          mma_16x8x16(s[n], qf, *reinterpret_cast<const uint32_t*>(kr),
-                      *reinterpret_cast<const uint32_t*>(kr + 8));
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const __nv_bfloat16* kr = sK + (n * 8 + g) * LD + kc * 16 + t4 * 2;
-          mma_16x8x16(s[n], qa[kc], *reinterpret_cast<const uint32_t*>(kr),
-                      *reinterpret_cast<const uint32_t*>(kr + 8));
-        }
+  // warp-uniform by construction (a shuffle from lane 0), so the compiler
+  // keeps what derives from it (descriptors, addresses) in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+      for (int c = 0; c < NBOX; ++c) tma_load_4d(sQ + c * BQ * 128, &tm_q, bar_q, c * BOX, h, qt * BQ, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES, k0 = (t_lo + i) * BK;
+        const uint32_t parity = ((i / STAGES) - 1) & 1;
+        if (i >= STAGES) mbar_wait(k_empty(s), parity);
+        mbar_expect_tx(k_full(s), L::KV_BYTES);
+        for (int c = 0; c < NBOX; ++c)
+          tma_load_4d(sK + s * L::KV_BYTES + c * BK * 128, &tm_k, k_full(s), c * BOX, kvh, k0, b);
+        if (i >= STAGES) mbar_wait(v_empty(s), parity);
+        mbar_expect_tx(v_full(s), L::KV_BYTES);
+        for (int c = 0; c < NBOX; ++c)
+          tma_load_4d(sV + s * L::KV_BYTES + c * BK * 128, &tm_v, v_full(s), c * BOX, kvh, k0, b);
       }
     }
+  } else {
+    // ---- consumers: 64 q rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t4 = lane % 4;
+    const int row0 = qt * BQ + wg * 64 + warp * 16 + lane / 4;  // this thread's rows row0, row0 + 8
+    const int w_first = qt * BQ + wg * 64 + p.q_offset;          // this warpgroup's q positions
+    const int w_last = min(qt * BQ + wg * 64 + 64, p.Sq) - 1 + p.q_offset;
+    const uint32_t q_base = sQ + wg * 64 * 128;
+    // only tiles on the causal diagonal, the window edge or the end of Sk are masked
+    auto edge = [&](int k0) {
+      return k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > w_first) ||
+             (p.window > 0 && k0 <= w_last - p.window);
+    };
+    auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
 
-    // scale, softcap, mask; row maxima over this tile
-    float tmax0 = NEG_INF, tmax1 = NEG_INF;
+    float acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + n * 8 + t4 * 2 + (e & 1);
-        const int qpos = e < 2 ? qpos0 : qpos1;
-        bool ok = kpos < Sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && (qpos - kpos < window);
-        float x = s[n][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        s[n][e] = ok ? x : NEG_INF;
-      }
-      tmax0 = fmaxf(tmax0, fmaxf(s[n][0], s[n][1]));
-      tmax1 = fmaxf(tmax1, fmaxf(s[n][2], s[n][3]));
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    RowState st{NEG_INF, NEG_INF, 0.f, 0.f, 1.f, 1.f, 0, 0, 0, 0};
+    {
+      const int q0 = row0 + p.q_offset, q1 = q0 + 8;
+      st.lo0 = p.window > 0 ? q0 - p.window + 1 : 0;
+      st.lo1 = p.window > 0 ? q1 - p.window + 1 : 0;
+      st.hi0 = p.causal ? min(q0, p.Sk - 1) : p.Sk - 1;
+      st.hi1 = p.causal ? min(q1, p.Sk - 1) : p.Sk - 1;
     }
+    auto softmax = [&](float (&sacc)[BK / 2], int k0) {
+      if (edge(k0))
+        softmax_tile<BK, true, CAP>(sacc, st, p, k0, t4);
+      else
+        softmax_tile<BK, false, CAP>(sacc, st, p, k0, t4);
+    };
+    float sacc[BK / 2];
+    uint32_t pa[BK / 16][4];
+
+    // Software pipeline, FlashAttention-3's: iteration i issues S_i, then
+    // P_{i-1}·V_{i-1}, and runs tile i's softmax while the second product is
+    // on the tensor cores. At hd <= 128 the two consumers also take turns
+    // issuing (ping-pong), so one's softmax overlaps the other's products;
+    // each issues n_tiles times, consumer 1 passes first and skips its last
+    // pass, so every wait on a turn is matched by exactly one pass.
+    constexpr bool PP = HD <= 128;
+    if (n_tiles > 0) {
+      if (wg == 1) pass_turn<PP>(wg);  // consumer 0 issues first
+      mbar_wait(bar_q, 0);
+      mbar_wait(k_full(0), 0);
+      wait_turn<PP>(wg);
+      wgmma_fence();
+      issue_s<HD, BK>(sacc, q_base, sK);
+      wgmma_commit();
+      if (wg == 0 || n_tiles > 1) pass_turn<PP>(wg);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      release(k_empty(0));
+      softmax(sacc, t_lo * BK);
+      to_bf16<BK>(pa, sacc);
+    }
+    for (int i = 1; i < n_tiles; ++i) {
+      const int s = i % STAGES, sp = (i - 1) % STAGES, k0 = (t_lo + i) * BK;
+      mbar_wait(k_full(s), (i / STAGES) & 1);
+      wait_turn<PP>(wg);
+      wgmma_fence();
+      issue_s<HD, BK>(sacc, q_base, sK + s * L::KV_BYTES);
+      wgmma_commit();
+      rescale<HD>(acc, st);  // O to tile i-1's max, while S_i runs
+      mbar_wait(v_full(sp), ((i - 1) / STAGES) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv<HD, BK>(acc, pa, sV + sp * L::KV_BYTES);
+      wgmma_commit();
+      if (wg == 0 || i < n_tiles - 1) pass_turn<PP>(wg);
+      wgmma_wait<1>();  // S_i done
+      fence_regs(sacc);
+      release(k_empty(s));
+      softmax(sacc, k0);
+      wgmma_wait<0>();  // P_{i-1}·V_{i-1} done
+      fence_regs(acc);
+      fence_regs(pa);  // the product read pa until here
+      release(v_empty(sp));
+      to_bf16<BK>(pa, sacc);
+    }
+    if (n_tiles > 0) {
+      const int sp = (n_tiles - 1) % STAGES;
+      rescale<HD>(acc, st);
+      mbar_wait(v_full(sp), ((n_tiles - 1) / STAGES) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv<HD, BK>(acc, pa, sV + sp * L::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(v_empty(sp));
+    }
+
+    // finish: full row sums across the quad, normalise, store bf16 pairs
+    float l0 = st.l0, l1 = st.l1;
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, off));
-      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, off));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float mn0 = fmaxf(m0, tmax0), mn1 = fmaxf(m1, tmax1);
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    // P = exp(S - m), masked lanes exactly 0; per-thread partial row sums
-    float ps0 = 0.f, ps1 = 0.f;
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    const size_t q_row = static_cast<size_t>(p.H) * HD;
+    __nv_bfloat16* ob = o + (static_cast<size_t>(b) * p.Sq) * q_row + static_cast<size_t>(h) * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][0] > 0.5f * NEG_INF ? expf(s[n][0] - mn0) : 0.f;
-      s[n][1] = s[n][1] > 0.5f * NEG_INF ? expf(s[n][1] - mn0) : 0.f;
-      s[n][2] = s[n][2] > 0.5f * NEG_INF ? expf(s[n][2] - mn1) : 0.f;
-      s[n][3] = s[n][3] > 0.5f * NEG_INF ? expf(s[n][3] - mn1) : 0.f;
-      ps0 += s[n][0] + s[n][1];
-      ps1 += s[n][2] + s[n][3];
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      if (row0 < p.Sq)
+        *reinterpret_cast<uint32_t*>(ob + row0 * q_row + c) = pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (row0 + 8 < p.Sq)
+        *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * q_row + c) =
+            pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
-    l0 = l0 * alpha0 + ps0;
-    l1 = l1 * alpha1 + ps1;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      acc[d][0] *= alpha0;
-      acc[d][1] *= alpha0;
-      acc[d][2] *= alpha1;
-      acc[d][3] *= alpha1;
-    }
-
-    // O += P V: S's accumulator layout is P's A-fragment layout
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const __nv_bfloat16* v0 = sV + (kc * 16 + t4 * 2) * LD + g;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        const __nv_bfloat16* vr = v0 + d * 8;
-        mma_16x8x16(acc[d], pa, pack_raw(vr[0], vr[LD]), pack_raw(vr[8 * LD], vr[9 * LD]));
-      }
-    }
-  }
-
-  // finish: full row sums across the quad, normalize, store bf16 pairs
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    const int c = d * 8 + t4 * 2;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_row + c) = pack_bf16(acc[d][0] * inv0, acc[d][1] * inv0);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_row + c) = pack_bf16(acc[d][2] * inv1, acc[d][3] * inv1);
   }
 }
 
-template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int H, int Hkv, int causal, int window, float softcap, int q_offset, float scale,
-                   cudaStream_t stream) {
-  constexpr int smem = dyn_smem_bytes<HD>();
-  if constexpr (smem > 48 * 1024) {
-    static cudaError_t opted = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (opted != cudaSuccess) return opted;
-  }
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, Hkv,
-      causal, window, softcap, q_offset, scale);
+// ---- host side ---------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q) != cudaSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) != cudaSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// (B, S, heads, hd) bf16 as a 4-D map over (hd, heads, S, B), box (64, 1, rows, 1)
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2, static_cast<cuuint64_t>(heads) * hd * 2,
+                                 static_cast<cuuint64_t>(S) * heads * hd * 2};
+  const cuuint32_t box[4] = {BOX, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                     elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, bool CAP>
+cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o, dim3 grid,
+                   const Params& p, cudaStream_t stream) {
+  constexpr int smem = Smem<HD>::ALLOC;
+  static cudaError_t opted =
+      cudaFuncSetAttribute(flash_fwd_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opted != cudaSuccess) return opted;
+  flash_fwd_kernel<HD, CAP><<<grid, NTHREADS, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), p);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
+                   int Hkv, int causal, int window, float softcap, int q_offset, float scale,
+                   cudaStream_t stream) {
+  if (encode_fn() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, B, Sq, H, HD, BQ) || !make_map(&mk, k, B, Sk, Hkv, HD, block_k<HD>()) ||
+      !make_map(&mv, v, B, Sk, Hkv, HD, block_k<HD>()))
+    return cudaErrorInvalidValue;
+  constexpr float LOG2E = 1.4426950408889634f;
+  const Params p{Sq, Sk, H, Hkv, causal, window, q_offset, scale * LOG2E,
+                 softcap > 0.f ? scale / softcap : 0.f, softcap * LOG2E};
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  return softcap > 0.f ? launch<HD, true>(mq, mk, mv, o, grid, p, stream)
+                       : launch<HD, false>(mq, mk, mv, o, grid, p, stream);
 }
 
 }  // namespace

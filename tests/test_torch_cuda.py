@@ -28,6 +28,15 @@ CASES = [
     (2, 200, 200, 16, 1, 256, True, 64, None, 0),
     (1, 70, 150, 16, 1, 256, True, None, 20.0, 80),
     (1, 130, 130, 4, 2, 256, False, None, None, 0),
+    # the tile edges of the wgmma kernel (BQ 128; BK 128 at hd 64/128, 64 at hd 256)
+    (2, 1, 300, 8, 2, 128, True, None, None, 299),  # Sq = 1
+    (1, 129, 129, 8, 2, 128, True, None, None, 0),  # one row in the second q tile
+    (1, 100, 257, 8, 2, 128, True, None, None, 157),  # Sk = 257, q_offset = Sk - Sq
+    (1, 256, 256, 4, 2, 128, True, 40, None, 0),  # window < BK
+    (1, 300, 300, 4, 2, 128, True, 150, None, 0),  # window straddling two key tiles
+    (2, 256, 256, 48, 8, 128, True, None, None, 0),  # Mixtral's G = 6
+    (1, 200, 333, 4, 2, 64, False, None, 30.0, 0),  # hd 64, not causal, softcap
+    (1, 300, 300, 16, 1, 256, True, 100, 25.0, 0),  # hd 256, window and softcap
 ]
 
 
@@ -54,6 +63,22 @@ def test_kernel_matches_plain_on_card(card, case):
                                        window=window, softcap=softcap, q_offset=q_offset)
     # bf16 rounding is relative (8 significant bits): 1e-2 per unit of
     # max(1, |output|), i.e. 1e-2 absolute at unit-scale values
+    assert ((out.float() - ref).abs() / ref.abs().clamp_min(1.0)).max().item() <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_kernel_rows_with_no_admitted_key_are_zero(card, hd):
+    """Causal window 64 over 100 keys: q rows 163..199 see no key and must
+    be exactly 0, as in flash_attention_plain; the rest match it."""
+    rs = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rs.standard_normal(shape, dtype=np.float32)).to(card, torch.bfloat16)
+               for shape in ((1, 200, 4, hd), (1, 100, 2, hd), (1, 100, 2, hd)))
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=64)
+    torch.cuda.synchronize()
+    ref = fa_ops.flash_attention_plain(q.float(), k.float(), v.float(), causal=True, window=64)
+    assert (ref[:, 163:] == 0).all()
+    assert (out[:, 163:] == 0).all()
     assert ((out.float() - ref).abs() / ref.abs().clamp_min(1.0)).max().item() <= 1e-2
 
 

@@ -1,14 +1,16 @@
 """The PyTorch port's serving slice end to end against the JAX reference, on
-reduced Mixtral and reduced RecurrentGemma at float32 under the strict
-residency policy: the port cold-starts an artifact the reference wrote and
-produces the same greedy tokens, the same LoadEvent key/byte sequence and
-the same faulted units (none for RecurrentGemma, whose tier-1 is empty); an
-artifact the port builds from the same weights equals the reference's byte
-for byte."""
+reduced Mixtral and reduced RecurrentGemma at float32: under the strict and
+full residency policies the port cold-starts an artifact the reference wrote
+and produces the same greedy tokens, the same LoadEvent key/byte/source
+sequence and the same faulted units (none for RecurrentGemma, whose tier-1
+is empty); the stats policy, which needs the reference's prefetcher, is
+refused; an artifact the port builds from the same weights equals the
+reference's byte for byte."""
 
 import json
 import os
 import shutil
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -64,12 +66,20 @@ def _events(stats):
     return [(e.key, e.nbytes, e.source, e.phase) for e in stats.events]
 
 
+def _loads(stats):
+    return [(e.key, e.nbytes, e.source) for e in stats.events]
+
+
+@pytest.mark.parametrize("policy", ["strict", "full"])
 @pytest.mark.parametrize("B,S,steps,seed", [(2, 8, 6, 7), (1, 24, 12, 3)])
-def test_port_serves_reference_artifact_identically(reference, B, S, steps, seed):
+def test_port_serves_reference_artifact_identically(reference, B, S, steps, seed, policy):
+    """The reference runs each policy as it ships, prefetcher included
+    (full turns it on); the port, which has none, must load the same units
+    from the same sources."""
     ref_model, ref_result, _, outdir = reference
     tokens = np.random.default_rng(seed).integers(0, ref_model.cfg.vocab_size, (B, S))
 
-    ref_server = ref_cold_start(ref_model, outdir, ref_result, mode="after2", residency="strict",
+    ref_server = ref_cold_start(ref_model, outdir, ref_result, mode="after2", residency=policy,
                                 compile_warm_set=False)
     ref_out, ref_stats = RefEngine(ref_server, max_seq=S + steps + 4).generate(
         jnp.asarray(tokens, jnp.int32), steps)
@@ -77,13 +87,14 @@ def test_port_serves_reference_artifact_identically(reference, B, S, steps, seed
 
     model, result = _port_model()
     launches = fa_ops.flash_attention.launches
-    with cold_start(model, outdir, result, residency="strict", warm_shapes=((B, S),),
+    with cold_start(model, outdir, result, residency=policy, warm_shapes=((B, S),),
                     device="cpu") as server:
         assert server.report.bytes_read == ref_server.report.bytes_read
         out, stats = GenerationEngine(server, max_seq=S + steps + 4).generate(torch.from_numpy(tokens), steps)
         tiered, ref_tiered = server.tiered, ref_server.tiered
 
         np.testing.assert_array_equal(out, ref_out)
+        assert Counter(_loads(tiered.stats)) == Counter(_loads(ref_tiered.stats))
         assert _events(tiered.stats) == _events(ref_tiered.stats)
         assert tiered.resident_keys == ref_tiered.resident_keys
         assert stats.faulted_units == ref_stats.faulted_units > 0
@@ -134,6 +145,8 @@ def test_cold_start_rejects_unported_modes(reference):
     model, result = _port_model()
     with pytest.raises(ValueError, match="not ported"):
         cold_start(model, outdir, result, mode="before", device="cpu")
+    with pytest.raises(ValueError, match="'stats' needs the prefetcher, which is not ported"):
+        cold_start(model, outdir, result, residency="stats", device="cpu")
     with pytest.raises(ValueError, match="unknown residency"):
         cold_start(model, outdir, result, residency="bogus", device="cpu")
 
