@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the result line):
    RG-LRU scan, decode-attention and tiered-gather kernels from
    ``src/repro_torch/kernels/*/csrc`` with nvcc (one nvcc per source, all
    started together), print when each is ready and ptxas's register, spill
-   and wgmma-serialisation lines for every kernel instantiation.
+   and wgmma-serialisation lines for every kernel instantiation, and the
+   decode kernel's resident blocks per cluster size (its split plan's input).
 2. kernel — each kernel against its plain PyTorch version on the card, at the
    shapes the served prefills give it and at a longer one:
    flash attention in bf16 at Mixtral-8x22B widths (H=48, Hkv=8, hd=128:
@@ -18,15 +19,18 @@ Phases (any failure exits non-zero before the result line):
    RecurrentGemma-9B's (H=16, Hkv=1, hd=256); error ≤ 1e-2 per unit of
    max(1, |output|) (bf16 output rounding); each row prints its TFLOP/s and
    its share of the bound. The RG-LRU scan in fp32 at
-   (B, S, W) = (2, 1024, 4096) and (1, 8192, 4096); error ≤ 1e-5 per unit of
-   max(1, |s|). Times with CUDA events: kernel, plain version, and for
-   attention ``F.scaled_dot_product_attention`` on the same function
-   (``is_causal``, or a boolean mask where the window cuts; none for the
-   softcap row, which no single call computes; the port never calls it). No
-   single PyTorch call computes the scan.
+   (B, S, W) = (2, 1024, 4096) and (1, 8192, 4096): bit for bit (and so
+   within 1e-5 per unit of max(1, |s|)), with the lane plan's blocks.
+   Times with CUDA events: kernel, plain version, and for attention
+   ``F.scaled_dot_product_attention`` on the same function (``is_causal``,
+   or a boolean mask where the window cuts; none for the softcap row, which
+   no single call computes; the port never calls it). No single PyTorch
+   call computes the scan.
    Then the four kernels that no served path reaches: dense decode attention
    (Mixtral widths at B=2 × 1040 and B=8 × 32768, RecurrentGemma widths
-   rolling at B=2 × 2048), paged decode attention (page size 16, 8 slots
+   rolling at B=2 × 2048, and B=1 × 32768 at Mixtral widths and at hd 256
+   MQA: long caches that few (slot, KV head) pairs read, so their splits
+   come in several clusters a pair), paged decode attention (page size 16, 8 slots
    of ragged length through a ``PagePool`` table whose pages are out of
    order, hd 128 and hd 256), the tiered gather (Mixtral's 32768 × 6144
    bf16 table, row groups of 2048, N = 2048 and 2, all / half / none of the
@@ -285,9 +289,10 @@ def flash_phase(fa_ops, widths: tuple, shapes: list) -> list[dict]:
     return rows
 
 
-def scan_phase(lru_ops) -> list[dict]:
+def scan_phase(lru_ops, plans: bool = True) -> list[dict]:
     """Kernel vs plain RG-LRU scan at the served prefill's (B, S, W) and at a
-    longer one, fp32."""
+    longer one, fp32. ``plans``: report the lane plan (kernel_ab.py compares
+    versions through their wrappers only and passes False)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -302,10 +307,11 @@ def scan_phase(lru_ops) -> list[dict]:
         diff = (out - ref).abs()
         err = diff.max().item()
         scaled = (diff / ref.abs().clamp_min(1.0)).max().item()
+        bit_equal = torch.equal(out, ref)
         del ref, diff, out
-        if not scaled <= SCAN_TOL:
+        if not (scaled <= SCAN_TOL and bit_equal):
             raise AssertionError(f"scan kernel vs plain at B={B} S={S} W={W}: max abs err {err}, "
-                                 f"{scaled} per unit of state magnitude")
+                                 f"{scaled} per unit of state magnitude, bit-equal {bit_equal}")
         def kernel():
             return lru_ops.rglru_scan(a, b)
 
@@ -314,24 +320,32 @@ def scan_phase(lru_ops) -> list[dict]:
         n = B * S * W
         t_bytes = 3 * n * 4 / PEAK_HBM_BYTES * 1e3  # a, b read once, s written once
         t_ops = 2 * n / PEAK_FP32_FLOPS * 1e3  # one multiply and one add per element
-        lanes = B * W
-        rows.append(dict(B=B, S=S, W=W, max_abs_err=err, max_scaled_err=scaled, ms=ms, eager_ms=eager_ms,
-                         plain_ms=plain_ms,
+        plan = {}
+        if plans:
+            plan = dict(zip(("lanes_per_block", "blocks", "threads_per_block"),
+                            lru_ops.lane_plan(B, W, lru_ops.sm_count(a.device))))
+        rows.append(dict(B=B, S=S, W=W, max_abs_err=err, max_scaled_err=scaled, bit_equal=bit_equal, ms=ms,
+                         eager_ms=eager_ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes",
-                         lanes=lanes, blocks=(W + 63) // 64 * B, threads_per_block=64))
-        print(f"[kernel] rglru_scan B={B} S={S} W={W}: max_abs_err={err:.3g} kernel {ms:.4f} ms "
-              f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); "
-              f"{lanes} lanes in {rows[-1]['blocks']} blocks of 64 threads", flush=True)
+                         bound_by="operations" if t_ops >= t_bytes else "bytes", lanes=B * W, **plan))
+        r = rows[-1]
+        where = (f"; {B * W} lanes in {plan['blocks']} blocks of {plan['lanes_per_block']} lanes, "
+                 f"{plan['threads_per_block']} threads" if plan else "")
+        print(f"[kernel] rglru_scan B={B} S={S} W={W}: max_abs_err={err:.3g} (bit-equal) kernel {ms:.4f} ms "
+              f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, {100 * r['bound_ms'] / ms:.1f}% of bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}){where}", flush=True)
         del a, b
     torch.cuda.empty_cache()
     return rows
 
 
-def decode_phase(da_ops) -> list[dict]:
+def decode_phase(da_ops, plans: bool = True) -> list[dict]:
     """Dense decode kernel vs plain at the served decode's last step (Mixtral
-    widths, B=2, 1024 + 16 positions), at a long cache (B=8 × 32768) and at
-    RecurrentGemma's rolling window (hd 256, MQA)."""
+    widths, B=2, 1024 + 16 positions), at a long cache (B=8 × 32768), at
+    RecurrentGemma's rolling window (hd 256, MQA), and at a long cache read
+    by few (slot, KV head) pairs (B=1 × 32768: Mixtral widths, 8 pairs, and
+    hd 256 MQA, one pair), where one cluster of splits a pair would leave
+    most of the card idle. ``plans``: report the split plan."""
     import torch
     import torch.nn.functional as F
 
@@ -339,7 +353,9 @@ def decode_phase(da_ops) -> list[dict]:
     rows = []
     shapes = ((H, HKV, HD, BATCH, PROMPT + NEW_TOKENS, False, PROMPT + NEW_TOKENS),
               (H, HKV, HD, 8, 32768, False, 32768),
-              (RG_H, RG_HKV, RG_HD, BATCH, RG_WINDOW, True, RG_WINDOW + 100))
+              (RG_H, RG_HKV, RG_HD, BATCH, RG_WINDOW, True, RG_WINDOW + 100),
+              (H, HKV, HD, 1, 32768, False, 32768),
+              (RG_H, RG_HKV, RG_HD, 1, 32768, False, 32768))
     for h, hkv, hd, B, Skv, rolling, kv in shapes:
         q = torch.randn(B, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn(B, Skv, hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
@@ -365,7 +381,7 @@ def decode_phase(da_ops) -> list[dict]:
 
         _, lib_scaled = _errors(sdpa()[:, :, 0], ref)
         row = dict(B=B, Skv=Skv, kv_len=kv, H=h, Hkv=hkv, hd=hd, rolling=rolling,
-                   splits=da_ops.split_plan(B, hkv, Skv, da_ops.sm_count(q.device))[1],
+                   splits=da_ops.dense_plan(q, k)[1] if plans else None,
                    max_abs_err=err, max_abs_plain=scale, ms=_time_graph_ms(kernel),
                    eager_ms=_time_ms(kernel, iters=20), plain_ms=_time_ms(plain, iters=3, warmup=1),
                    library_ms=_time_graph_ms(sdpa), library_max_scaled_err=lib_scaled,
@@ -401,9 +417,9 @@ def _granted_table(tokens, ps: int):
     return pool, pool.page_table(np_max=max(len(p) for p in owned))[:B]
 
 
-def paged_phase(da_ops) -> list[dict]:
+def paged_phase(da_ops, plans: bool = True) -> list[dict]:
     """Paged decode kernel vs plain: 8 slots of ragged length in pages of 16
-    at Mixtral widths and at hd 256 / G 16."""
+    at Mixtral widths and at hd 256 / G 16. ``plans``: report the split plan."""
     import torch
     import torch.nn.functional as F
 
@@ -440,7 +456,7 @@ def paged_phase(da_ops) -> list[dict]:
 
         pages = sum(-(-n // PAGE_SIZE) for n in PAGED_LENS)  # whole pages move
         row = dict(B=B, H=h, Hkv=hkv, hd=hd, page_size=PAGE_SIZE, kv_len=list(PAGED_LENS), pool_pages=P,
-                   table_pages=NP, splits=da_ops.split_plan(B, hkv, S, da_ops.sm_count(q.device))[1],
+                   table_pages=NP, splits=da_ops.paged_plan(q, k, pt)[1] if plans else None,
                    max_abs_err=err, max_abs_plain=scale, ms=_time_graph_ms(kernel),
                    eager_ms=_time_ms(kernel, iters=20), plain_ms=_time_ms(plain, iters=3, warmup=1),
                    library_ms=None, yardstick="densify + SDPA (two calls)", yardstick_ms=_time_graph_ms(densify_sdpa),
@@ -866,6 +882,11 @@ def main() -> int:
             path, log = fut.result()
             print(f"[build] {path.name} ready {time.perf_counter() - t0:.1f} s after the start", flush=True)
             _print_ptxas(name, log)
+    # what the decode split plan reads: the blocks the card holds in clusters of 1..8
+    for hd in (128, 256):
+        print(f"[build] decode kernel at hd {hd}: resident blocks in clusters of 1..8 splits: dense "
+              f"{da_ops.resident_blocks(torch.device('cuda'), hd, False)}, paged "
+              f"{da_ops.resident_blocks(torch.device('cuda'), hd, True)}", flush=True)
 
     rows, rows_256 = [flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)

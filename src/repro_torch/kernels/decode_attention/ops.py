@@ -41,14 +41,30 @@ NEG_INF = -1.0e30
 _SRC = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 _HEAD_DIMS = (64, 128, 256)
 _MAX_GROUP = 16  # query heads per KV head: the rows of the kernel's mma tile
-_TILE = 64  # keys per block tile; a split's chunk is a multiple of it
-# blocks to aim for when splitting the KV axis, per SM of the card: short
-# caches and small batches still cover it, and a long slot among short ones
-# (paged, ragged kv_len) spreads over many blocks; splits past a slot's
-# kv_len exit at once
-_BLOCKS_PER_SM = 8
-_MAX_SPLITS = 1024  # the merge pass keeps one weight per split in shared memory
+_TILE = 64  # keys per tile; a split's chunk is a multiple of it
+# the splits of one (slot, KV head) form thread-block clusters of up to 8
+# (the portable size); more than 8 splits come in clusters of 8, at most 128
+_CLUSTER = 8
+_MAX_SPLITS = 1024
+# a split owns at least 2 tiles (when the cache has them), so its ring has
+# the next tile's loads in flight while it multiplies one
+_MIN_TILES = 2
+# what a block costs beside its tiles (Q load, filling the ring, the two
+# merges), in tile times: the plan's cost model charges it once per wave
+_BLOCK_OVERHEAD_TILES = 1
+# what the merge of several clusters adds (a partial through L2, a counter,
+# the last cluster's pass over the others'), in tile times
+_CLUSTER_MERGE_TILES = 2
+# a block streams about 1/90 of what the card can: on an NVIDIA H100 80GB
+# HBM3 (700 W) 64 blocks of one split each moved 34 GB/s apiece and 128
+# blocks 3.05 TB/s in all (PERF.md; kernel_ab.py --splits), so a call
+# whose work could keep 90 blocks busy is bound by the card's bytes, and
+# then the fewest splits that reach it read best
+_CARD_BLOCKS = 90
 _lib: Optional[ctypes.CDLL] = None
+# the clusters' counters of a multi-cluster call, per (device, stream): zero
+# between calls (the kernel's last cluster of a pair resets its own)
+_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 Lengths = Union[int, torch.Tensor]
 
@@ -137,30 +153,92 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = nvcc.load("decode_attention", _SRC)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # q, k, v, kv_len, o, o_part, lse | B, H, Hkv, hd, Skv, chunk, splits | softcap, scale, stream
+        # q, k, v, kv_len, o, ws, count | B, H, Hkv, hd, Skv, chunk, splits | softcap, scale, stream
         lib.decode_attention_bf16.argtypes = [ptr] * 7 + [i32] * 7 + [f32, f32, ptr]
-        # q, k_pages, v_pages, page_table, kv_len, o, o_part, lse | B, H, Hkv, hd, P, ps, NP, chunk,
-        # splits | softcap, scale, stream
+        # q, k_pages, v_pages, page_table, kv_len, o, ws, count | B, H, Hkv, hd, P, ps, NP, chunk, splits |
+        # softcap, scale, stream
         lib.paged_decode_attention_bf16.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, ptr]
+        # hd, paged | blocks (out, 8 ints)
+        lib.decode_attention_resident.argtypes = [i32, i32, ptr]
         lib.decode_attention_bf16.restype = lib.paged_decode_attention_bf16.restype = i32
+        lib.decode_attention_resident.restype = i32
         _lib = lib
     return _lib
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of the CUDA card ``device``."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def resident_blocks(device: torch.device, hd: int, paged: bool) -> tuple[int, ...]:
+    """Blocks of the kernel that the card ``device`` holds at once when the
+    splits of a (slot, KV head) form clusters of 1, ..., 8 blocks, as CUDA's
+    cluster occupancy reports them. A cluster must fit one GPC, so from 3
+    splits on this is less than the SMs times the blocks one SM holds."""
+    blocks = (ctypes.c_int * _CLUSTER)()
+    with torch.cuda.device(device):
+        _raise_on(_library().decode_attention_resident(hd, int(paged), blocks), "decode-attention occupancy")
+    return tuple(blocks)
 
 
-def split_plan(B: int, Hkv: int, cap: int, n_sms: int) -> tuple[int, int]:
-    """(chunk, splits): the KV positions each block owns and the number of
-    blocks per (slot, KV head), so that B·Hkv·splits covers a card of
-    ``n_sms`` SMs."""
+def _split_candidates(tiles: int):
+    """(tiles per split, splits) that cover ``tiles`` with no split past
+    the end: one cluster of 1..8 splits, then whole clusters of 8."""
+    for want in range(1, _CLUSTER + 1):
+        per = -(-tiles // want)
+        yield per, -(-tiles // per)
+    for splits in range(2 * _CLUSTER, min(_MAX_SPLITS, tiles) + 1, _CLUSTER):
+        per = -(-tiles // splits)
+        if (splits - 1) * per < tiles:
+            yield per, splits
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(B: int, Hkv: int, cap: int, resident: tuple[int, ...],
+               work: Optional[int] = None) -> tuple[int, int]:
+    """(chunk, splits): the KV positions each block owns and the blocks per
+    (slot, KV head): one cluster of up to 8, or up to 128 clusters of 8, for
+    a card that holds ``resident[s - 1]`` blocks at once in clusters of s.
+    ``work`` is the 64-key tiles the call reads in all (every slot full,
+    B·Hkv·tiles, when not given). The plan minimises, in tile times, the
+    largest of the waves of full splits that the work fills × (tiles per
+    split + a block's overhead + the clusters' merge where there are
+    several), the waves of all the call's blocks × (that overhead and
+    merge: a block past its slot's kv_len still takes its place and merges)
+    and the work over the card's rate (_CARD_BLOCKS blocks): short
+    caches get splits of at least 2 tiles (the last one too), long ones the
+    fewest splits that keep the card's bytes busy in whole waves, so a few
+    (slot, KV head) pairs over a long cache get several clusters each."""
     tiles = -(-cap // _TILE)
-    want = min(-(-(_BLOCKS_PER_SM * n_sms) // (B * Hkv)), _MAX_SPLITS)
-    chunk = -(-tiles // max(1, min(tiles, want))) * _TILE
-    return chunk, -(-cap // chunk)
+    work = B * Hkv * tiles if work is None else min(work, B * Hkv * tiles)
+    best = None
+    for per, splits in _split_candidates(tiles):
+        csize = min(splits, _CLUSTER)
+        if splits > 1 and (per < _MIN_TILES or tiles - (splits - 1) * per < _MIN_TILES):
+            continue
+        if resident[csize - 1] < csize:
+            continue
+        full = -(-work // per)  # blocks of a whole split that the work fills
+        waves = -(-full // resident[csize - 1])
+        waves_all = -(-B * Hkv * splits // resident[csize - 1])
+        fixed = _BLOCK_OVERHEAD_TILES + (_CLUSTER_MERGE_TILES if splits > _CLUSTER else 0)
+        cost = max(waves * (per + fixed), waves_all * fixed, work / _CARD_BLOCKS)
+        if best is None or cost < best[0]:
+            best = (cost, per * _TILE, splits)
+    return (tiles * _TILE, 1) if best is None else best[1:]
+
+
+def dense_plan(q: torch.Tensor, k_cache: torch.Tensor) -> tuple[int, int]:
+    """``split_plan`` of a dense-cache launch on q's card."""
+    B, _, hd = q.shape
+    return split_plan(B, k_cache.shape[2], k_cache.shape[1], resident_blocks(q.device, hd, False))
+
+
+def paged_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor) -> tuple[int, int]:
+    """``split_plan`` of a paged launch on q's card. Its slots are as long as
+    the table at most, and all of them together no longer than the pool:
+    P·ps positions per KV head, and a partial tile per slot."""
+    B, _, hd = q.shape
+    P, ps, Hkv = k_pages.shape[:3]
+    work = Hkv * (-(-P * ps // _TILE) + B)
+    return split_plan(B, Hkv, page_table.shape[1] * ps, resident_blocks(q.device, hd, True), work)
 
 
 def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, softcap, *extra) -> None:
@@ -190,14 +268,22 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, softca
         raise ValueError(f"softcap must be positive, got {softcap}")
 
 
-def _scratch(q: torch.Tensor, Hkv: int, splits: int) -> tuple[torch.Tensor, torch.Tensor]:
-    B, H, hd = q.shape
-    if splits == 1:
-        empty = torch.empty(0, dtype=torch.float32, device=q.device)
-        return empty, empty
-    G = H // Hkv
-    return (torch.empty(B * Hkv * splits * G * hd, dtype=torch.float32, device=q.device),
-            torch.empty(B * Hkv * splits * G, dtype=torch.float32, device=q.device))
+def _merge_buffers(device: torch.device, pairs: int, G: int, hd: int, splits: int):
+    """(ws, count) of a launch with more than one cluster a (slot, KV head):
+    fresh room for the clusters' fp32 outputs and log-sum-exps, and the
+    current stream's counters, zero between calls; (None, None) otherwise."""
+    if splits <= _CLUSTER:
+        return None, None
+    ws = torch.empty(pairs * (splits // _CLUSTER) * G * (hd + 1), dtype=torch.float32, device=device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    count = _counters.get(key)
+    if count is None or count.numel() < pairs:
+        count = _counters[key] = torch.zeros(pairs, dtype=torch.int32, device=device)
+    return ws, count
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -230,15 +316,15 @@ def decode_attention(
         raise ValueError("the cache holds no position")
     kv_len = _lengths(kv_len, B, q.device)
     Hkv = k_cache.shape[2]
-    chunk, splits = split_plan(B, Hkv, Skv, sm_count(q.device))
+    chunk, splits = dense_plan(q, k_cache)
     o = torch.empty_like(q)
-    o_part, lse = _scratch(q, Hkv, splits)
+    ws, count = _merge_buffers(q.device, B * Hkv, H // Hkv, hd, splits)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.decode_attention_bf16(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
-            o_part.data_ptr() or None, lse.data_ptr() or None, B, H, Hkv, hd, Skv, chunk, splits,
-            float(softcap or 0.0), hd**-0.5, torch.cuda.current_stream().cuda_stream,
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), o.data_ptr(), _ptr(ws),
+            _ptr(count), B, H, Hkv, hd, Skv, chunk, splits, float(softcap or 0.0), hd**-0.5,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "decode-attention")
     decode_attention.launches += 1
@@ -276,15 +362,16 @@ def paged_decode_attention(
         raise ValueError(f"bad pool or table: pool {tuple(k_pages.shape)}, table {tuple(page_table.shape)}")
     kv_len = _lengths(kv_len, B, q.device)
     Hkv = k_pages.shape[2]
-    chunk, splits = split_plan(B, Hkv, NP * ps, sm_count(q.device))
+    chunk, splits = paged_plan(q, k_pages, page_table)
     o = torch.empty_like(q)
-    o_part, lse = _scratch(q, Hkv, splits)
+    ws, count = _merge_buffers(q.device, B * Hkv, H // Hkv, hd, splits)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.paged_decode_attention_bf16(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
-            o.data_ptr(), o_part.data_ptr() or None, lse.data_ptr() or None, B, H, Hkv, hd, P, ps, NP,
-            chunk, splits, float(softcap or 0.0), hd**-0.5, torch.cuda.current_stream().cuda_stream,
+            o.data_ptr(), _ptr(ws), _ptr(count), B, H, Hkv, hd, P, ps, NP, chunk, splits,
+            float(softcap or 0.0), hd**-0.5,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "paged decode-attention")
     paged_decode_attention.launches += 1

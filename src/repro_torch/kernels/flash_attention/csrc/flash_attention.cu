@@ -91,48 +91,7 @@ struct Smem {
   static constexpr int ALLOC = BYTES + 1024;            // room to align the base to 1024
 };
 
-// ---- PTX wrappers: mbarriers, TMA, wgmma -----------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map -> shared memory, completion counted on bar
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
+// ---- PTX wrappers: wgmma (mbarriers and TMA are in sm90_common.cuh) ----------
 
 // wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
 // address, leading and stride byte offsets (16-byte units), layout type 1
@@ -649,40 +608,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
 // ---- host side ---------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q) != cudaSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) != cudaSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
-// (B, S, heads, hd) bf16 as a 4-D map over (hd, heads, S, B), box (64, 1, rows, 1)
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2, static_cast<cuuint64_t>(heads) * hd * 2,
-                                 static_cast<cuuint64_t>(S) * heads * hd * 2};
-  const cuuint32_t box[4] = {BOX, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                     elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD, bool CAP>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o, dim3 grid,
                    const Params& p, cudaStream_t stream) {
@@ -700,8 +625,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                    cudaStream_t stream) {
   if (encode_fn() == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, Sq, H, HD, BQ) || !make_map(&mk, k, B, Sk, Hkv, HD, block_k<HD>()) ||
-      !make_map(&mv, v, B, Sk, Hkv, HD, block_k<HD>()))
+  if (!make_bshd_map(&mq, q, B, Sq, H, HD, BQ) || !make_bshd_map(&mk, k, B, Sk, Hkv, HD, block_k<HD>()) ||
+      !make_bshd_map(&mv, v, B, Sk, Hkv, HD, block_k<HD>()))
     return cudaErrorInvalidValue;
   constexpr float LOG2E = 1.4426950408889634f;
   const Params p{Sq, Sk, H, Hkv, causal, window, q_offset, scale * LOG2E,

@@ -91,20 +91,16 @@ def build() -> tuple[Path, str]:
     return nvcc.build("flash_attention", _SRC)
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry's signature on a loaded build of the kernel."""
-    fn = lib.flash_attention_fwd_bf16
-    # q, k, v, o | B, Sq, Sk, H, Hkv, hd, causal, window | softcap, q_offset, scale, stream
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib
-
-
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        _lib = bind(nvcc.load("flash_attention", _SRC))
+        lib = nvcc.load("flash_attention", _SRC)
+        fn = lib.flash_attention_fwd_bf16
+        # q, k, v, o | B, Sq, Sk, H, Hkv, hd, causal, window | softcap, q_offset, scale, stream
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
     return _lib
 
 

@@ -21,7 +21,7 @@ from pathlib import Path
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(INCLUDE_DIR))
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -48,7 +48,8 @@ def build(name: str, src: Path) -> tuple[Path, str]:
         return out, log_path.read_text()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.partial")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True)
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp), str(src)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name} ({res.returncode}):\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)

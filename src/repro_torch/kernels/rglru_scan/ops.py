@@ -21,9 +21,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, sm_count
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
+_PRODUCER_THREADS = 32  # each block has one producer warp beside its consumer warps
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -50,11 +51,19 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = nvcc.load("rglru_scan", _SRC)
         fn = lib.rglru_scan_fwd_f32
-        # a, b, s | B, S, W | stream
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        # a, b, s | B, S, W, lanes | stream
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def lane_plan(B: int, W: int, n_sms: int) -> tuple[int, int, int]:
+    """(lanes, blocks, threads_per_block): the kernel gives each block 64
+    lanes of one batch row when that still makes a block for every SM of a
+    card of ``n_sms``, else 32, so that few lanes still cover the card."""
+    lanes = 64 if B * -(-W // 64) >= n_sms else 32
+    return lanes, B * -(-W // lanes), lanes + _PRODUCER_THREADS
 
 
 def _check_cuda_inputs(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -80,10 +89,11 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"rglru_scan runs on cpu or cuda, not {a.device}")
     _check_cuda_inputs(a, b)
     B, S, W = a.shape
+    lanes = lane_plan(B, W, sm_count(a.device))[0]
     s = torch.empty_like(a)
     lib = _library()
     with torch.cuda.device(a.device):
-        err = lib.rglru_scan_fwd_f32(a.data_ptr(), b.data_ptr(), s.data_ptr(), B, S, W,
+        err = lib.rglru_scan_fwd_f32(a.data_ptr(), b.data_ptr(), s.data_ptr(), B, S, W, lanes,
                                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru-scan kernel launch failed: cudaError {err}")

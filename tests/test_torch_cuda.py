@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import sm_count
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rglru_scan import ops as lru_ops
@@ -92,8 +93,16 @@ def test_kernel_rejects_what_it_does_not_take(card):
         fa_ops.flash_attention(q, q, q)
 
 
+# (B, S, W): the served prefill (32 lanes a block, TMA), ragged S and W past a
+# tile (1017 steps, W = 4096 + 32), W below a block's 32 lanes through TMA (20)
+# and through the copy loader (30: not a multiple of 4), 64 lanes a block
+# (B·W/64 ≥ the SMs), and 64 lanes with a ragged W off TMA (4099)
+SCAN_SHAPES = [(2, 37, 200), (1, 1000, 4096), (3, 5, 1), (2, 1024, 4096), (1, 1017, 4128), (2, 40, 20),
+               (2, 70, 30), (3, 100, 4096), (4, 33, 4099)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 37, 200), (1, 1000, 4096), (3, 5, 1)], ids=str)
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
 def test_rglru_kernel_matches_plain_on_card(card, shape):
     rs = np.random.default_rng(1)
     a = torch.from_numpy(rs.uniform(0.5, 0.999, shape).astype(np.float32)).to(card)
@@ -103,7 +112,8 @@ def test_rglru_kernel_matches_plain_on_card(card, shape):
     torch.cuda.synchronize()
     assert lru_ops.rglru_scan.launches == before + 1
     ref = lru_ops.rglru_scan_plain(a, b)
-    # fp32 both: 1e-5 per unit of max(1, |s|)
+    # the same fp32 roundings in the same order (multiply, then add): bit for bit
+    assert torch.equal(out, ref)
     assert ((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item() <= 1e-5
 
 
@@ -134,6 +144,8 @@ DECODE_CASES = [
     (3, 4, 4, 64, 50, 30.0, [50, 7, 64]),
     (1, 12, 2, 128, 4100, 20.0, [4099]),
     (4, 16, 1, 64, 129, None, [129, 64, 65, 2]),
+    # RecurrentGemma's widths: a rolling 2048 window past its end
+    (2, 16, 1, 256, 2048, None, [2148, 2148]),
 ]
 
 
@@ -152,6 +164,63 @@ def test_decode_kernel_matches_plain_on_card(card, case):
     assert _scaled_err(out, ref) <= 1e-2
 
 
+# B, H, Hkv, hd, Skv, kv_len: several clusters of 8 splits a (slot, KV head)
+# (the first three 16-32 splits, then 64 and 128 splits over one pair) and
+# one cluster of 8 or 6 splits (the last two), later splits and clusters of
+# the short slots empty, slots with no admitted key
+MANY_SPLIT_CASES = [
+    (4, 16, 2, 128, 8192, [8192, 5000, 700, 0]),
+    (3, 8, 1, 64, 4096, [4000, 129, 1]),
+    (2, 16, 1, 256, 4096, [4096, 1000]),
+    (1, 16, 1, 256, 32768, [20000]),
+    (1, 4, 1, 64, 65536, [65536]),
+    (2, 16, 1, 256, 2048, [2048, 300]),
+    (4, 8, 2, 128, 1040, [1040, 500, 1, 0]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MANY_SPLIT_CASES, ids=str)
+def test_decode_kernel_merges_splits_in_one_launch(card, case):
+    """Each call is one launch, whatever its split count; two calls and a
+    CUDA-graph replay give the same output and leave the clusters' counters
+    at 0, so neither merge keeps state between calls; a slot with kv_len 0
+    gives exactly 0."""
+    B, H, Hkv, hd, Skv, lens = case
+    rs = np.random.default_rng(6)
+    q, k, v = (_randn(rs, s, card) for s in ((B, H, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd)))
+    assert da_ops.dense_plan(q, k)[1] > 1
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = da_ops.decode_attention.launches
+    first = da_ops.decode_attention(q, k, v, kv_len)
+    second = da_ops.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 2
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = da_ops.decode_attention(q, k, v, kv_len)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, replayed)
+    assert not any(bool(c.any()) for c in da_ops._counters.values())
+    ref = da_ops.decode_attention_plain(q, k, v, kv_len)
+    live = kv_len > 0
+    assert bool((first[~live] == 0).all())
+    assert _scaled_err(first[live], ref[live]) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_decode_resident_blocks_per_cluster_size(card, hd):
+    """What the split plan reads: whole clusters, at least one block per SM
+    without clusters, never more with them."""
+    n_sms = sm_count(card)
+    for paged in (False, True):
+        resident = da_ops.resident_blocks(card, hd, paged)
+        assert len(resident) == 8 and resident[0] >= n_sms
+        assert all(r % s == 0 and s <= r <= resident[0] for s, r in enumerate(resident, start=1))
+
+
 def _granted_table(B, NP, ps, card):
     """A table from a pool that granted and freed other slots first."""
     pool = PagePool(B * NP + 5, ps, B + 1)
@@ -167,7 +236,11 @@ def _granted_table(B, NP, ps, card):
 PAGED_CASES = [
     (8, 8, 6, 128, 16, 40, None, [640, 600, 513, 300, 100, 64, 17, 1]),
     (2, 1, 16, 256, 16, 20, None, [320, 150]),
-    (3, 2, 3, 64, 12, 9, 25.0, [108 + 30, 50, 12]),
+    (3, 2, 3, 64, 12, 9, 25.0, [108 + 30, 50, 12]),  # a page size TMA cannot tile: the cp.async loader
+    (2, 2, 4, 128, 128, 4, None, [500, 129]),  # pages of two tiles
+    (3, 1, 8, 64, 8, 30, None, [240, 57, 9]),  # 8 pages a tile
+    (2, 1, 8, 128, 16, 256, None, [4096, 100]),  # several clusters a (slot, KV head), TMA pages
+    (1, 1, 4, 64, 12, 326, None, [3900]),  # several clusters, the cp.async loader
 ]
 
 

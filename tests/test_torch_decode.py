@@ -146,10 +146,107 @@ def test_wrappers_refuse_other_devices():
                                    torch.ones(1, dtype=torch.int32, device="meta"))
 
 
+# resident blocks of the decode kernel in clusters of 1..8 splits, as CUDA's
+# cluster occupancy reported them on an NVIDIA H100 80GB HBM3 (132 SMs) at
+# two and at one block per SM
+H100_RESIDENT = {2: (264, 264, 237, 248, 235, 234, 224, 240), 1: (132, 132, 117, 120, 110, 102, 105, 120)}
+
+
+def _resident(n_sms: int, per_sm: int) -> tuple[int, ...]:
+    """A card whose clusters of s pack its n_sms · per_sm slots perfectly."""
+    return tuple(n_sms * per_sm // s * s for s in range(1, 9))
+
+
 @pytest.mark.parametrize("n_sms", [132, 114, 1])
 @pytest.mark.parametrize("B,Hkv,cap", [(2, 8, 1040), (8, 8, 32768), (2, 1, 2048), (1, 1, 1), (64, 8, 100),
                                         (1, 1, 1 << 20)])
 def test_split_plan_covers_the_cache(B, Hkv, cap, n_sms):
-    chunk, splits = ops.split_plan(B, Hkv, cap, n_sms)
-    assert chunk % 64 == 0 and 1 <= splits <= 1024
-    assert (splits - 1) * chunk < cap <= splits * chunk  # no split starts past the capacity
+    for resident in (_resident(n_sms, 1), _resident(n_sms, 2), *H100_RESIDENT.values()):
+        chunk, splits = ops.split_plan(B, Hkv, cap, resident)
+        assert chunk % 64 == 0 and 1 <= splits <= 1024
+        assert splits <= 8 or splits % 8 == 0  # one cluster, or whole clusters of 8
+        assert (splits - 1) * chunk < cap <= splits * chunk  # no split starts past the capacity
+        csize = min(splits, 8)
+        assert resident[csize - 1] >= csize  # the card holds a cluster of that size
+
+
+@pytest.mark.parametrize("per_sm", [2, 1])
+@pytest.mark.parametrize("B,Hkv", [(2, 8), (2, 1), (8, 8), (1, 1)])
+def test_split_plan_gives_no_block_a_single_tile(B, Hkv, per_sm):
+    """Every split, the last one too, owns at least 2 of the cache's 64-key
+    tiles whenever the cache has 2, so each block's ring has a load in
+    flight while it multiplies."""
+    for tiles in range(1, 200):
+        chunk, splits = ops.split_plan(B, Hkv, 64 * tiles, H100_RESIDENT[per_sm])
+        per = chunk // 64
+        if tiles >= 2:
+            assert per >= 2 and tiles - (splits - 1) * per >= 2, (tiles, chunk, splits)
+
+
+@pytest.mark.parametrize("per_sm", [2, 1])
+@pytest.mark.parametrize("B,Hkv", [(8, 8), (4, 1), (64, 8), (100, 1), (33, 8), (2, 8)])
+def test_split_plan_fills_whole_waves_on_long_caches(B, Hkv, per_sm):
+    """On a long cache the blocks come in whole resident waves of their
+    cluster size (one, or the last at least 3/4 full), enough of them to
+    stream at the card's rate, and no more splits than that takes (one
+    fewer split, or one fewer cluster of 8 a pair, would not reach it)."""
+    resident = H100_RESIDENT[per_sm]
+    chunk, splits = ops.split_plan(B, Hkv, 1 << 17, resident)
+    blocks, csize = B * Hkv * splits, min(splits, 8)
+    waves = -(-blocks // resident[csize - 1])
+    assert waves == 1 or blocks >= 0.75 * waves * resident[csize - 1]
+    assert blocks >= ops._CARD_BLOCKS
+    step = 8 if splits > 8 else 1
+    assert splits == 1 or B * Hkv * (splits - step) < ops._CARD_BLOCKS
+
+
+def test_split_plan_splits_a_ragged_pool_more():
+    """A paged call whose pool holds a third of what its table could address
+    (one long slot among short ones) splits the long slot further than a
+    dense call of the same capacity, which the card's bytes bind."""
+    resident = H100_RESIDENT[2]
+    full = ops.split_plan(8, 8, 4096, resident)[1]
+    ragged = ops.split_plan(8, 8, 4096, resident, work=8 * 8 * 64 // 3)[1]
+    assert ragged > full
+
+
+def test_split_plan_skips_cluster_sizes_the_card_cannot_hold():
+    """A card that holds no cluster of 2 or more gets one block per (slot,
+    KV head), however long the cache."""
+    assert ops.split_plan(2, 8, 1 << 16, (100, 0, 0, 0, 0, 0, 0, 0)) == (1 << 16, 1)
+    assert ops.split_plan(1, 1, 1 << 16, (100, 2, 0, 0, 0, 0, 0, 0))[1] == 2
+
+@pytest.mark.parametrize("B,Hkv,per_sm", [(1, 8, 2), (1, 1, 2), (1, 1, 1), (2, 1, 1)])
+def test_split_plan_gives_few_pairs_several_clusters(B, Hkv, per_sm):
+    """A long cache read by few (slot, KV head) pairs gets whole clusters of
+    8 splits, more than one a pair, in one resident wave of clusters of 8,
+    with enough blocks to stream at the card's rate or to fill half the
+    card's clusters."""
+    resident = H100_RESIDENT[per_sm]
+    chunk, splits = ops.split_plan(B, Hkv, 32768, resident)
+    blocks = B * Hkv * splits
+    assert splits > 8 and splits % 8 == 0
+    assert blocks <= resident[7]
+    assert blocks >= min(ops._CARD_BLOCKS, resident[7] // 2)
+
+
+def test_split_plan_reads_cluster_occupancy():
+    """Where the splits come in clusters of 8, the card's cluster occupancy
+    changes the plan: an H100 holds 120 blocks in clusters of 8 at one block
+    per SM, not 132, so one pair over 32768 keys at hd 256 gets one wave of
+    64 blocks where perfect packing would plan 128, a second wave."""
+    real = ops.split_plan(1, 1, 32768, H100_RESIDENT[1])
+    packed = ops.split_plan(1, 1, 32768, _resident(132, 1))
+    assert real != packed
+    assert real[1] <= H100_RESIDENT[1][7] < packed[1] <= _resident(132, 1)[7]
+
+
+def test_split_plan_charges_blocks_past_kv_len():
+    """A paged call's pool bounds its work, but every split of every slot is
+    a block that takes its place on the card and merges: 8 slots of hd 256
+    with one long slot (chip_smoke's paged shape) keep all their blocks,
+    empty ones too, within two resident waves of their cluster size."""
+    resident = H100_RESIDENT[1]
+    chunk, splits = ops.split_plan(8, 1, 4096, resident, work=1 * (-(-799 * 16 // 64) + 8))
+    assert splits > 8
+    assert 8 * splits <= 2 * resident[7]

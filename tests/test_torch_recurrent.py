@@ -72,6 +72,19 @@ def test_cpu_wrapper_launches_nothing_and_refuses_other_devices():
         lru_ops.rglru_scan(a, a)
 
 
+@pytest.mark.parametrize("n_sms", [132, 114, 1])
+@pytest.mark.parametrize("B,W", [(2, 4096), (1, 4096), (3, 4096), (2, 1), (1, 4128), (2, 20), (64, 2560)])
+def test_scan_lane_plan_covers_the_width(B, W, n_sms):
+    """Each block owns 32 or 64 lanes of one batch row; the blocks cover W
+    exactly once per row, and cover the card whenever there are lanes for it."""
+    lanes, blocks, threads = lru_ops.lane_plan(B, W, n_sms)
+    assert lanes in (32, 64) and threads == lanes + 32  # one producer warp
+    per_row = blocks // B
+    assert blocks == B * per_row and (per_row - 1) * lanes < W <= per_row * lanes
+    if B * W >= 32 * n_sms:
+        assert blocks >= n_sms
+
+
 def test_plain_scan_traces_without_mutation():
     """The analyzer treats an op that mutates an input as live; the plain
     scan builds its output by stacking, so its traced graph has none."""
