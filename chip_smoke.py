@@ -32,7 +32,9 @@ Phases (any failure exits non-zero before the result line):
    MQA: long caches that few (slot, KV head) pairs read, so their splits
    come in several clusters a pair), paged decode attention (page size 16, 8 slots
    of ragged length through a ``PagePool`` table whose pages are out of
-   order, hd 128 and hd 256), the tiered gather (Mixtral's 32768 × 6144
+   order, hd 128 and hd 256, each at lengths up to 4096 and at 8x them,
+   whose 409 MB and 102 MB of K/V lie past the L2; the work list's blocks
+   beside each row), the tiered gather (Mixtral's 32768 × 6144
    bf16 table, row groups of 2048, N = 2048 and 2, all / half / none of the
    groups resident, ids -1 and V included) bit for bit, and the tiered
    gather-matmul (the same table times a 6144 × 16384 expert weight, N=512)
@@ -123,6 +125,9 @@ RG_LOGITS_REL_TOL = 0.1
 # paged KV: the scheduler's default page size, and 8 slots of ragged length
 PAGE_SIZE = 16
 PAGED_LENS = (4096, 3000, 2048, 1500, 1024, 700, 100, 17)
+# the same slots at 8x the lengths: 409 MB of K/V at Mixtral's widths, 102 MB
+# at hd 256, past the card's 50 MB of L2
+PAGED_LENS_HBM = tuple(8 * n for n in PAGED_LENS)
 # the rolling paged path: slot 0 starts past the 4096 window, slot 1 wraps
 ROLLING_PREFIXES = (5000, 4090, 2048, 1500, 1024, 700, 100, 17)
 VOCAB, D_MODEL, D_FF, ROW_GROUP = 32768, 6144, 16384, 2048  # Mixtral's table, expert and vocab_row_group
@@ -419,21 +424,23 @@ def _granted_table(tokens, ps: int):
 
 def paged_phase(da_ops, plans: bool = True) -> list[dict]:
     """Paged decode kernel vs plain: 8 slots of ragged length in pages of 16
-    at Mixtral widths and at hd 256 / G 16. ``plans``: report the split plan."""
+    at Mixtral widths and at hd 256 / G 16, each at chip_smoke's lengths and
+    at 8x them (K/V past the L2). ``plans``: report the work list's blocks."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1357)
     rows = []
-    for h, hkv, hd in ((H, HKV, HD), (RG_H, RG_HKV, RG_HD)):
-        pool, pt_np = _granted_table(PAGED_LENS, PAGE_SIZE)
+    for (h, hkv, hd), lens in [(w, n) for w in ((H, HKV, HD), (RG_H, RG_HKV, RG_HD))
+                               for n in (PAGED_LENS, PAGED_LENS_HBM)]:
+        pool, pt_np = _granted_table(lens, PAGE_SIZE)
         B, NP = pt_np.shape
         P = pool.n_pages
         pt = torch.from_numpy(pt_np).cuda()
         q = torch.randn(B, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn(P, PAGE_SIZE, hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn(P, PAGE_SIZE, hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
-        kv_len = torch.tensor(PAGED_LENS, dtype=torch.int32, device="cuda")
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
         ptc = da_ops.clamp_page_table(pt, kv_len, P, PAGE_SIZE)
 
         def kernel():
@@ -454,15 +461,16 @@ def paged_phase(da_ops, plans: bool = True) -> list[dict]:
             return F.scaled_dot_product_attention(q[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2),
                                                   attn_mask=mask, enable_gqa=True)
 
-        pages = sum(-(-n // PAGE_SIZE) for n in PAGED_LENS)  # whole pages move
-        row = dict(B=B, H=h, Hkv=hkv, hd=hd, page_size=PAGE_SIZE, kv_len=list(PAGED_LENS), pool_pages=P,
-                   table_pages=NP, splits=da_ops.paged_plan(q, k, pt)[1] if plans else None,
+        pages = sum(-(-n // PAGE_SIZE) for n in lens)  # whole pages move
+        row = dict(B=B, H=h, Hkv=hkv, hd=hd, page_size=PAGE_SIZE, kv_len=list(lens), pool_pages=P,
+                   table_pages=NP, blocks=da_ops.paged_plan(q, k, pt) if plans else None,
                    max_abs_err=err, max_abs_plain=scale, ms=_time_graph_ms(kernel),
                    eager_ms=_time_ms(kernel, iters=20), plain_ms=_time_ms(plain, iters=3, warmup=1),
                    library_ms=None, yardstick="densify + SDPA (two calls)", yardstick_ms=_time_graph_ms(densify_sdpa),
-                   **_bound(4 * h * hd * sum(PAGED_LENS), 2 * (2 * pages * PAGE_SIZE * hkv * hd + 2 * B * h * hd)))
+                   **_bound(4 * h * hd * sum(lens), 2 * (2 * pages * PAGE_SIZE * hkv * hd + 2 * B * h * hd)))
         rows.append(row)
-        _print_row("paged_decode", f"hd={hd} H={h} Hkv={hkv} B={B} ps={PAGE_SIZE} NP={NP} splits={row['splits']}", row)
+        _print_row("paged_decode", f"hd={hd} H={h} Hkv={hkv} B={B} ps={PAGE_SIZE} NP={NP} max kv_len={max(lens)} "
+                                   f"blocks={row['blocks']}", row)
         del q, k, v, out, ref, mask
     torch.cuda.empty_cache()
     return rows

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """A/B of kernel sources on one NVIDIA card.
 
-    python3 kernel_ab.py KERNEL NAME=PATH[:FLAG,FLAG...] [NAME=PATH ...] [--splits N,N,...]
+    python3 kernel_ab.py KERNEL NAME=PATH[:FLAG,FLAG...] [NAME=PATH ...] [--splits N,...] [--blocks N,...] [--ff N,...]
 
-KERNEL is ``flash``, ``decode`` or ``scan``. Each PATH is a version of that
+KERNEL is ``flash``, ``decode``, ``scan`` or ``gather``. Each PATH is a version of that
 kernel's source, ``<tree>/src/repro_torch/kernels/<package>/csrc/<file>.cu``:
 for example the package's own and the parent commit's, unpacked with
 ``git archive`` into a directory that ``.gitignore`` lists. Each is built
@@ -15,14 +15,20 @@ with that library, so two versions may differ in their C entries and their
 launch plans. Each then runs through chip_smoke's phases at chip_smoke's
 shapes, checked against its plain version and timed as CUDA-graph replays:
 ``flash_phase`` for every ``FLASH_ROWS`` entry, ``decode_phase`` and
-``paged_phase``, or ``scan_phase``. The phases reach each version through
-its wrappers only (``plans=False``: they do not print the launch plans, whose
-functions may differ between versions). The versions run in the order
-a, b, ..., b, a, so that drift on the card shows as a difference between a
-version's two passes. With ``--splits`` (decode only) each pass runs the
-decode phases once for each forced split count instead of the version's
-own split plan (``split_plan``): a sweep of the plan's choice. A count
-above 8 is rounded up to whole clusters of 8.
+``paged_phase``, ``scan_phase``, or ``gather_phase`` and
+``gather_matmul_phase``. The phases reach each version through its wrappers
+only (``plans=False``: they do not print the launch plans, whose functions
+may differ between versions). The versions run in the order a, b, ..., b, a,
+so that drift on the card shows as a difference between a version's two
+passes. With ``--splits`` (decode only) each pass runs the decode phases
+once for each forced split count instead of the version's own dense split
+plan (``split_plan``): a sweep of the plan's choice. A count above 8 is
+rounded up to whole clusters of 8. With ``--blocks`` (decode only, versions
+whose paged plan is ``paged_plan`` returning the work list's ``blocks``)
+each pass runs the paged phase once for each forced ``blocks``. With
+``--ff`` (gather only) each pass runs the gather-matmul phase once for each
+weight width F in place of Mixtral's 16384: fewer column strips, so fewer
+blocks share the card.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-PACKAGES = {"flash": "flash_attention", "decode": "decode_attention", "scan": "rglru_scan"}
+PACKAGES = {"flash": "flash_attention", "decode": "decode_attention", "scan": "rglru_scan",
+            "gather": "tiered_gather"}
 
 
 def _load_ops(name: str, src: Path, lib: ctypes.CDLL):
@@ -79,11 +86,12 @@ def main(argv: list[str]) -> int:
     import chip_smoke as cs
     from repro_torch.kernels import nvcc
 
-    kernel, splits = argv[0], None
-    if "--splits" in argv:
-        i = argv.index("--splits")
-        splits = [int(n) for n in argv[i + 1].split(",")]
-        argv = argv[:i] + argv[i + 2:]
+    kernel, sweeps = argv[0], {}
+    for opt in ("--splits", "--blocks", "--ff"):
+        if opt in argv:
+            i = argv.index(opt)
+            sweeps[opt] = [int(n) for n in argv[i + 1].split(",")]
+            argv = argv[:i] + argv[i + 2:]
     out_dir = REPO / "build" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     mods = {}
@@ -113,15 +121,28 @@ def main(argv: list[str]) -> int:
         if kernel == "flash":
             for widths, shapes in cs.FLASH_ROWS:
                 cs.flash_phase(ops, widths, shapes)
+        elif kernel == "decode" and "--blocks" in sweeps:
+            for n in sweeps["--blocks"]:
+                print(f"-- {n} blocks", flush=True)
+                ops.paged_plan = lambda *args, n=n: n  # the module's paged wrapper reads its plan
+                cs.paged_phase(ops, plans=False)
         elif kernel == "decode":
-            for n in splits or [None]:
+            for n in sweeps.get("--splits", [None]):
                 if n is not None:
                     print(f"-- {n} splits", flush=True)
                     ops.split_plan = _forced_plan(n)  # the module's wrappers read its plan
                 cs.decode_phase(ops, plans=False)
                 cs.paged_phase(ops, plans=False)
-        else:
+        elif kernel == "scan":
             cs.scan_phase(ops, plans=False)
+        elif "--ff" in sweeps:
+            for f in sweeps["--ff"]:
+                print(f"-- F {f}", flush=True)
+                cs.D_FF = f  # the phase's weight width
+                cs.gather_matmul_phase(ops)
+        else:
+            cs.gather_phase(ops)
+            cs.gather_matmul_phase(ops)
     return 0
 
 

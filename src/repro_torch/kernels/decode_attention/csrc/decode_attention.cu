@@ -32,24 +32,49 @@
 //     once for all G heads and S = Q·Kᵀ and O += P·V run on the tensor
 //     cores with fp32 accumulation (P rounded to bf16, as in the prefill
 //     kernel). wgmma would need 64 rows, four times what decode has;
-//   * the KV axis is split across the blocks of thread-block clusters of up
-//     to 8 (the portable size) per (slot, KV head): block (split, b·Hkv +
-//     kvh) owns `chunk` positions. After the loop each block merges its 4
-//     consumer warps in shared memory, the cluster synchronises, and every
-//     block merges a share of the output from all the cluster's blocks
-//     through distributed shared memory (log-sum-exp weights). Up to 8
-//     splits that is the whole call: one launch, no fp32 partials in device
-//     memory, no state between calls. A few (slot, KV head) pairs over a
-//     long cache need more blocks than 8 a pair to keep the card's bytes
-//     busy, so a call may have up to 128 clusters of 8 per pair: each
-//     cluster then writes its normalised fp32 output and log-sum-exp to a
+//   * dense: the KV axis is split across the blocks of thread-block
+//     clusters of up to 8 (the portable size) per (slot, KV head): block
+//     (split, b·Hkv + kvh) owns `chunk` positions. After the loop each block
+//     merges its 4 consumer warps in shared memory, the cluster
+//     synchronises, and every block merges a share of the output from all
+//     the cluster's blocks through distributed shared memory (log-sum-exp
+//     weights). Up to 8 splits that is the whole call: one launch, no fp32
+//     partials in device memory. A few (slot, KV head) pairs over a long
+//     cache need more blocks than 8 a pair to keep the card's bytes busy,
+//     so a call may have up to 128 clusters of 8 per pair: each cluster
+//     then writes its normalised fp32 output and log-sum-exp to a
 //     workspace, and the last cluster of the pair to count itself in (an
 //     atomicAdd on the pair's counter after a fence) merges them, writes o
 //     and sets the counter back to 0, so the counters are 0 between calls
 //     and under CUDA-graph replay (the wrapper keeps them per device and
 //     stream). Still one launch. Blocks whose chunk starts past kv_len load
 //     nothing, contribute an empty (max -inf, sum 0) partial and only take
-//     part in the merges;
+//     part in the merges. The host's split plan (ops.py split_plan) reads
+//     the resident blocks per cluster size from CUDA
+//     (decode_attention_resident): a block streams only about 1/90 of the
+//     card's bytes per second (NVIDIA H100 80GB HBM3, 700 W) and a cluster
+//     must fit one GPC, so short caches get few splits of at least 2
+//     tiles, long caches the fewest splits that keep the card's bytes busy
+//     in whole waves (measurements in PERF.md, from kernel_ab.py --splits);
+//   * paged: the slots' lengths differ and live on the device, so a split
+//     plan sized on the host would give the longest slot the same few
+//     blocks as the shortest and leave most blocks empty. Each block
+//     instead builds the call's work list from kv_len when it starts (a
+//     scan over the slots; nothing is read on the host, so a captured CUDA
+//     graph stays right when the lengths change): slot b holds T_b =
+//     ceil(len_b / 64) tiles per KV head, the call's Hkv·Σ T_b tiles are
+//     cut into items of at most per = max(ceil(total / blocks), 2) tiles
+//     (`blocks` from the host, ops.py paged_plan), and each (slot, KV head)
+//     gets ceil(T_b / per) items of near-equal whole-tile ranges: a long
+//     slot gets many blocks, an empty slot none ("lean attention", the
+//     stream-K decomposition of ragged decode). Block i takes item i; the
+//     grid holds blocks + B·Hkv blocks, more than the items can number, and
+//     blocks past the last item return at once. A pair that is one item
+//     writes o; a pair of several merges through the workspace as the
+//     dense clusters do (the last item to count itself in merges and
+//     resets the counter). Block b < B writes slot b's zero output when it
+//     has no admitted key. ops.py paged_work_items is the plain mirror of
+//     the partition (the CPU tests hold it to its rule);
 //   * a block's producer warp fills a ring of K/V stages of 64 keys (96 KB:
 //     6 stages at hd 64, 3 at hd 128, 3 of twice the size at hd 256) on
 //     mbarriers; each consumer warp waits on the stage's full barrier and
@@ -65,19 +90,7 @@
 //     the same swizzled layout; for other page sizes its 32 lanes copy rows
 //     through the table with cp.async (zero-filled past kv_len) and count
 //     their copies on the full barrier (cp.async.mbarrier.arrive). K and V
-//     fragments come from shared memory by ldmatrix, following the swizzle;
-//   * a block streams only about 1/90 of the card's bytes per second (NVIDIA
-//     H100 80GB HBM3, 700 W), and a cluster must fit one GPC, so the card
-//     holds fewer blocks in clusters of 3..8 than its SMs times the blocks
-//     one SM holds. The host's split plan (ops.py split_plan) therefore
-//     reads the resident blocks per cluster size from CUDA
-//     (decode_attention_resident) and weighs the waves of full splits, and
-//     of all the call's blocks, against the card's bytes: short caches get
-//     few splits of at least 2 tiles, long caches the fewest splits that
-//     keep the card's bytes busy in whole waves (several clusters a pair
-//     where the pairs are few), and a paged call, whose pool bounds the
-//     bytes it reads, more splits for its long slots (measurements in
-//     PERF.md, from kernel_ab.py --splits).
+//     fragments come from shared memory by ldmatrix, following the swizzle.
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -97,6 +110,8 @@ constexpr int NTHREADS = NCTHREADS + 32;
 constexpr int MROWS = 16;     // query-head rows of the mma tile (G <= 16)
 constexpr int CLUSTER = 8;      // blocks of one cluster at most (the portable limit)
 constexpr int MAX_CLUSTERS = 128;  // clusters of one (slot, KV head) at most
+constexpr int MIN_TILES = 2;       // a paged work item's tiles at least (where the call has them)
+constexpr int MAX_BLOCKS = 1024;   // a paged call's `blocks` at most: no pair has more items
 constexpr float NEG_INF = -1.0e30f;
 
 constexpr int RING_BYTES = 98304;  // K and V stages of one block, at least 3 of them
@@ -124,10 +139,11 @@ struct Layout {
   static constexpr int O_OFF = WSTAT_OFF + 3 * NCWARPS * MROWS * 4;  // [MROWS][HD] fp32
   static constexpr int CSTAT_OFF = O_OFF + MROWS * HD * 4;           // [2][CLUSTER][MROWS] fp32
   static_assert(CSTAT_OFF + 2 * CLUSTER * MROWS * 4 <= 2 * STAGES * TILE, "the merge buffers must fit the ring");
-  // the merge of a pair's clusters, once no block reads this one's shared
-  // memory: their weights at the ring's start
-  static constexpr int GW_OFF = 0;  // [MAX_CLUSTERS][MROWS] fp32
-  static_assert(MAX_CLUSTERS * MROWS * 4 <= 2 * STAGES * TILE, "the clusters' weights must fit the ring");
+  // the merge of a pair's clusters or work items, once no block reads this
+  // one's shared memory: their weights at the ring's start
+  static constexpr int GW_OFF = 0;  // [MAX_CLUSTERS or MAX_BLOCKS][MROWS] fp32
+  static_assert(MAX_BLOCKS * MROWS * 4 <= 2 * STAGES * TILE && MAX_CLUSTERS <= MAX_BLOCKS,
+                "the partials' weights must fit the ring");
 };
 
 struct Params {
@@ -136,9 +152,10 @@ struct Params {
   __nv_bfloat16* o;        // (B, H, hd)
   float* ws;               // more than one cluster a pair: (B·Hkv, clusters, G, hd) outputs, then their
                            // (B·Hkv, clusters, G) log-sum-exps
-  int* count;              // (B·Hkv,) clusters of the pair done so far, 0 between calls
-  int H, Hkv, G, cap, chunk;
+  int* count;              // (B·Hkv,) clusters or items of the pair done so far, 0 between calls
+  int H, Hkv, G, cap, chunk;  // chunk: a dense split's positions
   float scale, softcap;
+  int B, blocks;           // paged: slots, and the work list's blocks (items of at most ceil(tiles / blocks))
 };
 
 // byte offset of 16-byte chunk j of tile row r in the 128-byte-swizzled
@@ -160,6 +177,7 @@ struct Bars {
 struct DenseLoader {
   CUtensorMap mk, mv;
   static constexpr uint32_t FULL_COUNT = 1;
+  static constexpr bool WORKLIST = false;  // cluster splits (the paged loaders: the work list)
   template <int HD>
   __device__ __forceinline__ void produce(int lane, uint32_t sK, uint32_t sV, Bars<Layout<HD>::STAGES> bar,
                                           int b, int kvh, int start, int /*end*/, int ntiles) const {
@@ -191,6 +209,7 @@ struct PagedTmaLoader {
   const int* table;  // (B, NP)
   int NP, ps, P, R;
   static constexpr uint32_t FULL_COUNT = 1;
+  static constexpr bool WORKLIST = true;
 
   template <int HD>
   __device__ __forceinline__ void produce(int lane, uint32_t sK, uint32_t sV, Bars<Layout<HD>::STAGES> bar,
@@ -231,6 +250,7 @@ struct PagedLoader {
   const int* table;        // (B, NP)
   int NP, ps, P, Hkv;
   static constexpr uint32_t FULL_COUNT = 32;
+  static constexpr bool WORKLIST = true;
 
   // table entries of rows pos0 + lane and pos0 + 32 + lane (0 past end)
   __device__ __forceinline__ void fetch(int (&entry)[2], int lane, int b, int pos0, int end) const {
@@ -279,6 +299,121 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NCTHREADS) : "memory");
 }
 
+template <int STAGES, class Loader>
+__device__ __forceinline__ void init_ring(Bars<STAGES> bar) {
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(bar.full(s), Loader::FULL_COUNT);
+    mbar_init(bar.empty(s), NCWARPS);  // lane 0 of each consumer warp
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// a paged call's work item: positions [start, end) of slot b, KV head kvh;
+// the pair's n items are numbered first, ..., first + n - 1
+struct Item {
+  int b, kvh, start, end, first, n;
+};
+
+__device__ __forceinline__ int slot_tiles(const Params& p, int b) {
+  return (min(max(p.kv_len[b], 0), p.cap) + BK - 1) / BK;
+}
+
+// The work list, built alike by every block from kv_len (the header's
+// rule) by its first warp: lanes take slots 32 at a time, a warp sum gives
+// the call's tiles and per, a warp scan numbers the items, and the lane
+// whose slot holds item blockIdx.x fills it in. Returns false when the
+// block has no item; `empty` is whether slot blockIdx.x (< B) has no
+// admitted key. One block barrier in all.
+__device__ bool find_item(const Params& p, Item& item, bool& empty) {
+  __shared__ Item s_item;
+  __shared__ int s_items, s_empty;
+  const int id = blockIdx.x;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int total = 0;
+    for (int b0 = 0; b0 < p.B; b0 += 32) total += b0 + lane < p.B ? slot_tiles(p, b0 + lane) : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+    const int per = max((total * p.Hkv + p.blocks - 1) / p.blocks, MIN_TILES);
+    int first = 0;  // items of the slots before this round of 32
+    for (int b0 = 0; b0 < p.B; b0 += 32) {
+      const int b = b0 + lane;
+      const int T = b < p.B ? slot_tiles(p, b) : 0, n = (T + per - 1) / per;
+      int incl = n * p.Hkv;  // this slot's items, all KV heads
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      const int mine = first + incl - n * p.Hkv;  // this slot's first item
+      if (id >= mine && id < mine + n * p.Hkv) {
+        const int kvh = (id - mine) / n, j = (id - mine) % n;
+        const int len = min(max(p.kv_len[b], 0), p.cap);
+        const int t0 = static_cast<int>(static_cast<long long>(j) * T / n);
+        const int t1 = static_cast<int>(static_cast<long long>(j + 1) * T / n);
+        s_item = Item{b, kvh, t0 * BK, min(t1 * BK, len), mine + kvh * n, n};
+      }
+      if (b == id) s_empty = T == 0;
+      first += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) s_items = first;
+  }
+  __syncthreads();
+  empty = id < p.B && s_empty;
+  if (id >= s_items) return false;  // block-uniform
+  item = s_item;
+  return true;
+}
+
+// o = Σ_c w_c·partial_c over n normalised fp32 partials (G·HD apart) and
+// their log-sum-exps (G apart), w_c = exp(lse_c - M) / Σ_c' exp(lse_c' - M),
+// M the rows' largest lse; the weights go to sGW ([n][MROWS]). A pair with
+// no admitted key: every partial is 0 and its lse -inf, so the weights are
+// 1 / n and o = 0. The merge is the last step of a call, after its slowest
+// block, so its reads from L2 are issued together: the log-sum-exps once
+// into shared memory, the partials 8 at a time
+template <int HD>
+__device__ __forceinline__ void merge_partials(const Params& p, const float* po, const float* pl, int n,
+                                               __nv_bfloat16* ob, float* sGW) {
+  for (int i = threadIdx.x; i < n * p.G; i += NTHREADS) sGW[i / p.G * MROWS + i % p.G] = __ldcg(pl + i);
+  __syncthreads();
+  if (threadIdx.x < p.G) {
+    const int r = threadIdx.x;
+    float M = NEG_INF, Lsum = 0.f;
+    for (int c = 0; c < n; ++c) M = fmaxf(M, sGW[c * MROWS + r]);
+    for (int c = 0; c < n; ++c) Lsum += expf(sGW[c * MROWS + r] - M);
+    const float inv = 1.f / Lsum;
+    for (int c = 0; c < n; ++c) sGW[c * MROWS + r] = expf(sGW[c * MROWS + r] - M) * inv;
+  }
+  __syncthreads();
+  const float4* pv = reinterpret_cast<const float4*>(po);
+  const int stride = p.G * HD / 4;
+  for (int e4 = threadIdx.x; e4 < stride; e4 += NTHREADS) {
+    const int r = 4 * e4 / HD;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+    auto add = [&](const float4& x, int c) {
+      const float w = sGW[c * MROWS + r];
+      A.x += x.x * w;
+      A.y += x.y * w;
+      A.z += x.z * w;
+      A.w += x.w * w;
+    };
+    int c = 0;
+    for (; c + 8 <= n; c += 8) {  // 8 partials' loads in flight before any is used
+      float4 x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[u] = __ldcg(pv + (c + u) * stride + e4);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) add(x[u], c + u);
+    }
+    for (; c < n; ++c) add(__ldcg(pv + c * stride + e4), c);
+    uint2 packed;
+    packed.x = pack_bf16(A.x, A.y);
+    packed.y = pack_bf16(A.z, A.w);
+    *reinterpret_cast<uint2*>(ob + 4 * e4) = packed;
+  }
+}
+
 template <int HD, class Loader>
 __global__ void __launch_bounds__(NTHREADS, 1)
 decode_kernel(const __grid_constant__ Params p, const __grid_constant__ Loader ld) {
@@ -293,15 +428,31 @@ decode_kernel(const __grid_constant__ Params p, const __grid_constant__ Loader l
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + L::Q_OFF);
   const Bars<STAGES> bar{base + L::BAR_OFF};
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int split = blockIdx.x;
-  // the grid's x extent is nclus clusters of csize splits
-  const int csize = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
-  const int nclus = gridDim.x / csize, clus = split / csize;
-  const int bk = blockIdx.y, b = bk / p.Hkv, kvh = bk % p.Hkv;
-  const int len = min(max(p.kv_len[b], 0), p.cap);
-  const int start = split * p.chunk;
-  const int end = min(start + p.chunk, len);
+  int b, kvh, start, end;
+  Item item;  // paged: this block's work item
+  if constexpr (Loader::WORKLIST) {
+    // the ring's barriers first: find_item's block barriers publish them, and
+    // the producer starts as soon as the item is known, while the consumers
+    // load Q
+    if (threadIdx.x == NCTHREADS) init_ring<STAGES, Loader>(bar);
+    bool empty;
+    const bool has_item = find_item(p, item, empty);
+    if (empty) {  // slot blockIdx.x has no admitted key: it outputs 0
+      uint4* ob = reinterpret_cast<uint4*>(p.o + static_cast<size_t>(blockIdx.x) * p.H * HD);
+      for (int c = threadIdx.x; c < p.H * HD / 8; c += NTHREADS) ob[c] = make_uint4(0, 0, 0, 0);
+    }
+    if (!has_item) return;
+    b = item.b;
+    kvh = item.kvh;
+    start = item.start;
+    end = item.end;
+  } else {  // split blockIdx.x of pair blockIdx.y
+    b = blockIdx.y / p.Hkv;
+    kvh = blockIdx.y % p.Hkv;
+    const int len = min(max(p.kv_len[b], 0), p.cap);
+    start = blockIdx.x * p.chunk;
+    end = min(start + p.chunk, len);
+  }
   const int ntiles = end > start ? (end - start + BK - 1) / BK : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -313,14 +464,14 @@ decode_kernel(const __grid_constant__ Params p, const __grid_constant__ Loader l
       if (r < p.G) val = *reinterpret_cast<const uint4*>(qb + static_cast<size_t>(r) * HD + col);
       *reinterpret_cast<uint4*>(sQ + r * L::LDQ + col) = val;
     }
-  } else if (lane == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bar.full(s), Loader::FULL_COUNT);
-      mbar_init(bar.empty(s), NCWARPS);  // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  } else if (lane == 0 && !Loader::WORKLIST) {
+    init_ring<STAGES, Loader>(bar);
   }
-  __syncthreads();
+  if constexpr (Loader::WORKLIST) {
+    if (warp < NCWARPS) consumer_sync();  // Q is in; the producer did not wait for it
+  } else {
+    __syncthreads();
+  }
 
   float* sAcc = reinterpret_cast<float*>(smem + L::ACC_OFF);
   float* sWM = reinterpret_cast<float*>(smem + L::WSTAT_OFF);  // [NCWARPS][MROWS] each
@@ -495,9 +646,60 @@ decode_kernel(const __grid_constant__ Params p, const __grid_constant__ Loader l
     }
   }
 
+  __shared__ int s_last;
+  const size_t pair = static_cast<size_t>(b) * p.Hkv + kvh;
+  __nv_bfloat16* ob = p.o + (static_cast<size_t>(b) * p.H + static_cast<size_t>(kvh) * p.G) * HD;
+  if constexpr (Loader::WORKLIST) {
+    // one item: o from this block's output; several: the normalised output
+    // and log-sum-exp to the workspace, and the pair's last item merges them
+    __syncthreads();
+    const bool alone = item.n == 1;
+    float* wo = p.ws + static_cast<size_t>(blockIdx.x) * p.G * HD;
+    for (int e4 = threadIdx.x; e4 < p.G * HD / 4; e4 += NTHREADS) {
+      const int r = 4 * e4 / HD;
+      const float inv = 1.f / sL[r];  // an item admits at least one key
+      float4 A = reinterpret_cast<const float4*>(sO)[e4];
+      A.x *= inv;
+      A.y *= inv;
+      A.z *= inv;
+      A.w *= inv;
+      if (alone) {
+        uint2 packed;
+        packed.x = pack_bf16(A.x, A.y);
+        packed.y = pack_bf16(A.z, A.w);
+        *reinterpret_cast<uint2*>(ob + 4 * e4) = packed;
+      } else {
+        *reinterpret_cast<float4*>(wo + 4 * e4) = A;
+      }
+    }
+    if (alone) return;
+    float* ws_lse = p.ws + static_cast<size_t>(gridDim.x) * p.G * HD;
+    if (threadIdx.x < p.G) ws_lse[static_cast<size_t>(blockIdx.x) * p.G + threadIdx.x] = sM[threadIdx.x] + logf(sL[threadIdx.x]);
+    // one thread's release fence is cumulative over the block's writes that
+    // the block barrier ordered before it: the partial, then the count; the
+    // last item's acquire fence after the count takes in the others' partials
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+      s_last = atomicAdd(p.count + pair, 1) == item.n - 1;
+      if (s_last) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (!s_last) return;
+    merge_partials<HD>(p, p.ws + static_cast<size_t>(item.first) * p.G * HD,
+                       ws_lse + static_cast<size_t>(item.first) * p.G, item.n, ob,
+                       reinterpret_cast<float*>(smem + L::GW_OFF));
+    if (threadIdx.x == 0) p.count[pair] = 0;  // the next call, or graph replay, starts from 0
+    return;
+  }
+
   // merge the cluster's splits through distributed shared memory:
   // o = Σ_s w_s·A_s with w_s = exp(M_s - max M) / Σ_s' exp(M_s' - max M)·L_s',
   // block `rank` writing every csize-th group of 4 output elements
+  cg::cluster_group cluster = cg::this_cluster();
+  // the grid's x extent is nclus clusters of csize splits
+  const int csize = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
+  const int nclus = gridDim.x / csize, clus = blockIdx.x / csize;
   cluster.sync();
   if (threadIdx.x < csize * MROWS) {  // the splits' row statistics, one remote read each
     const int s = threadIdx.x / MROWS, r = threadIdx.x % MROWS;
@@ -516,8 +718,6 @@ decode_kernel(const __grid_constant__ Params p, const __grid_constant__ Loader l
     if (Lsum > 0.f) lse = M + logf(Lsum);
   }
   __syncthreads();
-  const size_t pair = static_cast<size_t>(bk);
-  __nv_bfloat16* ob = p.o + (static_cast<size_t>(b) * p.H + static_cast<size_t>(kvh) * p.G) * HD;
   float* wo = p.ws + (pair * nclus + clus) * p.G * HD;  // this cluster's output, more than one cluster
   for (int e4 = rank * NTHREADS + threadIdx.x; e4 < p.G * HD / 4; e4 += csize * NTHREADS) {
     const int r = 4 * e4 / HD;
@@ -552,7 +752,6 @@ decode_kernel(const __grid_constant__ Params p, const __grid_constant__ Loader l
   cluster.sync();
 
   // merge the pair's clusters: the last one to count itself in reads them all
-  __shared__ int s_last;
   if (rank != 0) return;  // block-uniform
   if (threadIdx.x == 0) {
     __threadfence();
@@ -561,41 +760,15 @@ decode_kernel(const __grid_constant__ Params p, const __grid_constant__ Loader l
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  float* sGW = reinterpret_cast<float*>(smem + L::GW_OFF);  // [MAX_CLUSTERS][MROWS]
-  const float* pl = ws_lse + pair * nclus * p.G;
-  if (threadIdx.x < p.G) {
-    const int r = threadIdx.x;
-    float M = NEG_INF, Lsum = 0.f;
-    for (int c = 0; c < nclus; ++c) M = fmaxf(M, __ldcg(pl + c * p.G + r));
-    for (int c = 0; c < nclus; ++c) Lsum += expf(__ldcg(pl + c * p.G + r) - M);
-    // a pair with no admitted key: every cluster's output is 0 and its lse -inf, so M = -inf and the
-    // weights are 1 / nclus: o = 0
-    const float inv = 1.f / Lsum;
-    for (int c = 0; c < nclus; ++c) sGW[c * MROWS + r] = expf(__ldcg(pl + c * p.G + r) - M) * inv;
-  }
-  __syncthreads();
-  const float4* po = reinterpret_cast<const float4*>(p.ws + pair * nclus * p.G * HD);
-  for (int e4 = threadIdx.x; e4 < p.G * HD / 4; e4 += NTHREADS) {
-    const int r = 4 * e4 / HD;
-    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = 0; c < nclus; ++c) {
-      const float4 x = __ldcg(po + c * (p.G * HD / 4) + e4);
-      const float w = sGW[c * MROWS + r];
-      A.x += x.x * w;
-      A.y += x.y * w;
-      A.z += x.z * w;
-      A.w += x.w * w;
-    }
-    uint2 packed;
-    packed.x = pack_bf16(A.x, A.y);
-    packed.y = pack_bf16(A.z, A.w);
-    *reinterpret_cast<uint2*>(ob + 4 * e4) = packed;
-  }
+  merge_partials<HD>(p, p.ws + pair * nclus * p.G * HD, ws_lse + pair * nclus * p.G, nclus, ob,
+                     reinterpret_cast<float*>(smem + L::GW_OFF));
   if (threadIdx.x == 0) p.count[pair] = 0;  // the next call, or graph replay, starts from 0
 }
 
+// dense: grid (splits, B·Hkv) in clusters of min(splits, 8); paged: the
+// work list's blocks + B·Hkv blocks, no clusters
 template <int HD, class Loader>
-cudaError_t launch(const Params& p, const Loader& ld, int B, int splits, cudaStream_t stream) {
+cudaError_t launch(const Params& p, const Loader& ld, int splits, cudaStream_t stream) {
   constexpr int smem = Layout<HD>::ALLOC;
   static cudaError_t opted =
       cudaFuncSetAttribute(decode_kernel<HD, Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -606,21 +779,30 @@ cudaError_t launch(const Params& p, const Loader& ld, int B, int splits, cudaStr
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, B * p.Hkv);
+  cfg.gridDim = Loader::WORKLIST ? dim3(p.blocks + p.B * p.Hkv) : dim3(splits, p.B * p.Hkv);
   cfg.blockDim = dim3(NTHREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = Loader::WORKLIST ? 0 : 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_kernel<HD, Loader>, p, ld);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-bool bad_plan(const Params& p, int B, int splits) {
-  return B <= 0 || B * p.Hkv > 65535 || p.Hkv <= 0 || p.G < 1 || p.G > MROWS || p.H != p.Hkv * p.G ||
-         p.cap <= 0 || p.chunk <= 0 || p.chunk % BK != 0 || splits < 1 ||
+bool bad_heads(const Params& p) {
+  return p.B <= 0 || p.Hkv <= 0 || p.G < 1 || p.G > MROWS || p.H != p.Hkv * p.G || p.cap <= 0;
+}
+
+bool bad_plan(const Params& p, int splits) {
+  return bad_heads(p) || p.B * p.Hkv > 65535 || p.chunk <= 0 || p.chunk % BK != 0 || splits < 1 ||
          (splits > CLUSTER && (splits % CLUSTER != 0 || splits > CLUSTER * MAX_CLUSTERS || !p.ws || !p.count)) ||
          static_cast<long long>(splits) * p.chunk < p.cap;
+}
+
+// the work list's tile counts and item numbers must fit an int
+bool bad_work(const Params& p) {
+  return bad_heads(p) || p.blocks < 1 || p.blocks > MAX_BLOCKS || !p.ws || !p.count ||
+         static_cast<long long>(p.B) * p.Hkv * ((p.cap + BK - 1) / BK + 1) > (1LL << 30);
 }
 
 template <int HD, class Loader>
@@ -659,8 +841,8 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
                                      void* ws, int* count, int B, int H, int Hkv, int hd, int Skv, int chunk,
                                      int splits, float softcap, float scale, void* stream) {
   const Params p{static_cast<const __nv_bfloat16*>(q), kv_len, static_cast<__nv_bfloat16*>(o), static_cast<float*>(ws),
-                 count, H, Hkv, Hkv > 0 ? H / Hkv : 0, Skv, chunk, scale, softcap};
-  if (bad_plan(p, B, splits)) return cudaErrorInvalidValue;
+                 count, H, Hkv, Hkv > 0 ? H / Hkv : 0, Skv, chunk, scale, softcap, B, 0};
+  if (bad_plan(p, splits)) return cudaErrorInvalidValue;
   if (encode_fn() == nullptr) return cudaErrorNotSupported;
   DenseLoader ld;
   if (!make_bshd_map(&ld.mk, k, B, Skv, Hkv, hd, BK) || !make_bshd_map(&ld.mv, v, B, Skv, Hkv, hd, BK))
@@ -668,11 +850,11 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch<64>(p, ld, B, splits, s);
+      return launch<64>(p, ld, splits, s);
     case 128:
-      return launch<128>(p, ld, B, splits, s);
+      return launch<128>(p, ld, splits, s);
     case 256:
-      return launch<256>(p, ld, B, splits, s);
+      return launch<256>(p, ld, splits, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -680,15 +862,19 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
 
 // k_pages, v_pages: (P, ps, Hkv, hd) bf16; page_table: (B, NP) int32, the
 // slot's physical pages in logical order (entries past the last occupied
-// page are never read; the ones read are clipped to [0, P-1]).
+// page are never read; the ones read are clipped to [0, P-1]). blocks, 1 to
+// 1024, sizes the work list: items of at most max(ceil(tiles / blocks), 2)
+// 64-key tiles, launched on blocks + B·Hkv blocks. ws: fp32 of
+// (blocks + B·Hkv)·G·(hd + 1) elements; count: B·Hkv int32 zeros (left zero
+// by the call).
 extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pages, const void* v_pages,
                                            const int* page_table, const int* kv_len, void* o, void* ws,
                                            int* count, int B, int H, int Hkv, int hd, int P, int ps, int NP,
-                                           int chunk, int splits, float softcap, float scale, void* stream) {
+                                           int blocks, float softcap, float scale, void* stream) {
   if (P <= 0 || ps <= 0 || NP <= 0) return cudaErrorInvalidValue;
   const Params p{static_cast<const __nv_bfloat16*>(q), kv_len, static_cast<__nv_bfloat16*>(o), static_cast<float*>(ws),
-                 count, H, Hkv, Hkv > 0 ? H / Hkv : 0, NP * ps, chunk, scale, softcap};
-  if (bad_plan(p, B, splits) || (hd != 64 && hd != 128 && hd != 256)) return cudaErrorInvalidValue;
+                 count, H, Hkv, Hkv > 0 ? H / Hkv : 0, NP * ps, 0, scale, softcap, B, blocks};
+  if (bad_work(p) || (hd != 64 && hd != 128 && hd != 256)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = min(ps, BK);
   if (R % 8 == 0 && (BK % ps == 0 || ps % BK == 0) && encode_fn() != nullptr) {  // pieces of whole pages
@@ -700,19 +886,18 @@ extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pages, c
     ld.R = R;
     if (!make_bshd_map(&ld.mk, k_pages, P, ps, Hkv, hd, R) || !make_bshd_map(&ld.mv, v_pages, P, ps, Hkv, hd, R))
       return cudaErrorInvalidValue;
-    return hd == 64 ? launch<64>(p, ld, B, splits, s)
-                    : hd == 128 ? launch<128>(p, ld, B, splits, s) : launch<256>(p, ld, B, splits, s);
+    return hd == 64 ? launch<64>(p, ld, 0, s) : hd == 128 ? launch<128>(p, ld, 0, s) : launch<256>(p, ld, 0, s);
   }
   const PagedLoader ld{static_cast<const __nv_bfloat16*>(k_pages), static_cast<const __nv_bfloat16*>(v_pages),
                        page_table, NP, ps, P, Hkv};
-  return hd == 64 ? launch<64>(p, ld, B, splits, s)
-                  : hd == 128 ? launch<128>(p, ld, B, splits, s) : launch<256>(p, ld, B, splits, s);
+  return hd == 64 ? launch<64>(p, ld, 0, s) : hd == 128 ? launch<128>(p, ld, 0, s) : launch<256>(p, ld, 0, s);
 }
 
 // blocks[s - 1], s = 1..8: the kernel's blocks that the current device holds
 // at once when the splits of a (slot, KV head) form clusters of s. A cluster
 // must fit one GPC, so this is at most, and for s > 2 less than, the SMs
-// times the blocks one SM holds.
+// times the blocks one SM holds. The paged kernel runs without clusters:
+// its plan reads blocks[0].
 extern "C" int decode_attention_resident(int hd, int paged, int* blocks) {
   switch (hd) {
     case 64:

@@ -61,9 +61,17 @@ _CLUSTER_MERGE_TILES = 2
 # whose work could keep 90 blocks busy is bound by the card's bytes, and
 # then the fewest splits that reach it read best
 _CARD_BLOCKS = 90
+# a paged call's work list: `blocks` at most (the kernel's MAX_BLOCKS: one
+# pair's items, at most `blocks`, have their merge weights in shared memory)
+_MAX_BLOCKS = 1024
+# the most bytes of fp32 partials that the last item of a pair may have to
+# merge, G·hd·4 bytes an item, where one pair holds all the call's keys: a
+# block's lone pass over them is serial work after the call's last item
+_MERGE_BYTES = 1 << 20
 _lib: Optional[ctypes.CDLL] = None
-# the clusters' counters of a multi-cluster call, per (device, stream): zero
-# between calls (the kernel's last cluster of a pair resets its own)
+# the clusters' (dense) and work items' (paged) counters of a call that
+# merges through device memory, per (device, stream): zero between calls
+# (the kernel's last cluster or item of a pair resets its own)
 _counters: dict[tuple[int, int], torch.Tensor] = {}
 
 Lengths = Union[int, torch.Tensor]
@@ -155,9 +163,9 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # q, k, v, kv_len, o, ws, count | B, H, Hkv, hd, Skv, chunk, splits | softcap, scale, stream
         lib.decode_attention_bf16.argtypes = [ptr] * 7 + [i32] * 7 + [f32, f32, ptr]
-        # q, k_pages, v_pages, page_table, kv_len, o, ws, count | B, H, Hkv, hd, P, ps, NP, chunk, splits |
+        # q, k_pages, v_pages, page_table, kv_len, o, ws, count | B, H, Hkv, hd, P, ps, NP, blocks |
         # softcap, scale, stream
-        lib.paged_decode_attention_bf16.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, ptr]
+        lib.paged_decode_attention_bf16.argtypes = [ptr] * 8 + [i32] * 8 + [f32, f32, ptr]
         # hd, paged | blocks (out, 8 ints)
         lib.decode_attention_resident.argtypes = [i32, i32, ptr]
         lib.decode_attention_bf16.restype = lib.paged_decode_attention_bf16.restype = i32
@@ -191,23 +199,20 @@ def _split_candidates(tiles: int):
 
 
 @functools.lru_cache(maxsize=4096)
-def split_plan(B: int, Hkv: int, cap: int, resident: tuple[int, ...],
-               work: Optional[int] = None) -> tuple[int, int]:
-    """(chunk, splits): the KV positions each block owns and the blocks per
-    (slot, KV head): one cluster of up to 8, or up to 128 clusters of 8, for
-    a card that holds ``resident[s - 1]`` blocks at once in clusters of s.
-    ``work`` is the 64-key tiles the call reads in all (every slot full,
-    B·Hkv·tiles, when not given). The plan minimises, in tile times, the
-    largest of the waves of full splits that the work fills × (tiles per
-    split + a block's overhead + the clusters' merge where there are
-    several), the waves of all the call's blocks × (that overhead and
-    merge: a block past its slot's kv_len still takes its place and merges)
-    and the work over the card's rate (_CARD_BLOCKS blocks): short
+def split_plan(B: int, Hkv: int, cap: int, resident: tuple[int, ...]) -> tuple[int, int]:
+    """(chunk, splits) of a dense call: the KV positions each block owns and
+    the blocks per (slot, KV head): one cluster of up to 8, or up to 128
+    clusters of 8, for a card that holds ``resident[s - 1]`` blocks at once
+    in clusters of s. The call reads B·Hkv·tiles 64-key tiles. The plan
+    minimises, in tile times, the largest of the waves of full splits ×
+    (tiles per split + a block's overhead + the clusters' merge where there
+    are several), the waves of all the call's blocks × (that overhead and
+    merge) and the work over the card's rate (_CARD_BLOCKS blocks): short
     caches get splits of at least 2 tiles (the last one too), long ones the
     fewest splits that keep the card's bytes busy in whole waves, so a few
     (slot, KV head) pairs over a long cache get several clusters each."""
     tiles = -(-cap // _TILE)
-    work = B * Hkv * tiles if work is None else min(work, B * Hkv * tiles)
+    work = B * Hkv * tiles
     best = None
     for per, splits in _split_candidates(tiles):
         csize = min(splits, _CLUSTER)
@@ -231,14 +236,56 @@ def dense_plan(q: torch.Tensor, k_cache: torch.Tensor) -> tuple[int, int]:
     return split_plan(B, k_cache.shape[2], k_cache.shape[1], resident_blocks(q.device, hd, False))
 
 
-def paged_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor) -> tuple[int, int]:
-    """``split_plan`` of a paged launch on q's card. Its slots are as long as
-    the table at most, and all of them together no longer than the pool:
+def paged_work_items(kv_len: torch.Tensor, Hkv: int, cap: int, blocks: int) -> torch.Tensor:
+    """The paged kernel's work list, as each of its blocks builds it from
+    kv_len on the card (nothing on the card's path calls this mirror): slot
+    b holds T_b = ceil(len_b / 64) tiles per KV head, len_b = kv_len[b]
+    clamped to [0, cap]; of the call's total = Hkv·Σ T_b tiles an item takes
+    at most per = max(ceil(total / blocks), 2); each (slot, KV head) gets
+    ceil(T_b / per) items, item j of n covering tiles [j·T_b // n, (j + 1)·
+    T_b // n). Returns (items, 4) int64 rows (slot, KV head, start, end) in
+    the kernel's item order (slot by slot, KV head by KV head), end clipped
+    to len_b; a slot with no admitted key has none."""
+    lens = kv_len.long().clamp(0, cap)
+    tiles = (lens + _TILE - 1) // _TILE
+    total = Hkv * int(tiles.sum())
+    per = max(-(-total // blocks), _MIN_TILES)
+    n = (tiles + per - 1) // per  # items per (slot, KV head)
+    slot = torch.repeat_interleave(torch.arange(len(lens), device=lens.device), n * Hkv)
+    first = torch.cumsum(n * Hkv, 0) - n * Hkv
+    within = torch.arange(len(slot), device=lens.device) - first[slot]
+    kvh, j = within // n[slot], within % n[slot]
+    start = j * tiles[slot] // n[slot] * _TILE
+    end = torch.minimum((j + 1) * tiles[slot] // n[slot] * _TILE, lens[slot])
+    return torch.stack([slot, kvh, start, end], 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_blocks(B: int, Hkv: int, G: int, hd: int, work: int, resident: int) -> int:
+    """The ``blocks`` of a paged launch, from what the host knows: B·Hkv
+    (slot, KV head) pairs, ``work`` tiles at most (the pool's), a card that
+    holds ``resident`` blocks at once. The grid is blocks + B·Hkv, the most
+    items the work list can have. The plan takes half the resident blocks
+    (a block streams about 1/90 of the card, so that many keep its bytes
+    busy, and larger items mean fewer merges through device memory; the
+    sweeps in PERF.md, from kernel_ab.py --blocks), within the whole
+    resident waves that hold the pairs and half a wave of items more, and
+    no more blocks than give every item 2 tiles of the pool's work or let
+    one pair's merge read more than _MERGE_BYTES of partials."""
+    pairs = B * Hkv
+    waves = max(1, -(-(pairs + resident // 2) // resident))
+    blocks = min(waves * resident - pairs, max(resident // 2, (waves - 1) * resident))
+    return max(1, min(blocks, work // _MIN_TILES, _MERGE_BYTES // (G * hd * 4), _MAX_BLOCKS))
+
+
+def paged_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor) -> int:
+    """``paged_blocks`` of a paged launch on q's card. Its slots are as long
+    as the table at most, and all of them together no longer than the pool:
     P·ps positions per KV head, and a partial tile per slot."""
-    B, _, hd = q.shape
+    B, H, hd = q.shape
     P, ps, Hkv = k_pages.shape[:3]
     work = Hkv * (-(-P * ps // _TILE) + B)
-    return split_plan(B, Hkv, page_table.shape[1] * ps, resident_blocks(q.device, hd, True), work)
+    return paged_blocks(B, Hkv, H // Hkv, hd, work, resident_blocks(q.device, hd, True)[0])
 
 
 def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, softcap, *extra) -> None:
@@ -268,13 +315,11 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, softca
         raise ValueError(f"softcap must be positive, got {softcap}")
 
 
-def _merge_buffers(device: torch.device, pairs: int, G: int, hd: int, splits: int):
-    """(ws, count) of a launch with more than one cluster a (slot, KV head):
-    fresh room for the clusters' fp32 outputs and log-sum-exps, and the
-    current stream's counters, zero between calls; (None, None) otherwise."""
-    if splits <= _CLUSTER:
-        return None, None
-    ws = torch.empty(pairs * (splits // _CLUSTER) * G * (hd + 1), dtype=torch.float32, device=device)
+def _merge_buffers(device: torch.device, pairs: int, G: int, hd: int, partials: int):
+    """(ws, count) of a launch whose (slot, KV head) pairs merge ``partials``
+    fp32 outputs in all through device memory: fresh room for them and their
+    log-sum-exps, and the current stream's counters, zero between calls."""
+    ws = torch.empty(partials * G * (hd + 1), dtype=torch.float32, device=device)
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     count = _counters.get(key)
     if count is None or count.numel() < pairs:
@@ -318,7 +363,9 @@ def decode_attention(
     Hkv = k_cache.shape[2]
     chunk, splits = dense_plan(q, k_cache)
     o = torch.empty_like(q)
-    ws, count = _merge_buffers(q.device, B * Hkv, H // Hkv, hd, splits)
+    ws, count = None, None  # up to 8 splits a pair merge in their cluster
+    if splits > _CLUSTER:
+        ws, count = _merge_buffers(q.device, B * Hkv, H // Hkv, hd, B * Hkv * (splits // _CLUSTER))
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.decode_attention_bf16(
@@ -362,14 +409,14 @@ def paged_decode_attention(
         raise ValueError(f"bad pool or table: pool {tuple(k_pages.shape)}, table {tuple(page_table.shape)}")
     kv_len = _lengths(kv_len, B, q.device)
     Hkv = k_pages.shape[2]
-    chunk, splits = paged_plan(q, k_pages, page_table)
+    blocks = paged_plan(q, k_pages, page_table)
     o = torch.empty_like(q)
-    ws, count = _merge_buffers(q.device, B * Hkv, H // Hkv, hd, splits)
+    ws, count = _merge_buffers(q.device, B * Hkv, H // Hkv, hd, blocks + B * Hkv)  # one partial an item
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.paged_decode_attention_bf16(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
-            o.data_ptr(), _ptr(ws), _ptr(count), B, H, Hkv, hd, P, ps, NP, chunk, splits,
+            o.data_ptr(), ws.data_ptr(), count.data_ptr(), B, H, Hkv, hd, P, ps, NP, blocks,
             float(softcap or 0.0), hd**-0.5,
             torch.cuda.current_stream().cuda_stream,
         )

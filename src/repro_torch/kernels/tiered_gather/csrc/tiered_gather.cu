@@ -17,18 +17,33 @@
 //
 // tiered_gather_matmul: out[i] = table[ids[i]] @ w for ok rows, in bf16
 // with fp32 accumulation. At Mixtral's widths (D 6144, F 16384) the weight
-// alone is 201 MB, so a few hundred rows make it operation-bound and the
-// product runs on the tensor cores (mma.sync m16n8k16, ldmatrix fragments).
-// The TPU version elides the DMA of cold rows with a cummax fetch-id scheme
-// and gates the multiply with pl.when. Here a one-block pass first orders
-// the rows, hits first and misses after (each in their original order), and
-// the product then runs over the packed hits only: a cold row is never
-// loaded or multiplied, and the row slices past the hits only write zeros,
-// so half the groups resident means half the tiles and half the reads of w.
-// Tiles of 128 rows × 128 columns × 32, 8 warps of 64 × 32, a four-stage
-// cp.async ring; the blocks of one column strip are launched next to each
-// other (blockIdx.x runs over the row slices), so w's tiles come from L2
-// after the first read. The host counts the two passes as one launch.
+// alone is 201 MB, so the call is bound by w's bytes when few rows hit and
+// by the tensor cores' operations when many do (512 hits: 103 GFLOP, 104
+// µs at the card's peak, against 60 µs to read w). The TPU version elides
+// the DMA of cold rows with a cummax fetch-id scheme and gates the
+// multiply with pl.when. Here a one-block pass first orders the rows, hits
+// first and misses after (each in their original order), and the product
+// then runs over the packed hits only: a cold row is never loaded or
+// multiplied, and row slices past the hits only write zeros. The host
+// never learns the number of hits; the grid is sized from N.
+// The product is Hopper's warp-specialised GEMM: a block owns 128 packed
+// rows × 256 columns and has three warpgroups. The producer warpgroup
+// (setmaxnreg 40) fills a 4-stage ring of 64-deep k slices (48 KB each) on
+// mbarriers: one thread loads w's (64 × 256) tile by 2-D TMA, four boxes
+// of 64 columns with the 128-byte swizzle; A's rows are a gather, which
+// TMA cannot do in one box, so the warpgroup's 128 threads copy the hit
+// rows' 16-byte chunks with cp.async into the same swizzled layout and
+// count them on the stage's barrier (one 1-row TMA box per row measured
+// slower). Rows past the hits are neither loaded nor stored. The two
+// consumer warpgroups (setmaxnreg 232) each run wgmma m64n256k16 on 64
+// rows, A K-major and w MN-major through the descriptor's transpose bit,
+// with 128 fp32 accumulators a thread and one k slice's products in
+// flight while the next slice's barrier is awaited; a warpgroup with no
+// hit row returns at once. The blocks of one column strip are launched
+// next to each other (blockIdx.x runs over the row slices), so w's tiles
+// come from L2 after the first read. (Clusters of 2 or 4 row slices
+// sharing w's tiles by TMA multicast measured 1.8x and 3.6x slower:
+// PERF.md.) The host counts the two passes as one launch.
 
 #include "sm90_common.cuh"
 
@@ -77,10 +92,17 @@ cudaError_t launch_gather(const void* table, const int* ids, const int* mask, vo
 // ---------------------------------------------------------------- gather-matmul
 
 constexpr int PACK_THREADS = 1024;
-constexpr int BM = 128, BN = 128, BKK = 32, STAGES = 4, GM_THREADS = 256;
-constexpr int LDA = BKK + 8;  // padded smem rows: conflict-free ldmatrix
-constexpr int LDB = BN + 8;
-constexpr int GM_SMEM = STAGES * (BM * LDA + BKK * LDB) * 2;
+constexpr int GM_BM = 128;                            // packed rows a block: two consumer warpgroups of 64
+constexpr int GM_BN = 256;                            // columns a block: one wgmma m64n256 a k16 step
+constexpr int GM_BK = 64;                             // k of a stage: one 128-byte swizzle row of A
+constexpr int GM_STAGES = 4;
+constexpr int GM_THREADS = 3 * 128;                   // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr int GM_A_BYTES = GM_BM * GM_BK * 2;         // 16 KB: 128 rows of 128 bytes
+constexpr int GM_B_BYTES = GM_BK * GM_BN * 2;         // 32 KB: 4 boxes of 64 k rows × 64 columns
+constexpr int GM_A_OFF = 0;
+constexpr int GM_B_OFF = GM_STAGES * GM_A_BYTES;
+constexpr int GM_BAR_OFF = GM_B_OFF + GM_STAGES * GM_B_BYTES;  // full[STAGES], empty[STAGES]
+constexpr int GM_SMEM = GM_BAR_OFF + 16 * GM_STAGES + 1024;     // room to align the base to 1024
 
 // One block orders the rows: hits first (order[p], their table rows in
 // src[p], p < n_ok), then misses, each in their original order; writes the
@@ -142,123 +164,115 @@ pack_rows_kernel(const int* __restrict__ ids, const int* __restrict__ mask, int*
 }
 
 // Block (x, y) owns packed rows [x·BM, x·BM + BM) and columns [y·BN, y·BN + BN):
-// its hit rows are multiplied, its miss rows written as zeros.
-__global__ void __launch_bounds__(GM_THREADS, 2)
-gather_matmul_kernel(const __nv_bfloat16* __restrict__ table, const __nv_bfloat16* __restrict__ w,
+// its hit rows are multiplied, its miss rows written as zeros. tm_w: w (D, F)
+// as a 2-D map, box (64 columns, 64 k rows).
+__global__ void __launch_bounds__(GM_THREADS, 1)
+gather_matmul_kernel(const __grid_constant__ CUtensorMap tm_w, const __nv_bfloat16* __restrict__ table,
                      const int* __restrict__ order, const int* __restrict__ src, const int* __restrict__ n_ok_ptr,
                      __nv_bfloat16* __restrict__ out, int N, int D, int F) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [STAGES][BM][LDA]
-  __nv_bfloat16* sB = sA + STAGES * BM * LDA;                        // [STAGES][BKK][LDB]
-  __shared__ int sSrc[BM], sDst[BM];
+  __shared__ int sSrc[GM_BM], sDst[GM_BM];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sA = base + GM_A_OFF, sB = base + GM_B_OFF;
+  auto full = [&](int s) { return base + GM_BAR_OFF + 8u * s; };
+  auto empty = [&](int s) { return base + GM_BAR_OFF + 8u * (GM_STAGES + s); };
 
   const int n_ok = *n_ok_ptr;
-  const int p0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;  // 2 × 4 warps, 64 rows × 32 columns each
-
-  for (int r = tid; r < BM; r += GM_THREADS) {
+  const int p0 = blockIdx.x * GM_BM, n0 = blockIdx.y * GM_BN;
+  const int tid = threadIdx.x;
+  const int rows = min(GM_BM, n_ok - p0);  // hit rows of this slice
+  const int live_wgs = rows > 64 ? 2 : 1;  // consumer warpgroups with hit rows
+  for (int r = tid; r < GM_BM; r += GM_THREADS) {
     const int p = p0 + r;
     sSrc[r] = p < n_ok ? src[p] : 0;
     sDst[r] = p < N ? order[p] : 0;
   }
+  if (tid == 0 && rows > 0) {
+    for (int s = 0; s < GM_STAGES; ++s) {
+      mbar_init(full(s), 128 + 1);        // each producer thread's copies (cp.async), thread 0's expect_tx
+      mbar_init(empty(s), 4 * live_wgs);  // lane 0 of each live consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
   // miss rows of this slice: exact zeros (F % 8 == 0, so 16-byte stores)
-  for (int c = tid; c < BM * (BN / 8); c += GM_THREADS) {
-    const int r = c / (BN / 8), col = n0 + (c % (BN / 8)) * 8, p = p0 + r;
+  for (int c = tid; c < GM_BM * (GM_BN / 8); c += GM_THREADS) {
+    const int r = c / (GM_BN / 8), col = n0 + (c % (GM_BN / 8)) * 8, p = p0 + r;
     if (p >= n_ok && p < N && col < F)
       *reinterpret_cast<uint4*>(out + static_cast<size_t>(sDst[r]) * F + col) = make_uint4(0, 0, 0, 0);
   }
-  const int rows = min(BM, n_ok - p0);  // hit rows of this slice
-  if (rows <= 0) return;
+  if (rows <= 0) return;  // block-uniform
 
-  auto load_stage = [&](int kt, int stage) {
-    const int k0 = kt * BKK;
-    __nv_bfloat16* a_s = sA + stage * BM * LDA;
-    __nv_bfloat16* b_s = sB + stage * BKK * LDB;
-    // A: the hit rows' k-slice; rows past the hits are zero-filled, not read
-    for (int c = tid; c < BM * (BKK / 8); c += GM_THREADS) {
-      const int r = c / (BKK / 8), col = (c % (BKK / 8)) * 8;
-      const bool live = r < rows && k0 + col < D;
-      const __nv_bfloat16* p = live ? table + static_cast<size_t>(sSrc[r]) * D + k0 + col : table;
-      cp_async16(a_s + r * LDA + col, p, live ? 16 : 0);
-    }
-    // B: w's (BKK × BN) tile
-    for (int c = tid; c < BKK * (BN / 8); c += GM_THREADS) {
-      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const bool live = k0 + r < D && n0 + col < F;
-      const __nv_bfloat16* p = live ? w + static_cast<size_t>(k0 + r) * F + n0 + col : w;
-      cp_async16(b_s + r * LDB + col, p, live ? 16 : 0);
-    }
-  };
-
-  // m16 tiles of this warp's 64 rows that hold hits (warp-uniform)
-  const int mtiles = min(4, max(0, (rows - wm * 64 + 15) / 16));
-  float acc[4][4][4];
+  const int KT = (D + GM_BK - 1) / GM_BK;
+  // warp-uniform by construction, so what derives from it stays in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == 2) {
+    // ---- producer: w's tile by TMA, A's hit rows gathered ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int t = tid - 256;
+    const int j = t % 8;  // thread t: 16-byte chunk j of rows t / 8, t / 8 + 16, ...
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % GM_STAGES, k0 = kt * GM_BK, k = k0 + 8 * j;
+      if (kt >= GM_STAGES) mbar_wait(empty(s), ((kt / GM_STAGES) - 1) & 1);
+      if (t == 0) {
+        mbar_expect_tx(full(s), GM_B_BYTES);
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int KT = (D + BKK - 1) / BKK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  const int lrow = lane % 8, lmat = lane / 8;  // ldmatrix: this lane's row within its 8×8 matrix
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt landed for everyone; stage (kt - 1) % STAGES is free
-    if (kt + STAGES - 1 < KT) load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
-    if (mtiles == 0) continue;
-    const __nv_bfloat16* a_s = sA + (kt % STAGES) * BM * LDA + wm * 64 * LDA;
-    const __nv_bfloat16* b_s = sB + (kt % STAGES) * BKK * LDB + wn * 32;
-#pragma unroll
-    for (int kk = 0; kk < BKK / 16; ++kk) {
-      // B fragments of the warp's four n8 tiles: matrices (k 0-7 | 8-15) × (n tile 2j | 2j+1)
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, b_s + (kk * 16 + (lmat & 1) * 8 + lrow) * LDB + (2 * j + (lmat >> 1)) * 8);
-        bf[2 * j][0] = r[0];
-        bf[2 * j][1] = r[1];
-        bf[2 * j + 1][0] = r[2];
-        bf[2 * j + 1][1] = r[3];
+        for (int c = 0; c < GM_BN / 64; ++c)
+          tma_load_2d(sB + s * GM_B_BYTES + c * GM_BK * 128, &tm_w, full(s), n0 + 64 * c, k0);
       }
+      const uint32_t a_s = sA + s * GM_A_BYTES;
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt < mtiles) {
-          // A fragment: matrices (rows 0-7 | 8-15) × (k 0-7 | 8-15)
-          uint32_t a[4];
-          ldmatrix_x4(a, a_s + (mt * 16 + (lmat & 1) * 8 + lrow) * LDA + kk * 16 + (lmat >> 1) * 8);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_16x8x16(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
+      for (int i = 0; i < GM_BM / 16; ++i) {
+        const int r = i * 16 + t / 8;
+        if (r < rows) {  // chunks past D zero-filled; rows past the hits neither loaded nor stored
+          const bool in = k < D;
+          const __nv_bfloat16* g = in ? table + static_cast<size_t>(sSrc[r]) * D + k : table;
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a_s + r * 128 + ((j ^ (r & 7)) << 4)),
+                       "l"(g), "r"(in ? 16 : 0));
         }
       }
+      cp_async_mbar_arrive(full(s));
     }
-  }
-  cp_async_wait<0>();
+  } else {
+    // ---- consumers: 64 rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if (wg >= live_wgs) return;  // no hit row in this warpgroup's 64
+    const int lane = tid % 32, warp = (tid % 128) / 32;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % GM_STAGES;
+      mbar_wait(full(s), (kt / GM_STAGES) & 1);
+      // the gathered rows came through the generic proxy (cp.async); wgmma reads through the async one
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < GM_BK / 16; ++kc) {
+        const uint64_t da = desc_sw128(sA + s * GM_A_BYTES + wg * 64 * 128 + kc * 32, 16, 1024);
+        const uint64_t db = desc_sw128(sB + s * GM_B_BYTES + kc * 2048, GM_BK * 128, 1024);
+        wgmma_ss_tb(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slice's products are done: free its stage
+      if (kt > 0 && lane == 0) mbar_arrive(empty((kt - 1) % GM_STAGES));
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
 
-  // hit rows back to their output rows, bf16 pairs
+    // rows back to their output rows, bf16 pairs: accumulator j·4 + e holds
+    // row warp·16 + lane / 4 (+ 8 for e >= 2), column 8·j + 2·(lane % 4) + (e & 1)
+    const int r0 = wg * 64 + warp * 16 + lane / 4, r1 = r0 + 8;
+    __nv_bfloat16* o0 = out + static_cast<size_t>(sDst[r0]) * F;
+    __nv_bfloat16* o1 = out + static_cast<size_t>(sDst[r1]) * F;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    if (mt >= mtiles) continue;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn * 32 + nt * 8 + t4 * 2;
-      if (col >= F) continue;
-      const int r0 = wm * 64 + mt * 16 + g, r1 = r0 + 8;
-      if (r0 < rows)
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(sDst[r0]) * F + col) =
-            pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r1 < rows)
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(sDst[r1]) * F + col) =
-            pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
+    for (int j = 0; j < GM_BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      if (col < F) {
+        if (r0 < rows) *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        if (r1 < rows) *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
     }
   }
 }
@@ -287,19 +301,21 @@ extern "C" int tiered_gather(const void* table, const int* ids, const int* group
 extern "C" int tiered_gather_matmul_bf16(const void* table, const void* w, const int* ids, const int* group_mask,
                                          void* out, int* miss, int* work, int N, int V, int D, int F,
                                          int group_size, void* stream) {
-  if (N <= 0 || V <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8 || group_size <= 0 || (F + BN - 1) / BN > 65535)
+  if (N <= 0 || V <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8 || group_size <= 0 || (F + GM_BN - 1) / GM_BN > 65535)
     return cudaErrorInvalidValue;
+  if (encode_fn() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_w;
+  if (!make_rows_map(&tm_w, w, D, F, GM_BK)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static cudaError_t opted =
-      cudaFuncSetAttribute(gather_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GM_SMEM);
-  if (opted != cudaSuccess) return opted;
   int *order = work, *src = work + N, *n_ok = work + 2 * static_cast<size_t>(N);
   pack_rows_kernel<<<1, PACK_THREADS, 0, s>>>(ids, group_mask, order, src, miss, n_ok, N, V, group_size);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BM - 1) / BM, (F + BN - 1) / BN);
-  gather_matmul_kernel<<<grid, GM_THREADS, GM_SMEM, s>>>(static_cast<const __nv_bfloat16*>(table),
-                                                         static_cast<const __nv_bfloat16*>(w), order, src, n_ok,
-                                                         static_cast<__nv_bfloat16*>(out), N, D, F);
+  static cudaError_t opted =
+      cudaFuncSetAttribute(gather_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GM_SMEM);
+  if (opted != cudaSuccess) return opted;
+  dim3 grid((N + GM_BM - 1) / GM_BM, (F + GM_BN - 1) / GM_BN);
+  gather_matmul_kernel<<<grid, GM_THREADS, GM_SMEM, s>>>(tm_w, static_cast<const __nv_bfloat16*>(table), order, src,
+                                                          n_ok, static_cast<__nv_bfloat16*>(out), N, D, F);
   return cudaGetLastError();
 }

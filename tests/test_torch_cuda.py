@@ -268,6 +268,85 @@ def test_paged_decode_kernel_matches_plain_on_card(card, case):
     assert _scaled_err(out, ref) <= 1e-2
 
 
+def _paged_inputs(B, Hkv, G, hd, ps, NP, card, seed):
+    P, pt = _granted_table(B, NP, ps, card)
+    rs = np.random.default_rng(seed)
+    q = _randn(rs, (B, Hkv * G, hd), card)
+    k, v = (_randn(rs, (P, ps, Hkv, hd), card) for _ in range(2))
+    return P, pt, q, k, v
+
+
+def _check_paged(out, q, k, v, pt, kv_len, P, ps):
+    """Kernel output vs plain at the clamped lengths and table; slots with no
+    admitted key are exactly 0 (the plain version averages V there)."""
+    NP = pt.shape[1]
+    kv = kv_len.clamp(max=NP * ps)
+    ref = da_ops.paged_decode_attention_plain(q, k, v, da_ops.clamp_page_table(pt, kv, P, ps), kv)
+    live = kv > 0
+    assert bool((out[~live] == 0).all())
+    assert _scaled_err(out[live], ref[live]) <= 1e-2
+
+
+# B, Hkv, G, hd, ps, NP, kv_len: the paged work list at ragged lengths with 1,
+# NP·ps and empty slots; pages of 64 rows (TMA, one piece a tile) and 16
+# (TMA, four pieces), 12 (the cp.async loader); a pool with one non-empty
+# slot, whose items are many and merge through the workspace
+WORKLIST_CASES = [
+    (6, 2, 4, 128, 64, 8, [512, 1, 300, 0, 64, 65]),
+    (8, 8, 6, 128, 16, 64, [1024, 1, 1000, 17, 0, 513, 64, 999]),
+    (4, 1, 16, 256, 12, 30, [360, 1, 200, 13]),
+    (5, 8, 6, 128, 16, 64, [0, 0, 1024, 0, 0]),
+    (3, 1, 16, 256, 16, 2048, [32768, 0, 17]),
+    (2, 2, 4, 64, 12, 700, [8400, 3]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WORKLIST_CASES, ids=str)
+def test_paged_work_list_matches_plain_on_card(card, case):
+    """One launch a call; two calls and a CUDA-graph replay agree exactly and
+    leave every pair's counter at 0, so the items' merge keeps no state."""
+    B, Hkv, G, hd, ps, NP, lens = case
+    P, pt, q, k, v = _paged_inputs(B, Hkv, G, hd, ps, NP, card, seed=7)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = da_ops.paged_decode_attention.launches
+    first = da_ops.paged_decode_attention(q, k, v, pt, kv_len)
+    second = da_ops.paged_decode_attention(q, k, v, pt, kv_len)
+    torch.cuda.synchronize()
+    assert da_ops.paged_decode_attention.launches == before + 2
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = da_ops.paged_decode_attention(q, k, v, pt, kv_len)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, replayed)
+    assert not any(bool(c.any()) for c in da_ops._counters.values())
+    _check_paged(first, q, k, v, pt, kv_len, P, ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [16, 12], ids=str)
+def test_paged_graph_follows_lengths_and_table_changed_in_place(card, ps):
+    """A graph captured once stays right when kv_len and the page table
+    change in place between replays: the work list is built on the card."""
+    B, Hkv, G, hd, NP = 4, 2, 6, 128, 64
+    P, pt, q, k, v = _paged_inputs(B, Hkv, G, hd, ps, NP, card, seed=8)
+    kv_len = torch.tensor([NP * ps, 100, 1, 300], dtype=torch.int32, device=card)
+    da_ops.paged_decode_attention(q, k, v, pt, kv_len)  # build, plan and counters outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da_ops.paged_decode_attention(q, k, v, pt, kv_len)
+    for lens, table in (([NP * ps, 100, 1, 300], pt.clone()), ([1, NP * ps, 0, 17], pt.flip(0)),
+                        ([5, 6, 7, NP * ps - 3], pt.roll(1, 1))):
+        kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        pt.copy_(table)
+        graph.replay()
+        torch.cuda.synchronize()
+        _check_paged(out, q, k, v, pt, kv_len, P, ps)
+    assert not any(bool(c.any()) for c in da_ops._counters.values())
+
+
 @pytest.mark.gpu
 def test_decode_kernels_reject_what_they_do_not_take(card):
     q = torch.zeros(1, 4, 128, device=card)
@@ -326,6 +405,55 @@ def test_gather_matmul_kernel_matches_plain_on_card(card, shape, kind):
     assert torch.equal(miss, ref_miss)
     assert bool((out[miss == 1] == 0).all())
     assert _scaled_err(out, ref) <= 1e-2
+
+
+# V, D, F, N, gs: hits that fill no whole 128-row slice, D and F that are not
+# multiples of the kernel's 64-deep k slice and 256 columns
+GM_EDGE_SHAPES = [(3000, 200, 520, 300, 100), (500, 8, 8, 129, 50), (4096, 6144, 264, 700, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GM_EDGE_SHAPES, ids=str)
+@pytest.mark.parametrize("kind", ["all", "half", "none"])
+def test_gather_matmul_edges_match_plain_on_card(card, shape, kind):
+    V, D, F, N, gs = shape
+    rs = np.random.default_rng(9)
+    table, w = _randn(rs, (V, D), card), _randn(rs, (D, F), card) * D**-0.5
+    ids = torch.from_numpy(rs.integers(0, V, N)).to(card)
+    ids[:3] = torch.tensor([-1, V, V - 1])
+    G = -(-V // gs)
+    mask = {"all": torch.ones(G), "none": torch.zeros(G),
+            "half": torch.arange(G) % 2}[kind].to(card)
+    out, miss = tg_ops.tiered_gather_matmul(table, w, ids, mask, group_size=gs)
+    torch.cuda.synchronize()
+    ref, ref_miss = tg_ops.tiered_gather_matmul_plain(table, w, ids.int(), mask.int(), group_size=gs)
+    assert torch.equal(miss, ref_miss) and miss[:2].tolist() == [1, 1]
+    assert bool((out[miss == 1] == 0).all())
+    assert _scaled_err(out, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_gather_matmul_graph_follows_mask_changed_in_place(card):
+    """The hits are packed on the card: a graph captured once stays right
+    when the group mask changes in place between replays."""
+    V, D, F, N, gs = 2048, 320, 520, 300, 128
+    rs = np.random.default_rng(10)
+    table, w = _randn(rs, (V, D), card), _randn(rs, (D, F), card) * D**-0.5
+    ids = torch.from_numpy(rs.integers(-1, V + 1, N)).to(card, torch.int32)
+    mask = torch.ones(V // gs, dtype=torch.int32, device=card)
+    tg_ops.tiered_gather_matmul(table, w, ids, mask, group_size=gs)  # build outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, miss = tg_ops.tiered_gather_matmul(table, w, ids, mask, group_size=gs)
+    for resident in (torch.ones(V // gs), torch.arange(V // gs) % 3 == 0, torch.zeros(V // gs)):
+        mask.copy_(resident.to(torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref, ref_miss = tg_ops.tiered_gather_matmul_plain(table, w, ids, mask, group_size=gs)
+        assert torch.equal(miss, ref_miss)
+        assert bool((out[miss == 1] == 0).all())
+        assert _scaled_err(out, ref) <= 1e-2
 
 
 @pytest.mark.gpu

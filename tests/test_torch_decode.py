@@ -200,14 +200,21 @@ def test_split_plan_fills_whole_waves_on_long_caches(B, Hkv, per_sm):
     assert splits == 1 or B * Hkv * (splits - step) < ops._CARD_BLOCKS
 
 
+# chip_smoke's paged call: 8 ragged slots in pages of 16, the pool holding
+# their pages and two spare pages a slot
+SMOKE_LENS = (4096, 3000, 2048, 1500, 1024, 700, 100, 17)
+SMOKE_POOL_TILES = -(-(sum(-(-n // 16) for n in SMOKE_LENS) + 16) * 16 // 64)
+
+
 def test_split_plan_splits_a_ragged_pool_more():
-    """A paged call whose pool holds a third of what its table could address
-    (one long slot among short ones) splits the long slot further than a
-    dense call of the same capacity, which the card's bytes bind."""
-    resident = H100_RESIDENT[2]
-    full = ops.split_plan(8, 8, 4096, resident)[1]
-    ragged = ops.split_plan(8, 8, 4096, resident, work=8 * 8 * 64 // 3)[1]
-    assert ragged > full
+    """A paged call with one long slot among short ones (chip_smoke's, at
+    Mixtral's widths) gives the long slot more blocks than the dense split
+    plan of the same capacity gives every slot, which the card's bytes
+    bind: its work list sees the lengths."""
+    blocks = ops.paged_blocks(8, 8, 6, 128, 8 * (SMOKE_POOL_TILES + 8), H100_RESIDENT[2][0])
+    items = ops.paged_work_items(torch.tensor(SMOKE_LENS), 8, 4096, blocks)
+    long_slot = int(((items[:, 0] == 0) & (items[:, 1] == 0)).sum())
+    assert long_slot > ops.split_plan(8, 8, 4096, H100_RESIDENT[2])[1]
 
 
 def test_split_plan_skips_cluster_sizes_the_card_cannot_hold():
@@ -242,11 +249,97 @@ def test_split_plan_reads_cluster_occupancy():
 
 
 def test_split_plan_charges_blocks_past_kv_len():
-    """A paged call's pool bounds its work, but every split of every slot is
-    a block that takes its place on the card and merges: 8 slots of hd 256
-    with one long slot (chip_smoke's paged shape) keep all their blocks,
-    empty ones too, within two resident waves of their cluster size."""
-    resident = H100_RESIDENT[1]
-    chunk, splits = ops.split_plan(8, 1, 4096, resident, work=1 * (-(-799 * 16 // 64) + 8))
-    assert splits > 8
-    assert 8 * splits <= 2 * resident[7]
+    """No block of a paged call sits past its slot's kv_len: at chip_smoke's
+    hd 256 shape (8 slots, one KV head, one block per SM) every item holds
+    admitted keys, the long slot gets several items, and the grid (blocks
+    + B·Hkv, every block that may hold an item) fits one resident wave."""
+    resident = H100_RESIDENT[1][0]
+    blocks = ops.paged_blocks(8, 1, 16, 256, SMOKE_POOL_TILES + 8, resident)
+    items = ops.paged_work_items(torch.tensor(SMOKE_LENS), 1, 4096, blocks)
+    assert bool((items[:, 3] > items[:, 2]).all())
+    assert int((items[:, 0] == 0).sum()) > 8
+    assert blocks + 8 <= resident
+
+
+def _check_work_items(lens, Hkv, cap, blocks):
+    """paged_work_items' rule: every admitted 64-key tile of every (slot, KV
+    head) in exactly one item, in whole-tile ranges in the kernel's order;
+    no item past ceil(total / blocks) + 1 tiles; no item for an empty slot;
+    no more items than the kernel's grid (blocks + B·Hkv) holds."""
+    kv_len = torch.tensor(lens, dtype=torch.int32)
+    items = ops.paged_work_items(kv_len, Hkv, cap, blocks)
+    admitted = [min(max(n, 0), cap) for n in lens]
+    total = Hkv * sum(-(-n // 64) for n in admitted)
+    assert len(items) <= blocks + len(lens) * Hkv
+    order = items[:, 0] * Hkv + items[:, 1]
+    assert bool((order[1:] >= order[:-1]).all())  # slot by slot, KV head by KV head
+    tiles = -(-(items[:, 3] - items[:, 2]) // 64)
+    if len(items):
+        assert int(tiles.max()) <= -(-total // blocks) + 1
+    for b, n in enumerate(admitted):
+        for kvh in range(Hkv):
+            mine = items[(items[:, 0] == b) & (items[:, 1] == kvh)]
+            if n == 0:
+                assert len(mine) == 0
+                continue
+            covered = [(int(s), int(e)) for s, e in mine[:, 2:].tolist()]
+            assert covered[0][0] == 0 and covered[-1][1] == n
+            assert all(s % 64 == 0 and s < e for s, e in covered)
+            assert all(e == s2 for (_, e), (s2, _) in zip(covered, covered[1:]))
+    return items
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("blocks", [1, 7, 64, 200, 1024])
+def test_paged_work_items_cover_ragged_lengths(seed, blocks):
+    rs = np.random.default_rng(seed)
+    B, Hkv, cap = int(rs.integers(1, 12)), int(rs.choice([1, 2, 8])), int(rs.choice([64, 640, 4096, 5000]))
+    lens = rs.integers(0, cap + 200, B).tolist()  # past cap is clamped
+    lens[0] = 1
+    if B > 1:
+        lens[1] = cap
+    _check_work_items(lens, Hkv, cap, blocks)
+
+
+@pytest.mark.parametrize("blocks", [1, 16, 200])
+def test_paged_work_items_give_one_slot_the_card(blocks):
+    """A pool with one non-empty slot: every item is that slot's, as many
+    as its tiles allow up to the plan's blocks."""
+    items = _check_work_items([0, 0, 32768, 0, -3], 2, 32768, blocks)
+    assert bool((items[:, 0] == 2).all())
+    assert len(items) == 2 * min(-(-512 // max(-(-1024 // blocks), 2)), 512)
+
+
+def test_paged_work_items_at_smoke_shapes():
+    """chip_smoke's paged calls at both widths, at its lengths and 8x them:
+    the long slot gets the most items, and the items of each (slot, KV head)
+    differ by at most one tile."""
+    for Hkv, G, hd, per_sm in ((8, 6, 128, 2), (1, 16, 256, 1)):
+        for scale in (1, 8):
+            lens = [scale * n for n in SMOKE_LENS]
+            blocks = ops.paged_blocks(8, Hkv, G, hd, Hkv * (scale * SMOKE_POOL_TILES + 8), H100_RESIDENT[per_sm][0])
+            items = _check_work_items(lens, Hkv, max(lens), blocks)
+            counts = torch.bincount(items[:, 0], minlength=8)
+            assert int(counts.argmax()) == 0
+            tiles = -(-(items[:, 3] - items[:, 2]) // 64)
+            pair = items[:, 0] * Hkv + items[:, 1]
+            for p in pair.unique():
+                mine = tiles[pair == p]
+                assert int(mine.max()) - int(mine.min()) <= 1
+
+
+@pytest.mark.parametrize("B,Hkv,G,hd,resident", [(8, 8, 6, 128, 264), (8, 1, 16, 256, 132), (64, 8, 6, 128, 264),
+                                                  (300, 8, 4, 64, 264), (1, 1, 16, 256, 132)])
+def test_paged_blocks_sizes_one_wave_where_the_pairs_allow(B, Hkv, G, hd, resident):
+    """The grid (blocks + pairs) fits the fewest whole resident waves that
+    hold the pairs and half a wave more; where the pairs take at most half
+    a wave, one wave and half the resident blocks at most; the merge of one
+    pair's partials stays within _MERGE_BYTES."""
+    pairs = B * Hkv
+    blocks = ops.paged_blocks(B, Hkv, G, hd, 10**6, resident)
+    waves = -(-(pairs + resident // 2) // resident)
+    assert 1 <= blocks <= ops._MAX_BLOCKS
+    assert blocks + pairs <= waves * resident
+    assert blocks * G * hd * 4 <= ops._MERGE_BYTES
+    if pairs <= resident // 2:
+        assert blocks + pairs <= resident and blocks <= resident // 2
