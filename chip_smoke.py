@@ -59,20 +59,40 @@ Phases (any failure exits non-zero before the result line):
    4096-token window.
 4. serve — Mixtral-8x22B at full width, depth cut from 56 to 2 layers, bf16
    weights from a seeded ``torch.Generator``: analyze → build_artifact →
-   cold_start(after2, strict) → generate (B=2, prompt 1024, 16 new tokens).
+   cold_start(after2, strict) → generate (B=2, prompt 1024, 8 new tokens).
    Launch counts are zeroed just before and read just after; every prefill
    of the run must have gone through the kernel in both layers. One more
    prefill of the same live weights through the plain attention checks the
-   kernel path's logits.
-5. serve — RecurrentGemma-9B at full width and full depth (38 layers: 12
-   rec/rec/attn groups and a rec/rec tail), the same path and request. Its
+   kernel path's logits. Then the same artifact under ``full`` (no budget,
+   the prefetcher on) serves the same request: the same tokens, 0
+   evictions, flash attention in every prefill run and no other kernel;
+   it prints loads by source, the prefetcher's counters and hit rate.
+5. serve, stats — the same weights and request under the reference
+   launcher's stats profile (one resident expert a layer, a quarter of the
+   row groups hot by the synthetic pipeline's stats) with its own artifact,
+   ``cold_start(residency="stats")``: half of tier-1 on the device, the
+   prefetcher on. The tokens must equal phase 4's, the prefetcher must
+   install a unit, resident bytes stay within the budget or each overshoot
+   is counted, flash attention runs in every prefill run and no other
+   kernel does, and no prefetch thread outlives ``close()``.
+6. serve — RecurrentGemma-9B at full width and full depth (38 layers: 12
+   rec/rec/attn groups and a rec/rec tail), the same path, 16 new tokens. Its
    tier-1 is empty (tied embeddings, dense MLPs), so nothing faults. Every
    prefill run must launch the scan once per rec layer (26) and flash
    attention once per attention layer (12). One more prefill through both
    plain versions checks the kernel path's logits.
-   Every wrapper's count is read on both serve paths: neither may launch
+   Every wrapper's count is read on every serve path: none may launch
    the decode or gather kernels (the served decode is the plain dense one,
    as in the reference), and Mixtral's may not launch the scan.
+7. modes — the paper's Table 2 through the launcher as a user runs it:
+   ``python -m repro_torch.launch.serve`` in before, after1 and after2
+   (its default stats policy) on Mixtral-8x22B at full width cut to 1
+   layer, bf16 weights (a ≈29 GB before bundle with the fp32 AdamW
+   moments), B=2 × 1024 + 4. Each must exit 0 and print its ``[serve]``
+   lines; bytes read must shrink strictly and the tokens agree. Free disk
+   and host RAM are printed first. (The reduced configs' head_dim 16 does
+   not run on the card's flash kernel.)
+Each phase's wall time is printed on the ``[time]`` line.
 
 The last lines: ``nvidia-smi`` name and power limit, a JSON line with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``.
@@ -81,6 +101,7 @@ kernels' numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -134,6 +155,10 @@ VOCAB, D_MODEL, D_FF, ROW_GROUP = 32768, 6144, 16384, 2048  # Mixtral's table, e
 
 H, HKV, HD = 48, 8, 128  # Mixtral-8x22B attention widths
 PROMPT, NEW_TOKENS, BATCH, LAYERS = 1024, 16, 2, 2
+# Mixtral's served request is B=2 × 1024 + 8: its strict budget is below one
+# decode step's working set, so every step faults gigabytes (PERF.md §5)
+MIXTRAL_NEW_TOKENS = 8
+MODES_NEW_TOKENS = 4  # the modes phase's request: B=2 × 1024 + 4
 RG_H, RG_HKV, RG_HD, RG_WINDOW, RG_WIDTH = 16, 1, 256, 2048, 4096  # RecurrentGemma-9B
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
@@ -692,9 +717,9 @@ def serve_phase(fa_ops, wrappers: dict, workdir: Path) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     server = cold_start(model, str(artifact), result, residency="strict", warm_shapes=warm_shapes)
-    engine = GenerationEngine(server, max_seq=PROMPT + NEW_TOKENS + 8)
+    engine = GenerationEngine(server, max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8)
     t3 = time.perf_counter()
-    out, stats = engine.generate(tokens, NEW_TOKENS)
+    out, stats = engine.generate(tokens, MIXTRAL_NEW_TOKENS)
     t4 = time.perf_counter()
     counts = {name: fn.launches for name, fn in wrappers.items()}  # the main path ends here
     launches = counts["flash_attention"]
@@ -725,7 +750,7 @@ def serve_phase(fa_ops, wrappers: dict, workdir: Path) -> dict:
         loads_by_phase=by_phase,
     )
     print("[serve] " + json.dumps(summary, default=str), flush=True)
-    if out.shape != (BATCH, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
+    if out.shape != (BATCH, MIXTRAL_NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise AssertionError(f"bad generated ids: shape {out.shape}, range [{out.min()}, {out.max()}]")
     if stats.faulted_units <= 0:
         raise AssertionError("the strict cold start faulted nothing")
@@ -756,9 +781,219 @@ def serve_phase(fa_ops, wrappers: dict, workdir: Path) -> dict:
     if not diff <= LOGITS_TOL:
         raise AssertionError(f"kernel-path logits differ from the plain path by {diff}")
     server.close()
-    shutil.rmtree(artifact, ignore_errors=True)
+    del server, engine, tiered, live, logits_kernel, logits_plain
+    torch.cuda.empty_cache()
     summary["logits_max_abs_diff"] = diff
+    summary["tokens"] = out.tolist()
+    summary["full"] = full_phase(model, result, artifact, tokens, out, wrappers, warm_shapes)
+    shutil.rmtree(artifact, ignore_errors=True)
     return summary
+
+
+def _loads_by_source(events) -> dict:
+    by = {}
+    for e in events:
+        src = by.setdefault(e.source, dict(loads=0, bytes=0))
+        src["loads"] += 1
+        src["bytes"] += e.nbytes
+    return by
+
+
+def _prefetch_summary(server, stats, counts: dict, prefill_runs: int) -> dict:
+    """What a served run under a prefetching policy reports: loads by
+    source, the prefetcher's counters, hit rate, stalls, faults, evictions."""
+    tiered, ts = server.tiered, server.tiered.stats
+    res = tiered.residency
+    return dict(
+        cold_start=server.report.to_dict(), budget_bytes=res.budget_bytes,
+        max_resident_bytes=res.max_resident_bytes, resident_bytes_at_rest=res.resident_bytes,
+        overshoots=res.overshoot_events, loads_by_source=_loads_by_source(ts.events),
+        prefetch=server.prefetcher.stats.to_dict(), prefetch_hit_rate=ts.prefetch_hit_rate,
+        prefetch_hits=ts.prefetch_hits, prefetch_waits=ts.prefetch_waits, misses=ts.misses,
+        stall_p50_s=ts.stall_percentile(50), stall_p99_s=ts.stall_percentile(99), evictions=ts.evictions,
+        refaults=ts.refaults, resident_fraction=tiered.resident_fraction(), faulted_units=stats.faulted_units,
+        faulted_bytes=stats.faulted_bytes, fault_s=stats.fault_s, prefill_s=stats.prefill_s,
+        decode_s=stats.decode_s, prefill_retries=stats.prefill_retries, decode_retries=stats.decode_retries,
+        launches=counts, prefill_runs=prefill_runs,
+    )
+
+
+def _prefetch_threads() -> set:
+    import threading
+
+    return {t for t in threading.enumerate() if t.name.startswith("prefetch-")}
+
+
+def _check_served_launches(path: str, counts: dict, prefill_runs: int) -> None:
+    """Mixtral's served paths launch flash attention in each prefill run's
+    LAYERS attention layers and no other kernel."""
+    want = {name: LAYERS * prefill_runs if name == "flash_attention" else 0 for name in counts}
+    if counts != want:
+        raise AssertionError(f"the {path} path launched {counts}, expected {want} for {prefill_runs} prefill runs")
+
+
+def full_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dict, warm_shapes) -> dict:
+    """The strict artifact again under ``full``: no budget, the prefetcher
+    on. The same request must give the strict run's tokens, with 0 evictions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    before = _prefetch_threads()
+    for fn in wrappers.values():
+        fn.launches = 0  # the full path starts here
+    server = cold_start(model, str(artifact), result, residency="full", warm_shapes=warm_shapes)
+    engine = GenerationEngine(server, max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8)
+    t0 = time.perf_counter()
+    out, stats = engine.generate(tokens, MIXTRAL_NEW_TOKENS)
+    t1 = time.perf_counter()
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the full path ends here
+    drained = server.prefetcher.drain(120.0)
+    summary = dict(generate_s=t1 - t0, drained=drained,
+                   **_prefetch_summary(server, stats, counts, len(warm_shapes) + stats.prefill_runs))
+    evictions = server.tiered.stats.evictions
+    server.close()
+    summary["prefetch_threads_alive_after_close"] = len(_prefetch_threads() - before)
+    print("[serve] full: " + json.dumps(summary, default=str), flush=True)
+    if not np.array_equal(out, strict_out):
+        raise AssertionError(f"full tokens {out.tolist()} differ from strict's {strict_out.tolist()}")
+    if evictions or not drained or summary["prefetch_threads_alive_after_close"]:
+        raise AssertionError(f"full: {evictions} evictions, drained {drained}, "
+                             f"{summary['prefetch_threads_alive_after_close']} prefetch threads left")
+    _check_served_launches("mixtral-8x22b full", counts, summary["prefill_runs"])
+    del server, engine
+    torch.cuda.empty_cache()
+    return summary
+
+
+def stats_phase(wrappers: dict, workdir: Path, strict_tokens: list) -> dict:
+    """Mixtral-8x22B at full width, 2 of 56 layers, under the reference
+    launcher's stats profile (one resident expert per layer, a quarter of
+    the vocab's row groups hot by the synthetic pipeline's stats) with its
+    own artifact: half of tier-1 on the device and the prefetcher on. The
+    same weights and request as phase 4 must give its tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    cfg = get_config("mixtral-8x22b").replace(num_layers=LAYERS, collect_moe_usage=True)
+    model = build_model(cfg, param_dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    profile = DeploymentProfile(resident_experts=1, hot_vocab_fraction=0.25, min_tier1_bytes=1 << 14,
+                                vocab_row_group=ROW_GROUP)
+    hot = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 128, 8)).vocab_row_stats(row_group=ROW_GROUP)
+    artifact = workdir / "artifact_stats"
+    shutil.rmtree(artifact, ignore_errors=True)
+    warm_shapes = ((BATCH, PROMPT),)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(7)).cuda()
+    before = _prefetch_threads()
+
+    for fn in wrappers.values():
+        fn.launches = 0  # the stats path starts here
+    t0 = time.perf_counter()
+    result = analyze(model, profile, hot_units_stats=hot, trace_B=1, trace_S=32)
+    t1 = time.perf_counter()
+    meta = build_artifact(params, result, str(artifact), compress_level=1)
+    t2 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = cold_start(model, str(artifact), result, residency="stats", warm_shapes=warm_shapes)
+    engine = GenerationEngine(server, max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8)
+    t3 = time.perf_counter()
+    out, stats = engine.generate(tokens, MIXTRAL_NEW_TOKENS)
+    t4 = time.perf_counter()
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the stats path ends here
+    peak = torch.cuda.max_memory_allocated()
+    drained = server.prefetcher.drain(120.0)
+    pstats, res = server.prefetcher.stats, server.tiered.residency
+    summary = dict(analyze_s=t1 - t0, build_s=t2 - t1, generate_s=t4 - t3, plan=result.summary(),
+                   tier1_compressed_bytes=meta["tier1_compressed_bytes"], peak_device_bytes=peak, drained=drained,
+                   **_prefetch_summary(server, stats, counts, len(warm_shapes) + stats.prefill_runs))
+    server.close()
+    summary["prefetch_threads_alive_after_close"] = len(_prefetch_threads() - before)
+    print("[serve] stats: " + json.dumps(summary, default=str), flush=True)
+    if not np.array_equal(out, np.asarray(strict_tokens, dtype=out.dtype)):
+        raise AssertionError(f"stats tokens {out.tolist()} differ from strict's {strict_tokens}")
+    if pstats.loaded_units < 1 or not drained:
+        raise AssertionError(f"stats: the prefetcher installed {pstats.loaded_units} units, drained {drained}")
+    if not (res.max_resident_bytes <= res.budget_bytes or res.overshoot_events > 0):
+        raise AssertionError(f"stats: {res.max_resident_bytes} resident bytes past the budget "
+                             f"{res.budget_bytes} with no overshoot counted")
+    if res.resident_bytes > res.budget_bytes:
+        raise AssertionError(f"stats: {res.resident_bytes} resident bytes at rest past the budget {res.budget_bytes}")
+    if summary["prefetch_threads_alive_after_close"]:
+        raise AssertionError("stats: prefetch threads alive after close()")
+    _check_served_launches("mixtral-8x22b stats", counts, summary["prefill_runs"])
+    del server, engine
+    torch.cuda.empty_cache()
+    shutil.rmtree(artifact, ignore_errors=True)
+    return summary
+
+
+def _host_resources(path: Path) -> str:
+    disk = shutil.disk_usage(path)
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            mem[k] = int(v.split()[0]) * 1024
+    return (f"free disk {disk.free / 1e9:.1f} of {disk.total / 1e9:.1f} GB, host RAM available "
+            f"{mem['MemAvailable'] / 1e9:.1f} of {mem['MemTotal'] / 1e9:.1f} GB")
+
+
+def modes_phase(workdir: Path) -> dict:
+    """The paper's Table 2 on the card through the launcher, as a user runs
+    it: ``python -m repro_torch.launch.serve`` in each of before, after1 and
+    after2 (under its default stats policy, prefetcher on) on
+    Mixtral-8x22B at full width, depth cut to 1 layer, bf16 weights from the
+    launcher's seeded generator, B=2 × prompt 1024 + 4 new tokens. Each run
+    writes its own bundle or artifact. Bytes read must shrink strictly from
+    before to after1 to after2, and the greedy tokens must agree."""
+    outdir = workdir / "launcher"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    print(f"[modes] {_host_resources(outdir)}", flush=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    runs = {}
+    for mode in ("before", "after1", "after2"):
+        argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mixtral-8x22b", "--layers", "1",
+                "--param-dtype", "bfloat16", "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                "--gen-steps", str(MODES_NEW_TOKENS), "--mode", mode, "--artifact-dir", str(outdir)]
+        t0 = time.perf_counter()
+        res = subprocess.run(argv, capture_output=True, text=True, timeout=600, env=env, cwd=str(REPO))
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[serve] ")]
+        for ln in lines:
+            print(f"[modes] {mode}: {ln}", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"the launcher exited {res.returncode} in mode {mode}: {res.stderr[-3000:]}")
+        report = json.loads(next(ln for ln in lines if ln.startswith(f"[serve] cold start ({mode}): "))
+                            .split(": ", 1)[1])
+        tokens = json.loads(next(ln for ln in lines if ln.startswith("[serve] tokens: ")).split(": ", 1)[1])
+        runs[mode] = dict(wall_s=wall, report=report, tokens=tokens, serve_lines=len(lines))
+        print(f"[modes] {mode}: read {report['read_s']:.3f} s, upload {report['upload_s']:.3f} s, compile "
+              f"{report['compile_s']:.3f} s; read {report['bytes_read']:,} B, uploaded {report['bytes_uploaded']:,} B; "
+              f"launcher wall {wall:.1f} s", flush=True)
+        for name in os.listdir(outdir / "mixtral-8x22b"):  # each bundle or artifact is read once
+            path = outdir / "mixtral-8x22b" / name
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
+    shutil.rmtree(outdir, ignore_errors=True)
+    read = [runs[m]["report"]["bytes_read"] for m in ("before", "after1", "after2")]
+    if not read[0] > read[1] > read[2]:
+        raise AssertionError(f"bytes read do not shrink strictly before > after1 > after2: {read}")
+    if not runs["before"]["tokens"] == runs["after1"]["tokens"] == runs["after2"]["tokens"]:
+        raise AssertionError(f"tokens differ across modes: { {m: r['tokens'] for m, r in runs.items()} }")
+    if not all(r["serve_lines"] >= 4 for r in runs.values()) or runs["after2"]["serve_lines"] < 6:
+        raise AssertionError("a launcher run printed fewer [serve] lines than the one-shot path prints")
+    return runs
 
 
 def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict:
@@ -896,20 +1131,39 @@ def main() -> int:
               f"{da_ops.resident_blocks(torch.device('cuda'), hd, False)}, paged "
               f"{da_ops.resident_blocks(torch.device('cuda'), hd, True)}", flush=True)
 
+    phase_s = {"build": time.perf_counter() - t0}  # wall seconds of each phase
+    t_phase = time.perf_counter()
     rows, rows_256 = [flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)
     decode_rows = decode_phase(da_ops)
     paged_rows = paged_phase(da_ops)
     gather_rows = gather_phase(tg_ops)
     gm_rows = gather_matmul_phase(tg_ops)
+    phase_s["kernel"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     paths = {f"paged-decode-{mode}": paged_path_phase(wrappers, rolling=mode == "rolling")["launches"]
              for mode in ("linear", "rolling")}
+    phase_s["paged decode"] = time.perf_counter() - t_phase
     workdir = REPO / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
-    paths["mixtral-8x22b"] = serve_phase(fa_ops, wrappers, workdir)["launches"]
+    t_phase = time.perf_counter()
+    strict = serve_phase(fa_ops, wrappers, workdir)
+    paths["mixtral-8x22b"] = strict["launches"]
+    paths["mixtral-8x22b-full"] = strict["full"]["launches"]
+    phase_s["serve strict + full"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    paths["mixtral-8x22b-stats"] = stats_phase(wrappers, workdir, strict["tokens"])["launches"]
+    phase_s["serve stats"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     paths["recurrentgemma-9b"] = recurrentgemma_phase(fa_ops, lru_ops, wrappers, workdir)["launches"]
+    phase_s["serve recurrentgemma"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    modes_phase(workdir)
+    phase_s["modes (launcher)"] = time.perf_counter() - t_phase
+    print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     # the served decode is the plain dense one, as in the reference, and Mixtral has no recurrent layer
-    for path, served in (("mixtral-8x22b", {"flash_attention"}),
+    for path, served in (("mixtral-8x22b", {"flash_attention"}), ("mixtral-8x22b-full", {"flash_attention"}),
+                         ("mixtral-8x22b-stats", {"flash_attention"}),
                          ("recurrentgemma-9b", {"flash_attention", "rglru_scan"})):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
         if stray:

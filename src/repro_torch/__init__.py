@@ -4,11 +4,13 @@ reference it is held against).
 The port keeps the reference's module names and layout so every module has
 an obvious counterpart. It imports ``torch`` and never ``jax``; entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``. Ported so far: the
-after2 serving slice — configs → analyze → ``build_artifact`` →
-``cold_start(mode="after2")`` → ``GenerationEngine.generate`` — for the
-Mixtral family and RecurrentGemma, with prefill attention and the RG-LRU
-scan in hand-written CUDA kernels (``kernels/flash_attention``,
-``kernels/rglru_scan``); the model layer's paged-KV decode
+serving pipeline — configs → analyze → ``build_artifact`` /
+``write_monolithic`` → ``cold_start(mode="before"|"after1"|"after2")`` under
+the strict, stats and full residency policies (``core/prefetch``'s
+prefetcher) → ``GenerationEngine.generate``, and its one-shot launcher
+(``launch/serve``) — for the Mixtral family and RecurrentGemma, with
+prefill attention and the RG-LRU scan in hand-written CUDA kernels
+(``kernels/flash_attention``, ``kernels/rglru_scan``); the model layer's paged-KV decode
 (``serving/paged_kv.PagePool``, ``models/attention.paged_gqa_decode``)
 through the paged decode kernel (``kernels/decode_attention``); and the
 dense decode and tiered gather kernels as ops (``kernels/decode_attention``,

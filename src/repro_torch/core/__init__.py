@@ -1,8 +1,8 @@
 """FaaSLight core: Program Analyzer (entry recognition, parameter
 reachability, tier partitioning) and Code Generator (optional store,
-on-demand loader, artifact builder)."""
+on-demand loader and prefetcher, artifact builder)."""
 
-from repro_torch.core.analyzer import AnalysisResult, analyze, build_artifact
+from repro_torch.core.analyzer import AnalysisResult, analyze, build_artifact, write_monolithic
 from repro_torch.core.entrypoints import DeploymentProfile, recognize_entries
 from repro_torch.core.file_elim import eliminate_collections, eliminate_files
 from repro_torch.core.on_demand import AccessTrace, LoadEvent, LoaderStats, ResidencyManager, TieredParams
@@ -10,6 +10,7 @@ from repro_torch.core.optional_store import (
     CorruptFrameError,
     OptionalStore,
     OptionalStoreWriter,
+    ReadStats,
     StoreError,
     StoreSkewError,
     TornFrameError,
@@ -17,11 +18,13 @@ from repro_torch.core.optional_store import (
 )
 from repro_torch.core.param_graph import ReachabilityReport, build_reachability, entry_param_liveness
 from repro_torch.core.partition import TierDecision, TierPlan, Unit, build_tier_plan
+from repro_torch.core.prefetch import Prefetcher, PrefetchStats, TransitionPredictor, merge_hints
 
 __all__ = [
     "AnalysisResult",
     "analyze",
     "build_artifact",
+    "write_monolithic",
     "DeploymentProfile",
     "recognize_entries",
     "eliminate_collections",
@@ -34,6 +37,7 @@ __all__ = [
     "OptionalStore",
     "OptionalStoreWriter",
     "write_store",
+    "ReadStats",
     "StoreError",
     "TornFrameError",
     "CorruptFrameError",
@@ -45,4 +49,8 @@ __all__ = [
     "TierPlan",
     "Unit",
     "build_tier_plan",
+    "Prefetcher",
+    "PrefetchStats",
+    "TransitionPredictor",
+    "merge_hints",
 ]

@@ -12,7 +12,8 @@ runs the Code Generator: given real weights it writes
       artifact.json                # plan decisions + sizes
 
 byte-identical to the reference's package for the same weights and level,
-so either package serves the other's artifact.
+so either package serves the other's artifact. ``write_monolithic()`` writes
+the paper's two baselines, byte-identical to the reference's too.
 """
 
 from __future__ import annotations
@@ -132,3 +133,18 @@ def build_artifact(
         json.dump(meta, f)
     os.replace(tmpm, meta_path)
     return meta
+
+
+def write_monolithic(collections: dict, outdir: str, *, pruned: bool = False) -> str:
+    """The paper's *before* (full checkpoint) / *after1* (collection-pruned)
+    baselines as single uncompressed bundles, ``<outdir>/before`` or
+    ``<outdir>/after1``; each leaf is written as ``<collection>.<path>``.
+    Returns the bundle's ``.bin`` path."""
+    os.makedirs(outdir, exist_ok=True)
+    if pruned:
+        collections, _ = eliminate_collections(collections)
+    flat = {f"{coll}.{path}": leaf
+            for coll, tree in collections.items() for path, leaf in flatten_with_paths(tree)}
+    prefix = os.path.join(outdir, "after1" if pruned else "before")
+    tsl.write_bundle(prefix, flat)
+    return prefix + ".bin"

@@ -1,6 +1,5 @@
 """④ On-demand loading — the ``rewrite_template`` analogue
-(``repro.core.on_demand`` counterpart, without prefetch hooks or a host
-arbiter).
+(``repro.core.on_demand`` counterpart, without a host arbiter).
 
 Tier-1 leaves start as zero-filled device tensors of full shape (the
 "rewritten stub": identical shapes, so every step runs the same code as the
@@ -10,15 +9,29 @@ failure.
 
 Residency is a per-unit state machine (``ResidencyManager``)::
 
-    COLD ──ensure()──▶ LOADING ──install──▶ RESIDENT
-      ▲                                        │
-      └────────── evict (LRU, unpinned) ◀──────┘
+    COLD ──ensure()/prefetch──▶ LOADING ──install──▶ RESIDENT
+      ▲                                                 │
+      └───────────── evict (LRU, unpinned) ◀────────────┘
 
-under a device-bytes budget. The reference rebuilds a whole leaf per install
-(``.at[].set``); the port writes in place — ``leaf[sel].copy_(host)`` to
-fault in and ``leaf[sel].zero_()`` to evict — so a fault never holds a
-second copy of a multi-GB expert table. The unit order, the ``LoadEvent``
-key/byte sequence and the budget arithmetic are the reference's.
+under a device-bytes budget. A demand ``ensure`` that finds a key LOADING
+under another loader (the prefetcher, ``core/prefetch.py``) waits for it
+instead of reading it twice, and takes the load over if that loader aborts.
+
+The reference rebuilds a whole leaf per install (``.at[].set``), so a step
+holds an immutable snapshot of the tree; the port writes in place —
+``leaf[sel].copy_(host)`` to fault in and ``leaf[sel].zero_()`` to evict — so
+a fault never holds a second copy of a multi-GB expert table. In place, an
+install or eviction from the prefetcher's thread would tear a forward run in
+flight (some layers reading zeros, others real bytes), and a commit between
+a run and its miss check would make a run computed on placeholder zeros look
+complete. ``TieredParams.gate`` closes both: every write to the live tree
+takes it, and the engine holds it for each forward run from launch until the
+run's outputs are on the device and its misses are read. The gate is never
+held while waiting on a LOADING key (the loader that must finish it needs
+the gate), and it is always taken before the residency lock.
+
+The unit order, the ``LoadEvent`` key/byte sequence and the budget
+arithmetic are the reference's.
 """
 
 from __future__ import annotations
@@ -31,9 +44,11 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Iterable, Optional
 
+import numpy as np
+
 import torch
 
-from repro_torch.core.optional_store import OptionalStore
+from repro_torch.core.optional_store import OptionalStore, ReadStats
 from repro_torch.core.partition import TierPlan, Unit
 from repro_torch.utils.tree import flatten_with_paths
 
@@ -54,7 +69,7 @@ class LoadEvent:
     fetch_s: float
     upload_s: float
     t: float = 0.0          # monotonic completion time
-    source: str = "fault"   # "fault" | "preload"
+    source: str = "fault"   # "fault" | "prefetch" | "preload"
     phase: str = ""         # request phase at load time ("prefill" | "decode" | "")
 
 
@@ -124,16 +139,51 @@ class LoaderStats:
     events: list = field(default_factory=list)
     misses: int = 0          # synchronous request-path loads
     hits: int = 0            # already-resident touches
+    prefetch_hits: int = 0   # first demand touch of a prefetch-loaded unit
+    prefetch_waits: int = 0  # demand overlapped an in-flight prefetch load
     evictions: int = 0
     evicted_bytes: int = 0
     refaults: int = 0        # loads of a previously-evicted unit
+    stalls: list = field(default_factory=list)  # per-ensure miss-stall seconds
+    preads_issued: int = 0     # pread syscalls the demand path issued
+    frames_fetched: int = 0    # store frames those reads delivered
+    coalesced_bytes: int = 0   # payload bytes arriving via multi-frame preads
 
+    @property
+    def total_miss_bytes(self) -> int:
+        return sum(e.nbytes for e in self.events if e.source != "prefetch")
+
+    @property
+    def request_fault_bytes(self) -> int:
+        """Bytes moved synchronously on the request path (source "fault")."""
+        return sum(e.nbytes for e in self.events if e.source == "fault")
+
+    @property
+    def total_loaded_bytes(self) -> int:
+        return sum(e.nbytes for e in self.events)
+
+    @property
+    def prefetch_hit_rate(self) -> float:
+        """Of demand-touched cold units, the fraction the prefetcher hid."""
+        n = self.prefetch_hits + self.prefetch_waits + self.misses
+        return (self.prefetch_hits + self.prefetch_waits) / n if n else 0.0
+
+    def stall_percentile(self, q: float) -> float:
+        if not self.stalls:
+            return 0.0
+        return float(np.percentile(np.asarray(self.stalls), q))
+
+    def _add_reads(self, rs: ReadStats) -> None:
+        self.preads_issued += rs.preads
+        self.frames_fetched += rs.frames
+        self.coalesced_bytes += rs.coalesced_bytes
 
 
 class ResidencyManager:
     """Per-unit residency state machine + device-bytes budget accounting.
 
-    All mutation happens under the owner's lock. LRU order is an
+    All mutation happens under the owner's lock; a condition on that lock
+    lets a demand load wait for an in-flight prefetch load. LRU order is an
     ``OrderedDict`` over RESIDENT keys stamped by a logical clock (one tick
     per ensure batch); eviction walks oldest stamp first, ties by key,
     skipping pinned units.
@@ -141,6 +191,7 @@ class ResidencyManager:
 
     def __init__(self, lock: threading.RLock, *, budget_bytes: Optional[int] = None):
         self._lock = lock
+        self.cv = threading.Condition(lock)
         self.budget_bytes = budget_bytes
         self._state: dict[str, str] = {}
         self._nbytes: dict[str, int] = {}
@@ -148,6 +199,9 @@ class ResidencyManager:
         self._clock = 0
         self._stamp: dict[str, int] = {}
         self._lru: OrderedDict[str, None] = OrderedDict()
+        self._loaders: dict[str, str] = {}   # LOADING key -> claimant source
+        self._sources: dict[str, str] = {}   # RESIDENT key -> load source
+        self._unclaimed_prefetch: set[str] = set()  # prefetched, not yet demanded
         self._evicted_once: set[str] = set()
         self.resident_bytes = 0
         self.max_resident_bytes = 0  # high-water mark
@@ -164,39 +218,62 @@ class ResidencyManager:
         with self._lock:
             return set(self._lru)
 
+    def pins_of(self, key: str) -> int:
+        return self._pins.get(key, 0)
+
+    def loader_of(self, key: str) -> str:
+        """Source that owns an in-flight LOADING key ("" if none)."""
+        return self._loaders.get(key, "")
+
     def advance_clock(self) -> int:
         self._clock += 1
         return self._clock
 
     # -- transitions (caller holds the lock) ----------------------------------
-    def begin_load(self, key: str) -> bool:
-        """COLD → LOADING; False if the key is not COLD."""
+    def begin_load(self, key: str, source: str) -> bool:
+        """COLD → LOADING; False if the key is not COLD (the caller skips or
+        waits). The claimant that got True owns the read."""
         if self._state.get(key, COLD) != COLD:
             return False
         self._state[key] = LOADING
+        self._loaders[key] = source
         return True
 
-    def commit_load(self, key: str, nbytes: int) -> None:
+    def commit_load(self, key: str, nbytes: int, source: str) -> None:
         """LOADING → RESIDENT: charge the budget, make the key MRU."""
         if self._state.get(key) != LOADING:
             raise RuntimeError(f"commit of {key!r} in state {self._state.get(key)}")
         self._state[key] = RESIDENT
         self._nbytes[key] = nbytes
+        self._sources[key] = source
+        self._loaders.pop(key, None)
         self._lru[key] = None
         self._lru.move_to_end(key)
         self._stamp[key] = self._clock
+        if source == "prefetch":
+            self._unclaimed_prefetch.add(key)
         self.resident_bytes += nbytes
         self.max_resident_bytes = max(self.max_resident_bytes, self.resident_bytes)
+        self.cv.notify_all()
 
     def abort_load(self, key: str) -> None:
-        """LOADING → COLD (the read or decode failed)."""
+        """LOADING → COLD (the read or decode failed, or the prefetcher stopped)."""
         if self._state.get(key) == LOADING:
             self._state[key] = COLD
+            self._loaders.pop(key, None)
+            self.cv.notify_all()
 
-    def touch(self, key: str) -> None:
+    def touch(self, key: str, *, claim_prefetch: bool = True) -> str:
+        """Refresh LRU recency. With ``claim_prefetch`` (demand touches)
+        returns "prefetch" exactly once per prefetch-loaded unit, the
+        hit-accounting credit; hint touches pass False."""
         if key in self._lru:
             self._lru.move_to_end(key)
             self._stamp[key] = self._clock
+        if claim_prefetch and key in self._unclaimed_prefetch:
+            self._unclaimed_prefetch.discard(key)
+            return "prefetch"
+        return ""
 
     def pin(self, keys: Iterable[str]) -> None:
         for k in keys:
@@ -230,12 +307,25 @@ class ResidencyManager:
         self._state[key] = COLD
         self._lru.pop(key, None)
         self._stamp.pop(key, None)
+        self._sources.pop(key, None)
+        self._unclaimed_prefetch.discard(key)
         self._evicted_once.add(key)
         self.resident_bytes -= nb
         return nb
 
     def was_evicted(self, key: str) -> bool:
         return key in self._evicted_once
+
+    def wait_resident(self, key: str, timeout: float = 30.0) -> bool:
+        """Block until ``key`` leaves LOADING (caller holds the lock through
+        the condition). True if it became RESIDENT; False on abort/timeout."""
+        deadline = time.monotonic() + timeout
+        while self._state.get(key) == LOADING:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return False
+            self.cv.wait(remaining)
+        return self._state.get(key) == RESIDENT
 
 
 class TieredParams:
@@ -246,6 +336,8 @@ class TieredParams:
     ``(layer, expert)`` slice; rows: a row range; whole leaf). ``tree()``
     returns the same dict of tensors throughout — installs never replace a
     leaf. ``device_budget_bytes`` bounds the RESIDENT tier-1 bytes.
+    ``gate`` serializes writes to the tree with the engine's forward runs
+    (see the module docstring).
     """
 
     def __init__(self, tree: dict, plan: TierPlan, store: OptionalStore, *,
@@ -258,10 +350,11 @@ class TieredParams:
         self.trace: Optional[AccessTrace] = None
         self._phase = ""
         self._lock = threading.RLock()
-        # one loader at a time (this slice has no prefetcher): a key is never
-        # seen LOADING by a second ensure(), so nobody waits on another's read
-        self._ensure_lock = threading.Lock()
+        self.gate = threading.Lock()
         self.residency = ResidencyManager(self._lock, budget_bytes=device_budget_bytes)
+        # the reference's host arbiter (multi-model serving) is not ported:
+        # nothing registers one, and the prefetcher's headroom gate is off
+        self.arbiter = None
         self._all_units: dict[str, Unit] = {
             u.key: u for d in plan.decisions.values() for u in d.units
         }
@@ -285,6 +378,10 @@ class TieredParams:
     def resident_keys(self) -> set:
         return self.residency.resident_keys
 
+    @property
+    def resident_bytes(self) -> int:
+        return self.residency.resident_bytes
+
     def resident_fraction(self) -> float:
         n = len(self._all_units)
         return len(self.residency.resident_keys) / n if n else 1.0
@@ -292,30 +389,37 @@ class TieredParams:
     # -- the rewrite_template analogue ---------------------------------------
     def ensure(self, keys: Iterable[str], *, pin: bool = False, source: str = "fault") -> int:
         """Fault in the given unit keys; returns bytes moved (0 = warm hit).
-        With ``pin=True`` the keys stay unevictable until ``release()``.
-        Thread-safe: concurrent calls are serialized."""
-        with self._ensure_lock:
-            return self._ensure(list(dict.fromkeys(keys)), pin, source)
-
-    def _ensure(self, keys: list[str], pin: bool, source: str) -> int:
+        Claims COLD keys, reads and decodes them off the lock, evicts to fit
+        and installs, and waits out keys another loader (the prefetcher)
+        owns. With ``pin=True`` the keys stay unevictable until
+        ``release()``. Thread-safe; never call it holding ``gate``."""
+        keys = list(dict.fromkeys(keys))
+        t_start = time.perf_counter()
         res = self.residency
         to_load: list[str] = []
+        wait_for: list[tuple[str, str]] = []  # (key, in-flight loader source)
         cold: list[str] = []
         with self._lock:
             res.advance_clock()  # one stamp per ensure batch
             for k in keys:
-                if res.state_of(k) == RESIDENT:
-                    res.touch(k)
-                    self.stats.hits += 1
+                st = res.state_of(k)
+                if st == RESIDENT:
+                    if res.touch(k) == "prefetch":
+                        self.stats.prefetch_hits += 1
+                    else:
+                        self.stats.hits += 1
+                elif st == LOADING:
+                    cold.append(k)
+                    wait_for.append((k, res.loader_of(k)))
                 else:
                     cold.append(k)
-                    if res.begin_load(k):
+                    if res.begin_load(k, source):
                         to_load.append(k)
             if pin:
                 res.pin(keys)
             if self.trace is not None and source == "fault":
                 self.trace.record(keys, cold, self._phase)
-        if not to_load:
+        if not to_load and not wait_for:
             return 0
 
         moved = 0
@@ -331,15 +435,40 @@ class TieredParams:
                     for k in ordered[base:]:
                         res.abort_load(k)
                 raise
+
+        if wait_for:
+            with self._lock:
+                for k, loader in wait_for:
+                    while not res.is_resident(k):
+                        if res.begin_load(k, source):
+                            # the other loader aborted: take the load over
+                            self._lock.release()
+                            try:
+                                moved += self._load_one(k, source)
+                            finally:
+                                self._lock.acquire()
+                            break
+                        if not res.wait_resident(k) and res.state_of(k) == LOADING:
+                            # never return with the key cold: the caller
+                            # would compute on placeholder zeros
+                            raise RuntimeError(f"timed out waiting for in-flight load of {k!r}")
+                        # COLD after an abort: loop back and try to claim
+                    else:
+                        res.touch(k)
+                        if loader == "prefetch":
+                            self.stats.prefetch_waits += 1
+        if source == "fault":  # miss-stall percentiles are request-path only
+            self.stats.stalls.append(time.perf_counter() - t_start)
         return moved
 
     def _load_chunk(self, chunk: list[str], source: str) -> int:
         """Read one chunk's frames (one vectored pass), decode them
         concurrently, then evict-to-fit and install each in offset order."""
-        res = self.residency
         tr0 = time.perf_counter()
-        bufs = self.store.read_raw_many(chunk)
+        rs = ReadStats()
+        bufs = self.store.read_raw_many(chunk, stats=rs)
         t_read = time.perf_counter() - tr0
+        self.stats._add_reads(rs)
         decoded = self._decode_all(chunk, bufs)
         total_csize = sum(self.store.entries[k].csize for k in chunk) or 1
         moved = 0
@@ -347,22 +476,41 @@ class TieredParams:
             host, decode_s = decoded.pop(key)
             # the chunk's read wall is split csize-proportionally
             fetch_s = decode_s + t_read * self.store.entries[key].csize / total_csize
-            nbytes = host.numel() * host.element_size()
-            with self._lock:
-                t1 = time.perf_counter()
-                self._evict_to_fit(nbytes)
-                self._install(self._all_units[key], host)
-                t2 = time.perf_counter()
-                res.commit_load(key, nbytes)
-                if res.was_evicted(key):
-                    self.stats.refaults += 1
-                if source == "fault":
-                    self.stats.misses += 1
-                self.stats.events.append(LoadEvent(
-                    key, nbytes, fetch_s, t2 - t1, t=time.monotonic(),
-                    source=source, phase=self._phase))
-            moved += nbytes
+            moved += self._commit(key, host, fetch_s, source)
         return moved
+
+    def _load_one(self, key: str, source: str) -> int:
+        """Synchronous load of one already-claimed key (the takeover path)."""
+        try:
+            t0 = time.perf_counter()
+            rs = ReadStats()
+            host = self.store.decode(key, self.store.read_raw(key, stats=rs))
+            fetch_s = time.perf_counter() - t0
+        except Exception:
+            with self._lock:
+                self.residency.abort_load(key)
+            raise
+        self.stats._add_reads(rs)
+        return self._commit(key, host, fetch_s, source)
+
+    def _commit(self, key: str, host: torch.Tensor, fetch_s: float, source: str) -> int:
+        """Evict to fit, install one claimed unit and commit it RESIDENT."""
+        res = self.residency
+        nbytes = host.numel() * host.element_size()
+        with self.gate, self._lock:
+            t1 = time.perf_counter()
+            self._evict_to_fit(nbytes)
+            self._install(self._all_units[key], host)
+            t2 = time.perf_counter()
+            res.commit_load(key, nbytes, source)
+            if res.was_evicted(key):
+                self.stats.refaults += 1
+            if source == "fault":  # preload is not a request-path miss
+                self.stats.misses += 1
+            self.stats.events.append(LoadEvent(
+                key, nbytes, fetch_s, t2 - t1, t=time.monotonic(),
+                source=source, phase=self._phase))
+        return nbytes
 
     def _decode_all(self, chunk: list[str], bufs: dict[str, bytes]) -> dict:
         """key -> (host tensor, decode seconds), decoded concurrently."""
@@ -377,13 +525,61 @@ class TieredParams:
         with ThreadPoolExecutor(min(DECODE_WORKERS, len(chunk))) as ex:
             return dict(zip(chunk, ex.map(one, chunk)))
 
+    def ensure_all(self) -> int:
+        """Load every tier-1 unit (degrades to the 'full' baseline)."""
+        return self.ensure(list(self._all_units))
+
+    def touch(self, keys: Iterable[str]) -> None:
+        """Refresh LRU recency without demand-access accounting (predictive
+        hints on already-resident units)."""
+        with self._lock:
+            self.residency.advance_clock()
+            for k in keys:
+                self.residency.touch(k, claim_prefetch=False)
+
     def release(self, keys: Iterable[str]) -> None:
         """Unpin keys pinned by ``ensure(pin=True)``; over-budget residency
         left by pinned installs is reclaimed here (LRU first)."""
-        with self._lock:
+        with self.gate, self._lock:
             self.residency.release(keys)
             self._evict_to_budget()
 
+    # -- prefetch integration ---------------------------------------------------
+    def claim_for_prefetch(self, key: str) -> bool:
+        """COLD → LOADING on behalf of the prefetcher's reader thread."""
+        if key not in self._all_units:
+            return False
+        with self._lock:
+            return self.residency.begin_load(key, "prefetch")
+
+    def abort_prefetch(self, key: str) -> None:
+        with self._lock:
+            self.residency.abort_load(key)
+
+    def install_prefetched(self, key: str, host: torch.Tensor, fetch_s: float = 0.0) -> int:
+        """Install one staged host tensor claimed via ``claim_for_prefetch``.
+        Returns the bytes installed (0 if the claim is gone). The copy to the
+        device has landed when this returns (a copy from pageable host
+        memory synchronizes), so RESIDENT is committed only after it."""
+        unit = self._all_units.get(key)
+        if unit is None or self.residency.state_of(key) != LOADING:
+            return 0
+        nbytes = host.numel() * host.element_size()
+        with self.gate, self._lock:
+            if self.residency.state_of(key) != LOADING:
+                return 0
+            self.residency.advance_clock()
+            self._evict_to_fit(nbytes)
+            t0 = time.perf_counter()
+            self._install(unit, host)
+            upload_s = time.perf_counter() - t0
+            self.residency.commit_load(key, nbytes, "prefetch")
+            self.stats.events.append(LoadEvent(
+                key, nbytes, fetch_s, upload_s, t=time.monotonic(),
+                source="prefetch", phase=self._phase))
+        return nbytes
+
+    # -- eviction ---------------------------------------------------------------
     def _evict_to_budget(self) -> None:
         res = self.residency
         if res.budget_bytes is None:
@@ -416,7 +612,16 @@ class TieredParams:
         self.stats.evicted_bytes += nb
         return nb
 
-    # -- installation (in place) ----------------------------------------------
+    def evict(self, keys: Iterable[str]) -> int:
+        """Evict resident, unpinned units. Returns bytes freed."""
+        freed = 0
+        with self.gate, self._lock:
+            for k in keys:
+                if self.residency.is_resident(k) and self.residency.pins_of(k) == 0:
+                    freed += self._evict_one(k)
+        return freed
+
+    # -- installation (in place, under the gate) ----------------------------------
     def _unit_view(self, unit: Unit) -> torch.Tensor:
         view = self._flat[unit.path]
         for i in unit.sel:

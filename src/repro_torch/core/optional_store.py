@@ -66,6 +66,24 @@ class StoreSkewError(StoreError):
     files mixed from different builds)."""
 
 
+@dataclass
+class ReadStats:
+    """Vectored-read accounting of one call (or summed over many): preads
+    issued, frames delivered, payload bytes that came through multi-frame
+    (coalesced) preads, and gap bytes read and discarded between them."""
+
+    preads: int = 0
+    frames: int = 0
+    coalesced_bytes: int = 0
+    gap_bytes: int = 0
+
+    def add(self, other: "ReadStats") -> None:
+        self.preads += other.preads
+        self.frames += other.frames
+        self.coalesced_bytes += other.coalesced_bytes
+        self.gap_bytes += other.gap_bytes
+
+
 @dataclass(frozen=True)
 class Encoded:
     """One unit's frame, ready to append."""
@@ -259,7 +277,7 @@ class OptionalStore:
         del buf[got:]
         return buf
 
-    def read_raw(self, key: str) -> bytearray:
+    def read_raw(self, key: str, *, stats: Optional[ReadStats] = None) -> bytearray:
         """One unit's compressed frame; a short read raises ``TornFrameError``."""
         e = self.entries[key]
         try:
@@ -270,12 +288,17 @@ class OptionalStore:
             raise TornFrameError(
                 f"frame at offset {e.offset} is torn: wanted {e.csize} "
                 f"bytes, blob yielded {len(buf)}", key=key, path=self.path)
+        if stats is not None:
+            stats.add(ReadStats(preads=1, frames=1))
         return buf
 
-    def read_raw_many(self, keys: Iterable[str]) -> dict[str, bytearray]:
-        """Vectored read: frames within ``COALESCE_GAP`` bytes of each other
+    def read_raw_many(self, keys: Iterable[str], *, gap_threshold: int = COALESCE_GAP,
+                      stats: Optional[ReadStats] = None) -> dict[str, bytearray]:
+        """Vectored read: frames within ``gap_threshold`` bytes of each other
         (in offset order) share one pread, then are sliced apart — the same
-        bytes as per-key ``read_raw``. Duplicate keys are deduped."""
+        bytes as per-key ``read_raw``; ``gap_threshold=0`` reads each frame
+        with a pread of its own. Duplicate keys are deduped. ``stats``, if
+        given, is added this call's preads, frames and coalesced bytes."""
         ks = list(dict.fromkeys(keys))
         if not ks:
             return {}
@@ -284,11 +307,12 @@ class OptionalStore:
         for k, e in ents[1:]:
             prev = runs[-1][-1][1]
             gap = e.offset - (prev.offset + prev.csize)
-            if 0 <= gap <= COALESCE_GAP:
+            if gap_threshold > 0 and 0 <= gap <= gap_threshold:
                 runs[-1].append((k, e))
             else:
                 runs.append([(k, e)])
         out: dict[str, bytearray] = {}
+        rs = ReadStats()
         for run in runs:
             start = run[0][1].offset
             end = run[-1][1].offset + run[-1][1].csize
@@ -306,6 +330,14 @@ class OptionalStore:
                         f"{e.csize} bytes, blob yielded {len(buf)}",
                         key=k, path=self.path)
                 out[k] = buf
+            rs.preads += 1
+            rs.frames += len(run)
+            if len(run) > 1:
+                payload = sum(e.csize for _, e in run)
+                rs.coalesced_bytes += payload
+                rs.gap_bytes += (end - start) - payload
+        if stats is not None:
+            stats.add(rs)
         return out
 
     def decode(self, key: str, buf: bytes) -> torch.Tensor:

@@ -1,0 +1,5 @@
+"""Synthetic data (``repro.data`` counterpart)."""
+
+from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+
+__all__ = ["DataConfig", "SyntheticTokenPipeline"]

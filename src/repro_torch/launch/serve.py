@@ -1,0 +1,139 @@
+"""Serving launcher, one-shot path: ``python -m repro_torch.launch.serve --arch <id> [...]``
+(``repro.launch.serve`` counterpart).
+
+The FaaSLight pipeline end to end: analyze → write the artifact of the
+chosen mode (the monolithic before/after1 bundle, or the two-tier after2
+artifact) → timed cold start → one batched ``GenerationEngine.generate()``,
+with the reference's ``[serve]`` lines (cold start, generated, resident
+fraction, prefetch hit rate, evictions, refaults, stall p99) and the
+generated tokens. Weights come from ``model.init(torch.Generator(device)
+.manual_seed(0))``, prompts from a CPU ``torch.Generator`` seeded with 1, so
+a run is the same on every machine with the same device type.
+
+Runs on ``--device cuda`` unless told ``--device cpu``. The reduced configs
+(``--reduced``) have head_dim 8 or 16, below the 64, 128 or 256 that the CUDA
+flash-attention kernel takes, so they serve on the CPU only; on the card,
+serve a published config with its depth cut (``--layers``) and bf16 weights
+(``--param-dtype bfloat16``).
+
+Not ported (argparse refuses their flags): traffic mode, host budget,
+profile-guided and online re-tiering, the fleet, meshes, admission policies
+and snapshots.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.core import DeploymentProfile, analyze, build_artifact, write_monolithic
+from repro_torch.data import DataConfig, SyntheticTokenPipeline
+from repro_torch.models import build_model
+from repro_torch.optim import init_adamw
+from repro_torch.serving import GenerationEngine, cold_start
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers at full width (0 = the config's)")
+    ap.add_argument("--param-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="stored weight dtype (float32, as the reference stores them)")
+    ap.add_argument("--mode", default="after2", choices=["before", "after1", "after2"])
+    ap.add_argument("--artifact-dir", default="artifacts")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-steps", type=int, default=8)
+    ap.add_argument("--resident-experts", type=int, default=1)
+    ap.add_argument("--hot-vocab", type=float, default=0.25)
+    ap.add_argument("--policy", default="stats", choices=["strict", "stats", "full"],
+                    help="residency budget preset; also shapes the deployment profile")
+    ap.add_argument("--device-budget-bytes", type=int, default=0,
+                    help="override the preset's tier-1 device budget (0 = preset default)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="disable the prefetcher even where the preset enables it")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    if args.layers < 0:
+        ap.error("--layers must be >= 0")
+    if args.batch < 1 or args.prompt_len < 1 or args.gen_steps < 1:
+        ap.error("--batch, --prompt-len and --gen-steps must be >= 1")
+    if args.device_budget_bytes < 0:
+        ap.error("--device-budget-bytes must be >= 0")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("--device cuda: no CUDA device is visible (pass --device cpu)")
+
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    cfg = cfg.replace(collect_moe_usage=cfg.moe is not None)
+    model = build_model(cfg, param_dtype=getattr(torch, args.param_dtype))
+    outdir = os.path.join(args.artifact_dir, cfg.name)
+
+    if args.policy == "strict":
+        profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0,
+                                    min_tier1_bytes=1 << 14, vocab_row_group=max(64, cfg.vocab_size // 16))
+        stats = None
+    elif args.policy == "full":
+        profile = DeploymentProfile(resident_experts=-1, hot_vocab_fraction=1.0)
+        stats = None
+    else:  # stats
+        profile = DeploymentProfile(
+            resident_experts=args.resident_experts,
+            hot_vocab_fraction=args.hot_vocab,
+            min_tier1_bytes=1 << 14,
+            vocab_row_group=max(64, cfg.vocab_size // 16),
+        )
+        pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 128, 8))
+        stats = pipe.vocab_row_stats(row_group=profile.vocab_row_group)
+
+    print(f"[serve] analyzing {cfg.name} under profile {profile.name}/{args.policy}", flush=True)
+    result = analyze(model, profile, hot_units_stats=stats, trace_B=1, trace_S=32)
+    print("[serve] plan:", json.dumps(result.summary(), default=str)[:400], flush=True)
+
+    params = model.init(torch.Generator(args.device).manual_seed(0), device=args.device)
+    os.makedirs(outdir, exist_ok=True)
+    if args.mode in ("before", "after1"):
+        opt = init_adamw(params)
+        write_monolithic({"params": params, "opt_state": {"m": opt.m, "v": opt.v}},
+                         outdir, pruned=args.mode == "after1")
+        del opt
+    else:
+        build_artifact(params, result, outdir)
+    del params  # the server reads its weights from the artifact
+
+    with cold_start(model, outdir, result if args.mode == "after2" else None,
+                    mode=args.mode, warm_shapes=((args.batch, args.prompt_len),),
+                    residency=args.policy if args.mode == "after2" else None,
+                    device_budget_bytes=args.device_budget_bytes or None,
+                    prefetch=False if args.no_prefetch else None,
+                    device=args.device) as server:
+        print(f"[serve] cold start ({args.mode}):", json.dumps(server.report.to_dict(), default=float), flush=True)
+        engine = GenerationEngine(server, max_seq=args.prompt_len + args.gen_steps + 8)
+        prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                                generator=torch.Generator().manual_seed(1)).to(args.device)
+        out, stats_r = engine.generate(prompts, args.gen_steps)
+        print(f"[serve] generated {out.shape}; prefill={stats_r.prefill_s*1e3:.1f}ms "
+              f"decode={stats_r.decode_s*1e3:.1f}ms faults={stats_r.faulted_units} "
+              f"({stats_r.faulted_bytes/2**20:.1f}MiB, {stats_r.fault_s*1e3:.1f}ms)")
+        print(f"[serve] tokens: {json.dumps(out.tolist())}")
+        if server.tiered is not None:
+            ts = server.tiered.stats
+            budget = server.tiered.residency.budget_bytes
+            print(f"[serve] resident fraction: {server.tiered.resident_fraction():.3f}; "
+                  f"resident {server.tiered.resident_bytes:,}B"
+                  + (f" / budget {budget:,}B" if budget else " (no budget)"))
+            print(f"[serve] prefetch hit rate {ts.prefetch_hit_rate:.2f}; "
+                  f"evictions {ts.evictions}; refaults {ts.refaults}; "
+                  f"stall p99 {ts.stall_percentile(99)*1e3:.2f}ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,5 @@
 """Batched generation engine with on-demand fault-in — the request path
-(``repro.serving.engine`` counterpart, without prefetch hints or the online
-re-tiering tick).
+(``repro.serving.engine`` counterpart, without the online re-tiering tick).
 
 Execution never fails on a cold unit; it faults. Two fault classes:
 
@@ -11,9 +10,21 @@ Execution never fails on a cold unit; it faults. Two fault classes:
     up to ``MAX_FAULT_RETRIES`` times, because routing can shift once real
     weights replace placeholders.
 
+With a prefetcher attached the engine also emits access hints after each
+step so the next step's units load off the request path: the row groups of
+the top-k candidate tokens of the step's logits, and the experts the step
+routed to (the strongest predictor of the next step's routing).
+
 Every step's units are pinned for the duration of the step, so a device
 budget can never zero a unit between its fault-in and the compute that
-needs it.
+needs it. Each forward run holds the tiered params' gate from launch until
+its outputs are on the device and its misses are read (``_run``), so a
+prefetch install lands wholly before or after a run. The reference reads
+the misses after the run with no such gate, so a prefetch that commits in
+between makes a run computed on placeholder zeros look complete there.
+
+The monolithic servers (before/after1) have no tiered params: nothing
+faults and nothing is hinted.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ class RequestStats:
     faulted_bytes: int = 0
     faulted_units: int = 0
     steps: int = 0
+    prefetch_hits: int = 0   # demand touches served by the prefetcher
+    hinted_units: int = 0    # hints this request emitted (accepted)
 
 
 def _strip_usage(tree: Any) -> Any:
@@ -65,15 +78,20 @@ def _graft_prefill_cache(big: Any, small: Any) -> Any:
 
 
 class GenerationEngine:
-    def __init__(self, server: ColdStartServer, *, max_seq: int = 256):
+    def __init__(self, server: ColdStartServer, *, max_seq: int = 256, hint_topk: int = 8):
         self.server = server
         self.model = server.model
         self.max_seq = max_seq
+        self.hint_topk = hint_topk
+        self.prefetcher = server.prefetcher
         self._expert_units_index = self._build_expert_index()
         self._row_group = self._embed_row_group()
 
     def _embed_row_group(self) -> int:
-        dec = self.server.tiered.plan.decisions.get("embed")
+        tiered = self.server.tiered
+        if tiered is None:
+            return 0
+        dec = tiered.plan.decisions.get("embed")
         if dec is None or dec.tier != 1 or dec.granularity != "rows":
             return 0
         return dec.units[0].rows[1] - dec.units[0].rows[0]
@@ -81,8 +99,11 @@ class GenerationEngine:
     # -- expert usage → unit keys --------------------------------------------
     def _build_expert_index(self) -> dict[str, list[str]]:
         """usage path ("groups.u0.moe_usage") -> expert-table param paths."""
+        tiered = self.server.tiered
+        if tiered is None:
+            return {}
         idx: dict[str, list[str]] = {}
-        for path, dec in self.server.tiered.plan.decisions.items():
+        for path, dec in tiered.plan.decisions.items():
             if dec.granularity == "expert" and dec.tier == 1:
                 prefix = path.rsplit(".moe.", 1)[0]
                 idx.setdefault(f"{prefix}.moe_usage", []).append(path)
@@ -104,98 +125,160 @@ class GenerationEngine:
             return []
         return [f"embed#rg{g}" for g in np.unique(np.asarray(tokens) // self._row_group)]
 
-    def _prefault_rows(self, tokens: np.ndarray, stats: RequestStats, pins: list) -> None:
+    def _prefault_rows(self, tokens: np.ndarray, stats: RequestStats, pins: list) -> list[str]:
         """Ensure (and pin) the row-groups this step will embed; keys join
-        ``pins`` before the load so the caller's release covers a failure."""
+        ``pins`` before the load so the caller's release covers a failure.
+        Returns the accessed keys."""
         tiered = self.server.tiered
         needed = self.row_keys_for(tokens)
-        if not needed:
-            return
+        if tiered is None or not needed:
+            return []
         n_cold = sum(1 for k in needed if not tiered.is_resident(k))
         pins.extend(needed)
         t0 = time.perf_counter()
         stats.faulted_bytes += tiered.ensure(needed, pin=True)
         stats.fault_s += time.perf_counter() - t0
-        stats.faulted_units += n_cold
+        stats.faulted_units += n_cold  # incl. waits on in-flight prefetch
+        return needed
 
-    def _fault_experts(self, caches: Any, stats: RequestStats, pins: list) -> list[str]:
-        """Ensure (and pin) every expert the last run routed to; returns the
-        ones that were not resident (a retry is needed while non-empty)."""
+    def _run(self, fn, *args) -> tuple:
+        """One forward run ``fn(params, *args)``. Returns ``(logits, caches,
+        newly, used)``: ``used`` every expert the run routed to, ``newly``
+        those that were not resident while it ran. Under tiered params the
+        gate is held from launch until the outputs are on the device and
+        ``newly`` is read, so no prefetch install or eviction lands inside
+        the run or between it and its miss check."""
         tiered = self.server.tiered
-        used = self._expert_keys_from_usage(_usage_masks(caches))
+        if tiered is None:
+            logits, caches = fn(self.server.params, *args)
+            return logits, caches, [], []
+        with tiered.gate:
+            logits, caches = fn(tiered.tree(), *args)
+            _synchronize(logits.device)
+            used = self._expert_keys_from_usage(_usage_masks(caches))
+            newly = [k for k in used if not tiered.is_resident(k)]
+        return logits, caches, newly, used
+
+    def _fault_experts(self, newly: list[str], used: list[str], stats: RequestStats, pins: list) -> None:
+        """Ensure (and pin) every expert the last run routed to (``used``,
+        from ``_run``), resident ones included: their pins block mid-step
+        eviction. A retry is needed while ``newly`` is non-empty. Never
+        called with the gate held: the ensure may wait on a unit the
+        prefetcher is installing."""
         if not used:
-            return []
-        miss = [k for k in used if not tiered.is_resident(k)]
+            return
         pins.extend(used)
         t0 = time.perf_counter()
-        stats.faulted_bytes += tiered.ensure(used, pin=True)
+        stats.faulted_bytes += self.server.tiered.ensure(used, pin=True)
         stats.fault_s += time.perf_counter() - t0
-        stats.faulted_units += len(miss)
-        return miss
+        stats.faulted_units += len(newly)
+
+    # -- hint emission ---------------------------------------------------------
+    def topk_row_hints(self, logits) -> list[str]:
+        """Embed row-group keys for the top-k candidate tokens of ``logits``
+        ((V,), (B, V), …): the vocab half of a predictive hint."""
+        if not self._row_group:
+            return []
+        flat = torch.as_tensor(logits).detach().float().cpu().numpy()
+        flat = flat.reshape(-1, flat.shape[-1])
+        k = min(self.hint_topk, flat.shape[-1])
+        top = np.argpartition(-flat, k - 1, axis=-1)[:, :k]
+        return [f"embed#rg{g}" for g in np.unique(top // self._row_group)]
+
+    def _hint_next_step(self, logits, expert_keys: list[str], stats: RequestStats,
+                        accessed: list[str] = ()) -> None:
+        """Warm the units the next step will likely touch: the learned
+        successors of what this step accessed (with a predictor), then the
+        row groups of the top-k candidate tokens and this step's experts."""
+        if self.prefetcher is None:
+            return
+        if accessed:
+            stats.hinted_units += self.prefetcher.observe(accessed)
+        hints = list(expert_keys) + self.topk_row_hints(logits)
+        if hints:
+            stats.hinted_units += self.prefetcher.hint(hints)
 
     # -- step primitives -------------------------------------------------------
-    def prefill_step(self, tokens: torch.Tensor, stats: RequestStats):
+    def prefill_step(self, tokens: torch.Tensor, stats: RequestStats, *, hint: bool = True):
         """Prefill one prompt batch under the fault-in contract. Returns
-        ``(logits, caches)`` with the usage masks stripped."""
-        server, tiered = self.server, self.server.tiered
+        ``(logits, caches, expert_keys)``: caches with the usage masks
+        stripped, and the experts the step routed to."""
+        tiered = self.server.tiered
         step_pins: list[str] = []
-        tiered.set_phase("prefill")
+        expert_keys: list[str] = []
+        accessed: list[str] = []
+        if tiered is not None:
+            tiered.set_phase("prefill")
+        batch = {"tokens": tokens}
         try:
-            self._prefault_rows(tokens.cpu().numpy(), stats, step_pins)
+            accessed += self._prefault_rows(tokens.cpu().numpy(), stats, step_pins)
             fault0 = stats.fault_s
             t0 = time.perf_counter()
-            batch = {"tokens": tokens}
-            logits, caches = self.model.prefill(server.live_params(), batch)
+            logits, caches, newly, used = self._run(self.model.prefill, batch)
             stats.prefill_runs += 1
             for _ in range(MAX_FAULT_RETRIES):
-                if not self._fault_experts(caches, stats, step_pins):
+                self._fault_experts(newly, used, stats, step_pins)
+                seen = set(expert_keys)
+                expert_keys.extend(k for k in used if k not in seen)
+                if not newly:
                     break
                 stats.prefill_retries += 1
-                logits, caches = self.model.prefill(server.live_params(), batch)
+                logits, caches, newly, used = self._run(self.model.prefill, batch)
                 stats.prefill_runs += 1
-            _synchronize(logits.device)
             stats.prefill_s += time.perf_counter() - t0 - (stats.fault_s - fault0)
         finally:
-            if step_pins:
+            if tiered is not None and step_pins:
                 tiered.release(step_pins)
-        return logits, _strip_usage(caches)
+        # hint after release: evicted or still-cold predictions are loadable now
+        if hint:
+            self._hint_next_step(logits, expert_keys, stats, accessed=accessed + expert_keys)
+        return logits, _strip_usage(caches), expert_keys
 
-    def decode_once(self, caches: Any, dbatch: dict, stats: RequestStats):
-        """One decode step under the fault-in contract. Returns
-        ``(logits, new_caches)`` with the usage masks stripped."""
-        server, tiered = self.server, self.server.tiered
+    def decode_once(self, caches: Any, dbatch: dict, stats: RequestStats, *, hint: bool = True):
+        """One decode step under the fault-in contract. Returns ``(logits,
+        new_caches, expert_keys)`` with the usage masks stripped."""
+        tiered = self.server.tiered
         step_pins: list[str] = []
-        tiered.set_phase("decode")
+        expert_keys: list[str] = []
+        accessed: list[str] = []
+        if tiered is not None:
+            tiered.set_phase("decode")
         try:
-            self._prefault_rows(dbatch["tokens"].cpu().numpy(), stats, step_pins)
+            accessed += self._prefault_rows(dbatch["tokens"].cpu().numpy(), stats, step_pins)
             fault0 = stats.fault_s
             t0 = time.perf_counter()
-            logits, new_caches = self.model.decode_step(server.live_params(), caches, dbatch)
+            logits, new_caches, newly, used = self._run(self.model.decode_step, caches, dbatch)
             for _ in range(MAX_FAULT_RETRIES):
-                if not self._fault_experts(new_caches, stats, step_pins):
+                self._fault_experts(newly, used, stats, step_pins)
+                seen = set(expert_keys)
+                expert_keys.extend(k for k in used if k not in seen)
+                if not newly:
                     break
                 stats.decode_retries += 1
-                logits, new_caches = self.model.decode_step(server.live_params(), caches, dbatch)
-            _synchronize(logits.device)
+                logits, new_caches, newly, used = self._run(self.model.decode_step, caches, dbatch)
             stats.decode_s += time.perf_counter() - t0 - (stats.fault_s - fault0)
         finally:
-            if step_pins:
+            if tiered is not None and step_pins:
                 tiered.release(step_pins)
-        return logits, _strip_usage(new_caches)
+        if hint:
+            self._hint_next_step(logits, expert_keys, stats, accessed=accessed + expert_keys)
+        return logits, _strip_usage(new_caches), expert_keys
 
     # -- request path -----------------------------------------------------------
     @torch.inference_mode()
     def generate(self, tokens: torch.Tensor, n_steps: int) -> tuple[np.ndarray, RequestStats]:
         """Greedy generation: ``tokens`` (B, S) prompt on the server's device;
         returns ((B, n_steps) int32 token ids, stats)."""
+        tiered = self.server.tiered
         stats = RequestStats()
+        hits_before = tiered.stats.prefetch_hits + tiered.stats.prefetch_waits if tiered else 0
         B, S = tokens.shape
         if S + n_steps > self.max_seq:
             raise ValueError(
                 f"request needs {S + n_steps} positions (prompt {S} + {n_steps} steps) "
                 f"but the engine was built for max_seq={self.max_seq}")
         device = tokens.device
-        logits, caches = self.prefill_step(tokens, stats)
+        logits, caches, _ = self.prefill_step(tokens, stats)
         caches = _graft_prefill_cache(self.model.init_cache(B, self.max_seq, device=device), caches)
         out = [torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()]
         stats.steps = 1  # the prefill-produced token is step #1
@@ -204,7 +287,9 @@ class GenerationEngine:
                 "tokens": torch.as_tensor(out[-1], dtype=torch.int64, device=device)[:, None],
                 "pos": torch.full((B,), S + step, dtype=torch.int64, device=device),
             }
-            logits, caches = self.decode_once(caches, dbatch, stats)
+            logits, caches, _ = self.decode_once(caches, dbatch, stats)
             out.append(torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy())
             stats.steps += 1
+        if tiered is not None:
+            stats.prefetch_hits = tiered.stats.prefetch_hits + tiered.stats.prefetch_waits - hits_before
         return np.stack(out, axis=1), stats

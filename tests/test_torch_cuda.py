@@ -472,3 +472,53 @@ def test_gather_kernels_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="multiples of 8"):
         tg_ops.tiered_gather_matmul(table, torch.zeros(64, 30, device=card, dtype=torch.bfloat16), ids, mask,
                                     group_size=8)
+
+
+def _serve_stats_and_before(device, outdir):
+    """Reduced Mixtral (fp32 weights; head_dim widened from 16 to 64, which
+    the flash kernel takes) served under stats with the prefetcher and from
+    the before bundle of the same weights. Returns both tokens, the stats
+    server's loader and prefetch stats, and its prefetch threads."""
+    import threading
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact, write_monolithic
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    cfg = get_reduced("mixtral-8x22b").replace(head_dim=64, collect_moe_usage=True)
+    model = build_model(cfg)
+    profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                vocab_row_group=64)
+    result = analyze(model, profile, trace_B=1, trace_S=32)
+    params = model.init(torch.Generator(device).manual_seed(0), device=device)
+    opt = init_adamw(params)
+    write_monolithic({"params": params, "opt_state": {"m": opt.m, "v": opt.v}}, outdir)
+    build_artifact(params, result, outdir)
+    del params, opt
+    prompt = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(3)).to(device)
+    with cold_start(model, outdir, mode="before", warm_shapes=((2, 16),), device=device) as server:
+        want, _ = GenerationEngine(server, max_seq=40).generate(prompt, 12)
+    with cold_start(model, outdir, result, residency="stats", warm_shapes=((2, 16),), device=device) as server:
+        pf = server.prefetcher
+        threads = {pf._reader, pf._uploader}
+        launches = fa_ops.flash_attention.launches
+        out, stats = GenerationEngine(server, max_seq=40).generate(prompt, 12)
+        flash = fa_ops.flash_attention.launches - launches
+        assert pf.drain(30.0)
+    alive = threads & set(threading.enumerate())
+    return want, out, stats, flash, server.tiered, pf.stats, alive
+
+
+@pytest.mark.gpu
+def test_stats_policy_serves_before_mode_tokens_on_card(card, tmp_path):
+    want, out, stats, flash, tiered, pstats, alive = _serve_stats_and_before("cuda", str(tmp_path))
+    np.testing.assert_array_equal(out, want)
+    assert flash == 2 * stats.prefill_runs  # both layers' prefill attention ran the kernel
+    assert stats.faulted_units > 0 and tiered.stats.evictions > 0
+    res = tiered.residency
+    assert res.max_resident_bytes <= res.budget_bytes or res.overshoot_events > 0
+    assert tiered.resident_bytes <= res.budget_bytes
+    assert pstats.hints > 0 and pstats.errors == 0
+    assert not alive  # close() joined the reader and the uploader

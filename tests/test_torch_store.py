@@ -144,3 +144,30 @@ def test_short_preads_are_resumed(tmp_path, monkeypatch):
     many = s.read_raw_many([k for k, _ in units])
     for key, arr in units:
         np.testing.assert_array_equal(_np(s.decode(key, many[key])), arr)
+
+
+@pytest.mark.parametrize("gap", [0, 1, 4096])
+def test_vectored_reads_count_like_the_reference(tmp_path, gap):
+    """``read_raw_many(gap_threshold=, stats=)``: the same frames, preads,
+    coalesced and gap bytes as the reference's on a blob it wrote (with a
+    hole between frames: one key is left out of the read); ``gap=0`` is one
+    pread per frame."""
+    units = _units(np.float32) * 3
+    units = [(f"u{i}", a) for i, (_, a) in enumerate(units)]
+    path = str(tmp_path / "v.blob")
+    ref_store.write_store(path, units)
+    keys = [k for k, _ in units if k != "u5"]
+    mine, ref = store.OptionalStore(path), ref_store.OptionalStore(path)
+    try:
+        rs, ref_rs = store.ReadStats(), ref_store.ReadStats()
+        got = mine.read_raw_many(reversed(keys), gap_threshold=gap, stats=rs)
+        want = ref.read_raw_many(keys, gap_threshold=gap, stats=ref_rs)
+        assert {k: bytes(v) for k, v in got.items()} == want
+        assert (rs.preads, rs.frames, rs.coalesced_bytes, rs.gap_bytes) == \
+            (ref_rs.preads, ref_rs.frames, ref_rs.coalesced_bytes, ref_rs.gap_bytes)
+        assert rs.frames == len(keys) and (rs.preads == len(keys)) == (gap == 0)
+        one = store.ReadStats()
+        assert bytes(mine.read_raw("u3", stats=one)) == want["u3"] and (one.preads, one.frames) == (1, 1)
+    finally:
+        mine.close()
+        ref.close()
