@@ -67,6 +67,20 @@ Phases (any failure exits non-zero before the result line):
    the prefetcher on) serves the same request: the same tokens, 0
    evictions, flash attention in every prefill run and no other kernel;
    it prints loads by source, the prefetcher's counters and hit rate.
+   Every served forward run replays a CUDA graph: the warm set (prefill
+   (2, 1024), decode (2, 1040)) is captured at cold start, and each replay
+   adds the launches its graph recorded to the wrappers' counts.
+   [graph] With every unit resident, the same request replayed from the
+   graphs and run eagerly (the entries made as plain calls): tokens equal,
+   logits within LOGITS_TOL (bit equality printed), capture seconds,
+   decode s/step and prefill s/run of each, launch counts in both.
+   [sched] The continuous-batching scheduler on that server: 4 slots, 8
+   requests submitted at once, prompts of 256 and 512 tokens in turn, 8, 12
+   and 16 new tokens in turn, from the graphs and again eagerly: the same
+   tokens, 0 rejected or failed, every admission group within 1024 tokens;
+   each request against its solo ``generate()`` (same first token, prefill
+   logits within LOGITS_TOL; a later divergence printed with its step and
+   top-2 logit gap); ``SchedulerStats``, decode s/step and requests/s.
 5. serve, stats — the same weights and request under the reference
    launcher's stats profile (one resident expert a layer, a quarter of the
    row groups hot by the synthetic pipeline's stats) with its own artifact,
@@ -80,7 +94,8 @@ Phases (any failure exits non-zero before the result line):
    tier-1 is empty (tied embeddings, dense MLPs), so nothing faults. Every
    prefill run must launch the scan once per rec layer (26) and flash
    attention once per attention layer (12). One more prefill through both
-   plain versions checks the kernel path's logits.
+   plain versions checks the kernel path's logits. [graph] as for Mixtral,
+   logits within RG_LOGITS_REL_TOL of the max |logit|.
    Every wrapper's count is read on every serve path: none may launch
    the decode or gather kernels (the served decode is the plain dense one,
    as in the reference), and Mixtral's may not launch the scan.
@@ -92,6 +107,9 @@ Phases (any failure exits non-zero before the result line):
    lines; bytes read must shrink strictly and the tokens agree. Free disk
    and host RAM are printed first. (The reduced configs' head_dim 16 does
    not run on the card's flash kernel.)
+8. traffic — the launcher's traffic mode once: Mixtral-8x22B at full width
+   cut to 1 layer, bf16, ``full``, ``--concurrency 4 --requests 8
+   --prompt-len 256 --gen-steps 8``; exit 0 with 8/8 requests done.
 Each phase's wall time is printed on the ``[time]`` line.
 
 The last lines: ``nvidia-smi`` name and power limit, a JSON line with the
@@ -100,6 +118,7 @@ kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -159,6 +178,11 @@ PROMPT, NEW_TOKENS, BATCH, LAYERS = 1024, 16, 2, 2
 # decode step's working set, so every step faults gigabytes (PERF.md §5)
 MIXTRAL_NEW_TOKENS = 8
 MODES_NEW_TOKENS = 4  # the modes phase's request: B=2 × 1024 + 4
+# the scheduler phase: 4 slots, 8 requests of alternating prompt lengths and
+# new-token counts, so slots free at different steps; an admission round of
+# 4 consecutive requests holds at most 2 of either length, so no group passes
+# 2 × 512 = 1024 tokens, where serving MoE stops being dropless
+SCHED_BATCH, SCHED_REQUESTS, SCHED_PROMPTS, SCHED_STEPS = 4, 8, (256, 512), (8, 12, 16)
 RG_H, RG_HKV, RG_HD, RG_WINDOW, RG_WIDTH = 16, 1, 256, 2048, 4096  # RecurrentGemma-9B
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
@@ -702,7 +726,7 @@ def serve_phase(fa_ops, wrappers: dict, workdir: Path) -> dict:
                                 vocab_row_group=max(64, cfg.vocab_size // 16))
     artifact = workdir / "artifact"
     shutil.rmtree(artifact, ignore_errors=True)
-    warm_shapes = ((BATCH, PROMPT),)
+    warm_shapes = ((BATCH, PROMPT, PROMPT + MIXTRAL_NEW_TOKENS + 8),)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(7)).cuda()
 
@@ -853,6 +877,10 @@ def full_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dict
     summary = dict(generate_s=t1 - t0, drained=drained,
                    **_prefetch_summary(server, stats, counts, len(warm_shapes) + stats.prefill_runs))
     evictions = server.tiered.stats.evictions
+    # every tier-1 unit is resident now: the graph and scheduler phases run on it
+    summary["graph"] = graph_phase("mixtral-8x22b", server, tokens, MIXTRAL_NEW_TOKENS, wrappers,
+                                   {"flash_attention": LAYERS}, LOGITS_TOL)
+    summary["sched"] = sched_phase(server, wrappers)
     server.close()
     summary["prefetch_threads_alive_after_close"] = len(_prefetch_threads() - before)
     print("[serve] full: " + json.dumps(summary, default=str), flush=True)
@@ -890,7 +918,7 @@ def stats_phase(wrappers: dict, workdir: Path, strict_tokens: list) -> dict:
     hot = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 128, 8)).vocab_row_stats(row_group=ROW_GROUP)
     artifact = workdir / "artifact_stats"
     shutil.rmtree(artifact, ignore_errors=True)
-    warm_shapes = ((BATCH, PROMPT),)
+    warm_shapes = ((BATCH, PROMPT, PROMPT + MIXTRAL_NEW_TOKENS + 8),)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(7)).cuda()
     before = _prefetch_threads()
@@ -936,6 +964,230 @@ def stats_phase(wrappers: dict, workdir: Path, strict_tokens: list) -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(artifact, ignore_errors=True)
     return summary
+
+
+@contextlib.contextmanager
+def _eager_entries(server):
+    """The server's compiled entries made as plain model calls on the card,
+    for comparison with its graphs (the port never does this itself); the
+    graphs are back when the block ends."""
+    import importlib
+
+    import torch
+
+    cs_mod = importlib.import_module("repro_torch.serving.cold_start")
+    saved, server._compiled = server._compiled, {}
+    try:
+        with mock.patch.object(cs_mod, "GraphEntry", cs_mod.EagerEntry):
+            yield
+    finally:
+        server._compiled = saved
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _record_logits(engine):
+    """Keep a float copy of the logits of each ``prefill_step`` and
+    ``decode_once`` of ``engine`` (a graph's are rewritten by the next
+    replay), with the prefill's tokens and forward runs."""
+    rec = {"prefill": [], "decode": []}
+    prefill_step, decode_once = engine.prefill_step, engine.decode_once
+
+    def prefill(tokens, stats, **kw):
+        runs = stats.prefill_runs
+        out = prefill_step(tokens, stats, **kw)
+        rec["prefill"].append(dict(tokens=tokens.cpu().numpy(), logits=out[0].float().clone(),
+                                   runs=stats.prefill_runs - runs))
+        return out
+
+    def decode(*args, **kw):
+        out = decode_once(*args, **kw)
+        rec["decode"].append(out[0].float().clone())
+        return out
+
+    engine.prefill_step, engine.decode_once = prefill, decode
+    try:
+        yield rec
+    finally:
+        del engine.prefill_step, engine.decode_once
+
+
+def _new_prefill_entries(server, before: set) -> int:
+    return sum(1 for key in server._compiled if key[0] == "prefill" and key not in before)
+
+
+def graph_phase(label: str, server, tokens, n_steps: int, wrappers: dict, per_prefill: dict,
+                limit: float) -> dict:
+    """The same request replayed from the server's CUDA graphs and run
+    eagerly (the entries made as plain calls), all units resident: tokens
+    equal, logits within ``limit`` (bit equality printed), and decode s/step
+    and prefill s/run of each. Launch counts in both runs are
+    ``per_prefill`` × forward prefill runs (with the warm-up run of each
+    graph made in the run): a replay adds the launches its graph recorded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import GenerationEngine
+
+    runs = {}
+    for how in ("graph", "eager"):
+        engine = GenerationEngine(server, max_seq=tokens.shape[1] + n_steps + 8)
+        with (_eager_entries(server) if how == "eager" else contextlib.nullcontext()), \
+                _record_logits(engine) as rec:
+            before = set(server._compiled)
+            for fn in wrappers.values():
+                fn.launches = 0  # this run starts here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, stats = engine.generate(tokens, n_steps)
+            wall = time.perf_counter() - t0
+            counts = {name: fn.launches for name, fn in wrappers.items()}  # and ends here
+            made = _new_prefill_entries(server, before)
+            entries = {"%s%s" % (k[0], k[1:]): e.make_s for k, e in server._compiled.items()}
+        warm_ups = made if how == "graph" else 0  # an eager entry runs nothing when made
+        want = {name: per_prefill.get(name, 0) * (stats.prefill_runs + warm_ups) for name in wrappers}
+        if counts != want:
+            raise AssertionError(f"[graph] {label} {how}: launches {counts}, expected {want}")
+        runs[how] = dict(out=out, rec=rec, summary=dict(
+            generate_s=wall, prefill_s_per_run=stats.prefill_s / stats.prefill_runs,
+            decode_s_per_step=stats.decode_s / (n_steps - 1), prefill_runs=stats.prefill_runs,
+            entries_made_s=entries, launches=counts))
+    g, e = runs["graph"], runs["eager"]
+    pairs = [(g["rec"]["prefill"][-1]["logits"], e["rec"]["prefill"][-1]["logits"])] + list(
+        zip(g["rec"]["decode"], e["rec"]["decode"]))
+    diff = max((a - b).abs().max().item() for a, b in pairs)
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    summary = dict(label=label, B=tokens.shape[0], S=tokens.shape[1], new_tokens=n_steps,
+                   compile_s=server.report.compile_s, tokens_equal=bool(np.array_equal(g["out"], e["out"])),
+                   logits_max_abs_diff=diff, logits_bit_equal=bit_equal, limit=limit,
+                   decode_speedup=e["summary"]["decode_s_per_step"] / g["summary"]["decode_s_per_step"],
+                   graph=g["summary"], eager=e["summary"])
+    print(f"[graph] {label}: " + json.dumps(summary, default=str), flush=True)
+    if not summary["tokens_equal"]:
+        raise AssertionError(f"[graph] {label}: graph tokens {g['out'].tolist()} != eager {e['out'].tolist()}")
+    if not diff <= limit:
+        raise AssertionError(f"[graph] {label}: graph and eager logits differ by {diff} (limit {limit})")
+    return summary
+
+
+def sched_phase(server, wrappers: dict) -> dict:
+    """The continuous-batching scheduler on Mixtral's ``full`` server (every
+    unit resident): SCHED_BATCH slots, SCHED_REQUESTS requests submitted at
+    once (FIFO), prompts alternating SCHED_PROMPTS tokens, SCHED_STEPS new
+    tokens in turn, so slots free at different steps and admission happens
+    between decode steps. Served from the graphs and again eagerly: the same
+    tokens, 0 rejected, 0 failed, every admission group within the 1024
+    tokens a serving MoE keeps dropless. Each request against its solo
+    ``generate()``: the same first token, prefill logits within
+    LOGITS_TOL; a later divergence is printed with its step and the solo
+    run's top-2 logit gap there."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import ContinuousBatchingScheduler, GenerationEngine
+
+    vocab = server.model.cfg.vocab_size
+    max_seq = max(SCHED_PROMPTS) + max(SCHED_STEPS) + 8
+    prompts = [torch.randint(0, vocab, (SCHED_PROMPTS[i % len(SCHED_PROMPTS)],),
+                             generator=torch.Generator().manual_seed(200 + i)).numpy() for i in range(SCHED_REQUESTS)]
+    steps = [SCHED_STEPS[i % len(SCHED_STEPS)] for i in range(SCHED_REQUESTS)]
+
+    def rows_of(rec, prompt):
+        for call in rec["prefill"]:
+            for i, row in enumerate(call["tokens"]):
+                if row.shape == prompt.shape and np.array_equal(row, prompt):
+                    return call["logits"][i]
+        raise AssertionError("a request's prefill was not recorded")
+
+    runs = {}
+    for how in ("graph", "eager"):
+        engine = GenerationEngine(server, max_seq=max_seq)
+        with (_eager_entries(server) if how == "eager" else contextlib.nullcontext()), \
+                _record_logits(engine) as rec:
+            sched = ContinuousBatchingScheduler(engine, max_batch=SCHED_BATCH)
+            t0 = time.perf_counter()
+            sched.warm_compile()
+            warm_s = time.perf_counter() - t0
+            before = set(server._compiled)
+            for fn in wrappers.values():
+                fn.launches = 0  # the scheduler path starts here
+            reqs = [sched.submit(p, n) for p, n in zip(prompts, steps)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sched.run()
+            wall = time.perf_counter() - t0
+            counts = {name: fn.launches for name, fn in wrappers.items()}  # and ends here
+            made = _new_prefill_entries(server, before)
+        st = sched.stats
+        groups = [tuple(c["tokens"].shape) for c in rec["prefill"]]
+        runs_total = sum(c["runs"] for c in rec["prefill"])
+        warm_ups = made if how == "graph" else 0  # an eager entry runs nothing when made
+        want = {name: LAYERS * (runs_total + warm_ups) if name == "flash_attention" else 0 for name in wrappers}
+        summary = dict(stats=st.to_dict(), wall_s=wall, warm_compile_s=warm_s, requests_per_s=len(reqs) / wall,
+                       decode_s_per_step=st.decode_s / max(st.steps, 1), admission_groups=groups,
+                       prefill_runs=runs_total, prefill_entries_made=made, launches=counts)
+        print(f"[sched] {how}: " + json.dumps(summary, default=str), flush=True)
+        if st.rejected or st.failed or st.completed != len(reqs) or any(r.error for r in reqs):
+            raise AssertionError(f"[sched] {how}: {st.rejected} rejected, {st.failed} failed, "
+                                 f"{st.completed} of {len(reqs)} completed")
+        if any(b * s > 1024 for b, s in groups):
+            raise AssertionError(f"[sched] {how}: an admission group past 1024 tokens: {groups}")
+        if counts != want:
+            raise AssertionError(f"[sched] {how}: launches {counts}, expected {want}")
+        runs[how] = dict(out=[r.out for r in reqs], rec=rec, summary=summary)
+    if runs["graph"]["out"] != runs["eager"]["out"]:
+        raise AssertionError(f"[sched] graph tokens {runs['graph']['out']} != eager {runs['eager']['out']}")
+
+    engine = GenerationEngine(server, max_seq=max_seq)
+    solo = []
+    for i, (p, n) in enumerate(zip(prompts, steps)):
+        with _record_logits(engine) as rec:
+            out, _ = engine.generate(torch.from_numpy(p[None].astype(np.int64)).to(server.device), n)
+        got = runs["graph"]["out"][i]
+        diff = (rows_of(runs["graph"]["rec"], p) - rec["prefill"][-1]["logits"][0]).abs().max().item()
+        first_diff = next((t for t in range(n) if got[t] != int(out[0, t])), None)
+        row = dict(rid=i, prompt=len(p), new_tokens=n, prefill_logits_max_abs_diff=diff,
+                   first_token_equal=got[0] == int(out[0, 0]), diverges_at=first_diff)
+        if first_diff is not None:
+            lg = rec["prefill"][-1]["logits"][0] if first_diff == 0 else rec["decode"][first_diff - 1][0]
+            top2 = torch.topk(lg, 2).values
+            row["top2_gap_at_divergence"] = (top2[0] - top2[1]).item()
+        solo.append(row)
+        print(f"[sched] solo {json.dumps(row)}", flush=True)
+        if not row["first_token_equal"] or not diff <= LOGITS_TOL:
+            raise AssertionError(f"[sched] request {i} against its solo generate(): {row}")
+    return dict(graph=runs["graph"]["summary"], eager=runs["eager"]["summary"], solo=solo,
+                tokens_equal_graph_eager=True)
+
+
+def traffic_phase(workdir: Path) -> dict:
+    """The launcher's traffic mode once, as a user runs it: Mixtral-8x22B at
+    full width cut to 1 layer, bf16, ``full`` policy, 4 slots, 8 requests of
+    256 + 8 tokens submitted at once. It must exit 0 with 8/8 ok."""
+    outdir = workdir / "traffic"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mixtral-8x22b", "--layers", "1",
+            "--param-dtype", "bfloat16", "--policy", "full", "--concurrency", "4", "--requests", "8",
+            "--prompt-len", "256", "--gen-steps", "8", "--artifact-dir", str(outdir)]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, capture_output=True, text=True, timeout=600, env=env, cwd=str(REPO))
+    wall = time.perf_counter() - t0
+    shutil.rmtree(outdir, ignore_errors=True)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[serve] ")]
+    for ln in lines:
+        print(f"[traffic] {ln}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"the launcher's traffic mode exited {res.returncode}: {res.stderr[-3000:]}")
+    if not any(ln.startswith("[serve] traffic: 8/8 ok") for ln in lines):
+        raise AssertionError("the launcher's traffic mode did not finish 8/8 requests")
+    stats = json.loads(next(ln for ln in lines if ln.startswith("[serve] scheduler: ")).split(": ", 1)[1])
+    tokens = json.loads(next(ln for ln in lines if ln.startswith("[serve] tokens: ")).split(": ", 1)[1])
+    if stats["completed"] != 8 or stats["failed"] or [len(t) for t in tokens] != [8] * 8:
+        raise AssertionError(f"the launcher's traffic mode: {stats}, tokens {tokens}")
+    print(f"[traffic] launcher wall {wall:.1f} s", flush=True)
+    return dict(wall_s=wall, stats=stats)
 
 
 def _host_resources(path: Path) -> str:
@@ -1024,7 +1276,7 @@ def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict
                                 vocab_row_group=max(64, cfg.vocab_size // 16))
     artifact = workdir / "artifact_rg"
     shutil.rmtree(artifact, ignore_errors=True)
-    warm_shapes = ((BATCH, PROMPT),)
+    warm_shapes = ((BATCH, PROMPT, PROMPT + NEW_TOKENS + 8),)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(7)).cuda()
 
@@ -1082,6 +1334,8 @@ def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict
           f"(max |logit| {scale:.4g}, {diff / scale:.4g} of it), argmax agreement {agree:.2f}", flush=True)
     if not diff <= RG_LOGITS_REL_TOL * scale:
         raise AssertionError(f"kernel-path logits differ from the plain path by {diff} (max |logit| {scale})")
+    summary["graph"] = graph_phase(cfg.name, server, tokens, NEW_TOKENS, wrappers,
+                                   {"flash_attention": n_attn, "rglru_scan": n_rec}, RG_LOGITS_REL_TOL * scale)
     server.close()
     shutil.rmtree(artifact, ignore_errors=True)
     summary["logits_max_abs_diff"] = diff
@@ -1110,9 +1364,9 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this script ({e})", file=sys.stderr)
         return 2
-    wrappers = {"flash_attention": fa_ops.flash_attention, "rglru_scan": lru_ops.rglru_scan,
-                "decode_attention": da_ops.decode_attention, "paged_decode_attention": da_ops.paged_decode_attention,
-                "tiered_gather": tg_ops.tiered_gather, "tiered_gather_matmul": tg_ops.tiered_gather_matmul}
+    from repro_torch.kernels import kernel_wrappers
+
+    wrappers = kernel_wrappers()
 
     gpu = _gpu_line()
     print(f"[build] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -1160,6 +1414,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     modes_phase(workdir)
     phase_s["modes (launcher)"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    traffic_phase(workdir)
+    phase_s["traffic (launcher)"] = time.perf_counter() - t_phase
     print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     # the served decode is the plain dense one, as in the reference, and Mixtral has no recurrent layer
     for path, served in (("mixtral-8x22b", {"flash_attention"}), ("mixtral-8x22b-full", {"flash_attention"}),

@@ -44,7 +44,7 @@ for arch in ("mixtral-8x22b", "yi-34b"):
     base = None
     for mode in ("before", "after1", "after2"):
         with cold_start(model, outdir, result if mode == "after2" else None, mode=mode,
-                        warm_shapes=((2, 8),), device=device) as s:
+                        warm_shapes=((2, 8, 24),), device=device) as s:
             r = s.report
             base = base or r.total_s
             tokens, _ = GenerationEngine(s, max_seq=24).generate(prompt, 4)

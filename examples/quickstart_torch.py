@@ -49,7 +49,7 @@ build_artifact(params, result, outdir)
 print("artifact:", sorted(os.listdir(outdir)))
 
 # 4. cold start: tier-0 eager, tier-1 placeholders + the hot set, prefetcher on
-with cold_start(model, outdir, result, residency="stats", warm_shapes=((2, 8),), device=device) as server:
+with cold_start(model, outdir, result, residency="stats", warm_shapes=((2, 8, 32),), device=device) as server:
     r = server.report
     print(f"cold start: read {r.read_s * 1e3:.1f}ms, upload {r.upload_s * 1e3:.1f}ms, "
           f"compile {r.compile_s * 1e3:.1f}ms")

@@ -7,8 +7,10 @@ run on ``cuda`` unless the caller passes ``device="cpu"``. Ported so far: the
 serving pipeline — configs → analyze → ``build_artifact`` /
 ``write_monolithic`` → ``cold_start(mode="before"|"after1"|"after2")`` under
 the strict, stats and full residency policies (``core/prefetch``'s
-prefetcher) → ``GenerationEngine.generate``, and its one-shot launcher
-(``launch/serve``) — for the Mixtral family and RecurrentGemma, with
+prefetcher) → ``GenerationEngine.generate`` or the continuous-batching
+``serving/scheduler``, over a warm set of compiled entries (CUDA graphs on
+the card), and its launcher's one-shot and traffic modes (``launch/serve``)
+— for the Mixtral family and RecurrentGemma, with
 prefill attention and the RG-LRU scan in hand-written CUDA kernels
 (``kernels/flash_attention``, ``kernels/rglru_scan``); the model layer's paged-KV decode
 (``serving/paged_kv.PagePool``, ``models/attention.paged_gqa_decode``)

@@ -77,7 +77,8 @@ class AccessTrace:
     """Demand-access telemetry: per-unit touches and faults, per-phase fault
     counts, co-access pairs and batch→batch transitions of every request-path
     ``ensure`` batch (the first-order tables of the reference's schema;
-    serialized in its sorted JSON form)."""
+    serialized in its sorted JSON form), and the same-request pairs and
+    transitions the scheduler attributes per request (``record_request``)."""
 
     VERSION = 3
 
@@ -89,7 +90,10 @@ class AccessTrace:
         self.phases: dict[str, dict[str, int]] = {}
         self.pairs: dict[tuple, int] = {}  # (a, b) with a < b
         self.transitions: dict[str, dict[str, int]] = {}
+        self.request_pairs: dict[tuple, int] = {}  # same-request co-access
+        self.request_transitions: dict[str, dict[str, int]] = {}
         self._last_batch: list[str] = []
+        self._last_by_request: dict[int, list[str]] = {}
 
     def record(self, keys: Iterable[str], cold: Iterable[str], phase: str = "") -> None:
         """Record one demand batch (caller holds the loader's lock)."""
@@ -120,6 +124,33 @@ class AccessTrace:
                     nxt[b] = nxt.get(b, 0) + 1
         self._last_batch = keys
 
+    def record_request(self, rid: int, keys: Iterable[str]) -> None:
+        """Record the units ONE request accessed this step. Unlike ``record``
+        (the scheduler's unioned batch), these pairs and step→step
+        transitions are same-request by construction. Caller holds the
+        loader's lock."""
+        keys = list(dict.fromkeys(keys))
+        if not keys or len(keys) > self.max_assoc_batch:
+            self._last_by_request.pop(rid, None)
+            return
+        for i, a in enumerate(keys):
+            for b in keys[i + 1:]:
+                pair = (a, b) if a < b else (b, a)
+                self.request_pairs[pair] = self.request_pairs.get(pair, 0) + 1
+        cur = set(keys)
+        for a in self._last_by_request.get(rid, ()):
+            succ = [b for b in cur if b != a]
+            if succ:
+                nxt = self.request_transitions.setdefault(a, {})
+                for b in succ:
+                    nxt[b] = nxt.get(b, 0) + 1
+        self._last_by_request[rid] = keys
+
+    def end_request(self, rid: int) -> None:
+        """Drop one request's chain state, so its last step never links to
+        the next request that reuses the slot."""
+        self._last_by_request.pop(rid, None)
+
     def to_dict(self) -> dict:
         return {
             "version": self.VERSION,
@@ -130,6 +161,10 @@ class AccessTrace:
             "pairs": [[a, b, self.pairs[(a, b)]] for a, b in sorted(self.pairs)],
             "transitions": {
                 k: {n: v[n] for n in sorted(v)} for k, v in sorted(self.transitions.items())
+            },
+            "request_pairs": [[a, b, self.request_pairs[(a, b)]] for a, b in sorted(self.request_pairs)],
+            "request_transitions": {
+                k: {n: v[n] for n in sorted(v)} for k, v in sorted(self.request_transitions.items())
             },
         }
 
@@ -369,6 +404,18 @@ class TieredParams:
     def set_phase(self, phase: str) -> None:
         """Tag subsequent loads/trace batches ("prefill" | "decode" | "")."""
         self._phase = phase
+
+    def record_request(self, rid: int, keys: Iterable[str]) -> None:
+        """Attribute one request's step accesses in the live trace (the
+        scheduler's per-request profile). No-op without a trace."""
+        with self._lock:
+            if self.trace is not None:
+                self.trace.record_request(rid, keys)
+
+    def end_request(self, rid: int) -> None:
+        with self._lock:
+            if self.trace is not None:
+                self.trace.end_request(rid)
 
     # -- residency ----------------------------------------------------------
     def is_resident(self, key: str) -> bool:

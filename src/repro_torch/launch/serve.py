@@ -1,14 +1,27 @@
-"""Serving launcher, one-shot path: ``python -m repro_torch.launch.serve --arch <id> [...]``
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``
 (``repro.launch.serve`` counterpart).
 
 The FaaSLight pipeline end to end: analyze → write the artifact of the
 chosen mode (the monolithic before/after1 bundle, or the two-tier after2
-artifact) → timed cold start → one batched ``GenerationEngine.generate()``,
-with the reference's ``[serve]`` lines (cold start, generated, resident
-fraction, prefetch hit rate, evictions, refaults, stall p99) and the
-generated tokens. Weights come from ``model.init(torch.Generator(device)
-.manual_seed(0))``, prompts from a CPU ``torch.Generator`` seeded with 1, so
-a run is the same on every machine with the same device type.
+artifact) → timed cold start (its compile phase captures the warm set as
+CUDA graphs on the card) → serve, with the reference's ``[serve]`` lines
+(cold start, resident fraction, prefetch hit rate, evictions, refaults,
+stall p99) and the generated tokens. Two request modes:
+
+  * one-shot (default): one batched ``GenerationEngine.generate()`` of
+    ``--batch`` prompts; ``[serve] tokens:`` prints its (B, gen-steps) ids;
+  * traffic (``--concurrency N``): N continuous-batching slots served by the
+    scheduler on its own thread, with ``--requests`` prompts arriving
+    open-loop at ``--arrival-rate`` req/s (Poisson from a seeded generator;
+    0 = all at once), admitted by ``--admission fifo|slo`` (``--deadline-ms``
+    with slo). It reports throughput and per-request latency, prints each
+    request's ids in order on ``[serve] tokens:``, and exits non-zero if a
+    request failed or never finished (an SLO shed is not a failure).
+
+Weights come from ``model.init(torch.Generator(device).manual_seed(0))``;
+the one-shot prompts from a CPU ``torch.Generator`` seeded with 1, request i
+of the traffic mode from one seeded with 100 + i, so a run is the same on
+every machine with the same device type.
 
 Runs on ``--device cuda`` unless told ``--device cpu``. The reduced configs
 (``--reduced``) have head_dim 8 or 16, below the 64, 128 or 256 that the CUDA
@@ -16,9 +29,12 @@ flash-attention kernel takes, so they serve on the CPU only; on the card,
 serve a published config with its depth cut (``--layers``) and bf16 weights
 (``--param-dtype bfloat16``).
 
-Not ported (argparse refuses their flags): traffic mode, host budget,
-profile-guided and online re-tiering, the fleet, meshes, admission policies
-and snapshots.
+Not ported (argparse refuses their flags): the host budget
+(``--host-budget-bytes``), profile-guided and online re-tiering
+(``--profile-out``, ``--retier-from``, ``--retier-online``,
+``--retier-interval``, ``--retier-decay``, ``--retier-compact-every``), the
+fleet (``--fleet``), meshes (``--mesh``) and snapshots (``--snapshot-out``,
+``--restore-from``).
 """
 
 from __future__ import annotations
@@ -26,7 +42,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import threading
+import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
@@ -34,7 +53,7 @@ from repro_torch.core import DeploymentProfile, analyze, build_artifact, write_m
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
 from repro_torch.models import build_model
 from repro_torch.optim import init_adamw
-from repro_torch.serving import GenerationEngine, cold_start
+from repro_torch.serving import ContinuousBatchingScheduler, GenerationEngine, SLOAdmission, cold_start
 
 
 def main(argv=None) -> int:
@@ -58,8 +77,26 @@ def main(argv=None) -> int:
                     help="override the preset's tier-1 device budget (0 = preset default)")
     ap.add_argument("--no-prefetch", action="store_true",
                     help="disable the prefetcher even where the preset enables it")
+    ap.add_argument("--concurrency", type=int, default=0,
+                    help="traffic mode: serve through N continuous-batching slots (0 = one-shot)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="traffic mode: number of requests to submit")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="traffic mode: open-loop Poisson arrivals, req/s (0 = all at once)")
+    ap.add_argument("--admission", default="fifo", choices=["fifo", "slo"],
+                    help="scheduler admission policy: fifo = strict arrival order (default), "
+                         "slo = deadline-aware shed/re-order (traffic mode)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="SLO admission: per-request latency deadline in ms "
+                         "(0 = none; requests projected to miss it are shed)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.admission == "fifo" and args.deadline_ms:
+        ap.error("--deadline-ms needs --admission slo (FIFO never sheds)")
+    if args.deadline_ms < 0:
+        ap.error("--deadline-ms must be >= 0")
+    if args.concurrency < 0 or args.requests < 1 or args.arrival_rate < 0:
+        ap.error("--concurrency, --arrival-rate must be >= 0 and --requests >= 1")
     if args.layers < 0:
         ap.error("--layers must be >= 0")
     if args.batch < 1 or args.prompt_len < 1 or args.gen_steps < 1:
@@ -108,21 +145,27 @@ def main(argv=None) -> int:
         build_artifact(params, result, outdir)
     del params  # the server reads its weights from the artifact
 
+    max_seq = args.prompt_len + args.gen_steps + 8
+    warm_B = 1 if args.concurrency > 0 else args.batch
+    failed = 0
     with cold_start(model, outdir, result if args.mode == "after2" else None,
-                    mode=args.mode, warm_shapes=((args.batch, args.prompt_len),),
+                    mode=args.mode, warm_shapes=((warm_B, args.prompt_len, max_seq),),
                     residency=args.policy if args.mode == "after2" else None,
                     device_budget_bytes=args.device_budget_bytes or None,
                     prefetch=False if args.no_prefetch else None,
                     device=args.device) as server:
         print(f"[serve] cold start ({args.mode}):", json.dumps(server.report.to_dict(), default=float), flush=True)
-        engine = GenerationEngine(server, max_seq=args.prompt_len + args.gen_steps + 8)
-        prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                                generator=torch.Generator().manual_seed(1)).to(args.device)
-        out, stats_r = engine.generate(prompts, args.gen_steps)
-        print(f"[serve] generated {out.shape}; prefill={stats_r.prefill_s*1e3:.1f}ms "
-              f"decode={stats_r.decode_s*1e3:.1f}ms faults={stats_r.faulted_units} "
-              f"({stats_r.faulted_bytes/2**20:.1f}MiB, {stats_r.fault_s*1e3:.1f}ms)")
-        print(f"[serve] tokens: {json.dumps(out.tolist())}")
+        engine = GenerationEngine(server, max_seq=max_seq)
+        if args.concurrency > 0:
+            failed = _serve_traffic(engine, args, cfg)
+        else:
+            prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                                    generator=torch.Generator().manual_seed(1)).to(args.device)
+            out, stats_r = engine.generate(prompts, args.gen_steps)
+            print(f"[serve] generated {out.shape}; prefill={stats_r.prefill_s*1e3:.1f}ms "
+                  f"decode={stats_r.decode_s*1e3:.1f}ms faults={stats_r.faulted_units} "
+                  f"({stats_r.faulted_bytes/2**20:.1f}MiB, {stats_r.fault_s*1e3:.1f}ms)")
+            print(f"[serve] tokens: {json.dumps(out.tolist())}")
         if server.tiered is not None:
             ts = server.tiered.stats
             budget = server.tiered.residency.budget_bytes
@@ -132,7 +175,69 @@ def main(argv=None) -> int:
             print(f"[serve] prefetch hit rate {ts.prefetch_hit_rate:.2f}; "
                   f"evictions {ts.evictions}; refaults {ts.refaults}; "
                   f"stall p99 {ts.stall_percentile(99)*1e3:.2f}ms", flush=True)
-    return 0
+    if failed:
+        print(f"[serve] FAILED: {failed} request(s) failed or never finished")
+    return 1 if failed else 0
+
+
+def traffic_prompts(cfg, n: int, prompt_len: int) -> list[np.ndarray]:
+    """Request i's prompt: ``prompt_len`` ids from a CPU generator seeded with 100 + i."""
+    return [torch.randint(0, cfg.vocab_size, (prompt_len,), generator=torch.Generator().manual_seed(100 + i))
+            .numpy() for i in range(n)]
+
+
+def _serve_traffic(engine: GenerationEngine, args, cfg) -> int:
+    """Open-loop traffic through the continuous-batching scheduler. Returns
+    the number of failed or unfinished requests (SLO sheds excluded)."""
+    admission = None
+    if args.admission == "slo":
+        admission = SLOAdmission(default_deadline_s=(args.deadline_ms / 1e3) if args.deadline_ms else None)
+    sched = ContinuousBatchingScheduler(engine, max_batch=args.concurrency, admission=admission)
+    sched.warm_compile()  # the first step should serve, not capture
+    rng = np.random.default_rng(0)
+    prompts = traffic_prompts(cfg, args.requests, args.prompt_len)
+    deadline_s = (args.deadline_ms / 1e3) if args.deadline_ms else None
+    stop = threading.Event()
+    loop = threading.Thread(target=sched.serve_forever, args=(stop,), name="sched-loop")
+    loop.start()
+    t0 = time.perf_counter()
+    reqs = []
+    try:
+        for p in prompts:
+            reqs.append(sched.queue.submit(p, args.gen_steps, deadline_s=deadline_s))
+            if args.arrival_rate > 0:
+                time.sleep(rng.exponential(1.0 / args.arrival_rate))
+        # give up early if the loop thread dies instead of waiting out the limit
+        limit = time.perf_counter() + 600.0
+        pending = list(reqs)
+        while pending and loop.is_alive() and time.perf_counter() < limit:
+            if pending[0].wait(1.0):
+                pending.pop(0)
+        pending = [r for r in pending if not r.done]
+        if pending:
+            print(f"[serve] WARNING: {len(pending)}/{len(reqs)} requests unfinished "
+                  f"(loop alive={loop.is_alive()})")
+    finally:
+        stop.set()
+        loop.join()
+    wall = time.perf_counter() - t0
+    done = [r for r in reqs if r.done and r.error is None]
+    shed = [r for r in reqs if r.shed]
+    lat = np.array([r.latency_s for r in done]) if done else np.zeros(1)
+    ttft = np.array([r.ttft_s for r in done]) if done else np.zeros(1)
+    print(f"[serve] traffic: {len(done)}/{len(reqs)} ok in {wall:.2f}s "
+          f"({len(done) / wall:.2f} req/s over {sched.stats.steps} batched steps, "
+          f"max_active={sched.stats.max_active}" + (f", shed={len(shed)}" if shed else "") + ")")
+    print(f"[serve] latency p50={np.percentile(lat, 50) * 1e3:.0f}ms "
+          f"p99={np.percentile(lat, 99) * 1e3:.0f}ms; "
+          f"ttft p50={np.percentile(ttft, 50) * 1e3:.0f}ms; "
+          f"step faults={sched.stats.faulted_units} ({sched.stats.fault_s * 1e3:.1f}ms)")
+    print(f"[serve] scheduler: {json.dumps(sched.stats.to_dict())}")
+    print(f"[serve] tokens: {json.dumps([r.out for r in reqs])}")
+    for r in reqs:
+        if r.error and not r.shed:
+            print(f"[serve] request {r.rid} failed: {r.error}")
+    return sum(1 for r in reqs if (r.error is not None and not r.shed) or not r.done)
 
 
 if __name__ == "__main__":

@@ -65,10 +65,13 @@ def gqa_forward(
 
 
 def _scatter_rows(cache: torch.Tensor, slot: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
-    """cache (B, S, ...), slot (B,), row (B, ...) -> a new cache with row
-    written at [b, slot[b]]."""
+    """cache (B, S, ...), slot (B,), row (B, ...): writes row at [b, slot[b]]
+    in place and returns ``cache`` itself. The reference builds a new cache;
+    in place, a step moves one row instead of the whole cache, and the cache
+    keeps the fixed address a captured CUDA graph reads it at. Re-running a
+    step rewrites the same rows, so a retried step equals a single one."""
     b = torch.arange(cache.shape[0], device=cache.device)
-    return cache.index_put((b, slot), row.to(cache.dtype))
+    return cache.index_put_((b, slot.long()), row.to(cache.dtype))
 
 
 def gqa_decode(
@@ -81,9 +84,10 @@ def gqa_decode(
     *,
     rolling_window: Optional[int] = None,
 ):
-    """One decode step; returns (out, new_k_cache, new_v_cache). Linear cache:
-    write at pos. Rolling cache: write at pos % window (softmax is order-
-    invariant, so slot order does not matter)."""
+    """One decode step; returns (out, k_cache, v_cache): the caches it was
+    given, with the new token's K/V written in place. Linear cache: write at
+    pos. Rolling cache: write at pos % window (softmax is order-invariant, so
+    slot order does not matter; the row overwritten has left the window)."""
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     B = x.shape[0]
     q, k, v = _qkv(params, x, pos[:, None], cfg)

@@ -59,6 +59,7 @@ def moe_forward(
     *,
     return_usage: bool = False,  # also return the (E,) bool "expert routed to" mask
     serving: bool = False,
+    usage_rows: torch.Tensor | None = None,  # (B, S) bool: the rows counted in the usage mask
 ):
     m: MoEConfig = cfg.moe
     B, S, d = x.shape
@@ -100,6 +101,11 @@ def moe_forward(
     if not return_usage:
         return y
     # experts this batch routed to, pre-capacity (a safe over-approximation
-    # for the engine's expert pre-fault)
-    usage = torch.zeros(E, dtype=torch.bool, device=x.device).scatter(0, flat_ids, True)
-    return y, usage
+    # for the engine's expert pre-fault). Rows outside ``usage_rows`` (a
+    # scheduler's free slots decoding pad tokens) go to the drop sentinel E,
+    # so their routing never faults an expert in.
+    usage_ids = ids
+    if usage_rows is not None:
+        usage_ids = torch.where(usage_rows.reshape(T, 1), ids, E)
+    usage = torch.zeros(E + 1, dtype=torch.bool, device=x.device).scatter(0, usage_ids.reshape(-1), True)
+    return y, usage[:E]

@@ -104,7 +104,11 @@ def rglru_block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def rglru_block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
-    """x (B, 1, D) one step. Returns (y (B, 1, D), new_cache)."""
+    """x (B, 1, D) one step. Returns (y (B, 1, D), new_cache). The conv and
+    LRU state come back as new tensors and ``cache`` is only read: unlike a
+    K/V row write, advancing the recurrence in place would advance it twice
+    when the engine re-runs the step after an expert fault, so the caller
+    commits the new state once the step is final."""
     gate = _gate_branch(params, x)
     h = x @ params["w_in"].to(x.dtype)
     h, conv_state = causal_conv1d(h, params["conv_w"], params["conv_b"], state=cache["conv"])

@@ -112,12 +112,14 @@ def _kind_window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.sliding_window  # "self": SWA if the config sets it (Mixtral)
 
 
-def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool):
+def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool, usage_rows=None):
     """Returns (y, usage): usage is the (E,) expert-routed mask when the
-    config collects router stats (the engine's fault signal), else None."""
+    config collects router stats (the engine's fault signal), else None;
+    ``usage_rows`` (B, S) bool limits it to those rows."""
     if "moe" in params:
         if cfg.collect_moe_usage:
-            return moe_mod.moe_forward(params["moe"], x, cfg, return_usage=True, serving=serving)
+            return moe_mod.moe_forward(params["moe"], x, cfg, return_usage=True, serving=serving,
+                                       usage_rows=usage_rows)
         return moe_mod.moe_forward(params["moe"], x, cfg, serving=serving), None
     return swiglu(params["dense"], x), None
 
@@ -142,7 +144,12 @@ def _block_forward(cfg, kind, params, x, positions, collect_cache):
     return x, cache
 
 
-def _block_decode(cfg, kind, params, x, pos, cache):
+def _block_decode(cfg, kind, params, x, pos, cache, active=None):
+    """x (B, 1, D); returns (x, new_cache). K/V are written into ``cache``'s
+    tensors in place and come back as the same tensors; a rec block's conv
+    and LRU state come back as new tensors, ``cache``'s left as they were.
+    ``active`` (B,) bool marks the rows whose routing counts toward the usage
+    mask (None: every row)."""
     new_cache = dict(cache)
     h = rmsnorm(x, params["norm1"], cfg.norm_eps)
     if kind == "rec":
@@ -155,7 +162,8 @@ def _block_decode(cfg, kind, params, x, pos, cache):
             params["attn"], h, pos, cache["k"], cache["v"], cfg, rolling_window=rolling)
     x = x + o
     h2 = rmsnorm(x, params["norm2"], cfg.norm_eps)
-    y, usage = _mlp_apply(cfg, params, h2, serving=True)
+    y, usage = _mlp_apply(cfg, params, h2, serving=True,
+                          usage_rows=active[:, None] if active is not None else None)
     x = x + y
     if usage is not None:
         new_cache["moe_usage"] = usage
@@ -223,9 +231,19 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict):
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
-    """batch: tokens (B, 1), pos (B,). Returns (logits (B, V), new caches)."""
+    """batch: tokens (B, 1), pos (B,), optional active (B,) bool. Returns
+    (logits (B, V), new caches).
+
+    Every K/V cache is written in place (the scanned groups' through the
+    views ``_select`` returns) and comes back as the same tensor. Every other
+    leaf (a rec block's conv and LRU state, the usage masks) is a new tensor
+    (the groups' stacked into one buffer), and ``caches`` keeps the state the
+    step started from: a step re-run after an expert fault equals one run.
+    The caller commits the new state once the step is final
+    (``serving.engine.commit_decode_caches``). ``active`` only gates
+    usage-mask collection (``Model.decode_step_masked``)."""
     lay = stack_layout(cfg)
-    tokens, pos = batch["tokens"], batch["pos"]
+    tokens, pos, active = batch["tokens"], batch["pos"], batch.get("active")
     x = embed(params["embed"], tokens, _model_dtype(cfg), cfg.d_model)
     new_caches: dict = {}
 
@@ -234,21 +252,28 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
         sec = {}
         for i, kind in enumerate(kinds):
             key = f"b{i}"
-            x, sec[key] = _block_decode(cfg, kind, params[section][key], x, pos, caches[section][key])
+            x, sec[key] = _block_decode(cfg, kind, params[section][key], x, pos, caches[section][key], active)
         new_caches[section] = sec
 
     if lay.lead_kinds:
         unscanned("lead", lay.lead_kinds)
     if lay.n_groups:
-        new_groups = []
+        groups: dict = {}
         for gi in range(lay.n_groups):
             gp = _select(params["groups"], gi)
             gc = _select(caches["groups"], gi)
-            cs = {}
             for j, kind in enumerate(lay.unit_kinds):
-                x, cs[f"u{j}"] = _block_decode(cfg, kind, gp[f"u{j}"], x, pos, gc[f"u{j}"])
-            new_groups.append(cs)
-        new_caches["groups"] = _stack(new_groups)
+                u = f"u{j}"
+                x, c = _block_decode(cfg, kind, gp[u], x, pos, gc[u], active)
+                out = groups.setdefault(u, {})
+                for name, t in c.items():
+                    if t is gc[u].get(name):  # written in place through the group's view
+                        out[name] = caches["groups"][u][name]
+                        continue
+                    if name not in out:
+                        out[name] = t.new_empty((lay.n_groups, *t.shape))
+                    out[name][gi] = t
+        new_caches["groups"] = groups
     if lay.tail_kinds:
         unscanned("tail", lay.tail_kinds)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -70,6 +70,17 @@ class Model:
     def decode_step(self, params, caches, batch):
         return tf.decode_step(self.cfg, params, caches, batch)
 
+    def decode_step_masked(self, params, caches, batch):
+        """One decode step over a scheduler's slot batch; needs
+        ``batch["active"]`` (B,) bool. ``active`` gates one thing, usage-mask
+        collection (``moe_forward(usage_rows=...)``), so a free slot decoding
+        a pad token never faults an expert in. Inactive rows otherwise compute
+        values nobody reads: their logits are ignored and their cache rows are
+        rebuilt at the slot's next admission (``scheduler._graft_slot_cache``)."""
+        if "active" not in batch:
+            raise ValueError("decode_step_masked needs batch['active'] (B,) bool")
+        return tf.decode_step(self.cfg, params, caches, batch)
+
     # -- caches --------------------------------------------------------------
     def _block_cache_template(self, kind: str, B: int, S_max: int) -> dict:
         cfg = self.cfg
@@ -112,6 +123,10 @@ class Model:
             "tokens": torch.empty((B, 1), dtype=torch.int64, device="meta"),
             "pos": torch.empty((B,), dtype=torch.int64, device="meta"),
         }
+
+    def decode_masked_batch_spec(self, B: int) -> dict:
+        """``decode_batch_spec`` plus the scheduler's per-slot active mask."""
+        return {**self.decode_batch_spec(B), "active": torch.empty((B,), dtype=torch.bool, device="meta")}
 
     # -- entry registry (Application Entry Recognition) ----------------------
     def entries(self, B: int = 1, S: int = 128) -> list[EntryPoint]:

@@ -7,9 +7,11 @@ Phases, as in the reference:
             and the optional store opened)
   upload  — host → device: leaves copied up, tier-1 leaves allocated as
             full-shape zeros on the device, the hot set preloaded
-  compile — the warm set's first run on the device (one prefill and one
-            decode step per warm shape, synchronized): the analogue of the
-            reference's XLA compile of its warm entries
+  compile — the warm set's entries (``compiled_prefill`` and
+            ``compiled_decode`` per warm shape): on a CUDA device each is run
+            once and captured as a CUDA graph, the analogue of the
+            reference's XLA compile of its ``jax.jit`` entries; on the CPU
+            each is the plain model call, with nothing to make
 
 Modes:
   before — monolithic bundle: every collection read, the params uploaded
@@ -24,14 +26,31 @@ budget as a fraction of tier-1 bytes, and whether the prefetcher runs:
   full   — unlimited, prefetch
 An explicit ``device_budget_bytes`` overrides the preset's budget, and
 ``prefetch=`` its prefetch default.
+
+Compiled entries. ``ColdStartServer.compiled_prefill(B, S)``,
+``compiled_decode(B, S_max)`` and ``compiled_decode_masked(B, S_max)`` are
+made once per shape and kept; a shape outside the warm set is made on first
+use, as ``jax.jit`` compiles on first use. The entry is chosen by device, as
+the kernel wrappers are: a ``GraphEntry`` (one captured CUDA graph) on a
+CUDA device, an ``EagerEntry`` (the plain call) on the CPU. A capture that
+fails raises; nothing runs eagerly on the card instead. A decode entry owns
+its (B, S_max) caches: callers pass ``entry.caches`` and the step writes them
+in place. A graph reads the live params at the addresses it was captured
+with, which holds because ``TieredParams`` installs and evicts in place
+(``_install`` / ``_evict_one``): a unit faulted in or evicted after the
+capture is what the next replay reads. A graph's outputs are its own static
+tensors, rewritten by the next replay of any graph of the server (all share
+one memory pool), so callers read them before the next call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -40,8 +59,9 @@ from repro_torch.core.analyzer import AnalysisResult
 from repro_torch.core.on_demand import TieredParams
 from repro_torch.core.optional_store import OptionalStore
 from repro_torch.core.prefetch import Prefetcher, TransitionPredictor
+from repro_torch.kernels import kernel_wrappers
 from repro_torch.models.zoo import Model
-from repro_torch.utils.tree import flatten_with_paths, tree_from_flat
+from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
 
 # residency policy -> (tier-1 budget fraction or None = unlimited, prefetch enabled)
 RESIDENCY_PRESETS: dict = {
@@ -81,13 +101,98 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class EagerEntry:
+    """A compiled entry's plain form, used on the CPU: ``fn(params, [caches,]
+    batch)`` called as it is; nothing runs when it is made. A decode entry
+    owns ``caches`` (the decode caches it reads and writes); every call must
+    pass exactly those and the params it was made with, as a ``GraphEntry``
+    requires. ``gate`` and ``pool`` are a ``GraphEntry``'s."""
+
+    def __init__(self, fn: Callable, params: Any, batch: dict, caches: Optional[dict] = None, *,
+                 gate: Optional[threading.Lock] = None, pool=None):
+        self.fn, self.params, self.caches = fn, params, caches
+        self._batch = batch  # the shapes and dtypes every call must match
+        self.make_s = 0.0  # seconds its making took (a graph's: warm-up run and capture)
+
+    def _run(self, batch: dict):
+        return self.fn(self.params, *([self.caches] if self.caches is not None else []), batch)
+
+    def _check(self, params: Any, args: tuple) -> dict:
+        *caches, batch = args
+        if params is not self.params:
+            raise ValueError("a compiled entry reads the params it was made with")
+        if (self.caches is not None) != bool(caches) or (caches and caches[0] is not self.caches):
+            raise ValueError("a compiled decode entry reads and writes its own caches: pass entry.caches")
+        for k, t in self._batch.items():
+            if tuple(batch[k].shape) != tuple(t.shape):
+                raise ValueError(f"batch[{k!r}] has shape {tuple(batch[k].shape)}, the entry {tuple(t.shape)}")
+        return batch
+
+    def __call__(self, params: Any, *args):
+        batch = self._check(params, args)
+        with torch.inference_mode():
+            return self._run(batch)
+
+
+class GraphEntry(EagerEntry):
+    """``fn(params, [caches,] batch)`` captured as one CUDA graph at fixed
+    shapes. Static inputs: the batch tensors (the call's values are copied in)
+    and the decode caches it owns; static outputs: whatever ``fn`` returned at
+    capture (logits, the usage masks, a prefill's caches, a decode's new
+    carry state), rewritten by every replay.
+
+    Made under ``gate`` (the tiered params' lock), so no install or eviction
+    from the prefetcher's thread lands inside the capture. The warm-up run
+    goes on a side stream before the capture, so first-use work (a kernel's
+    nvcc build, the lookup of ``cuTensorMapEncodeTiled``, cuBLAS's setup) happens
+    outside the graph. Kernel wrappers count launches when they run, so the
+    capture's own counts are taken back and each replay adds the launches
+    the graph recorded (``launches``)."""
+
+    def __init__(self, fn: Callable, params: Any, batch: dict, caches: Optional[dict] = None, *,
+                 gate: Optional[threading.Lock] = None, pool=None):
+        t0 = time.perf_counter()
+        self.fn, self.params, self.caches = fn, params, caches
+        self._batch = batch
+        self._counters = counters = kernel_wrappers()
+        with gate or contextlib.nullcontext(), torch.inference_mode():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._run(batch)
+            torch.cuda.current_stream().wait_stream(side)
+            before = {name: f.launches for name, f in counters.items()}
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph, pool=pool):
+                    self.out = self._run(batch)
+            finally:
+                self.launches = {name: f.launches - before[name] for name, f in counters.items()}
+                for name, f in counters.items():
+                    f.launches = before[name]  # recorded, not run: each replay counts them
+            if caches is not None:  # the warm-up wrote them
+                tree_map(torch.Tensor.zero_, caches)
+        torch.cuda.synchronize()
+        self.make_s = time.perf_counter() - t0
+
+    def __call__(self, params: Any, *args):
+        batch = self._check(params, args)
+        for k, t in self._batch.items():
+            t.copy_(batch[k])
+        self.graph.replay()
+        for name, n in self.launches.items():
+            self._counters[name].launches += n
+        return self.out
+
+
 class ColdStartServer:
     """A cold-started model server: the live params (tiered in after2), the
-    optional store and the prefetcher."""
+    optional store, the prefetcher and the compiled entries."""
 
     def __init__(self, model: Model, params: Any, report: ColdStartReport, *,
                  tiered: Optional[TieredParams] = None, store: Optional[OptionalStore] = None,
-                 prefetcher: Optional[Prefetcher] = None, artifact_dir: Optional[str] = None):
+                 prefetcher: Optional[Prefetcher] = None, artifact_dir: Optional[str] = None,
+                 device="cuda"):
         self.model = model
         self.params = params
         self.report = report
@@ -95,9 +200,14 @@ class ColdStartServer:
         self.store = store
         self.prefetcher = prefetcher
         self.artifact_dir = artifact_dir
+        self.device = torch.device(device)
+        self._compiled: dict[tuple, EagerEntry] = {}
+        self._pool = None  # the graphs' shared memory pool (replays never overlap)
 
     def close(self) -> None:
-        """Stop the prefetcher's threads, then close the store."""
+        """Stop the prefetcher's threads, close the store and free the
+        compiled entries."""
+        self._compiled.clear()
         try:
             if self.prefetcher is not None:
                 self.prefetcher.stop()
@@ -116,6 +226,43 @@ class ColdStartServer:
     def live_params(self) -> Any:
         return self.tiered.tree() if self.tiered is not None else self.params
 
+    # -- warm-set / on-demand compilation ------------------------------------
+    def _entry(self, key: tuple, fn: Callable, batch_spec: dict, cache_shape: Optional[tuple] = None):
+        if key not in self._compiled:
+            # ordinary tensors even when made inside inference mode, so that
+            # callers may write them in place outside it (a scheduler's graft)
+            with torch.inference_mode(False):
+                batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=self.device)
+                         for k, v in batch_spec.items()}
+                caches = None
+                if cache_shape is not None:
+                    caches = self.model.init_cache(*cache_shape, device=self.device)
+            cls = EagerEntry
+            if self.device.type == "cuda":
+                cls = GraphEntry
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+            gate = self.tiered.gate if self.tiered is not None else None
+            self._compiled[key] = cls(fn, self.live_params(), batch, caches, gate=gate, pool=self._pool)
+        return self._compiled[key]
+
+    def compiled_prefill(self, B: int, S: int) -> EagerEntry:
+        """The prefill entry at (B, S): ``entry(params, batch)``."""
+        return self._entry(("prefill", B, S), self.model.prefill, self.model.prefill_batch_spec(B, S))
+
+    def compiled_decode(self, B: int, S_max: int) -> EagerEntry:
+        """The decode entry over (B, S_max) caches: ``entry(params,
+        entry.caches, batch)``."""
+        return self._entry(("decode", B, S_max), self.model.decode_step, self.model.decode_batch_spec(B),
+                           (B, S_max))
+
+    def compiled_decode_masked(self, B: int, S_max: int) -> EagerEntry:
+        """The masked decode over ``B`` scheduler slots, the continuous-
+        batching scheduler's one decode shape: inactive rows never reach the
+        usage masks, so a free slot never faults a unit in."""
+        return self._entry(("decode_masked", B, S_max), self.model.decode_step_masked,
+                           self.model.decode_masked_batch_spec(B), (B, S_max))
+
 
 def cold_start(
     model: Model,
@@ -128,7 +275,7 @@ def cold_start(
     prefetch: Optional[bool] = None,  # overrides the preset's prefetch default
     prefetch_batch_units: int = 8,
     predictor: Optional[TransitionPredictor] = None,  # profile-trained prefetch
-    warm_shapes: tuple = ((1, 64),),  # (B, S) pairs run once at cold start
+    warm_shapes: tuple = ((1, 64),),  # (B, S) or (B, S, S_max): prefill (B, S), decode (B, S_max or S)
     compile_warm_set: bool = True,
     trace: bool = False,  # attach an AccessTrace to the tiered params
     device="cuda",
@@ -156,7 +303,7 @@ def cold_start(
         _synchronize(device)
         t2 = time.perf_counter()
         report.read_s, report.upload_s = t1 - t0, t2 - t1
-        server = ColdStartServer(model, params, report, artifact_dir=artifact_dir)
+        server = ColdStartServer(model, params, report, artifact_dir=artifact_dir, device=device)
     elif mode == "after2":
         if result is None:
             raise ValueError("after2 cold start needs the AnalysisResult (plan)")
@@ -199,19 +346,15 @@ def cold_start(
         prefetcher = (Prefetcher(tiered, batch_units=prefetch_batch_units, predictor=predictor)
                       if want_prefetch else None)
         server = ColdStartServer(model, tree, report, tiered=tiered, store=store, prefetcher=prefetcher,
-                                 artifact_dir=artifact_dir)
+                                 artifact_dir=artifact_dir, device=device)
     else:
         raise ValueError(f"unknown mode {mode!r}; want before, after1 or after2")
 
     if compile_warm_set:
         t3 = time.perf_counter()
-        params = server.live_params()
-        with torch.inference_mode():
-            for B, S in warm_shapes:
-                tokens = torch.zeros((B, S), dtype=torch.int64, device=device)
-                model.prefill(params, {"tokens": tokens})
-                batch = {"tokens": tokens[:, :1], "pos": torch.zeros(B, dtype=torch.int64, device=device)}
-                model.decode_step(params, model.init_cache(B, S, device=device), batch)
+        for B, S, *S_max in warm_shapes:
+            server.compiled_prefill(B, S)
+            server.compiled_decode(B, S_max[0] if S_max else S)
         _synchronize(device)
         report.compile_s = time.perf_counter() - t3
     return server

@@ -25,13 +25,22 @@ between makes a run computed on placeholder zeros look complete there.
 
 The monolithic servers (before/after1) have no tiered params: nothing
 faults and nothing is hinted.
+
+Every forward run goes through the server's compiled entries
+(``ColdStartServer.compiled_prefill`` / ``compiled_decode``): CUDA graphs
+replayed on the card, the plain model calls on the CPU. A decode step writes
+its K/V rows into the decode entry's caches in place, which a re-run after a
+fault rewrites; its new carry state (conv, LRU) comes back separately and is
+committed into the caches once the step has reached its fixed point
+(``commit_decode_caches``). The reference's online re-tiering tick
+(``tick_retier``) is not ported.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -68,13 +77,31 @@ def _usage_masks(caches: Any) -> dict[str, np.ndarray]:
 
 
 def _graft_prefill_cache(big: Any, small: Any) -> Any:
-    """Write prefill-sized K/V prefixes into max-length zero caches."""
+    """Rebuild the max-length decode caches ``big`` in place as zeros with
+    the prefill-sized K/V prefixes of ``small`` written in (carry states and
+    caches of equal shape copied whole); returns ``big``. ``small`` may be a
+    graph's static outputs, so it is copied, never kept."""
     if isinstance(big, dict):
-        return {k: _graft_prefill_cache(big[k], small[k]) for k in big}
+        for k in big:
+            _graft_prefill_cache(big[k], small[k])
+        return big
     if big.shape == small.shape:
-        return small
-    big[tuple(slice(0, d) for d in small.shape)] = small
+        big.copy_(small)
+    else:
+        big.zero_()
+        big[tuple(slice(0, d) for d in small.shape)] = small
     return big
+
+
+def commit_decode_caches(caches: Any, new_caches: Any) -> Any:
+    """Commit a final decode step: copy every leaf of ``new_caches`` that is
+    not ``caches``' own tensor (a rec block's new conv and LRU state; K/V
+    were written in place) into ``caches``. Returns ``caches``."""
+    new = dict(flatten_with_paths(_strip_usage(new_caches)))
+    for path, leaf in flatten_with_paths(caches):
+        if new[path] is not leaf:
+            leaf.copy_(new[path])
+    return caches
 
 
 class GenerationEngine:
@@ -198,12 +225,15 @@ class GenerationEngine:
         if hints:
             stats.hinted_units += self.prefetcher.hint(hints)
 
-    # -- step primitives -------------------------------------------------------
+    # -- step primitives (shared by generate() and the scheduler) ---------------
     def prefill_step(self, tokens: torch.Tensor, stats: RequestStats, *, hint: bool = True):
-        """Prefill one prompt batch under the fault-in contract. Returns
-        ``(logits, caches, expert_keys)``: caches with the usage masks
-        stripped, and the experts the step routed to."""
+        """Prefill one prompt batch under the fault-in contract through the
+        compiled (B, S) entry. Returns ``(logits, caches, expert_keys)``:
+        caches with the usage masks stripped, and the experts the step routed
+        to. On the card the logits and caches are the graph's static outputs,
+        valid until the server's next replay."""
         tiered = self.server.tiered
+        prefill = self.server.compiled_prefill(*tokens.shape)
         step_pins: list[str] = []
         expert_keys: list[str] = []
         accessed: list[str] = []
@@ -214,7 +244,7 @@ class GenerationEngine:
             accessed += self._prefault_rows(tokens.cpu().numpy(), stats, step_pins)
             fault0 = stats.fault_s
             t0 = time.perf_counter()
-            logits, caches, newly, used = self._run(self.model.prefill, batch)
+            logits, caches, newly, used = self._run(prefill, batch)
             stats.prefill_runs += 1
             for _ in range(MAX_FAULT_RETRIES):
                 self._fault_experts(newly, used, stats, step_pins)
@@ -223,7 +253,7 @@ class GenerationEngine:
                 if not newly:
                     break
                 stats.prefill_retries += 1
-                logits, caches, newly, used = self._run(self.model.prefill, batch)
+                logits, caches, newly, used = self._run(prefill, batch)
                 stats.prefill_runs += 1
             stats.prefill_s += time.perf_counter() - t0 - (stats.fault_s - fault0)
         finally:
@@ -234,20 +264,29 @@ class GenerationEngine:
             self._hint_next_step(logits, expert_keys, stats, accessed=accessed + expert_keys)
         return logits, _strip_usage(caches), expert_keys
 
-    def decode_once(self, caches: Any, dbatch: dict, stats: RequestStats, *, hint: bool = True):
-        """One decode step under the fault-in contract. Returns ``(logits,
-        new_caches, expert_keys)`` with the usage masks stripped."""
+    def decode_once(self, decode_fn, caches: Any, dbatch: dict, stats: RequestStats, *,
+                    prefault_tokens: Optional[np.ndarray] = None, hint: bool = True):
+        """One decode step of the compiled entry ``decode_fn`` over its own
+        ``caches`` under the fault-in contract. ``prefault_tokens`` defaults to
+        the batch tokens; the scheduler passes only the active slots' tokens so
+        free slots never fault vocab rows. A retry after an expert fault
+        re-runs the step from the same caches (its K/V row writes are
+        idempotent and its carry state goes to separate outputs); the final
+        run's state is then committed. Returns ``(logits, caches,
+        expert_keys)``: ``caches`` itself, now holding the step."""
         tiered = self.server.tiered
+        if prefault_tokens is None:
+            prefault_tokens = dbatch["tokens"].cpu().numpy()
         step_pins: list[str] = []
         expert_keys: list[str] = []
         accessed: list[str] = []
         if tiered is not None:
             tiered.set_phase("decode")
         try:
-            accessed += self._prefault_rows(dbatch["tokens"].cpu().numpy(), stats, step_pins)
+            accessed += self._prefault_rows(np.asarray(prefault_tokens), stats, step_pins)
             fault0 = stats.fault_s
             t0 = time.perf_counter()
-            logits, new_caches, newly, used = self._run(self.model.decode_step, caches, dbatch)
+            logits, new_caches, newly, used = self._run(decode_fn, caches, dbatch)
             for _ in range(MAX_FAULT_RETRIES):
                 self._fault_experts(newly, used, stats, step_pins)
                 seen = set(expert_keys)
@@ -255,14 +294,15 @@ class GenerationEngine:
                 if not newly:
                     break
                 stats.decode_retries += 1
-                logits, new_caches, newly, used = self._run(self.model.decode_step, caches, dbatch)
+                logits, new_caches, newly, used = self._run(decode_fn, caches, dbatch)
+            commit_decode_caches(caches, new_caches)
             stats.decode_s += time.perf_counter() - t0 - (stats.fault_s - fault0)
         finally:
             if tiered is not None and step_pins:
                 tiered.release(step_pins)
         if hint:
             self._hint_next_step(logits, expert_keys, stats, accessed=accessed + expert_keys)
-        return logits, _strip_usage(new_caches), expert_keys
+        return logits, caches, expert_keys
 
     # -- request path -----------------------------------------------------------
     @torch.inference_mode()
@@ -278,8 +318,9 @@ class GenerationEngine:
                 f"request needs {S + n_steps} positions (prompt {S} + {n_steps} steps) "
                 f"but the engine was built for max_seq={self.max_seq}")
         device = tokens.device
+        decode = self.server.compiled_decode(B, self.max_seq)
         logits, caches, _ = self.prefill_step(tokens, stats)
-        caches = _graft_prefill_cache(self.model.init_cache(B, self.max_seq, device=device), caches)
+        caches = _graft_prefill_cache(decode.caches, caches)
         out = [torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()]
         stats.steps = 1  # the prefill-produced token is step #1
         for step in range(n_steps - 1):
@@ -287,7 +328,7 @@ class GenerationEngine:
                 "tokens": torch.as_tensor(out[-1], dtype=torch.int64, device=device)[:, None],
                 "pos": torch.full((B,), S + step, dtype=torch.int64, device=device),
             }
-            logits, caches, _ = self.decode_once(caches, dbatch, stats)
+            logits, caches, _ = self.decode_once(decode, caches, dbatch, stats)
             out.append(torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy())
             stats.steps += 1
         if tiered is not None:

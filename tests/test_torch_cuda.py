@@ -522,3 +522,179 @@ def test_stats_policy_serves_before_mode_tokens_on_card(card, tmp_path):
     assert tiered.resident_bytes <= res.budget_bytes
     assert pstats.hints > 0 and pstats.errors == 0
     assert not alive  # close() joined the reader and the uploader
+
+
+def _reduced_card_model():
+    """Reduced Mixtral with head_dim widened from 16 to 64 (the flash
+    kernel's smallest), fp32 weights, bf16 compute, on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+
+    cfg = get_reduced("mixtral-8x22b").replace(head_dim=64, collect_moe_usage=True)
+    return build_model(cfg)
+
+
+def _monolithic_server(model, card):
+    from repro_torch.serving import ColdStartReport, ColdStartServer
+
+    params = model.init(torch.Generator(card).manual_seed(0), device=card)
+    return ColdStartServer(model, params, ColdStartReport(mode="before"), device=card)
+
+
+def _batch(kind, B, S, vocab, card, seed):
+    g = torch.Generator().manual_seed(seed)
+    if kind == "prefill":
+        return {"tokens": torch.randint(0, vocab, (B, S), generator=g).to(card)}
+    batch = {"tokens": torch.randint(0, vocab, (B, 1), generator=g).to(card),
+             "pos": torch.randint(S // 2, S, (B,), generator=g).to(card)}
+    if kind == "decode_masked":
+        batch["active"] = torch.tensor([True, False, True], device=card)[:B]
+    return batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["prefill", "decode", "decode_masked"])
+def test_graph_replay_equals_eager(card, kind):
+    """Each compiled entry replayed twice on new inputs equals the plain call
+    on the same inputs (decode: on a copy of the caches); the decode graph
+    writes the K/V row of its own caches in place; replays add the launches
+    the graph recorded, and the capture added none."""
+    from repro_torch.serving.engine import commit_decode_caches
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
+
+    model = _reduced_card_model()
+    server = _monolithic_server(model, card)
+    B, S = 3, 40
+    launches = fa_ops.flash_attention.launches
+    if kind == "prefill":
+        entry = server.compiled_prefill(B, S)
+        assert fa_ops.flash_attention.launches == launches + 2  # the warm-up ran both layers; the capture counts 0
+        assert entry.launches["flash_attention"] == 2
+    else:
+        entry = getattr(server, f"compiled_{kind}")(B, S)
+        assert set(entry.launches.values()) == {0}  # the served decode is plain
+    params = server.live_params()
+    for seed in (1, 2):
+        batch = _batch(kind, B, S, model.cfg.vocab_size, card, seed)
+        if kind == "prefill":
+            want_logits, want = model.prefill(params, batch)
+            before = fa_ops.flash_attention.launches
+            logits, got = entry(params, batch)
+            assert fa_ops.flash_attention.launches == before + 2
+        else:
+            for _, leaf in flatten_with_paths(entry.caches):
+                leaf.copy_(torch.randn(leaf.shape, generator=torch.Generator(card).manual_seed(seed),
+                                       device=card).to(leaf.dtype))
+            mine = tree_map(torch.clone, entry.caches)
+            with torch.inference_mode():
+                want_logits, want = getattr(model, f"{kind}_step" if kind == "decode" else "decode_step_masked")(
+                    params, mine, batch)
+            commit_decode_caches(mine, want)
+            k_ptr = entry.caches["groups"]["u0"]["k"].data_ptr()
+            logits, got = entry(params, entry.caches, batch)
+            assert got["groups"]["u0"]["k"].data_ptr() == k_ptr
+            commit_decode_caches(entry.caches, got)
+            want, got = mine, entry.caches
+        torch.cuda.synchronize()
+        torch.testing.assert_close(logits.float(), want_logits.float(), atol=2e-2, rtol=2e-2)
+        assert torch.equal(logits.argmax(-1), want_logits.argmax(-1))
+        for (p, a), (_, b) in zip(flatten_with_paths(got), flatten_with_paths(want)):
+            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2, msg=p)
+
+
+@pytest.mark.gpu
+def test_graph_reads_units_installed_and_evicted_after_capture(card, tmp_path):
+    """Strict after2 server: the prefill graph is captured while every
+    expert is a placeholder. A unit faulted in after the capture, and then
+    one evicted, are what the next replay reads (the params are written in
+    place at the addresses the graph was captured with)."""
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact
+    from repro_torch.serving import cold_start
+
+    model = _reduced_card_model()
+    profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                vocab_row_group=64)
+    result = analyze(model, profile, trace_B=1, trace_S=32)
+    build_artifact(model.init(torch.Generator(card).manual_seed(0), device=card), result, str(tmp_path))
+    batch = _batch("prefill", 2, 24, model.cfg.vocab_size, card, 3)
+    with cold_start(model, str(tmp_path), result, residency="full", warm_shapes=((2, 24),), device=card,
+                    prefetch=False) as server:
+        entry, tiered = server.compiled_prefill(2, 24), server.tiered
+        live = server.live_params()
+        cold, _ = entry(live, batch)
+        cold = cold.clone()
+        tiered.ensure_all()  # every unit installed after the capture
+        loaded, _ = entry(live, batch)
+        loaded = loaded.clone()
+        with torch.inference_mode():
+            want, _ = model.prefill(live, batch)
+        torch.testing.assert_close(loaded.float(), want.float(), atol=2e-2, rtol=2e-2)
+        assert not torch.allclose(loaded.float(), cold.float(), atol=1e-1)
+        expert = next(k for k in tiered.resident_keys if "#l" in k)
+        assert tiered.evict([expert]) > 0
+        evicted, _ = entry(live, batch)
+        with torch.inference_mode():
+            want, _ = model.prefill(live, batch)
+        torch.testing.assert_close(evicted.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_scheduler_replays_graphs_and_matches_eager(card, monkeypatch):
+    """Five requests through three slots on the card (graphs) and with every
+    entry made eagerly: the same tokens, and the one masked-decode graph."""
+    import importlib
+
+    from repro_torch.serving import ContinuousBatchingScheduler, EagerEntry, GenerationEngine
+
+    cs_mod = importlib.import_module("repro_torch.serving.cold_start")
+
+    model = _reduced_card_model()
+    prompts = [torch.randint(0, model.cfg.vocab_size, (S,), generator=torch.Generator().manual_seed(i)).numpy()
+               for i, S in enumerate((12, 20, 12, 7, 20))]
+    outs = {}
+    for how in ("graph", "eager"):
+        if how == "eager":
+            monkeypatch.setattr(cs_mod, "GraphEntry", EagerEntry)
+        server = _monolithic_server(model, card)
+        sched = ContinuousBatchingScheduler(GenerationEngine(server, max_seq=40), max_batch=3)
+        reqs = [sched.submit(p, n) for p, n in zip(prompts, (6, 4, 8, 3, 5))]
+        sched.run()
+        assert all(r.done and r.error is None for r in reqs)
+        kinds = {type(e).__name__ for e in server._compiled.values()}
+        assert kinds == {"GraphEntry" if how == "graph" else "EagerEntry"}
+        outs[how] = [r.out for r in reqs]
+        server.close()
+    assert outs["graph"] == outs["eager"]
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises(card):
+    """A forward run that cannot be captured (a host sync inside it) raises
+    from the compiled entry, and the server keeps no entry for the shape.
+    In a child process: a failed capture can leave the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from repro_torch.configs import get_reduced
+from repro_torch.models import build_model
+from repro_torch.serving import ColdStartReport, ColdStartServer
+
+model = build_model(get_reduced("mixtral-8x22b").replace(head_dim=64))
+params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+server = ColdStartServer(model, params, ColdStartReport(mode="before"), device="cuda")
+real = model.prefill
+def syncing(p, batch):
+    float(batch["tokens"].float().sum())  # a device-to-host read: not capturable
+    return real(p, batch)
+model.prefill = syncing
+try:
+    server.compiled_prefill(1, 16)
+except RuntimeError as e:
+    print("raised:", type(e).__name__, ("prefill", 1, 16) in server._compiled)
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.dirname(__file__)), "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, env=env)
+    assert "raised: " in res.stdout and res.stdout.strip().endswith("False"), res.stdout + res.stderr[-3000:]

@@ -1,8 +1,10 @@
-"""The port's one-shot serve launcher (``python -m repro_torch.launch.serve``)
-on the CPU under each policy and each cold-start mode: it exits 0, prints the
-reference's ``[serve]`` lines and the same greedy tokens in every run (same
-seeded weights and prompt), and argparse refuses a bogus policy and the
-reference's unported flags. Its stats profile reads the synthetic token
+"""The port's serve launcher (``python -m repro_torch.launch.serve``) on the
+CPU. One-shot, under each policy and each cold-start mode: it exits 0, prints
+the reference's ``[serve]`` lines and the same greedy tokens in every run
+(same seeded weights and prompt). Traffic mode (``--concurrency``): every
+request finishes with the tokens of its own ``generate()`` on the artifact
+the launcher wrote. argparse refuses a bogus policy, bad traffic flags and
+the reference's unported flags. Its stats profile reads the synthetic token
 pipeline, which gives the reference's tokens and row-group stats."""
 
 import json
@@ -13,10 +15,16 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.data import DataConfig as RefDataConfig
 from repro.data import SyntheticTokenPipeline as RefPipeline
+from repro_torch.configs import get_reduced
+from repro_torch.core import DeploymentProfile, analyze
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
+from repro_torch.launch.serve import traffic_prompts
+from repro_torch.models import build_model
+from repro_torch.serving import GenerationEngine, cold_start
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
@@ -79,11 +87,54 @@ def test_launcher_cuts_depth(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["--policy", "bogus"],
     ["--mode", "after3"],
-    ["--concurrency", "4"],          # traffic mode is not ported
+    ["--profile-out", "t.json"],     # profile-guided re-tiering is not ported
     ["--host-budget-bytes", "1024"],  # nor the host arbiter
     ["--fleet", "2"],
 ])
 def test_launcher_refuses_bad_and_unported_flags(argv):
+    res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
+    assert res.returncode == 2
+    assert "error:" in res.stderr
+
+
+@pytest.mark.parametrize("extra", [[], ["--admission", "slo", "--deadline-ms", "600000", "--arrival-rate", "50"]],
+                         ids=["fifo", "slo"])
+def test_launcher_traffic_mode_matches_solo_runs(tmp_path, extra):
+    """Five requests of mixed arrival through three slots: exit 0, the
+    traffic report, all five done, and each request's tokens equal its own
+    generate() on the artifact the launcher wrote (same plan, same weights)."""
+    res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", "--prompt-len", "8",
+                 "--gen-steps", "4", "--policy", "strict", "--concurrency", "3", "--requests", "5",
+                 "--artifact-dir", str(tmp_path), *extra)
+    assert res.returncode == 0, res.stderr
+    assert re.search(r"^\[serve\] traffic: 5/5 ok in [\d.]+s \([\d.]+ req/s over \d+ batched steps, "
+                     r"max_active=3\)$", res.stdout, re.M), res.stdout
+    assert re.search(r"^\[serve\] latency p50=\d+ms p99=\d+ms; ttft p50=\d+ms; step faults=\d+", res.stdout, re.M)
+    stats = json.loads(re.search(r"^\[serve\] scheduler: (.*)$", res.stdout, re.M).group(1))
+    assert stats["completed"] == 5 and stats["failed"] == stats["rejected"] == stats["shed"] == 0
+    tokens = _tokens(res.stdout)
+    cfg = get_reduced("mixtral-8x22b").replace(collect_moe_usage=True)
+    model = build_model(cfg)
+    profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                vocab_row_group=max(64, cfg.vocab_size // 16))
+    result = analyze(model, profile, trace_B=1, trace_S=32)
+    with cold_start(model, str(tmp_path / cfg.name), result, residency="strict", compile_warm_set=False,
+                    device="cpu") as server:
+        eng = GenerationEngine(server, max_seq=8 + 4 + 8)
+        for got, p in zip(tokens, traffic_prompts(cfg, 5, 8)):
+            solo, _ = eng.generate(torch.from_numpy(p[None]), 4)
+            assert got == solo[0].tolist()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--concurrency", "2", "--deadline-ms", "5"],  # FIFO never sheds
+    ["--concurrency", "2", "--admission", "slo", "--deadline-ms", "-1"],
+    ["--concurrency", "2", "--requests", "0"],
+    ["--concurrency", "2", "--retier-online"],  # online re-tiering is not ported
+    ["--concurrency", "2", "--snapshot-out", "s.json"],  # nor snapshots
+    ["--mesh", "1x1"],  # nor meshes
+])
+def test_launcher_refuses_bad_traffic_and_unported_flags(argv):
     res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
     assert res.returncode == 2
     assert "error:" in res.stderr
