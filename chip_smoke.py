@@ -16,7 +16,9 @@ Phases (any failure exits non-zero before the result line):
    flash attention in bf16 at Mixtral-8x22B widths (H=48, Hkv=8, hd=128:
    causal rows and one full-width row that is not causal and has a softcap,
    so the unmasked tiles and the softcap kernel are held too) and at
-   RecurrentGemma-9B's (H=16, Hkv=1, hd=256); error ≤ 1e-2 per unit of
+   RecurrentGemma-9B's (H=16, Hkv=1, hd=256), and at the reduced configs'
+   head dims, which the wrapper zero-pads to 64 (reduced Mixtral H=4, Hkv=2,
+   hd 16, window 32; reduced Yi H=8, Hkv=2, hd 8); error ≤ 1e-2 per unit of
    max(1, |output|) (bf16 output rounding); each row prints its TFLOP/s and
    its share of the bound. The RG-LRU scan in fp32 at
    (B, S, W) = (2, 1024, 4096) and (1, 8192, 4096): bit for bit (and so
@@ -81,6 +83,11 @@ Phases (any failure exits non-zero before the result line):
    each request against its solo ``generate()`` (same first token, prefill
    logits within LOGITS_TOL; a later divergence printed with its step and
    top-2 logit gap); ``SchedulerStats``, decode s/step and requests/s.
+   [entries] On that server, B=2 prompts of 7 lengths (1000 down to 400
+   tokens, N + 3 for the server's bound of N = 4 prefill entries), twice:
+   never more than N entries beyond the warm set, memory_allocated never
+   past its value at the N-th length, tokens after an eviction equal the
+   first ones; allocated and reserved bytes printed after each.
 5. serve, stats — the same weights and request under the reference
    launcher's stats profile (one resident expert a layer, a quarter of the
    row groups hot by the synthetic pipeline's stats) with its own artifact,
@@ -101,15 +108,26 @@ Phases (any failure exits non-zero before the result line):
    as in the reference), and Mixtral's may not launch the scan.
 7. modes — the paper's Table 2 through the launcher as a user runs it:
    ``python -m repro_torch.launch.serve`` in before, after1 and after2
-   (its default stats policy) on Mixtral-8x22B at full width cut to 1
-   layer, bf16 weights (a ≈29 GB before bundle with the fp32 AdamW
-   moments), B=2 × 1024 + 4. Each must exit 0 and print its ``[serve]``
+   (its default stats policy, without the prefetcher and with
+   ``--profile-out``: [retier]'s profiling run) on Mixtral-8x22B at full
+   width cut to 1 layer, bf16 weights (a ≈29 GB before bundle with the
+   fp32 AdamW moments), B=2 × 1024 + 4. Each must exit 0 and print its ``[serve]``
    lines; bytes read must shrink strictly and the tokens agree. Free disk
-   and host RAM are printed first. (The reduced configs' head_dim 16 does
-   not run on the card's flash kernel.)
+   and host RAM are printed first.
 8. traffic — the launcher's traffic mode once: Mixtral-8x22B at full width
    cut to 1 layer, bf16, ``full``, ``--concurrency 4 --requests 8
    --prompt-len 256 --gen-steps 8``; exit 0 with 8/8 requests done.
+9. reduced — the reference's main-path command on the card:
+   ``python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced
+   --param-dtype bfloat16`` (head_dim 16 through the padded kernel), B=2 ×
+   16 + 8, and the same command with the plain attention in the kernel's
+   place: exit 0, flash launches > 0 (none in the plain run), equal tokens.
+10. retier — profile → re-tier → re-serve through the launcher, Mixtral at
+   full width cut to 1 layer, bf16, stats, B=2 × 1024 + 4: the modes
+   phase's after2 run profiled (``--no-prefetch --profile-out``), then
+   ``--retier-from``. Prints each run's fault bytes and
+   count, cold-start read/upload, tier-0 bytes, the re-tier report and the
+   raw-copied / recompressed frame counts; the tokens must be equal.
 Each phase's wall time is printed on the ``[time]`` line.
 
 The last lines: ``nvidia-smi`` name and power limit, a JSON line with the
@@ -183,6 +201,12 @@ MODES_NEW_TOKENS = 4  # the modes phase's request: B=2 × 1024 + 4
 # 4 consecutive requests holds at most 2 of either length, so no group passes
 # 2 × 512 = 1024 tokens, where serving MoE stops being dropless
 SCHED_BATCH, SCHED_REQUESTS, SCHED_PROMPTS, SCHED_STEPS = 4, 8, (256, 512), (8, 12, 16)
+# [entries]: prompt lengths served on Mixtral's full server, longest first,
+# so each one past the bound replaces a larger entry: N + 3 of them, N the
+# server's max_prefill_entries
+ENTRY_PROMPTS = (1000, 900, 800, 700, 600, 500, 400)
+# [reduced]: the launcher's reduced Mixtral request, B=2 × 16 + 8
+REDUCED_PROMPT, REDUCED_NEW_TOKENS = 16, 8
 RG_H, RG_HKV, RG_HD, RG_WINDOW, RG_WIDTH = 16, 1, 256, 2048, 4096  # RecurrentGemma-9B
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
@@ -192,6 +216,11 @@ FLASH_ROWS = (
                     (1, 2048, None, False, 50.0)]),  # every key tile unmasked, the softcap on
     ((RG_H, RG_HKV, RG_HD), [(BATCH, PROMPT, RG_WINDOW, True, None),
                              (1, 8192, RG_WINDOW, True, None)]),
+    # the reduced configs' head dims, zero-padded to 64 by the wrapper:
+    # reduced Mixtral (H=4, Hkv=2, hd 16, window 32) at the [reduced] phase's
+    # prefill and at 1024 tokens, reduced Yi (H=8, Hkv=2, hd 8, no window)
+    ((4, 2, 16), [(BATCH, REDUCED_PROMPT, 32, True, None), (BATCH, PROMPT, 32, True, None)]),
+    ((8, 2, 8), [(BATCH, PROMPT, None, True, None)]),
 )
 
 
@@ -881,6 +910,7 @@ def full_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dict
     summary["graph"] = graph_phase("mixtral-8x22b", server, tokens, MIXTRAL_NEW_TOKENS, wrappers,
                                    {"flash_attention": LAYERS}, LOGITS_TOL)
     summary["sched"] = sched_phase(server, wrappers)
+    summary["entries"] = entries_phase(server)
     server.close()
     summary["prefetch_threads_alive_after_close"] = len(_prefetch_threads() - before)
     print("[serve] full: " + json.dumps(summary, default=str), flush=True)
@@ -892,6 +922,51 @@ def full_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dict
     _check_served_launches("mixtral-8x22b full", counts, summary["prefill_runs"])
     del server, engine
     torch.cuda.empty_cache()
+    return summary
+
+
+def entries_phase(server) -> dict:
+    """[entries] On Mixtral's full server (every unit resident), B=2 prompts
+    of ENTRY_PROMPTS lengths, longest first, each its own prefill entry, then
+    the same lengths again: the entries outside the warm set never pass the
+    server's bound, memory_allocated never passes its value at the bound's
+    N-th length, and each length's tokens after its entry was evicted and
+    captured again equal its first tokens. Prints allocated and reserved
+    bytes after each request."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import GenerationEngine
+
+    t0 = time.perf_counter()
+    N = server.max_prefill_entries
+    engine = GenerationEngine(server, max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8)  # the warm decode entry
+    prompt = torch.randint(0, server.model.cfg.vocab_size, (BATCH, max(ENTRY_PROMPTS)),
+                           generator=torch.Generator().manual_seed(9)).to(server.device)
+    rows, first = [], {}
+    for rnd in (0, 1):
+        for S in ENTRY_PROMPTS:
+            out, _ = engine.generate(prompt[:, :S], 2)
+            torch.cuda.synchronize()
+            held = [k for k in server.prefill_entries() if k not in server._kept]
+            row = dict(round=rnd, S=S, entries=len(held), evicted=server.evicted_prefill_entries,
+                       allocated=torch.cuda.memory_allocated(), reserved=torch.cuda.memory_reserved())
+            rows.append(row)
+            print("[entries] " + json.dumps(row), flush=True)
+            if len(held) > N:
+                raise AssertionError(f"[entries] {len(held)} prefill entries held, bound {N}")
+            if rnd == 0:
+                first[S] = out
+            elif not np.array_equal(out, first[S]):
+                raise AssertionError(f"[entries] S={S}: tokens {out.tolist()} after eviction, {first[S].tolist()} before")
+    at_bound = rows[N - 1]["allocated"]
+    later = max(r["allocated"] for r in rows[N:])
+    summary = dict(bound=N, lengths=len(ENTRY_PROMPTS), allocated_at_bound=at_bound, allocated_max_after=later,
+                   reserved_at_bound=rows[N - 1]["reserved"], reserved_max_after=max(r["reserved"] for r in rows[N:]),
+                   evicted=server.evicted_prefill_entries, wall_s=time.perf_counter() - t0)
+    print("[entries] " + json.dumps(summary), flush=True)
+    if later > at_bound:
+        raise AssertionError(f"[entries] memory_allocated grew past the bound: {later} > {at_bound}")
     return summary
 
 
@@ -976,7 +1051,7 @@ def _eager_entries(server):
     import torch
 
     cs_mod = importlib.import_module("repro_torch.serving.cold_start")
-    saved, server._compiled = server._compiled, {}
+    saved, server._compiled = server._compiled, type(server._compiled)()
     try:
         with mock.patch.object(cs_mod, "GraphEntry", cs_mod.EagerEntry):
             yield
@@ -1190,6 +1265,113 @@ def traffic_phase(workdir: Path) -> dict:
     return dict(wall_s=wall, stats=stats)
 
 
+# the launcher with the attention kernel's wrapper replaced by its plain version
+PLAIN_LAUNCHER = ("import sys\n"
+                  "from repro_torch.kernels.flash_attention import ops\n"
+                  "from repro_torch.models import attention\n"
+                  "attention.flash_attention = ops.flash_attention_plain\n"
+                  "from repro_torch.launch.serve import main\n"
+                  "sys.exit(main(sys.argv[1:]))\n")
+
+
+def _launch(tag: str, args: list, plain: bool = False, timeout: int = 600) -> dict:
+    """One launcher run in a subprocess; prints its ``[serve]`` lines under
+    ``tag`` and returns them parsed: wall, cold start report, request stats,
+    tokens, kernel launches, plan and re-tiering lines where present."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    argv = [sys.executable] + (["-c", PLAIN_LAUNCHER] if plain else ["-m", "repro_torch.launch.serve"]) + args
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, capture_output=True, text=True, timeout=timeout, env=env, cwd=str(REPO))
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[serve] ")]
+    for ln in lines:
+        print(f"{tag} {ln}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"{tag} the launcher exited {res.returncode}: {res.stderr[-3000:]}")
+
+    def field(prefix: str):
+        ln = next((ln for ln in lines if ln.startswith(prefix)), None)
+        return None if ln is None else json.loads(ln[len(prefix):])
+
+    retiered = next((ln for ln in lines if ln.startswith("[serve] re-tiered from ")), None)
+    cold = next(ln for ln in lines if ln.startswith("[serve] cold start ("))
+    out = dict(wall_s=wall, serve_lines=len(lines), cold_start=json.loads(cold.split("): ", 1)[1]),
+               request=field("[serve] request: "),
+               tokens=field("[serve] tokens: "), launches=field("[serve] kernel launches: "),
+               retier=None if retiered is None else json.loads(retiered.split(": ", 1)[1]),
+               retier_artifact=field("[serve] retier artifact: "))
+    print(f"{tag} launcher wall {wall:.1f} s", flush=True)
+    return out
+
+
+def reduced_phase(workdir: Path) -> dict:
+    """[reduced] The reference's main-path command on the card: reduced
+    Mixtral (head_dim 16, through the zero-padded hd-64 kernel) via
+    ``python -m repro_torch.launch.serve --reduced --param-dtype bfloat16``,
+    B=2 × REDUCED_PROMPT + REDUCED_NEW_TOKENS, and the same command with the
+    attention's plain version in the kernel's place. Both exit 0; the
+    kernel run launches flash attention (and no other kernel), the plain
+    run none; the tokens are equal."""
+    outdir = workdir / "reduced"
+    shutil.rmtree(outdir, ignore_errors=True)
+    args = ["--arch", "mixtral-8x22b", "--reduced", "--param-dtype", "bfloat16", "--batch", str(BATCH),
+            "--prompt-len", str(REDUCED_PROMPT), "--gen-steps", str(REDUCED_NEW_TOKENS), "--artifact-dir", str(outdir)]
+    runs = {how: _launch(f"[reduced] {how}:", args, plain=how == "plain") for how in ("kernel", "plain")}
+    shutil.rmtree(outdir, ignore_errors=True)
+    k, p = runs["kernel"], runs["plain"]
+    summary = dict(tokens=k["tokens"], tokens_equal=k["tokens"] == p["tokens"], launches=k["launches"],
+                   plain_launches=p["launches"], request=k["request"], wall_s={h: r["wall_s"] for h, r in runs.items()})
+    print("[reduced] " + json.dumps(summary), flush=True)
+    if not k["launches"]["flash_attention"] > 0 or any(n for name, n in k["launches"].items()
+                                                      if name != "flash_attention"):
+        raise AssertionError(f"[reduced] kernel launches {k['launches']}")
+    if any(p["launches"].values()):
+        raise AssertionError(f"[reduced] the plain run launched {p['launches']}")
+    if not summary["tokens_equal"]:
+        raise AssertionError(f"[reduced] kernel tokens {k['tokens']} != plain {p['tokens']}")
+    return summary
+
+
+def retier_phase(workdir: Path, profile: dict, trace: Path) -> dict:
+    """[retier] One profile → re-tier → re-serve cycle through the launcher,
+    Mixtral-8x22B at full width cut to 1 layer, bf16, B=2 × 1024 +
+    MODES_NEW_TOKENS, stats policy. ``profile`` is the modes phase's after2
+    run, the profiling run (no prefetcher, ``--profile-out trace``); this
+    phase runs the second: ``--retier-from trace`` re-tiers the artifact
+    and serves from it with the trace's predictor armed. Prints each run's
+    fault bytes and count, cold-start read/upload, tier-0 bytes, and the
+    re-tier report and compaction counts; the tokens must be equal."""
+    outdir = workdir / "retier"
+    shutil.rmtree(outdir, ignore_errors=True)
+    args = ["--arch", "mixtral-8x22b", "--layers", "1", "--param-dtype", "bfloat16", "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen-steps", str(MODES_NEW_TOKENS), "--policy", "stats",
+            "--artifact-dir", str(outdir), "--retier-from", str(trace)]
+    runs = {"profile": profile, "retier": _launch("[retier] retier:", args)}
+    shutil.rmtree(outdir, ignore_errors=True)
+    trace.unlink()
+    summary = {}
+    for name, r in runs.items():
+        cs = r["cold_start"]
+        summary[name] = dict(
+            faulted_bytes=r["request"]["faulted_bytes"], faulted_units=r["request"]["faulted_units"],
+            fault_s=r["request"]["fault_s"], read_s=cs["read_s"], upload_s=cs["upload_s"],
+            compile_s=cs["compile_s"], tier0_bytes_read=cs["bytes_read"], bytes_uploaded=cs["bytes_uploaded"],
+            launches=r["launches"], wall_s=r["wall_s"])
+    summary["retier"].update(report=runs["retier"]["retier"], compaction=runs["retier"]["retier_artifact"])
+    summary["tokens_equal"] = runs["profile"]["tokens"] == runs["retier"]["tokens"]
+    print("[retier] " + json.dumps(summary), flush=True)
+    print(f"[retier] fault bytes {summary['profile']['faulted_bytes']:,} before, "
+          f"{summary['retier']['faulted_bytes']:,} after re-tiering; faults {summary['profile']['faulted_units']} "
+          f"→ {summary['retier']['faulted_units']}; cold-start bytes uploaded {summary['profile']['bytes_uploaded']:,} "
+          f"→ {summary['retier']['bytes_uploaded']:,}", flush=True)
+    if not summary["tokens_equal"]:
+        raise AssertionError(f"[retier] tokens {runs['retier']['tokens']} != the profiling run's "
+                             f"{runs['profile']['tokens']}")
+    if not summary["retier"]["compaction"]["raw_copied"] > 0:
+        raise AssertionError(f"[retier] no tier-1 frame was copied raw: {summary['retier']['compaction']}")
+    return summary
+
+
 def _host_resources(path: Path) -> str:
     disk = shutil.disk_usage(path)
     mem = {}
@@ -1201,44 +1383,37 @@ def _host_resources(path: Path) -> str:
             f"{mem['MemAvailable'] / 1e9:.1f} of {mem['MemTotal'] / 1e9:.1f} GB")
 
 
-def modes_phase(workdir: Path) -> dict:
+def modes_phase(workdir: Path, trace: Path) -> dict:
     """The paper's Table 2 on the card through the launcher, as a user runs
     it: ``python -m repro_torch.launch.serve`` in each of before, after1 and
-    after2 (under its default stats policy, prefetcher on) on
-    Mixtral-8x22B at full width, depth cut to 1 layer, bf16 weights from the
-    launcher's seeded generator, B=2 × prompt 1024 + 4 new tokens. Each run
-    writes its own bundle or artifact. Bytes read must shrink strictly from
-    before to after1 to after2, and the greedy tokens must agree."""
+    after2 on Mixtral-8x22B at full width, depth cut to 1 layer, bf16
+    weights from the launcher's seeded generator, B=2 × prompt 1024 + 4 new
+    tokens. The after2 run, under the launcher's default stats policy, is
+    also ``[retier]``'s profiling run: no prefetcher, its access trace
+    written to ``trace``. Each run writes its own bundle or artifact. Bytes
+    read must shrink strictly from before to after1 to after2, and the
+    greedy tokens must agree."""
     outdir = workdir / "launcher"
     shutil.rmtree(outdir, ignore_errors=True)
     outdir.mkdir(parents=True)
     print(f"[modes] {_host_resources(outdir)}", flush=True)
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     runs = {}
     for mode in ("before", "after1", "after2"):
-        argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mixtral-8x22b", "--layers", "1",
-                "--param-dtype", "bfloat16", "--batch", str(BATCH), "--prompt-len", str(PROMPT),
-                "--gen-steps", str(MODES_NEW_TOKENS), "--mode", mode, "--artifact-dir", str(outdir)]
-        t0 = time.perf_counter()
-        res = subprocess.run(argv, capture_output=True, text=True, timeout=600, env=env, cwd=str(REPO))
-        wall = time.perf_counter() - t0
-        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[serve] ")]
-        for ln in lines:
-            print(f"[modes] {mode}: {ln}", flush=True)
-        if res.returncode != 0:
-            raise AssertionError(f"the launcher exited {res.returncode} in mode {mode}: {res.stderr[-3000:]}")
-        report = json.loads(next(ln for ln in lines if ln.startswith(f"[serve] cold start ({mode}): "))
-                            .split(": ", 1)[1])
-        tokens = json.loads(next(ln for ln in lines if ln.startswith("[serve] tokens: ")).split(": ", 1)[1])
-        runs[mode] = dict(wall_s=wall, report=report, tokens=tokens, serve_lines=len(lines))
+        args = ["--arch", "mixtral-8x22b", "--layers", "1", "--param-dtype", "bfloat16", "--batch", str(BATCH),
+                "--prompt-len", str(PROMPT), "--gen-steps", str(MODES_NEW_TOKENS), "--mode", mode,
+                "--artifact-dir", str(outdir)]
+        if mode == "after2":
+            args += ["--no-prefetch", "--profile-out", str(trace)]
+        runs[mode] = run = _launch(f"[modes] {mode}:", args)
+        report = run["cold_start"]
         print(f"[modes] {mode}: read {report['read_s']:.3f} s, upload {report['upload_s']:.3f} s, compile "
-              f"{report['compile_s']:.3f} s; read {report['bytes_read']:,} B, uploaded {report['bytes_uploaded']:,} B; "
-              f"launcher wall {wall:.1f} s", flush=True)
+              f"{report['compile_s']:.3f} s; read {report['bytes_read']:,} B, uploaded {report['bytes_uploaded']:,} B",
+              flush=True)
         for name in os.listdir(outdir / "mixtral-8x22b"):  # each bundle or artifact is read once
             path = outdir / "mixtral-8x22b" / name
             shutil.rmtree(path) if path.is_dir() else path.unlink()
     shutil.rmtree(outdir, ignore_errors=True)
-    read = [runs[m]["report"]["bytes_read"] for m in ("before", "after1", "after2")]
+    read = [runs[m]["cold_start"]["bytes_read"] for m in ("before", "after1", "after2")]
     if not read[0] > read[1] > read[2]:
         raise AssertionError(f"bytes read do not shrink strictly before > after1 > after2: {read}")
     if not runs["before"]["tokens"] == runs["after1"]["tokens"] == runs["after2"]["tokens"]:
@@ -1352,6 +1527,7 @@ def _print_ptxas(name: str, log: str) -> None:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -1387,7 +1563,7 @@ def main() -> int:
 
     phase_s = {"build": time.perf_counter() - t0}  # wall seconds of each phase
     t_phase = time.perf_counter()
-    rows, rows_256 = [flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
+    rows, rows_256, rows_16, rows_8 = [flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)
     decode_rows = decode_phase(da_ops)
     paged_rows = paged_phase(da_ops)
@@ -1405,6 +1581,7 @@ def main() -> int:
     paths["mixtral-8x22b"] = strict["launches"]
     paths["mixtral-8x22b-full"] = strict["full"]["launches"]
     phase_s["serve strict + full"] = time.perf_counter() - t_phase
+    phase_s["(entries, inside serve full)"] = strict["full"]["entries"]["wall_s"]
     t_phase = time.perf_counter()
     paths["mixtral-8x22b-stats"] = stats_phase(wrappers, workdir, strict["tokens"])["launches"]
     phase_s["serve stats"] = time.perf_counter() - t_phase
@@ -1412,16 +1589,27 @@ def main() -> int:
     paths["recurrentgemma-9b"] = recurrentgemma_phase(fa_ops, lru_ops, wrappers, workdir)["launches"]
     phase_s["serve recurrentgemma"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    modes_phase(workdir)
+    trace = workdir / "retier_trace.json"  # the modes phase's after2 run profiles for [retier]
+    modes = modes_phase(workdir, trace)
+    paths["modes-after2 (retier profile)"] = modes["after2"]["launches"]
     phase_s["modes (launcher)"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     traffic_phase(workdir)
     phase_s["traffic (launcher)"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    paths["reduced"] = reduced_phase(workdir)["launches"]
+    phase_s["reduced (launcher)"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    paths["retier-serve"] = retier_phase(workdir, modes["after2"], trace)["retier"]["launches"]
+    phase_s["retier (launcher)"] = time.perf_counter() - t_phase
+    phase_s["total"] = time.perf_counter() - t_start
     print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     # the served decode is the plain dense one, as in the reference, and Mixtral has no recurrent layer
     for path, served in (("mixtral-8x22b", {"flash_attention"}), ("mixtral-8x22b-full", {"flash_attention"}),
                          ("mixtral-8x22b-stats", {"flash_attention"}),
-                         ("recurrentgemma-9b", {"flash_attention", "rglru_scan"})):
+                         ("recurrentgemma-9b", {"flash_attention", "rglru_scan"}),
+                         ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
+                         ("retier-serve", {"flash_attention"})):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
         if stray:
             raise AssertionError(f"the {path} serve path launched {stray}")
@@ -1435,7 +1623,7 @@ def main() -> int:
 
     kernels = [
         entry("flash_attention", "flash_attention/csrc/flash_attention.cu", "flash_attention/kernel.py:103",
-              rows + rows_256, rows[0]),
+              rows + rows_256 + rows_16 + rows_8, rows[0]),
         entry("rglru_scan", "rglru_scan/csrc/rglru_scan.cu", "rglru_scan/kernel.py:50", scan_rows, scan_rows[0]),
         entry("decode_attention", "decode_attention/csrc/decode_attention.cu", "decode_attention/kernel.py:201",
               decode_rows, decode_rows[0]),

@@ -84,11 +84,27 @@ def read_index(prefix: str) -> dict:
         return json.load(f)
 
 
-def read_bundle(prefix: str, keys: Optional[Iterable[str]] = None) -> dict[str, torch.Tensor]:
-    """Read (a subset of) a bundle into host tensors, in file-offset order."""
+def read_bundle(prefix: str, keys: Optional[Iterable[str]] = None, *,
+                mmap: bool = False) -> dict[str, torch.Tensor]:
+    """Read (a subset of) a bundle into host tensors. By default each tensor
+    is read into memory of its own, in file-offset order. With ``mmap`` each
+    is a view of a copy-on-write map of the ``.bin`` file: no byte moves
+    until it is touched, so streaming a whole bundle through (as
+    ``core.retier.retier_artifact`` copies tier-0) holds one tensor's pages
+    at a time, not the bundle."""
     index = read_index(prefix)
     sel = list(index) if keys is None else list(keys)
     out: dict[str, torch.Tensor] = {}
+    if mmap:
+        if os.path.getsize(prefix + ".bin") == 0:  # np.memmap cannot map an empty file
+            return {k: from_bytes(bytearray(), index[k]["dtype"], index[k]["shape"]) for k in sel}
+        raw = np.memmap(prefix + ".bin", dtype=np.uint8, mode="c")
+        for k in sel:
+            e = index[k]
+            if e["offset"] + e["nbytes"] > raw.size:
+                raise OSError(f"bundle {prefix}.bin is truncated at {k!r}")
+            out[k] = from_bytes(raw[e["offset"]:e["offset"] + e["nbytes"]], e["dtype"], e["shape"])
+        return out
     with open(prefix + ".bin", "rb") as f:
         for k in sorted(sel, key=lambda k: index[k]["offset"]):
             e = index[k]

@@ -1,6 +1,7 @@
 """FaaSLight core: Program Analyzer (entry recognition, parameter
 reachability, tier partitioning) and Code Generator (optional store,
-on-demand loader and prefetcher, artifact builder)."""
+on-demand loader and prefetcher, artifact builder) and the offline half of
+profile-guided re-tiering."""
 
 from repro_torch.core.analyzer import AnalysisResult, analyze, build_artifact, write_monolithic
 from repro_torch.core.entrypoints import DeploymentProfile, recognize_entries
@@ -19,6 +20,16 @@ from repro_torch.core.optional_store import (
 from repro_torch.core.param_graph import ReachabilityReport, build_reachability, entry_param_liveness
 from repro_torch.core.partition import TierDecision, TierPlan, Unit, build_tier_plan
 from repro_torch.core.prefetch import Prefetcher, PrefetchStats, TransitionPredictor, merge_hints
+from repro_torch.core.retier import (
+    RetierReport,
+    apply_overlay,
+    check_tier0_superset,
+    coaccess_order,
+    replan_from_trace,
+    required_tier0,
+    residency_overlay,
+    retier_artifact,
+)
 
 __all__ = [
     "AnalysisResult",
@@ -53,4 +64,12 @@ __all__ = [
     "PrefetchStats",
     "TransitionPredictor",
     "merge_hints",
+    "RetierReport",
+    "required_tier0",
+    "check_tier0_superset",
+    "replan_from_trace",
+    "residency_overlay",
+    "apply_overlay",
+    "coaccess_order",
+    "retier_artifact",
 ]

@@ -36,6 +36,7 @@ arithmetic are the reference's.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -74,16 +75,32 @@ class LoadEvent:
 
 
 class AccessTrace:
-    """Demand-access telemetry: per-unit touches and faults, per-phase fault
-    counts, co-access pairs and batch→batch transitions of every request-path
-    ``ensure`` batch (the first-order tables of the reference's schema;
-    serialized in its sorted JSON form), and the same-request pairs and
-    transitions the scheduler attributes per request (``record_request``)."""
+    """Demand-access telemetry: schema v3 of ``repro.core.on_demand.AccessTrace``,
+    recorded and serialized as the reference does, so the same accesses give
+    the same JSON and a trace saved by either package loads in the other.
+
+    Per request-path ``ensure`` batch (``record``): per-unit ``touches`` and
+    ``faults``, per-phase fault counts (``phases``), co-access ``pairs`` and
+    batch→next-batch ``transitions``; the same transitions split by the
+    current batch's phase (``phase_transitions``), and second-order ones
+    (``transitions2[(a2, a1)][b]``: ``a2`` from two batches back, ``a1`` from
+    the last). Pairs and transitions skip batches over ``max_assoc_batch``
+    keys, the second-order table batches over ``max_order2_batch``, and no
+    empty successor dict is left behind. The scheduler attributes each
+    request's own accesses (``record_request``) into ``request_pairs`` and
+    ``request_transitions``.
+
+    A trace is one observation window: ``merge(newer, decay=)`` folds a newer
+    window onto a decayed copy of this one, ``merge_all`` sums same-tick
+    windows in any order. v1 and v2 documents still load; merging across
+    versions raises."""
 
     VERSION = 3
 
-    def __init__(self, *, max_assoc_batch: int = 64):
+    def __init__(self, *, max_assoc_batch: int = 64, max_order2_batch: int = 8):
+        self.version = self.VERSION
         self.max_assoc_batch = max_assoc_batch
+        self.max_order2_batch = max_order2_batch
         self.batches = 0
         self.touches: dict[str, int] = {}
         self.faults: dict[str, int] = {}
@@ -92,7 +109,10 @@ class AccessTrace:
         self.transitions: dict[str, dict[str, int]] = {}
         self.request_pairs: dict[tuple, int] = {}  # same-request co-access
         self.request_transitions: dict[str, dict[str, int]] = {}
+        self.phase_transitions: dict[str, dict[str, dict[str, int]]] = {}
+        self.transitions2: dict[tuple, dict[str, int]] = {}  # (a2, a1) -> {b: n}
         self._last_batch: list[str] = []
+        self._last2_batch: list[str] = []  # the batch before _last_batch
         self._last_by_request: dict[int, list[str]] = {}
 
     def record(self, keys: Iterable[str], cold: Iterable[str], phase: str = "") -> None:
@@ -108,7 +128,7 @@ class AccessTrace:
             by_phase = self.phases.setdefault(k, {})
             by_phase[phase] = by_phase.get(phase, 0) + 1
         if len(keys) > self.max_assoc_batch:
-            self._last_batch = []
+            self._last_batch, self._last2_batch = [], []
             return
         for i, a in enumerate(keys):
             for b in keys[i + 1:]:
@@ -116,13 +136,27 @@ class AccessTrace:
                     pair = (a, b) if a < b else (b, a)
                     self.pairs[pair] = self.pairs.get(pair, 0) + 1
         cur = set(keys)
+        by_phase = self.phase_transitions.setdefault(phase, {})
         for a in self._last_batch:
             succ = [b for b in cur if b != a]
             if succ:
                 nxt = self.transitions.setdefault(a, {})
+                pnxt = by_phase.setdefault(a, {})
                 for b in succ:
                     nxt[b] = nxt.get(b, 0) + 1
-        self._last_batch = keys
+                    pnxt[b] = pnxt.get(b, 0) + 1
+        if not by_phase:
+            del self.phase_transitions[phase]
+        cap2 = self.max_order2_batch
+        if len(keys) <= cap2 and 0 < len(self._last_batch) <= cap2 and 0 < len(self._last2_batch) <= cap2:
+            for a2 in self._last2_batch:
+                for a1 in self._last_batch:
+                    succ = [b for b in cur if b != a1 and b != a2]
+                    if succ:
+                        nxt2 = self.transitions2.setdefault((a2, a1), {})
+                        for b in succ:
+                            nxt2[b] = nxt2.get(b, 0) + 1
+        self._last2_batch, self._last_batch = self._last_batch, keys
 
     def record_request(self, rid: int, keys: Iterable[str]) -> None:
         """Record the units ONE request accessed this step. Unlike ``record``
@@ -151,22 +185,127 @@ class AccessTrace:
         the next request that reuses the slot."""
         self._last_by_request.pop(rid, None)
 
+    # -- window merging ----------------------------------------------------------
+    def merge(self, newer: "AccessTrace", *, decay: float = 1.0, prune_below: float = 0.5) -> "AccessTrace":
+        """A NEW trace: every count here scaled by ``decay`` (0 ≤ decay ≤ 1),
+        plus the newer window's; entries below ``prune_below`` dropped.
+        Integral results store as ints, so a ``decay=1`` merge of int windows
+        round-trips byte-identically. Neither input is mutated, and the result
+        carries no chain state. Raises on a schema-version mismatch and on
+        ``newer is self``."""
+        if newer is self:
+            raise ValueError("cannot merge an AccessTrace into itself (aliasing); "
+                             "merge a rotated window or a snapshot copy instead")
+        if not 0.0 <= decay <= 1.0:
+            raise ValueError(f"decay must be in [0, 1], got {decay!r}")
+        if self.version != newer.version:
+            raise ValueError(f"cannot merge AccessTrace schema v{self.version} with v{newer.version}")
+
+        def norm(v):
+            return int(v) if isinstance(v, float) and v.is_integer() else v
+
+        def counts(old: dict, new: dict) -> dict:
+            out: dict = {}
+            for k, v in old.items():
+                sv = v if decay == 1 else v * decay
+                if sv >= prune_below:
+                    out[k] = norm(sv)
+            for k, v in new.items():
+                out[k] = norm(out.get(k, 0) + v)
+            return {k: v for k, v in out.items() if v >= prune_below}
+
+        def nested(old: dict, new: dict) -> dict:
+            sub = {k: counts(old.get(k, {}), new.get(k, {})) for k in set(old) | set(new)}
+            return {k: v for k, v in sub.items() if v}
+
+        merged = AccessTrace(max_assoc_batch=max(self.max_assoc_batch, newer.max_assoc_batch),
+                             max_order2_batch=max(self.max_order2_batch, newer.max_order2_batch))
+        merged.batches = norm((self.batches if decay == 1 else self.batches * decay) + newer.batches)
+        merged.touches = counts(self.touches, newer.touches)
+        merged.faults = counts(self.faults, newer.faults)
+        merged.phases = nested(self.phases, newer.phases)
+        merged.pairs = counts(self.pairs, newer.pairs)
+        merged.transitions = nested(self.transitions, newer.transitions)
+        merged.request_pairs = counts(self.request_pairs, newer.request_pairs)
+        merged.request_transitions = nested(self.request_transitions, newer.request_transitions)
+        merged.phase_transitions = {
+            ph: sub for ph in set(self.phase_transitions) | set(newer.phase_transitions)
+            if (sub := nested(self.phase_transitions.get(ph, {}), newer.phase_transitions.get(ph, {})))
+        }
+        merged.transitions2 = nested(self.transitions2, newer.transitions2)
+        return merged
+
+    @classmethod
+    def merge_all(cls, windows, *, prune_below: float = 0.5) -> "AccessTrace":
+        """The plain sum (``decay=1``) of a list of windows: commutative and
+        associative, so the result does not depend on their order. No
+        windows give an empty trace."""
+        out = cls()
+        for w in windows:
+            out = out.merge(w, decay=1.0, prune_below=prune_below)
+        return out
+
+    # -- serialization (deterministic; the --profile-out format) -----------------
     def to_dict(self) -> dict:
+        def table(t: dict) -> dict:
+            return {k: {n: v[n] for n in sorted(v)} for k, v in sorted(t.items())}
+
         return {
-            "version": self.VERSION,
+            "version": self.version,
             "batches": self.batches,
             "touches": {k: self.touches[k] for k in sorted(self.touches)},
             "faults": {k: self.faults[k] for k in sorted(self.faults)},
-            "phases": {k: {p: v[p] for p in sorted(v)} for k, v in sorted(self.phases.items())},
+            "phases": table(self.phases),
             "pairs": [[a, b, self.pairs[(a, b)]] for a, b in sorted(self.pairs)],
-            "transitions": {
-                k: {n: v[n] for n in sorted(v)} for k, v in sorted(self.transitions.items())
-            },
+            "transitions": table(self.transitions),
             "request_pairs": [[a, b, self.request_pairs[(a, b)]] for a, b in sorted(self.request_pairs)],
-            "request_transitions": {
-                k: {n: v[n] for n in sorted(v)} for k, v in sorted(self.request_transitions.items())
-            },
+            "request_transitions": table(self.request_transitions),
+            "phase_transitions": {ph: table(t) for ph, t in sorted(self.phase_transitions.items())},
+            # tuple keys flatten to sorted [a2, a1, b, n] rows
+            "transitions2": [[a2, a1, b, v[b]] for (a2, a1), v in sorted(self.transitions2.items())
+                             for b in sorted(v)],
         }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "AccessTrace":
+        """Load a v1, v2 or v3 document (tables an older version lacks start
+        empty); any other version raises. Counts stay as parsed, so save →
+        load → save is byte-identical."""
+        if d.get("version") not in (1, 2, cls.VERSION):
+            raise ValueError(f"unsupported AccessTrace version {d.get('version')!r}")
+        t = cls()
+        t.batches = d.get("batches", 0)
+        t.touches = dict(d.get("touches", {}))
+        t.faults = dict(d.get("faults", {}))
+        t.phases = {k: dict(v) for k, v in d.get("phases", {}).items()}
+        t.pairs = {(a, b): n for a, b, n in d.get("pairs", [])}
+        t.transitions = {k: dict(v) for k, v in d.get("transitions", {}).items()}
+        t.request_pairs = {(a, b): n for a, b, n in d.get("request_pairs", [])}
+        t.request_transitions = {k: dict(v) for k, v in d.get("request_transitions", {}).items()}
+        t.phase_transitions = {ph: {k: dict(v) for k, v in tbl.items()}
+                               for ph, tbl in d.get("phase_transitions", {}).items()}
+        for a2, a1, b, n in d.get("transitions2", []):
+            t.transitions2.setdefault((a2, a1), {})[b] = n
+        return t
+
+    @classmethod
+    def from_json(cls, s: str) -> "AccessTrace":
+        return cls.from_dict(json.loads(s))
+
+    def save(self, path: str) -> None:
+        """Atomic write: ``<path>.partial``, then rename."""
+        tmp = path + ".partial"
+        with open(tmp, "w") as f:
+            json.dump(self.to_dict(), f, sort_keys=True)
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "AccessTrace":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
 
 
 @dataclass

@@ -138,14 +138,20 @@ class StoreEntry:
 class OptionalStoreWriter:
     """Streaming writer: units are appended one at a time.
 
+    ``add`` encodes a host tensor; ``add_raw`` copies an already-compressed
+    frame verbatim from another store (no decode, no recompress: the
+    re-tiering copy rule). ``layout`` is recorded in the manifest, so a
+    reader can tell a co-access-ordered blob from a build-order one.
+
     Commit order: blob rename first, then manifest rename; the manifest
     records the blob's committed length and crc32 so a crash between the two
     is detected at open (``StoreSkewError``).
     """
 
-    def __init__(self, path: str, *, level: int = 6):
+    def __init__(self, path: str, *, level: int = 6, layout: Optional[dict] = None):
         self.path = path
         self.level = level
+        self.layout = dict(layout) if layout else {"source": "build-order"}
         self.manifest: Optional[dict] = None  # set by close()
         self._tmp = path + ".partial"
         self._f = open(self._tmp, "wb")
@@ -172,6 +178,17 @@ class OptionalStoreWriter:
     def add(self, key: str, t: torch.Tensor) -> None:
         self.append(key, encode(t, self.level))
 
+    def add_raw(self, key: str, buf: bytes, entry: "StoreEntry") -> None:
+        """Append one compressed frame verbatim: ``buf`` is the exact frame a
+        source store holds and ``entry`` its manifest entry there. The new
+        entry keeps csize, rsize, shape, dtype and codec, at this blob's
+        offset. A frame whose size disagrees with ``entry`` raises
+        ``TornFrameError``."""
+        if len(buf) != entry.csize:
+            raise TornFrameError(f"raw frame is {len(buf)} bytes, manifest says {entry.csize}",
+                                 key=key, path=self.path)
+        self.append(key, Encoded(buf, entry.codec, entry.rsize, tuple(entry.shape), entry.dtype))
+
     def add_all(self, units: Iterable[tuple[str, torch.Tensor]]) -> None:
         """Append many units in order, compressing up to ``ENCODE_WORKERS``
         at once (zlib releases the GIL). At most ``2 * ENCODE_WORKERS`` units
@@ -196,7 +213,7 @@ class OptionalStoreWriter:
             "version": MANIFEST_VERSION,
             "blob_len": self._offset,
             "blob_crc32": self._crc & 0xFFFFFFFF,
-            "layout": {"source": "build-order"},
+            "layout": self.layout,
             "entries": self._manifest,
         }
         with open(tmp, "w") as f:

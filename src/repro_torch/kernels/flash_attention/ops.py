@@ -7,7 +7,11 @@ flash_attention`` (q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd), GQA by
 ``softcap``, ``q_offset``). For a CPU tensor it runs
 ``flash_attention_plain``; for a CUDA tensor it launches the kernel in
 ``csrc/flash_attention.cu`` (bf16, hd 64, 128 or 256) or raises. There is no
-fallback between the two.
+fallback between the two. The reduced configs' head_dim 8, 16 (and 32) go
+through the hd-64 kernel: q, k and v are zero-padded to 64 columns, the
+kernel is given the true head_dim's scale, and O's first hd columns are kept.
+Zero columns add exact zeros to every q·k and give zero output columns, so
+this is the same attention, at the hd-64 kernel's cost.
 
 The kernel is compiled with ``nvcc`` at first use, from the source in this
 package, into ``<repo>/build/flash_attention/`` and loaded with ``ctypes``
@@ -30,6 +34,9 @@ NEG_INF = -1.0e30
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _HEAD_DIMS = (64, 128, 256)
+# head dims the wrapper zero-pads to PADDED_HD for the kernel
+_PADDED_HEAD_DIMS = (8, 16, 32)
+PADDED_HD = 64
 _lib: Optional[ctypes.CDLL] = None
 # q rows per masked softmax in the plain version
 PLAIN_CHUNK_Q = 512
@@ -85,6 +92,11 @@ def flash_attention_plain(
     return o.to(q.dtype)
 
 
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, S, heads, hd) with zero columns appended up to PADDED_HD."""
+    return torch.nn.functional.pad(t, (0, PADDED_HD - t.shape[3])).contiguous()
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernel (once per source version) and return the shared
     library's path and the compiler's register/shared-memory report."""
@@ -113,13 +125,15 @@ def _check_cuda_inputs(q, k, v, window, softcap, q_offset) -> None:
     Hkv = k.shape[2]
     if Sq == 0 or k.shape[1] == 0 or Hkv == 0 or H % Hkv:
         raise ValueError(f"bad sizes: Sq={Sq} Sk={k.shape[1]} H={H} Hkv={Hkv}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel supports head_dim {_HEAD_DIMS}, got {hd}")
+    if hd not in _HEAD_DIMS + _PADDED_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel supports head_dim {_HEAD_DIMS} (and {_PADDED_HEAD_DIMS} "
+                         f"zero-padded to {PADDED_HD}), got {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bfloat16, {name} is {t.dtype}")
+            raise TypeError(f"the CUDA kernel takes bfloat16 (fp32 attention runs on the CPU only), "
+                            f"{name} is {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if window is not None and window <= 0:
@@ -141,7 +155,8 @@ def flash_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Prefill attention: ``flash_attention_plain`` for CPU tensors, the CUDA
-    kernel for CUDA tensors (``flash_attention.launches`` counts launches)."""
+    kernel for CUDA tensors (``flash_attention.launches`` counts launches);
+    head_dim 8, 16 and 32 through the hd-64 kernel on zero-padded inputs."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_offset=q_offset)
@@ -150,18 +165,21 @@ def flash_attention(
     _check_cuda_inputs(q, k, v, window, softcap, q_offset)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    scale = hd**-0.5
+    if hd in _PADDED_HEAD_DIMS:
+        q, k, v = (pad_head_dim(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Sq, Sk, H, Hkv, hd, int(causal), window or 0, float(softcap or 0.0),
-            q_offset, hd**-0.5, torch.cuda.current_stream().cuda_stream,
+            B, Sq, Sk, H, Hkv, q.shape[3], int(causal), window or 0, float(softcap or 0.0),
+            q_offset, scale, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return o
+    return o[..., :hd].contiguous() if o.shape[3] != hd else o
 
 
 flash_attention.launches = 0

@@ -23,15 +23,27 @@ the one-shot prompts from a CPU ``torch.Generator`` seeded with 1, request i
 of the traffic mode from one seeded with 100 + i, so a run is the same on
 every machine with the same device type.
 
-Runs on ``--device cuda`` unless told ``--device cpu``. The reduced configs
-(``--reduced``) have head_dim 8 or 16, below the 64, 128 or 256 that the CUDA
-flash-attention kernel takes, so they serve on the CPU only; on the card,
-serve a published config with its depth cut (``--layers``) and bf16 weights
-(``--param-dtype bfloat16``).
+Profile → re-tier → re-serve (after2 only): ``--profile-out t.json`` writes
+this run's demand-access trace at the end of the run (profile with
+``--no-prefetch``, so the trace sees every fault); a later run with
+``--retier-from t.json`` replans the tier split from the trace
+(``core.retier.replan_from_trace``), writes the re-tiered artifact beside the
+original (``<artifact-dir>/<arch>-retier``, staged in a ``.partial``
+directory and published by rename), and serves from it with the prefetcher
+armed with the trace's ``TransitionPredictor``. At start the launcher removes
+``.partial`` directories a crashed rewrite left in the artifact directory.
+
+Runs on ``--device cuda`` unless told ``--device cpu``. Every config serves
+on the card, the reduced ones (``--reduced``: head_dim 8 or 16, which the
+flash kernel's wrapper pads to 64) included; a published config can have its
+depth cut (``--layers``) and its weights stored in bf16 (``--param-dtype
+bfloat16``) to fit. Compute runs in the config's dtype, bf16 for every
+config, which the flash kernel takes; attention in fp32 (the parity tests'
+``cfg.replace(dtype="float32")``) runs on the CPU only, and the kernel's
+wrapper refuses it on the card.
 
 Not ported (argparse refuses their flags): the host budget
-(``--host-budget-bytes``), profile-guided and online re-tiering
-(``--profile-out``, ``--retier-from``, ``--retier-online``,
+(``--host-budget-bytes``), online re-tiering (``--retier-online``,
 ``--retier-interval``, ``--retier-decay``, ``--retier-compact-every``), the
 fleet (``--fleet``), meshes (``--mesh``) and snapshots (``--snapshot-out``,
 ``--restore-from``).
@@ -48,9 +60,20 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import clean_partials
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.core import DeploymentProfile, analyze, build_artifact, write_monolithic
+from repro_torch.core import (
+    AccessTrace,
+    DeploymentProfile,
+    TransitionPredictor,
+    analyze,
+    build_artifact,
+    replan_from_trace,
+    retier_artifact,
+    write_monolithic,
+)
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
+from repro_torch.kernels import kernel_wrappers
 from repro_torch.models import build_model
 from repro_torch.optim import init_adamw
 from repro_torch.serving import ContinuousBatchingScheduler, GenerationEngine, SLOAdmission, cold_start
@@ -89,8 +112,21 @@ def main(argv=None) -> int:
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="SLO admission: per-request latency deadline in ms "
                          "(0 = none; requests projected to miss it are shed)")
+    ap.add_argument("--profile-out", default="",
+                    help="write this run's demand-access trace (AccessTrace JSON) here at the end of "
+                         "the run; profile with --no-prefetch so the trace sees every fault (after2 only)")
+    ap.add_argument("--retier-from", default="",
+                    help="re-tier the artifact from a prior --profile-out trace before cold start "
+                         "(promote demand-faulted units, demote untouched residents) and drive the "
+                         "prefetcher from its transition tables (after2 only)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if (args.profile_out or args.retier_from) and args.mode != "after2":
+        ap.error("--profile-out/--retier-from need the two-tier runtime (--mode after2)")
+    if args.retier_from and (args.no_prefetch or args.policy == "strict"):
+        # without a prefetcher the trained predictor would be dropped silently
+        ap.error("--retier-from drives the predictive prefetcher; drop --no-prefetch / use "
+                 "--policy stats|full (profiling runs want --no-prefetch, re-serve runs don't)")
     if args.admission == "fifo" and args.deadline_ms:
         ap.error("--deadline-ms needs --admission slo (FIFO never sheds)")
     if args.deadline_ms < 0:
@@ -136,6 +172,12 @@ def main(argv=None) -> int:
 
     params = model.init(torch.Generator(args.device).manual_seed(0), device=args.device)
     os.makedirs(outdir, exist_ok=True)
+    # crash recovery before any writer exists: staging directories of a
+    # rewrite that never reached its rename are never committed, safe to drop
+    removed = clean_partials(outdir)
+    if removed:
+        print(f"[serve] removed {len(removed)} orphaned partial(s): "
+              + ", ".join(os.path.basename(p) for p in removed))
     if args.mode in ("before", "after1"):
         opt = init_adamw(params)
         write_monolithic({"params": params, "opt_state": {"m": opt.m, "v": opt.v}},
@@ -145,6 +187,22 @@ def main(argv=None) -> int:
         build_artifact(params, result, outdir)
     del params  # the server reads its weights from the artifact
 
+    predictor = None
+    if args.retier_from:
+        # one profile → re-tier cycle: replan from the trace, rewrite the
+        # artifact beside the original, serve it with the predictor armed
+        prof_trace = AccessTrace.load(args.retier_from)
+        result.plan, rep = replan_from_trace(result.plan, prof_trace, result.reach)
+        retier_dir = outdir.rstrip("/") + "-retier"
+        t0 = time.perf_counter()
+        meta = retier_artifact(outdir, result.plan, out_dir=retier_dir, report=rep)
+        outdir = retier_dir
+        predictor = TransitionPredictor.from_trace(prof_trace)
+        print(f"[serve] re-tiered from {args.retier_from} -> {retier_dir}:", json.dumps(rep.summary()))
+        print("[serve] retier artifact: " + json.dumps(dict(
+            rewrite_s=time.perf_counter() - t0, tier0_bytes=meta["tier0_bytes"],
+            tier1_compressed_bytes=meta["tier1_compressed_bytes"], **meta["compaction"])), flush=True)
+
     max_seq = args.prompt_len + args.gen_steps + 8
     warm_B = 1 if args.concurrency > 0 else args.batch
     failed = 0
@@ -153,6 +211,7 @@ def main(argv=None) -> int:
                     residency=args.policy if args.mode == "after2" else None,
                     device_budget_bytes=args.device_budget_bytes or None,
                     prefetch=False if args.no_prefetch else None,
+                    trace=bool(args.profile_out), predictor=predictor,
                     device=args.device) as server:
         print(f"[serve] cold start ({args.mode}):", json.dumps(server.report.to_dict(), default=float), flush=True)
         engine = GenerationEngine(server, max_seq=max_seq)
@@ -165,7 +224,13 @@ def main(argv=None) -> int:
             print(f"[serve] generated {out.shape}; prefill={stats_r.prefill_s*1e3:.1f}ms "
                   f"decode={stats_r.decode_s*1e3:.1f}ms faults={stats_r.faulted_units} "
                   f"({stats_r.faulted_bytes/2**20:.1f}MiB, {stats_r.fault_s*1e3:.1f}ms)")
+            print("[serve] request: " + json.dumps(dict(
+                faulted_units=stats_r.faulted_units, faulted_bytes=stats_r.faulted_bytes, fault_s=stats_r.fault_s,
+                prefill_runs=stats_r.prefill_runs, prefill_retries=stats_r.prefill_retries,
+                decode_retries=stats_r.decode_retries)))
             print(f"[serve] tokens: {json.dumps(out.tolist())}")
+        # every kernel launch of this process (the warm set's and the request's)
+        print("[serve] kernel launches: " + json.dumps({name: f.launches for name, f in kernel_wrappers().items()}))
         if server.tiered is not None:
             ts = server.tiered.stats
             budget = server.tiered.residency.budget_bytes
@@ -175,6 +240,16 @@ def main(argv=None) -> int:
             print(f"[serve] prefetch hit rate {ts.prefetch_hit_rate:.2f}; "
                   f"evictions {ts.evictions}; refaults {ts.refaults}; "
                   f"stall p99 {ts.stall_percentile(99)*1e3:.2f}ms", flush=True)
+            if server.prefetcher is not None and server.prefetcher.predictor is not None:
+                ps = server.prefetcher.stats
+                print(f"[serve] predictor: observed {ps.observed} keys, "
+                      f"predicted {ps.predicted} ahead-of-schedule loads")
+        if args.profile_out and server.tiered is not None and server.tiered.trace is not None:
+            t = server.tiered.trace
+            t.save(args.profile_out)
+            print(f"[serve] wrote access trace to {args.profile_out} "
+                  f"({t.batches} batches, {len(t.faults)} faulted units, "
+                  f"{len(t.transitions)} transition sources)", flush=True)
     if failed:
         print(f"[serve] FAILED: {failed} request(s) failed or never finished")
     return 1 if failed else 0

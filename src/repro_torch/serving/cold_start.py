@@ -29,10 +29,17 @@ An explicit ``device_budget_bytes`` overrides the preset's budget, and
 
 Compiled entries. ``ColdStartServer.compiled_prefill(B, S)``,
 ``compiled_decode(B, S_max)`` and ``compiled_decode_masked(B, S_max)`` are
-made once per shape and kept; a shape outside the warm set is made on first
-use, as ``jax.jit`` compiles on first use. The entry is chosen by device, as
-the kernel wrappers are: a ``GraphEntry`` (one captured CUDA graph) on a
-CUDA device, an ``EagerEntry`` (the plain call) on the CPU. A capture that
+made once per shape; a shape outside the warm set is made on first use, as
+``jax.jit`` compiles on first use. Decode entries and the warm set's are kept
+for the server's life. Prefill entries of other shapes are kept up to
+``max_prefill_entries``, least recently used first out: each holds its
+prefill's logits and B × S K/V caches, so under traffic whose prompt lengths
+vary, keeping them all would grow device memory without bound (``jax.jit``'s
+cache keeps executables only). An evicted entry's graph and outputs are
+freed, and the shared pool reuses their memory for the next capture.
+The entry is chosen by device, as the kernel wrappers are: a ``GraphEntry``
+(one captured CUDA graph) on a CUDA device, an ``EagerEntry`` (the plain
+call) on the CPU. A capture that
 fails raises; nothing runs eagerly on the card instead. A decode entry owns
 its (B, S_max) caches: callers pass ``entry.caches`` and the step writes them
 in place. A graph reads the live params at the addresses it was captured
@@ -46,9 +53,11 @@ one memory pool), so callers read them before the next call.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -62,6 +71,9 @@ from repro_torch.core.prefetch import Prefetcher, TransitionPredictor
 from repro_torch.kernels import kernel_wrappers
 from repro_torch.models.zoo import Model
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
+
+# prefill entries outside the warm set a server keeps (least recently used out)
+MAX_PREFILL_ENTRIES = 4
 
 # residency policy -> (tier-1 budget fraction or None = unlimited, prefetch enabled)
 RESIDENCY_PRESETS: dict = {
@@ -134,6 +146,15 @@ class EagerEntry:
             return self._run(batch)
 
 
+@functools.lru_cache(maxsize=None)
+def _warmup_stream(device: int) -> torch.cuda.Stream:
+    """The side stream every capture's warm-up runs on: one per device for
+    the process. A stream that runs a matmul gets a cuBLAS workspace of its
+    own (32 MiB on an H100) that lives as long as the process, so a new
+    stream per capture would grow device memory with every new shape."""
+    return torch.cuda.Stream(device)
+
+
 class GraphEntry(EagerEntry):
     """``fn(params, [caches,] batch)`` captured as one CUDA graph at fixed
     shapes. Static inputs: the batch tensors (the call's values are copied in)
@@ -156,7 +177,7 @@ class GraphEntry(EagerEntry):
         self._batch = batch
         self._counters = counters = kernel_wrappers()
         with gate or contextlib.nullcontext(), torch.inference_mode():
-            side = torch.cuda.Stream()
+            side = _warmup_stream(torch.cuda.current_device())
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self._run(batch)
@@ -192,7 +213,9 @@ class ColdStartServer:
     def __init__(self, model: Model, params: Any, report: ColdStartReport, *,
                  tiered: Optional[TieredParams] = None, store: Optional[OptionalStore] = None,
                  prefetcher: Optional[Prefetcher] = None, artifact_dir: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", max_prefill_entries: int = MAX_PREFILL_ENTRIES):
+        if max_prefill_entries < 1:
+            raise ValueError(f"max_prefill_entries must be >= 1, got {max_prefill_entries}")
         self.model = model
         self.params = params
         self.report = report
@@ -201,13 +224,17 @@ class ColdStartServer:
         self.prefetcher = prefetcher
         self.artifact_dir = artifact_dir
         self.device = torch.device(device)
-        self._compiled: dict[tuple, EagerEntry] = {}
+        self.max_prefill_entries = max_prefill_entries
+        self._compiled: OrderedDict[tuple, EagerEntry] = OrderedDict()
+        self._kept: set = set()  # keys never evicted: the warm set's (``keep_entries``)
+        self.evicted_prefill_entries = 0
         self._pool = None  # the graphs' shared memory pool (replays never overlap)
 
     def close(self) -> None:
         """Stop the prefetcher's threads, close the store and free the
         compiled entries."""
         self._compiled.clear()
+        self._kept.clear()
         try:
             if self.prefetcher is not None:
                 self.prefetcher.stop()
@@ -227,8 +254,32 @@ class ColdStartServer:
         return self.tiered.tree() if self.tiered is not None else self.params
 
     # -- warm-set / on-demand compilation ------------------------------------
+    def keep_entries(self) -> None:
+        """Mark every entry made so far as kept for the server's life (the
+        cold start calls it after making the warm set)."""
+        self._kept.update(self._compiled)
+
+    def prefill_entries(self) -> list:
+        """The keys of the prefill entries held now, least recently used first."""
+        return [k for k in self._compiled if k[0] == "prefill"]
+
+    def _evict_prefill(self) -> None:
+        """Drop least recently used prefill entries outside the kept set until
+        one more fits under ``max_prefill_entries``. The dropped entry's graph,
+        static inputs and outputs go with it; nothing else refers to an entry
+        (the engine and the scheduler hold one only within a step)."""
+        evictable = [k for k in self.prefill_entries() if k not in self._kept]
+        for key in evictable[:max(0, len(evictable) - self.max_prefill_entries + 1)]:
+            del self._compiled[key]
+            self.evicted_prefill_entries += 1
+
     def _entry(self, key: tuple, fn: Callable, batch_spec: dict, cache_shape: Optional[tuple] = None):
-        if key not in self._compiled:
+        if key in self._compiled:
+            if key[0] == "prefill":
+                self._compiled.move_to_end(key)  # most recently used
+        else:
+            if key[0] == "prefill":
+                self._evict_prefill()
             # ordinary tensors even when made inside inference mode, so that
             # callers may write them in place outside it (a scheduler's graft)
             with torch.inference_mode(False):
@@ -355,6 +406,7 @@ def cold_start(
         for B, S, *S_max in warm_shapes:
             server.compiled_prefill(B, S)
             server.compiled_decode(B, S_max[0] if S_max else S)
+        server.keep_entries()
         _synchronize(device)
         report.compile_s = time.perf_counter() - t3
     return server

@@ -93,6 +93,36 @@ def test_kernel_rejects_what_it_does_not_take(card):
         fa_ops.flash_attention(q, q, q)
 
 
+# the reduced configs' head dims through the zero-padded hd-64 kernel:
+# B, Sq, Sk, H, Hkv, hd, causal, window, softcap, q_offset
+PADDED_CASES = [
+    (2, 16, 16, 4, 2, 16, True, 32, None, 0),  # reduced Mixtral's served prefill
+    (1, 200, 200, 4, 2, 16, True, 32, None, 0),  # window 32 across key tiles, GQA
+    (2, 150, 150, 8, 2, 8, True, None, None, 0),  # reduced Yi: hd 8, causal, GQA
+    (1, 130, 130, 4, 1, 8, True, 32, None, 0),  # hd 8, window 32, MQA
+    (1, 100, 120, 4, 2, 16, False, None, None, 0),  # not causal
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PADDED_CASES, ids=str)
+def test_padded_head_dims_match_plain_on_card(card, case):
+    """hd 8 and 16: one launch of the kernel on q, k, v zero-padded to 64,
+    sliced back to hd, within the kernel tolerance of the plain version."""
+    B, Sq, Sk, H, Hkv, hd, causal, window, softcap, q_offset = case
+    rs = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rs.standard_normal(shape, dtype=np.float32)).to(card, torch.bfloat16)
+               for shape in ((B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    ref = fa_ops.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal, window=window,
+                                       softcap=softcap, q_offset=q_offset)
+    assert ((out.float() - ref).abs() / ref.abs().clamp_min(1.0)).max().item() <= 1e-2
+
+
 # (B, S, W): the served prefill (32 lanes a block, TMA), ragged S and W past a
 # tile (1017 steps, W = 4096 + 32), W below a block's 32 lanes through TMA (20)
 # and through the copy loader (30: not a multiple of 4), 64 lanes a block
@@ -698,3 +728,109 @@ except RuntimeError as e:
     env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.dirname(__file__)), "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, env=env)
     assert "raised: " in res.stdout and res.stdout.strip().endswith("False"), res.stdout + res.stderr[-3000:]
+
+
+def _reduced_bf16(card, tmp, policy="full"):
+    """Reduced Mixtral as the launcher serves it on the card (head_dim 16,
+    bf16 weights from a seeded generator), its artifact and plan."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.models import build_model
+
+    cfg = get_reduced("mixtral-8x22b").replace(collect_moe_usage=True)
+    model = build_model(cfg, param_dtype=torch.bfloat16)
+    prof = dict(resident_experts=1, hot_vocab_fraction=0.25, min_tier1_bytes=1 << 14,
+                vocab_row_group=max(64, cfg.vocab_size // 16))
+    hot = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 128, 8)).vocab_row_stats(row_group=prof["vocab_row_group"])
+    result = analyze(model, DeploymentProfile(**prof), hot_units_stats=hot, trace_B=1, trace_S=32)
+    build_artifact(model.init(torch.Generator(card).manual_seed(0), device=card), result, tmp)
+    return model, result
+
+
+@pytest.mark.gpu
+def test_prefill_entries_bounded_on_card(card, tmp_path):
+    """N + 3 prompt lengths, longest first, through a server that keeps N
+    prefill entries beyond its warm set: memory_allocated after the N-th
+    length is never passed (each later entry replaces a larger, freed one,
+    whose graph's pool memory the next capture reuses), and each length's
+    tokens equal those of a server that evicts nothing."""
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    model, result = _reduced_bf16(card, str(tmp_path))
+    N, lengths = 2, [32, 30, 28, 26, 24]  # inside reduced Mixtral's window of 32, which the graft needs
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, max(lengths)),
+                           generator=torch.Generator().manual_seed(5)).to(card)
+    outs, mem = {}, []
+    for name, bound in (("fresh", len(lengths)), ("bounded", N)):
+        with cold_start(model, str(tmp_path), result, residency="full", prefetch=False, warm_shapes=((2, 8, 56),),
+                        device=card) as server:
+            server.max_prefill_entries = bound
+            server.tiered.ensure_all()
+            eng = GenerationEngine(server, max_seq=56)
+            outs[name] = []
+            for S in lengths:
+                outs[name].append(eng.generate(prompt[:, :S], 4)[0])
+                torch.cuda.synchronize()
+                if name == "bounded":
+                    mem.append((torch.cuda.memory_allocated(), torch.cuda.memory_reserved()))
+                    assert len([k for k in server.prefill_entries() if k not in server._kept]) <= N
+            if name == "bounded":
+                assert server.evicted_prefill_entries == len(lengths) - N
+    print("memory_allocated, memory_reserved per length:", mem)
+    assert max(a for a, _ in mem[N:]) <= mem[N - 1][0]
+    for a, b in zip(outs["fresh"], outs["bounded"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_reduced_launcher_serves_on_card_as_the_plain_path(card, tmp_path, capsys, monkeypatch):
+    """``--reduced --param-dtype bfloat16`` serves on the card through the
+    padded kernel (launches > 0) with the tokens of the same command whose
+    attention is the plain version."""
+    import json
+
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn_mod
+
+    args = ["--arch", "mixtral-8x22b", "--reduced", "--param-dtype", "bfloat16", "--prompt-len", "16",
+            "--gen-steps", "8", "--artifact-dir", str(tmp_path)]
+    got = {}
+    for how in ("kernel", "plain"):
+        if how == "plain":
+            monkeypatch.setattr(attn_mod, "flash_attention", fa_ops.flash_attention_plain)
+        before = fa_ops.flash_attention.launches
+        assert serve.main(args) == 0
+        out = capsys.readouterr().out
+        got[how] = json.loads(next(ln for ln in out.splitlines() if ln.startswith("[serve] tokens: "))[16:])
+        got[how + "_launches"] = fa_ops.flash_attention.launches - before
+    assert got["kernel_launches"] > 0 and got["plain_launches"] == 0
+    assert got["kernel"] == got["plain"]
+
+
+@pytest.mark.gpu
+def test_retier_round_trip_on_card(card, tmp_path):
+    """Serve the reduced artifact under stats without the prefetcher and
+    with a trace, re-tier from the trace, serve the re-tiered artifact with
+    the predictor armed: the same tokens, no recompressed frame."""
+    from repro_torch.core import TransitionPredictor, replan_from_trace, retier_artifact
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    src = str(tmp_path / "artifact")
+    model, result = _reduced_bf16(card, src)
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1)).to(card)
+    with cold_start(model, src, result, residency="stats", prefetch=False, trace=True, warm_shapes=((2, 16, 32),),
+                    device=card) as server:
+        want, before = GenerationEngine(server, max_seq=32).generate(prompt, 8)
+        trace = server.tiered.trace
+    plan, rep = replan_from_trace(result.plan, trace, result.reach)
+    out_dir = str(tmp_path / "artifact-retier")
+    meta = retier_artifact(src, plan, out_dir=out_dir, report=rep)
+    assert meta["compaction"]["recompressed"] == 0 and rep.promoted_resident
+    result.plan = plan
+    with cold_start(model, out_dir, result, residency="stats", predictor=TransitionPredictor.from_trace(trace),
+                    warm_shapes=((2, 16, 32),), device=card) as server:
+        got, after = GenerationEngine(server, max_seq=32).generate(prompt, 8)
+        assert server.prefetcher.drain(30.0)
+    np.testing.assert_array_equal(got, want)
+    print("faulted bytes before/after re-tiering:", before.faulted_bytes, after.faulted_bytes)

@@ -74,3 +74,35 @@ def test_wrapper_refuses_other_devices():
     q = torch.empty(1, 8, 2, 64, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+# the reduced configs' head dims, which the card's wrapper pads to 64
+PADDED_CASES = [
+    pytest.param((1, 48, 48, 4, 2, 16, True, None, None, 0), id="hd16-causal-gqa"),
+    pytest.param((2, 80, 80, 4, 1, 8, True, 32, None, 0), id="hd8-window32-mqa"),
+    pytest.param((1, 64, 64, 6, 2, 16, True, 32, None, 0), id="hd16-window32-gqa"),
+]
+
+
+@pytest.mark.parametrize("case", PADDED_CASES)
+def test_zero_padded_head_dim_is_the_same_attention(case):
+    """What the card's wrapper does at hd 8 and 16: q, k, v zero-padded to 64
+    columns, the true head_dim's scale, O's first hd columns kept. On the
+    plain version (whose scale is its head_dim's, so q comes pre-scaled by
+    sqrt(64 / hd) to give the true one) it equals the unpadded attention,
+    and the padded output columns are exactly zero; both match the Pallas
+    kernel (interpret mode)."""
+    q, k, v = _inputs(case, seed=2)
+    causal, window, softcap, q_offset = case[6:]
+    hd = q.shape[3]
+    prescaled = q * np.float32((fa_ops.PADDED_HD / hd) ** 0.5)
+    padded = [fa_ops.pad_head_dim(torch.from_numpy(t)) for t in (prescaled, k, v)]
+    assert all(t.shape[3] == fa_ops.PADDED_HD and t.is_contiguous() for t in padded)
+    out = fa_ops.flash_attention_plain(*padded, causal=causal, window=window, softcap=softcap,
+                                       q_offset=q_offset)
+    assert torch.count_nonzero(out[..., hd:]) == 0
+    np.testing.assert_allclose(out[..., :hd].numpy(), _port(case, q, k, v), atol=1e-5, rtol=1e-5)
+    ref = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                              window=window, softcap=softcap, q_offset=q_offset,
+                              bq=16, bk=16, interpret=True)
+    np.testing.assert_allclose(out[..., :hd].numpy(), np.asarray(ref), atol=TOL, rtol=TOL)

@@ -87,14 +87,81 @@ def test_launcher_cuts_depth(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["--policy", "bogus"],
     ["--mode", "after3"],
-    ["--profile-out", "t.json"],     # profile-guided re-tiering is not ported
-    ["--host-budget-bytes", "1024"],  # nor the host arbiter
+    ["--profile-out", "t.json", "--mode", "before"],  # re-tiering needs the two-tier runtime
+    ["--host-budget-bytes", "1024"],  # the host arbiter is not ported
     ["--fleet", "2"],
+    ["--retier-from", "t.json", "--no-prefetch"],  # the predictor needs a prefetcher
+    ["--retier-from", "t.json", "--policy", "strict"],
+    ["--retier-from", "t.json", "--mode", "after1"],
 ])
 def test_launcher_refuses_bad_and_unported_flags(argv):
     res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
     assert res.returncode == 2
     assert "error:" in res.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["--profile-out", "t.json", "--mode", "after1"],
+    ["--retier-from", "t.json", "--no-prefetch"],
+    ["--retier-from", "t.json", "--policy", "strict"],
+])
+def test_launcher_refuses_retier_flags_as_the_reference_does(argv):
+    """The re-tiering refusals are the reference launcher's: the same flags
+    make both exit 2 with the same complaint."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    ref = subprocess.run([sys.executable, "-m", "repro.launch.serve", "--arch", "mixtral-8x22b", "--reduced", *argv],
+                         env=env, capture_output=True, text=True, timeout=300)
+    res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
+    assert ref.returncode == res.returncode == 2
+    want = "two-tier runtime" if "--mode" in argv else "drives the predictive prefetcher"
+    assert want in ref.stderr and want in res.stderr
+
+
+def test_profile_then_retier_cycle(tmp_path):
+    """``--profile-out`` under stats without the prefetcher, then
+    ``--retier-from`` under stats: the trace loads in the reference's
+    AccessTrace, the re-tiered artifact copies every tier-1 frame raw and is
+    served with the predictor armed and its promoted hot set preloaded, and
+    the tokens equal the profiling run's. An orphaned staging directory is
+    removed at start."""
+    from repro.core import AccessTrace as RefTrace
+
+    trace = str(tmp_path / "t.json")
+    args = [*ARGS, "--policy", "stats", "--artifact-dir", str(tmp_path)]
+    prof = _serve(*args, "--no-prefetch", "--profile-out", trace)
+    assert prof.returncode == 0, prof.stderr
+    assert re.search(r"^\[serve\] wrote access trace to .* \(\d+ batches, \d+ faulted units", prof.stdout, re.M)
+    doc = RefTrace.load(trace).to_dict()
+    assert doc["version"] == 3 and doc["faults"] and doc["phase_transitions"]
+    orphan = tmp_path / "mixtral-8x22b-reduced" / "crashed.partial"
+    orphan.mkdir()
+    res = _serve(*args, "--retier-from", trace)
+    assert res.returncode == 0, res.stderr
+    assert "[serve] removed 1 orphaned partial(s): crashed.partial" in res.stdout and not orphan.exists()
+    summary = json.loads(re.search(r"^\[serve\] re-tiered from .* -> .*-retier: (.*)$", res.stdout, re.M).group(1))
+    assert summary["promoted_resident"] > 0
+    art = json.loads(re.search(r"^\[serve\] retier artifact: (.*)$", res.stdout, re.M).group(1))
+    assert art["recompressed"] == 0 and art["raw_copied"] > 0
+    assert re.search(r"^\[serve\] predictor: observed \d+ keys", res.stdout, re.M)
+    assert sorted(os.listdir(tmp_path)) == ["mixtral-8x22b-reduced", "mixtral-8x22b-reduced-retier", "t.json"]
+    assert _tokens(res.stdout) == _tokens(prof.stdout)
+    # the promoted hot set is preloaded at cold start; how many bytes then
+    # fault on demand depends on the prefetcher's timing (the deterministic
+    # fault-byte drop is tests/test_torch_retier.py's, without a prefetcher)
+    uploaded = [json.loads(re.search(r"^\[serve\] cold start \(after2\): (.*)$", r.stdout, re.M).group(1))
+                ["bytes_uploaded"] for r in (prof, res)]
+    assert uploaded[1] > uploaded[0]
+    assert all(json.loads(re.search(r"^\[serve\] request: (.*)$", r.stdout, re.M).group(1))["faulted_bytes"] > 0
+               for r in (prof, res))
+
+
+def test_retier_from_a_bad_trace_fails(tmp_path):
+    """A trace that does not load is an error, not an empty trace."""
+    bad = tmp_path / "bad.json"
+    bad.write_text('{"version": 99}')
+    res = _serve(*ARGS, "--policy", "stats", "--artifact-dir", str(tmp_path), "--retier-from", str(bad))
+    assert res.returncode != 0 and "[serve] tokens:" not in res.stdout
+    assert "unsupported AccessTrace version 99" in res.stderr
 
 
 @pytest.mark.parametrize("extra", [[], ["--admission", "slo", "--deadline-ms", "600000", "--arrival-rate", "50"]],

@@ -234,8 +234,8 @@ def test_merge_hints_matches_reference():
 @pytest.mark.parametrize("prefer_request", [False, True])
 def test_transition_predictor_matches_reference(prefer_request):
     """On the reference's trace (every table, second-order and per-phase
-    included) both predictors rank alike; on the port's first-order trace
-    the port's equals the reference's built from the same two tables."""
+    included) both predictors rank alike, and so does the port's predictor
+    built from the port's own trace of the same batches."""
     ref_trace, trace = RefAccessTrace(), AccessTrace()
     for keys, phase in BATCHES:
         ref_trace.record(keys, keys[:1], phase)
@@ -249,12 +249,13 @@ def test_transition_predictor_matches_reference(prefer_request):
         assert TransitionPredictor.from_dict(port.to_dict()).to_dict() == ref.to_dict()
         for keys, phase, prev in queries:
             assert port.follow(keys, phase=phase, prev=prev) == ref.follow(keys, phase=phase, prev=prev)
-        # the port's own trace holds the first-order tables only
-        first = RefPredictor(ref_trace.transitions, pairs=ref_trace.pairs, **kw)
+        # the port's own trace holds every table the reference's does
+        assert trace.to_dict() == ref_trace.to_dict()
+        assert trace.transitions2 and trace.phase_transitions
         mine = TransitionPredictor.from_trace(trace, prefer_request=prefer_request, **kw)
-        assert mine.to_dict() == first.to_dict()
+        assert mine.to_dict() == ref.to_dict()
         for keys, phase, prev in queries:
-            assert mine.follow(keys, phase=phase, prev=prev) == first.follow(keys, phase=phase, prev=prev)
+            assert mine.follow(keys, phase=phase, prev=prev) == ref.follow(keys, phase=phase, prev=prev)
 
 
 def test_topk_row_hints_match_reference(tmp_path):

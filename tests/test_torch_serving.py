@@ -42,7 +42,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.models import build_model
 from repro_torch.optim import init_adamw
-from repro_torch.serving import MAX_FAULT_RETRIES, GenerationEngine, cold_start
+from repro_torch.serving import MAX_FAULT_RETRIES, ColdStartReport, ColdStartServer, GenerationEngine, cold_start
 from repro_torch.serving.engine import _usage_masks
 
 ARCH = "mixtral-8x22b"
@@ -173,6 +173,38 @@ def test_cold_start_report_and_trace(reference):
         before = {p: t.data_ptr() for p, t in server.tiered._flat.items()}
         eng.generate(torch.ones((1, 8), dtype=torch.int64), 2)
         assert {p: t.data_ptr() for p, t in server.tiered._flat.items()} == before
+
+
+def test_prefill_entries_are_bounded_least_recently_used_out(reference):
+    """Prompt lengths past ``max_prefill_entries`` evict the least recently
+    used prefill entry (never the warm set's, never a decode entry); the
+    dict never holds more than N of them beyond the warm set, and a length
+    served again after its eviction gives the same tokens as a fresh server."""
+    _, _, _, outdir = reference
+    model, result = _port_model()
+    N, lengths = 3, [5, 6, 7, 5, 8, 6, 5]
+    prompts = {S: torch.from_numpy(np.random.default_rng(S).integers(0, model.cfg.vocab_size, (1, S)))
+               for S in set(lengths)}
+    with cold_start(model, outdir, result, residency="full", device="cpu", warm_shapes=((1, 4, 16),)) as fresh:
+        eng = GenerationEngine(fresh, max_seq=16)
+        want = {S: eng.generate(p, 3)[0] for S, p in prompts.items()}
+    with cold_start(model, outdir, result, residency="full", device="cpu", warm_shapes=((1, 4, 16),)) as server:
+        server.max_prefill_entries = N
+        warm = set(server._compiled)
+        eng = GenerationEngine(server, max_seq=16)
+        for S in lengths:
+            out, _ = eng.generate(prompts[S], 3)
+            np.testing.assert_array_equal(out, want[S])
+            held = server.prefill_entries()
+            assert held[-1] == ("prefill", 1, S) and warm <= set(server._compiled)
+            assert len([k for k in held if k not in warm]) <= N
+        # 5, 6, 7 fill it; 5 is reused; 8 evicts 6; 6 (again) evicts 7; 5 is reused
+        assert server.evicted_prefill_entries == 2
+        assert server.prefill_entries() == [("prefill", 1, 4), ("prefill", 1, 8), ("prefill", 1, 6),
+                                            ("prefill", 1, 5)]
+        assert ("decode", 1, 16) in server._compiled
+    with pytest.raises(ValueError, match="max_prefill_entries"):
+        ColdStartServer(model, {}, ColdStartReport(mode="before"), device="cpu", max_prefill_entries=0)
 
 
 def test_cold_start_rejects_unported_modes(reference):
