@@ -61,16 +61,18 @@ Phases (any failure exits non-zero before the result line):
    4096-token window.
 4. serve — Mixtral-8x22B at full width, depth cut from 56 to 2 layers, bf16
    weights from a seeded ``torch.Generator``: analyze → build_artifact →
-   cold_start(after2, strict) → generate (B=2, prompt 1024, 8 new tokens).
+   cold_start(after2, strict) → generate (B=2, prompt 1024, 3 new tokens).
    Launch counts are zeroed just before and read just after; every prefill
-   of the run must have gone through the kernel in both layers. One more
-   prefill of the same live weights through the plain attention checks the
-   kernel path's logits. Then the same artifact under ``full`` (no budget,
-   the prefetcher on) serves the same request: the same tokens, 0
-   evictions, flash attention in every prefill run and no other kernel;
-   it prints loads by source, the prefetcher's counters and hit rate.
+   of the run must have gone through the kernel in both layers. Then the
+   same artifact under ``full`` (no budget, the prefetcher on) serves the
+   same request: the same tokens, 0 evictions, flash attention in every
+   prefill run and no other kernel; it prints loads by source, the
+   prefetcher's counters and hit rate. On that server, every unit now
+   resident, after [graph], [sched] and [entries] below, one more prefill
+   of the same live weights through the plain attention checks the kernel
+   path's logits.
    Every served forward run replays a CUDA graph: the warm set (prefill
-   (2, 1024), decode (2, 1040)) is captured at cold start, and each replay
+   (2, 1024), decode (2, 1035)) is captured at cold start, and each replay
    adds the launches its graph recorded to the wrappers' counts.
    [graph] With every unit resident, the same request replayed from the
    graphs and run eagerly (the entries made as plain calls): tokens equal,
@@ -88,6 +90,21 @@ Phases (any failure exits non-zero before the result line):
    never more than N entries beyond the warm set, memory_allocated never
    past its value at the N-th length, tokens after an eviction equal the
    first ones; allocated and reserved bytes printed after each.
+   [online] The strict artifact and request again (3 new tokens), with
+   the online re-tiering daemon ticking after the prefill and after every
+   decode step (``retier_interval=1``; no prefetcher, so promotions are
+   synchronous preloads trimmed to the budget's headroom): tokens equal
+   strict's, applies ≥ 1 with as many invariant checks, no
+   tick or compaction error absorbed, resident bytes within the budget at
+   rest, and at least one tick changed residency with a decode replay after
+   it. Prints the daemon's stats, each tick's installs and evictions, and
+   the request's faults beside strict's after as many steps.
+   [arbiter] Two tenants cold-started from the same artifact under one
+   ``HostArbiter`` with the strict budget, each serving the request cut to
+   2 new tokens from its own thread at once: both join within 600 s (a
+   deadlock fails the phase), each gives strict's first 2 columns, the
+   audit holds, the budget holds at rest, victims were taken across
+   tenants, and ``close()`` unregisters both.
 5. serve, stats — the same weights and request under the reference
    launcher's stats profile (one resident expert a layer, a quarter of the
    row groups hot by the synthetic pipeline's stats) with its own artifact,
@@ -120,8 +137,11 @@ Phases (any failure exits non-zero before the result line):
 9. reduced — the reference's main-path command on the card:
    ``python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced
    --param-dtype bfloat16`` (head_dim 16 through the padded kernel), B=2 ×
-   16 + 8, and the same command with the plain attention in the kernel's
-   place: exit 0, flash launches > 0 (none in the plain run), equal tokens.
+   16 + 8, the same command with the plain attention in the kernel's
+   place, and the same command with ``--retier-online --retier-interval 1
+   --host-budget-bytes 200000``: exit 0, flash launches > 0 (none in the
+   plain run), equal tokens; the online run prints its ``[serve] host
+   arbiter:`` and ``[serve] online retier:`` lines and absorbed no error.
 10. retier — profile → re-tier → re-serve through the launcher, Mixtral at
    full width cut to 1 layer, bf16, stats, B=2 × 1024 + 4: the modes
    phase's after2 run profiled (``--no-prefetch --profile-out``), then
@@ -192,10 +212,15 @@ VOCAB, D_MODEL, D_FF, ROW_GROUP = 32768, 6144, 16384, 2048  # Mixtral's table, e
 
 H, HKV, HD = 48, 8, 128  # Mixtral-8x22B attention widths
 PROMPT, NEW_TOKENS, BATCH, LAYERS = 1024, 16, 2, 2
-# Mixtral's served request is B=2 × 1024 + 8: its strict budget is below one
-# decode step's working set, so every step faults gigabytes (PERF.md §5)
-MIXTRAL_NEW_TOKENS = 8
+# Mixtral's served request is B=2 × 1024 + 3: its strict budget is below one
+# decode step's working set, so every step faults gigabytes (PERF.md §5); cut
+# from 8 new tokens to keep the run well inside its time limit
+MIXTRAL_NEW_TOKENS = 3
 MODES_NEW_TOKENS = 4  # the modes phase's request: B=2 × 1024 + 4
+# [online]: the strict request, B=2 × 1024 + 3, with the daemon ticking after
+# every step; [arbiter]: two tenants, each B=2 × 1024 + 2, on one budget
+ONLINE_NEW_TOKENS, ARBITER_NEW_TOKENS = 3, 2
+ARBITER_JOIN_S = 600.0  # a tenant thread still running then is a hang: the phase fails
 # the scheduler phase: 4 slots, 8 requests of alternating prompt lengths and
 # new-token counts, so slots free at different steps; an admission round of
 # 4 consecutive requests holds at most 2 of either length, so no group passes
@@ -205,8 +230,9 @@ SCHED_BATCH, SCHED_REQUESTS, SCHED_PROMPTS, SCHED_STEPS = 4, 8, (256, 512), (8, 
 # so each one past the bound replaces a larger entry: N + 3 of them, N the
 # server's max_prefill_entries
 ENTRY_PROMPTS = (1000, 900, 800, 700, 600, 500, 400)
-# [reduced]: the launcher's reduced Mixtral request, B=2 × 16 + 8
-REDUCED_PROMPT, REDUCED_NEW_TOKENS = 16, 8
+# [reduced]: the launcher's reduced Mixtral request, B=2 × 16 + 8, and the host
+# budget of its online run (under reduced bf16's 0.46 MB of tier-1)
+REDUCED_PROMPT, REDUCED_NEW_TOKENS, REDUCED_HOST_BUDGET = 16, 8, 200000
 RG_H, RG_HKV, RG_HD, RG_WINDOW, RG_WIDTH = 16, 1, 256, 2048, 4096  # RecurrentGemma-9B
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
@@ -735,12 +761,11 @@ def paged_path_phase(wrappers: dict, rolling: bool) -> dict:
     return summary
 
 
-def serve_phase(fa_ops, wrappers: dict, workdir: Path) -> dict:
+def serve_phase(wrappers: dict, workdir: Path) -> dict:
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import DeploymentProfile, analyze, build_artifact
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import build_model
     from repro_torch.serving import GenerationEngine, cold_start
 
@@ -771,9 +796,11 @@ def serve_phase(fa_ops, wrappers: dict, workdir: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     server = cold_start(model, str(artifact), result, residency="strict", warm_shapes=warm_shapes)
     engine = GenerationEngine(server, max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8)
+    per_step = _record_per_step(engine)  # [online] reads the request's faults after its 4th step
     t3 = time.perf_counter()
     out, stats = engine.generate(tokens, MIXTRAL_NEW_TOKENS)
     t4 = time.perf_counter()
+    _unwrap(engine, "prefill_step", "decode_once")
     counts = {name: fn.launches for name, fn in wrappers.items()}  # the main path ends here
     launches = counts["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
@@ -811,35 +838,242 @@ def serve_phase(fa_ops, wrappers: dict, workdir: Path) -> dict:
         raise AssertionError(f"flash kernel launched {launches} times for {prefill_runs} prefill runs "
                              f"of {LAYERS} layers")
 
-    # the same weights through the plain attention: every unit this prompt
-    # can touch is faulted in and pinned, so neither run sees placeholders
-    keys = engine.row_keys_for(tokens.cpu().numpy()) + [
-        u.key for d in result.plan.decisions.values() if d.granularity == "expert" for u in d.units]
-    tiered.ensure(keys, pin=True)
-    live = server.live_params()
-    try:
-        with torch.inference_mode():
-            logits_kernel = model.prefill(live, {"tokens": tokens})[0].float()
-            with mock.patch.object(attn_mod, "flash_attention", fa_ops.flash_attention_plain):
-                logits_plain = model.prefill(live, {"tokens": tokens})[0].float()
-    finally:
-        tiered.release(keys)
-    if not torch.isfinite(logits_kernel).all():
-        raise AssertionError("non-finite logits on the kernel path")
-    diff = (logits_kernel - logits_plain).abs().max().item()
-    scale = logits_plain.abs().max().item()
-    agree = (logits_kernel.argmax(-1) == logits_plain.argmax(-1)).float().mean().item()
-    print(f"[serve] prefill logits kernel vs plain attention: max abs diff {diff:.4g} "
-          f"(max |logit| {scale:.4g}), argmax agreement {agree:.2f}", flush=True)
-    if not diff <= LOGITS_TOL:
-        raise AssertionError(f"kernel-path logits differ from the plain path by {diff}")
     server.close()
-    del server, engine, tiered, live, logits_kernel, logits_plain
+    del server, engine, tiered
     torch.cuda.empty_cache()
-    summary["logits_max_abs_diff"] = diff
     summary["tokens"] = out.tolist()
     summary["full"] = full_phase(model, result, artifact, tokens, out, wrappers, warm_shapes)
+    summary["logits_max_abs_diff"] = summary["full"]["logits_max_abs_diff"]
+    t0 = time.perf_counter()
+    summary["online"] = online_phase(model, result, artifact, tokens, out, per_step, wrappers, warm_shapes)
+    summary["online"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary["arbiter"] = arbiter_phase(model, result, artifact, tokens, out, summary["budget_bytes"], wrappers,
+                                       warm_shapes)
+    summary["arbiter"]["wall_s"] = time.perf_counter() - t0
     shutil.rmtree(artifact, ignore_errors=True)
+    return summary
+
+
+def _unwrap(obj, *names) -> None:
+    """Drop the instance attributes that shadowed ``obj``'s methods: a wrapper
+    holding a bound method makes a reference cycle, which would keep a
+    server's device tree alive after ``del`` until the next garbage
+    collection."""
+    for name in names:
+        vars(obj).pop(name, None)
+
+
+def _record_per_step(engine) -> list:
+    """Wrap the engine's step primitives to record the request's cumulative
+    (faulted units, faulted bytes, fault seconds) after each step (undo with
+    ``_unwrap(engine, "prefill_step", "decode_once")``)."""
+    rows = []
+
+    def wrap(fn, stats_at):
+        def step(*args, **kw):
+            res = fn(*args, **kw)
+            st = args[stats_at]
+            rows.append(dict(faulted_units=st.faulted_units, faulted_bytes=st.faulted_bytes, fault_s=st.fault_s))
+            return res
+        return step
+
+    engine.prefill_step = wrap(engine.prefill_step, 1)  # (tokens, stats)
+    engine.decode_once = wrap(engine.decode_once, 3)    # (decode_fn, caches, dbatch, stats)
+    return rows
+
+
+def online_phase(model, result, artifact: Path, tokens, strict_out, strict_steps: list, wrappers: dict,
+                 warm_shapes) -> dict:
+    """[online] The strict artifact and request again, with the online
+    re-tiering daemon ticking after the prefill and after every decode step
+    (``retier_interval=1``) and ONLINE_NEW_TOKENS new tokens. Strict has no
+    prefetcher, so every promotion is a synchronous preload between steps,
+    trimmed to the budget's headroom. The decode graphs have the strict
+    phase's shapes; the tokens must equal strict's first columns. Prints the
+    daemon's stats, each tick's residency change and the decode replays
+    before it, and the request's faults beside strict's after as many steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    for fn in wrappers.values():
+        fn.launches = 0  # the online path starts here
+    server = cold_start(model, str(artifact), result, residency="strict", retier_online=True, retier_interval=1,
+                        warm_shapes=warm_shapes)
+    engine = GenerationEngine(server, max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8)
+    tiered, daemon = server.tiered, server.retier_daemon
+    replays, ticks = [0], []
+    decode_once, tick_retier = engine.decode_once, engine.tick_retier
+
+    def counted_decode(*args, **kw):
+        replays[0] += 1
+        return decode_once(*args, **kw)
+
+    def watched_tick(steps=1):
+        keys = tiered.resident_keys
+        tick_retier(steps)
+        now = tiered.resident_keys
+        ticks.append(dict(decode_replays_before=replays[0], installed=len(now - keys), evicted=len(keys - now),
+                          resident_bytes=tiered.resident_bytes))
+
+    engine.decode_once, engine.tick_retier = counted_decode, watched_tick
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, stats = engine.generate(tokens, ONLINE_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    _unwrap(engine, "decode_once", "tick_retier")
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the online path ends here
+    ds, res = daemon.stats, tiered.residency
+    # a tick that moved units and had a decode replay after it: that replay
+    # read what the daemon installed or evicted
+    changed = [t for t in ticks if (t["installed"] or t["evicted"]) and t["decode_replays_before"] < replays[0]]
+    strict_at = strict_steps[ONLINE_NEW_TOKENS - 1]
+    summary = dict(
+        generate_s=wall, daemon=ds.to_dict(), last_error=daemon.last_error, ticks=ticks,
+        residency_changed_before_a_replay=changed, decode_replays=replays[0],
+        request=dict(faulted_units=stats.faulted_units, faulted_bytes=stats.faulted_bytes, fault_s=stats.fault_s,
+                     prefill_retries=stats.prefill_retries, decode_retries=stats.decode_retries),
+        strict_after_as_many_steps=strict_at, budget_bytes=res.budget_bytes,
+        resident_bytes_at_rest=res.resident_bytes, max_resident_bytes=res.max_resident_bytes,
+        overshoots=res.overshoot_events, evictions=tiered.stats.evictions, refaults=tiered.stats.refaults,
+        loads_by_source=_loads_by_source(tiered.stats.events), peak_device_bytes=torch.cuda.max_memory_allocated(),
+        launches=counts, prefill_runs=len(warm_shapes) + stats.prefill_runs, tokens=out.tolist())
+    joined = daemon.join_compaction(60.0)
+    server.close()
+    print("[online] " + json.dumps(summary, default=str), flush=True)
+    if not np.array_equal(out, strict_out[:, :ONLINE_NEW_TOKENS]):
+        raise AssertionError(f"[online] tokens {out.tolist()} differ from strict's first {ONLINE_NEW_TOKENS} "
+                             f"columns {strict_out[:, :ONLINE_NEW_TOKENS].tolist()}")
+    if ds.applies < 1 or ds.invariant_checks != ds.applies:
+        raise AssertionError(f"[online] {ds.applies} applies, {ds.invariant_checks} invariant checks")
+    if ds.errors or ds.compact_errors or not joined:
+        raise AssertionError(f"[online] the daemon absorbed {ds.errors} tick errors ({daemon.last_error!r}) and "
+                             f"{ds.compact_errors} compaction errors; compaction joined {joined}")
+    if res.resident_bytes > res.budget_bytes:
+        raise AssertionError(f"[online] {res.resident_bytes} resident bytes at rest past the budget {res.budget_bytes}")
+    if not changed:
+        raise AssertionError(f"[online] no apply changed residency before a decode replay: {ticks}")
+    _check_served_launches("mixtral-8x22b online", counts, summary["prefill_runs"])
+    del server, engine
+    torch.cuda.empty_cache()
+    return summary
+
+
+def arbiter_phase(model, result, artifact: Path, tokens, strict_out, budget: int, wrappers: dict,
+                  warm_shapes) -> dict:
+    """[arbiter] Two tenants, ``a`` and ``b``, cold-started one after the
+    other from the strict artifact under one ``HostArbiter`` whose budget is
+    one strict tenant's (``budget``), then each serving the strict request cut to
+    ARBITER_NEW_TOKENS new tokens from its own thread, concurrently: ``b``'s
+    request starts once ``a``'s prefill has returned, so ``b``'s prefill (all
+    of its units pinned as they are claimed) overlaps ``a``'s decode and must
+    make room from ``a``'s unpinned units. With both starting at once, each
+    prefill pins the whole budget, and whether any victim is the other
+    tenant's depends on how the two threads interleave. Both threads
+    must finish within ARBITER_JOIN_S (a deadlock fails the phase), each with
+    strict's first columns; the books audit, the host budget holds at rest
+    (or overshoots were counted), the arbiter evicted, some victims across
+    tenants, and ``close()`` unregisters both."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import HostArbiter
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    arb = HostArbiter(budget)
+    for fn in wrappers.values():
+        fn.launches = 0  # the arbiter path starts here
+    torch.cuda.reset_peak_memory_stats()
+    servers, t0, hung = [], time.perf_counter(), []
+    try:
+        for name in "ab":
+            servers.append(cold_start(model, str(artifact), result, residency="strict", host_arbiter=arb,
+                                      tenant_name=name, warm_shapes=warm_shapes))
+        cold_s = time.perf_counter() - t0
+        if servers[0].tiered.residency.budget_bytes is not None:
+            raise AssertionError("[arbiter] a tenant kept its private budget")
+        outs, stats, errors = [None, None], [None, None], []
+        a_prefilled = threading.Event()
+        victims = {}  # (victim tenant, evicting thread) -> units; every evict() here is the arbiter's
+        for name, s in zip("ab", servers):
+            def evict(keys, _inner=s.tiered.evict, _name=name):
+                got = _inner(keys)
+                if got:
+                    key = f"{_name} by {threading.current_thread().name}"
+                    victims[key] = victims.get(key, 0) + 1
+                return got
+            s.tiered.evict = evict
+
+        def serve(i):
+            try:
+                eng = GenerationEngine(servers[i], max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8)
+                if i == 0:
+                    prefill = eng.prefill_step
+
+                    def prefill_then_signal(*args, **kw):
+                        try:
+                            return prefill(*args, **kw)
+                        finally:
+                            a_prefilled.set()
+                    eng.prefill_step = prefill_then_signal
+                elif not a_prefilled.wait(ARBITER_JOIN_S):
+                    raise TimeoutError("tenant a's prefill never returned")
+                outs[i], stats[i] = eng.generate(tokens, ARBITER_NEW_TOKENS)
+                _unwrap(eng, "prefill_step")
+            except Exception as e:
+                errors.append(f"tenant {'ab'[i]}: {e!r}")
+            finally:
+                a_prefilled.set()
+
+        threads = [threading.Thread(target=serve, args=(i,), name=f"tenant-{'ab'[i]}", daemon=True) for i in range(2)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(max(0.0, ARBITER_JOIN_S - (time.perf_counter() - t1)))
+        hung = [t.name for t in threads if t.is_alive()]
+        if hung:
+            raise AssertionError(f"[arbiter] {hung} still running after {ARBITER_JOIN_S} s: a deadlock")
+        wall = time.perf_counter() - t1
+        counts = {name: fn.launches for name, fn in wrappers.items()}  # the arbiter path ends here
+        for s in servers:
+            _unwrap(s.tiered, "evict")
+        if errors:
+            raise AssertionError(f"[arbiter] {errors}")
+        audit = arb.audit()  # raises if a tenant's charged bytes disagree with its counter
+        hs = arb.stats
+        summary = dict(
+            budget_bytes=budget, cold_start_s=cold_s, serve_wall_s=wall, audit=audit, shares=arb.shares(),
+            arbiter=hs.to_dict(), victims_by_thread=victims, peak_device_bytes=torch.cuda.max_memory_allocated(),
+            tenants={n: dict(faulted_units=st.faulted_units, faulted_bytes=st.faulted_bytes, fault_s=st.fault_s,
+                             prefill_retries=st.prefill_retries, decode_retries=st.decode_retries,
+                             evictions=s.tiered.stats.evictions, refaults=s.tiered.stats.refaults,
+                             tokens=o.tolist())
+                     for n, s, st, o in zip("ab", servers, stats, outs)},
+            launches=counts, prefill_runs=2 * len(warm_shapes) + sum(st.prefill_runs for st in stats))
+    finally:
+        if not hung:  # a hung tenant may hold the arbiter's lock, which close() takes
+            for s in servers:
+                s.close()
+    summary["registered_after_close"] = sorted(arb.tenants)
+    print("[arbiter] " + json.dumps(summary, default=str), flush=True)
+    for n, o in zip("ab", outs):
+        if not np.array_equal(o, strict_out[:, :ARBITER_NEW_TOKENS]):
+            raise AssertionError(f"[arbiter] tenant {n} tokens {o.tolist()} differ from strict's first "
+                                 f"{ARBITER_NEW_TOKENS} columns")
+    if audit["pinned_bytes"] or not (audit["resident_bytes"] <= budget or hs.overshoots > 0):
+        raise AssertionError(f"[arbiter] at rest: {audit}, {hs.overshoots} overshoots")
+    if hs.evictions <= 0 or hs.cross_evictions <= 0:
+        raise AssertionError(f"[arbiter] {hs.evictions} evictions, {hs.cross_evictions} across tenants")
+    if summary["registered_after_close"] or hs.unregistered != 2:
+        raise AssertionError(f"[arbiter] still registered after close(): {summary['registered_after_close']}")
+    _check_served_launches("mixtral-8x22b arbiter", counts, summary["prefill_runs"])
+    del servers
+    torch.cuda.empty_cache()
     return summary
 
 
@@ -885,9 +1119,44 @@ def _check_served_launches(path: str, counts: dict, prefill_runs: int) -> None:
         raise AssertionError(f"the {path} path launched {counts}, expected {want} for {prefill_runs} prefill runs")
 
 
+def _prefill_logits_check(model, server, engine, result, tokens) -> float:
+    """The served prefill's logits through the kernel and through the plain
+    attention on the same live weights, every unit the prompt can touch
+    resident and pinned (on the ``full`` server, after its request, nothing
+    moves), eagerly: within LOGITS_TOL. Returns the max abs difference."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention as attn_mod
+
+    tiered = server.tiered
+    keys = engine.row_keys_for(tokens.cpu().numpy()) + [
+        u.key for d in result.plan.decisions.values() if d.granularity == "expert" for u in d.units]
+    tiered.ensure(keys, pin=True)
+    live = server.live_params()
+    try:
+        with torch.inference_mode():
+            logits_kernel = model.prefill(live, {"tokens": tokens})[0].float()
+            with mock.patch.object(attn_mod, "flash_attention", fa_ops.flash_attention_plain):
+                logits_plain = model.prefill(live, {"tokens": tokens})[0].float()
+    finally:
+        tiered.release(keys)
+    if not torch.isfinite(logits_kernel).all():
+        raise AssertionError("non-finite logits on the kernel path")
+    diff = (logits_kernel - logits_plain).abs().max().item()
+    scale = logits_plain.abs().max().item()
+    agree = (logits_kernel.argmax(-1) == logits_plain.argmax(-1)).float().mean().item()
+    print(f"[serve] prefill logits kernel vs plain attention: max abs diff {diff:.4g} "
+          f"(max |logit| {scale:.4g}), argmax agreement {agree:.2f}", flush=True)
+    if not diff <= LOGITS_TOL:
+        raise AssertionError(f"kernel-path logits differ from the plain path by {diff}")
+    return diff
+
+
 def full_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dict, warm_shapes) -> dict:
     """The strict artifact again under ``full``: no budget, the prefetcher
-    on. The same request must give the strict run's tokens, with 0 evictions."""
+    on. The same request must give the strict run's tokens, with 0 evictions.
+    On its server, every unit resident, the prefill logits check."""
     import numpy as np
     import torch
 
@@ -911,6 +1180,9 @@ def full_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dict
                                    {"flash_attention": LAYERS}, LOGITS_TOL)
     summary["sched"] = sched_phase(server, wrappers)
     summary["entries"] = entries_phase(server)
+    # last, so its eager fp32 scores do not sit in the allocator while the
+    # phases above capture graphs and read memory
+    summary["logits_max_abs_diff"] = _prefill_logits_check(model, server, engine, result, tokens)
     server.close()
     summary["prefetch_threads_alive_after_close"] = len(_prefetch_threads() - before)
     print("[serve] full: " + json.dumps(summary, default=str), flush=True)
@@ -1295,11 +1567,14 @@ def _launch(tag: str, args: list, plain: bool = False, timeout: int = 600) -> di
 
     retiered = next((ln for ln in lines if ln.startswith("[serve] re-tiered from ")), None)
     cold = next(ln for ln in lines if ln.startswith("[serve] cold start ("))
+    arbiter = next((ln for ln in lines if ln.startswith("[serve] host arbiter: ")), None)
     out = dict(wall_s=wall, serve_lines=len(lines), cold_start=json.loads(cold.split("): ", 1)[1]),
                request=field("[serve] request: "),
                tokens=field("[serve] tokens: "), launches=field("[serve] kernel launches: "),
                retier=None if retiered is None else json.loads(retiered.split(": ", 1)[1]),
-               retier_artifact=field("[serve] retier artifact: "))
+               retier_artifact=field("[serve] retier artifact: "),
+               online=field("[serve] online retier stats: "),
+               arbiter=None if arbiter is None else arbiter[len("[serve] host arbiter: "):])
     print(f"{tag} launcher wall {wall:.1f} s", flush=True)
     return out
 
@@ -1308,27 +1583,38 @@ def reduced_phase(workdir: Path) -> dict:
     """[reduced] The reference's main-path command on the card: reduced
     Mixtral (head_dim 16, through the zero-padded hd-64 kernel) via
     ``python -m repro_torch.launch.serve --reduced --param-dtype bfloat16``,
-    B=2 × REDUCED_PROMPT + REDUCED_NEW_TOKENS, and the same command with the
-    attention's plain version in the kernel's place. Both exit 0; the
-    kernel run launches flash attention (and no other kernel), the plain
-    run none; the tokens are equal."""
+    B=2 × REDUCED_PROMPT + REDUCED_NEW_TOKENS, the same command with the
+    attention's plain version in the kernel's place, and the same command
+    with ``--retier-online --retier-interval 1 --host-budget-bytes
+    REDUCED_HOST_BUDGET`` (the online daemon and the host arbiter through
+    the launcher's flags). All exit 0; the kernel and online runs launch
+    flash attention (and no other kernel), the plain run none; the tokens
+    are equal; the online run's daemon absorbed no error."""
     outdir = workdir / "reduced"
     shutil.rmtree(outdir, ignore_errors=True)
     args = ["--arch", "mixtral-8x22b", "--reduced", "--param-dtype", "bfloat16", "--batch", str(BATCH),
             "--prompt-len", str(REDUCED_PROMPT), "--gen-steps", str(REDUCED_NEW_TOKENS), "--artifact-dir", str(outdir)]
-    runs = {how: _launch(f"[reduced] {how}:", args, plain=how == "plain") for how in ("kernel", "plain")}
+    online = ["--retier-online", "--retier-interval", "1", "--host-budget-bytes", str(REDUCED_HOST_BUDGET)]
+    runs = {how: _launch(f"[reduced] {how}:", args + (online if how == "online" else []), plain=how == "plain")
+            for how in ("kernel", "plain", "online")}
     shutil.rmtree(outdir, ignore_errors=True)
-    k, p = runs["kernel"], runs["plain"]
-    summary = dict(tokens=k["tokens"], tokens_equal=k["tokens"] == p["tokens"], launches=k["launches"],
-                   plain_launches=p["launches"], request=k["request"], wall_s={h: r["wall_s"] for h, r in runs.items()})
+    k, p, o = runs["kernel"], runs["plain"], runs["online"]
+    summary = dict(tokens=k["tokens"], tokens_equal=k["tokens"] == p["tokens"] == o["tokens"], launches=k["launches"],
+                   plain_launches=p["launches"], online_launches=o["launches"], request=k["request"],
+                   online_request=o["request"], online=o["online"], arbiter=o["arbiter"],
+                   wall_s={h: r["wall_s"] for h, r in runs.items()})
     print("[reduced] " + json.dumps(summary), flush=True)
-    if not k["launches"]["flash_attention"] > 0 or any(n for name, n in k["launches"].items()
-                                                      if name != "flash_attention"):
-        raise AssertionError(f"[reduced] kernel launches {k['launches']}")
+    for run in (k, o):
+        if not run["launches"]["flash_attention"] > 0 or any(n for name, n in run["launches"].items()
+                                                            if name != "flash_attention"):
+            raise AssertionError(f"[reduced] kernel launches {run['launches']}")
+    if o["online"] is None or o["arbiter"] is None or o["online"]["applies"] < 1 or o["online"]["errors"] \
+            or o["online"]["compact_errors"]:
+        raise AssertionError(f"[reduced] online run: daemon {o['online']}, arbiter {o['arbiter']}")
     if any(p["launches"].values()):
         raise AssertionError(f"[reduced] the plain run launched {p['launches']}")
     if not summary["tokens_equal"]:
-        raise AssertionError(f"[reduced] kernel tokens {k['tokens']} != plain {p['tokens']}")
+        raise AssertionError(f"[reduced] kernel tokens {k['tokens']} != plain {p['tokens']} or online {o['tokens']}")
     return summary
 
 
@@ -1577,11 +1863,15 @@ def main() -> int:
     workdir = REPO / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     t_phase = time.perf_counter()
-    strict = serve_phase(fa_ops, wrappers, workdir)
+    strict = serve_phase(wrappers, workdir)
     paths["mixtral-8x22b"] = strict["launches"]
     paths["mixtral-8x22b-full"] = strict["full"]["launches"]
-    phase_s["serve strict + full"] = time.perf_counter() - t_phase
+    paths["mixtral-8x22b-online"] = strict["online"]["launches"]
+    paths["mixtral-8x22b-arbiter"] = strict["arbiter"]["launches"]
+    phase_s["serve strict + full + online + arbiter"] = time.perf_counter() - t_phase
     phase_s["(entries, inside serve full)"] = strict["full"]["entries"]["wall_s"]
+    phase_s["(online, inside serve)"] = strict["online"]["wall_s"]
+    phase_s["(arbiter, inside serve)"] = strict["arbiter"]["wall_s"]
     t_phase = time.perf_counter()
     paths["mixtral-8x22b-stats"] = stats_phase(wrappers, workdir, strict["tokens"])["launches"]
     phase_s["serve stats"] = time.perf_counter() - t_phase
@@ -1597,7 +1887,8 @@ def main() -> int:
     traffic_phase(workdir)
     phase_s["traffic (launcher)"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    paths["reduced"] = reduced_phase(workdir)["launches"]
+    reduced = reduced_phase(workdir)
+    paths["reduced"], paths["reduced-online"] = reduced["launches"], reduced["online_launches"]
     phase_s["reduced (launcher)"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     paths["retier-serve"] = retier_phase(workdir, modes["after2"], trace)["retier"]["launches"]
@@ -1607,6 +1898,8 @@ def main() -> int:
     # the served decode is the plain dense one, as in the reference, and Mixtral has no recurrent layer
     for path, served in (("mixtral-8x22b", {"flash_attention"}), ("mixtral-8x22b-full", {"flash_attention"}),
                          ("mixtral-8x22b-stats", {"flash_attention"}),
+                         ("mixtral-8x22b-online", {"flash_attention"}), ("mixtral-8x22b-arbiter", {"flash_attention"}),
+                         ("reduced-online", {"flash_attention"}),
                          ("recurrentgemma-9b", {"flash_attention", "rglru_scan"}),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"})):

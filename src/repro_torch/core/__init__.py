@@ -1,9 +1,11 @@
 """FaaSLight core: Program Analyzer (entry recognition, parameter
 reachability, tier partitioning) and Code Generator (optional store,
-on-demand loader and prefetcher, artifact builder) and the offline half of
-profile-guided re-tiering."""
+on-demand loader and prefetcher, artifact builder), profile-guided
+re-tiering offline and online (``RetierDaemon``), and the host arbiter
+(``HostArbiter``: N models under one device budget)."""
 
 from repro_torch.core.analyzer import AnalysisResult, analyze, build_artifact, write_monolithic
+from repro_torch.core.arbiter import HostArbiter, HostArbiterStats
 from repro_torch.core.entrypoints import DeploymentProfile, recognize_entries
 from repro_torch.core.file_elim import eliminate_collections, eliminate_files
 from repro_torch.core.on_demand import AccessTrace, LoadEvent, LoaderStats, ResidencyManager, TieredParams
@@ -30,6 +32,7 @@ from repro_torch.core.retier import (
     residency_overlay,
     retier_artifact,
 )
+from repro_torch.core.retier_daemon import RetierDaemon, RetierDaemonStats
 
 __all__ = [
     "AnalysisResult",
@@ -72,4 +75,8 @@ __all__ = [
     "apply_overlay",
     "coaccess_order",
     "retier_artifact",
+    "RetierDaemon",
+    "RetierDaemonStats",
+    "HostArbiter",
+    "HostArbiterStats",
 ]

@@ -1,5 +1,5 @@
 """④ On-demand loading — the ``rewrite_template`` analogue
-(``repro.core.on_demand`` counterpart, without a host arbiter).
+(``repro.core.on_demand`` counterpart).
 
 Tier-1 leaves start as zero-filled device tensors of full shape (the
 "rewritten stub": identical shapes, so every step runs the same code as the
@@ -29,6 +29,16 @@ takes it, and the engine holds it for each forward run from launch until the
 run's outputs are on the device and its misses are read. The gate is never
 held while waiting on a LOADING key (the loader that must finish it needs
 the gate), and it is always taken before the residency lock.
+
+Under a host arbiter (``core/arbiter.py``) the lock order is: the arbiter's
+lock, then a tenant's ``gate``, then that tenant's residency lock. The
+arbiter's victim pass evicts other tenants' units through ``evict``, which
+takes their gate, so nothing enters the arbiter (``make_room``,
+``rebalance``, ``prefetch_headroom``, ``note_trace``, ``observe_tick``)
+while it holds any tenant's gate or residency lock: an install calls
+``make_room`` before it takes ``gate``, ``release`` calls ``rebalance``
+after it has dropped both, and the prefetcher's threads follow the same
+rule.
 
 The unit order, the ``LoadEvent`` key/byte sequence and the budget
 arithmetic are the reference's.
@@ -381,6 +391,11 @@ class ResidencyManager:
         self.max_resident_bytes = 0  # high-water mark
         self.overshoot_events = 0    # installs that couldn't make room
 
+    def charged_bytes(self) -> int:
+        """The per-key charges summed over the RESIDENT set: the audit's
+        cross-check of ``resident_bytes`` (caller holds the lock)."""
+        return sum(self._nbytes.get(k, 0) for k in self._lru)
+
     def state_of(self, key: str) -> str:
         return self._state.get(key, COLD)
 
@@ -526,19 +541,35 @@ class TieredParams:
         self._lock = threading.RLock()
         self.gate = threading.Lock()
         self.residency = ResidencyManager(self._lock, budget_bytes=device_budget_bytes)
-        # the reference's host arbiter (multi-model serving) is not ported:
-        # nothing registers one, and the prefetcher's headroom gate is off
+        # set by a ``HostArbiter`` that registers this instance: its private
+        # budget is then off and every install makes room through the arbiter
         self.arbiter = None
+        self.tenant_name = ""
         self._all_units: dict[str, Unit] = {
             u.key: u for d in plan.decisions.values() for u in d.units
         }
 
     # -- telemetry -------------------------------------------------------------
-    def start_trace(self) -> AccessTrace:
-        """Record every later request-path ``ensure`` batch into a new trace."""
+    def start_trace(self, trace: Optional[AccessTrace] = None) -> AccessTrace:
+        """Record every later request-path ``ensure`` batch into ``trace``
+        (a new one by default). Returns the trace."""
         with self._lock:
-            self.trace = AccessTrace()
+            self.trace = trace if trace is not None else AccessTrace()
             return self.trace
+
+    def rotate_trace(self, fresh: Optional[AccessTrace] = None) -> Optional[AccessTrace]:
+        """Swap in a fresh trace and return the finished window (None if
+        tracing was never started); the window is no longer written to."""
+        with self._lock:
+            old = self.trace
+            if old is not None:
+                self.trace = fresh if fresh is not None else AccessTrace(max_assoc_batch=old.max_assoc_batch)
+            return old
+
+    def trace_snapshot(self) -> Optional[AccessTrace]:
+        """A consistent copy of the live trace (None if tracing is off)."""
+        with self._lock:
+            return AccessTrace.from_dict(self.trace.to_dict()) if self.trace else None
 
     def set_phase(self, phase: str) -> None:
         """Tag subsequent loads/trace batches ("prefill" | "decode" | "")."""
@@ -571,6 +602,19 @@ class TieredParams:
     def resident_fraction(self) -> float:
         n = len(self._all_units)
         return len(self.residency.resident_keys) / n if n else 1.0
+
+    def unit_charge(self, key: str, nbytes: Optional[int] = None) -> int:
+        """Device-budget charge of one unit: ``nbytes`` if given, else the
+        unit's bytes (``Unit.nbytes``, else its frame's raw size). The
+        reference divides by the leaf's shard count under a mesh; the port has
+        no mesh, so the charge is the bytes."""
+        if nbytes is not None:
+            return nbytes
+        u = self._all_units.get(key)
+        if u is not None and u.nbytes:
+            return u.nbytes
+        e = self.store.entries.get(key)
+        return e.rsize if e is not None else 0
 
     # -- the rewrite_template analogue ---------------------------------------
     def ensure(self, keys: Iterable[str], *, pin: bool = False, source: str = "fault") -> int:
@@ -683,6 +727,9 @@ class TieredParams:
         """Evict to fit, install one claimed unit and commit it RESIDENT."""
         res = self.residency
         nbytes = host.numel() * host.element_size()
+        if self.arbiter is not None:
+            # cross-tenant make-room before the gate (the arbiter's lock comes first)
+            self.arbiter.make_room(self, nbytes)
         with self.gate, self._lock:
             t1 = time.perf_counter()
             self._evict_to_fit(nbytes)
@@ -729,6 +776,9 @@ class TieredParams:
         with self.gate, self._lock:
             self.residency.release(keys)
             self._evict_to_budget()
+        if self.arbiter is not None:
+            # host-wide reclaim once both locks are dropped (it may evict other tenants)
+            self.arbiter.rebalance()
 
     # -- prefetch integration ---------------------------------------------------
     def claim_for_prefetch(self, key: str) -> bool:
@@ -751,6 +801,8 @@ class TieredParams:
         if unit is None or self.residency.state_of(key) != LOADING:
             return 0
         nbytes = host.numel() * host.element_size()
+        if self.arbiter is not None:
+            self.arbiter.make_room(self, nbytes)
         with self.gate, self._lock:
             if self.residency.state_of(key) != LOADING:
                 return 0
@@ -806,6 +858,14 @@ class TieredParams:
                 if self.residency.is_resident(k) and self.residency.pins_of(k) == 0:
                     freed += self._evict_one(k)
         return freed
+
+    def eviction_candidates(self) -> list:
+        """``(key, nbytes, stamp)`` of every RESIDENT, unpinned unit, oldest
+        stamp first: the host arbiter's view of this tenant's evictable pool.
+        A snapshot: ``evict`` checks pins and state again under the lock."""
+        with self._lock:
+            res = self.residency
+            return [(k, res._nbytes.get(k, 0), res._stamp.get(k, 0)) for k in res._lru if res.pins_of(k) == 0]
 
     # -- installation (in place, under the gate) ----------------------------------
     def _unit_view(self, unit: Unit) -> torch.Tensor:

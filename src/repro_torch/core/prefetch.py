@@ -323,13 +323,16 @@ class Prefetcher:
     def hint(self, keys: Iterable[str]) -> int:
         """Offer access hints. Non-blocking: cold keys join the FIFO hint
         set, already-resident keys get an LRU touch (a predicted reuse should
-        not be the next eviction victim). Returns the keys accepted."""
+        not be the next eviction victim). Under a host arbiter a cold hint
+        is dropped when loading it would force evictions beyond the tenant's
+        share (``HostArbiter.prefetch_headroom``); demand loads are never
+        gated. Returns the keys accepted."""
         if self._stop.is_set():
             return 0
         accepted = 0
         touch: list[str] = []
         res = self.tiered.residency
-        arb = self.tiered.arbiter  # None: the port has no host arbiter
+        arb = self.tiered.arbiter  # set while a HostArbiter governs this tenant
         with self._hint_lock:
             for k in keys:
                 self.stats.hints += 1
@@ -338,9 +341,7 @@ class Prefetcher:
                     if res.is_resident(k):
                         touch.append(k)
                     continue
-                if arb is not None and not arb.prefetch_headroom(
-                    self.tiered, self.tiered.store.entries[k].rsize
-                ):
+                if arb is not None and not arb.prefetch_headroom(self.tiered, self.tiered.unit_charge(k)):
                     self.stats.skipped_headroom += 1
                     continue
                 self._hints[k] = None

@@ -26,6 +26,8 @@ the source artifact is never touched. Units that stay tier-1 are copied as
 their compressed frames (``OptionalStoreWriter.add_raw``: no decode, no
 recompress); only a leaf that changes tier is decoded or encoded. With a
 trace, the new blob is laid out in co-access order (``coaccess_order``).
+The online half, which applies replanned hot sets to a running server, is
+``core/retier_daemon.py``.
 """
 
 from __future__ import annotations

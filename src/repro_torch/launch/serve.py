@@ -33,6 +33,17 @@ directory and published by rename), and serves from it with the prefetcher
 armed with the trace's ``TransitionPredictor``. At start the launcher removes
 ``.partial`` directories a crashed rewrite left in the artifact directory.
 
+Online re-tiering (after2 only): ``--retier-online`` attaches a
+``RetierDaemon`` that the engine or the scheduler ticks between steps every
+``--retier-interval`` steps, folding each trace window into a history decayed
+by ``--retier-decay`` and applying the replanned hot set in place (and with
+``--retier-compact-every N`` rewriting the artifact every N applications);
+it prints ``[serve] online retier:``, and ``--profile-out`` then saves the
+daemon's merged trace. ``--host-budget-bytes N`` governs residency through
+a ``HostArbiter`` with an N-byte budget (the single-tenant form of the
+multi-model pool; the policy's budget fraction becomes the tenant's share)
+and prints ``[serve] host arbiter:``.
+
 Runs on ``--device cuda`` unless told ``--device cpu``. Every config serves
 on the card, the reduced ones (``--reduced``: head_dim 8 or 16, which the
 flash kernel's wrapper pads to 64) included; a published config can have its
@@ -42,11 +53,8 @@ config, which the flash kernel takes; attention in fp32 (the parity tests'
 ``cfg.replace(dtype="float32")``) runs on the CPU only, and the kernel's
 wrapper refuses it on the card.
 
-Not ported (argparse refuses their flags): the host budget
-(``--host-budget-bytes``), online re-tiering (``--retier-online``,
-``--retier-interval``, ``--retier-decay``, ``--retier-compact-every``), the
-fleet (``--fleet``), meshes (``--mesh``) and snapshots (``--snapshot-out``,
-``--restore-from``).
+Not ported (argparse refuses their flags): the fleet (``--fleet``), meshes
+(``--mesh``) and snapshots (``--snapshot-out``, ``--restore-from``).
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import (
     AccessTrace,
     DeploymentProfile,
+    HostArbiter,
     TransitionPredictor,
     analyze,
     build_artifact,
@@ -98,6 +107,9 @@ def main(argv=None) -> int:
                     help="residency budget preset; also shapes the deployment profile")
     ap.add_argument("--device-budget-bytes", type=int, default=0,
                     help="override the preset's tier-1 device budget (0 = preset default)")
+    ap.add_argument("--host-budget-bytes", type=int, default=0,
+                    help="govern residency through a HostArbiter with this host-wide device budget "
+                         "instead of a private per-model budget (after2 only; 0 = off)")
     ap.add_argument("--no-prefetch", action="store_true",
                     help="disable the prefetcher even where the preset enables it")
     ap.add_argument("--concurrency", type=int, default=0,
@@ -119,10 +131,23 @@ def main(argv=None) -> int:
                     help="re-tier the artifact from a prior --profile-out trace before cold start "
                          "(promote demand-faulted units, demote untouched residents) and drive the "
                          "prefetcher from its transition tables (after2 only)")
+    ap.add_argument("--retier-online", action="store_true",
+                    help="attach the online re-tiering daemon: adapt the hot set in place from the live "
+                         "access trace (promote = preload, demote = eviction), no restart (after2 only)")
+    ap.add_argument("--retier-interval", type=int, default=16,
+                    help="online re-tier cadence in serving steps (default 16)")
+    ap.add_argument("--retier-decay", type=float, default=0.5,
+                    help="per-tick decay of the merged trace history in [0, 1]: "
+                         "1 = lifetime counts, 0 = newest window only")
+    ap.add_argument("--retier-compact-every", type=int, default=0,
+                    help="online mode: rewrite the artifact (out of place, rename-committed) every N "
+                         "plan applications so the next cold start boots the adapted hot set (0 = never)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if (args.profile_out or args.retier_from) and args.mode != "after2":
-        ap.error("--profile-out/--retier-from need the two-tier runtime (--mode after2)")
+    if (args.profile_out or args.retier_from or args.retier_online) and args.mode != "after2":
+        ap.error("--profile-out/--retier-from/--retier-online need the two-tier runtime (--mode after2)")
+    if args.host_budget_bytes and args.mode != "after2":
+        ap.error("--host-budget-bytes governs the tier-1 residency layer (--mode after2 only)")
     if args.retier_from and (args.no_prefetch or args.policy == "strict"):
         # without a prefetcher the trained predictor would be dropped silently
         ap.error("--retier-from drives the predictive prefetcher; drop --no-prefetch / use "
@@ -139,6 +164,13 @@ def main(argv=None) -> int:
         ap.error("--batch, --prompt-len and --gen-steps must be >= 1")
     if args.device_budget_bytes < 0:
         ap.error("--device-budget-bytes must be >= 0")
+    if args.host_budget_bytes < 0:
+        ap.error("--host-budget-bytes must be >= 0")
+    if not 0.0 <= args.retier_decay <= 1.0:
+        ap.error("--retier-decay must be in [0, 1]")
+    if args.retier_interval < 1:
+        # a usage error now, not a traceback after the whole cold start
+        ap.error("--retier-interval must be >= 1")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is visible (pass --device cpu)")
 
@@ -206,12 +238,16 @@ def main(argv=None) -> int:
     max_seq = args.prompt_len + args.gen_steps + 8
     warm_B = 1 if args.concurrency > 0 else args.batch
     failed = 0
+    arbiter = HostArbiter(args.host_budget_bytes) if args.host_budget_bytes else None
     with cold_start(model, outdir, result if args.mode == "after2" else None,
                     mode=args.mode, warm_shapes=((warm_B, args.prompt_len, max_seq),),
                     residency=args.policy if args.mode == "after2" else None,
                     device_budget_bytes=args.device_budget_bytes or None,
+                    host_arbiter=arbiter,
                     prefetch=False if args.no_prefetch else None,
                     trace=bool(args.profile_out), predictor=predictor,
+                    retier_online=args.retier_online, retier_interval=args.retier_interval,
+                    retier_decay=args.retier_decay, retier_compact_every=args.retier_compact_every,
                     device=args.device) as server:
         print(f"[serve] cold start ({args.mode}):", json.dumps(server.report.to_dict(), default=float), flush=True)
         engine = GenerationEngine(server, max_seq=max_seq)
@@ -244,8 +280,22 @@ def main(argv=None) -> int:
                 ps = server.prefetcher.stats
                 print(f"[serve] predictor: observed {ps.observed} keys, "
                       f"predicted {ps.predicted} ahead-of-schedule loads")
+        if arbiter is not None:
+            audit = arbiter.audit()
+            hs = arbiter.stats
+            print(f"[serve] host arbiter: {audit['resident_bytes']:,}B resident "
+                  f"/ {audit['budget_bytes']:,}B host budget "
+                  f"({audit['pinned_bytes']:,}B pinned); "
+                  f"{hs.evictions} evictions ({hs.evicted_bytes:,}B), "
+                  f"{hs.overshoots} overshoots, "
+                  f"{hs.headroom_denials} prefetch headroom denials")
+        if server.retier_daemon is not None:
+            _print_daemon_stats(server)
         if args.profile_out and server.tiered is not None and server.tiered.trace is not None:
-            t = server.tiered.trace
+            # with the daemon on, the live trace is only the newest window:
+            # save the decayed merge of everything the run observed instead
+            t = (server.retier_daemon.trace_snapshot()
+                 if server.retier_daemon is not None else server.tiered.trace)
             t.save(args.profile_out)
             print(f"[serve] wrote access trace to {args.profile_out} "
                   f"({t.batches} batches, {len(t.faults)} faulted units, "
@@ -253,6 +303,23 @@ def main(argv=None) -> int:
     if failed:
         print(f"[serve] FAILED: {failed} request(s) failed or never finished")
     return 1 if failed else 0
+
+
+def _print_daemon_stats(server) -> None:
+    """One line of daemon accounting and the predictor counters its refresh
+    feeds; then the stats in full as JSON (``[serve] online retier stats:``)."""
+    ds = server.retier_daemon.stats
+    pred = ""
+    if server.tiered is not None and server.prefetcher is not None:
+        ts, ps = server.tiered.stats, server.prefetcher.stats
+        pred = (f", predictor hit rate {ts.prefetch_hit_rate:.2f} "
+                f"({ps.observed} observed, {ps.predicted} predicted)")
+    print(f"[serve] online retier: {ds.ticks} ticks, {ds.applies} applies "
+          f"(+{ds.promoted_units}/-{ds.demoted_units} units, "
+          f"{ds.evicted_bytes:,}B evicted, "
+          f"{ds.predictor_refreshes} predictor refreshes, "
+          f"{ds.compactions} compactions{pred}); zero restarts")
+    print(f"[serve] online retier stats: {json.dumps(ds.to_dict())}")
 
 
 def traffic_prompts(cfg, n: int, prompt_len: int) -> list[np.ndarray]:

@@ -25,7 +25,12 @@ budget as a fraction of tier-1 bytes, and whether the prefetcher runs:
   stats  — 50%, prefetch driven by the engine's hints
   full   — unlimited, prefetch
 An explicit ``device_budget_bytes`` overrides the preset's budget, and
-``prefetch=`` its prefetch default.
+``prefetch=`` its prefetch default. Under a ``host_arbiter`` the preset's
+fraction becomes the tenant's share of the arbiter's budget instead, and the
+tenant registers before the hot-set preload, so even cold-start bytes are
+admitted by the arbiter's make-room path. ``retier_online=True`` attaches a
+``RetierDaemon`` (and a live trace), which the engine and the scheduler tick
+between steps.
 
 Compiled entries. ``ColdStartServer.compiled_prefill(B, S)``,
 ``compiled_decode(B, S_max)`` and ``compiled_decode_masked(B, S_max)`` are
@@ -65,9 +70,11 @@ import torch
 
 from repro_torch.checkpoint import tensorstore_lite as tsl
 from repro_torch.core.analyzer import AnalysisResult
+from repro_torch.core.arbiter import HostArbiter
 from repro_torch.core.on_demand import TieredParams
 from repro_torch.core.optional_store import OptionalStore
 from repro_torch.core.prefetch import Prefetcher, TransitionPredictor
+from repro_torch.core.retier_daemon import RetierDaemon
 from repro_torch.kernels import kernel_wrappers
 from repro_torch.models.zoo import Model
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
@@ -208,12 +215,14 @@ class GraphEntry(EagerEntry):
 
 class ColdStartServer:
     """A cold-started model server: the live params (tiered in after2), the
-    optional store, the prefetcher and the compiled entries."""
+    optional store, the prefetcher, the online re-tiering daemon and the
+    compiled entries."""
 
     def __init__(self, model: Model, params: Any, report: ColdStartReport, *,
                  tiered: Optional[TieredParams] = None, store: Optional[OptionalStore] = None,
-                 prefetcher: Optional[Prefetcher] = None, artifact_dir: Optional[str] = None,
-                 device="cuda", max_prefill_entries: int = MAX_PREFILL_ENTRIES):
+                 prefetcher: Optional[Prefetcher] = None, retier_daemon: Optional[RetierDaemon] = None,
+                 artifact_dir: Optional[str] = None, device="cuda",
+                 max_prefill_entries: int = MAX_PREFILL_ENTRIES):
         if max_prefill_entries < 1:
             raise ValueError(f"max_prefill_entries must be >= 1, got {max_prefill_entries}")
         self.model = model
@@ -222,6 +231,7 @@ class ColdStartServer:
         self.tiered = tiered
         self.store = store
         self.prefetcher = prefetcher
+        self.retier_daemon = retier_daemon
         self.artifact_dir = artifact_dir
         self.device = torch.device(device)
         self.max_prefill_entries = max_prefill_entries
@@ -231,14 +241,22 @@ class ColdStartServer:
         self._pool = None  # the graphs' shared memory pool (replays never overlap)
 
     def close(self) -> None:
-        """Stop the prefetcher's threads, close the store and free the
-        compiled entries."""
+        """Free the compiled entries, stop the prefetcher's threads, wait for
+        an in-flight compaction, leave the host pool (if arbitered) and close
+        the store, in the reference's order. The store is closed even if an
+        earlier step raises."""
         self._compiled.clear()
         self._kept.clear()
         try:
             if self.prefetcher is not None:
                 self.prefetcher.stop()
                 self.prefetcher = None
+            if self.retier_daemon is not None:
+                # a periodic compaction may still be rewriting the artifact on
+                # its worker thread (it reads the store through its own handle)
+                self.retier_daemon.join_compaction(timeout=60.0)
+            if self.tiered is not None and self.tiered.arbiter is not None:
+                self.tiered.arbiter.unregister(self.tiered.tenant_name)
         finally:
             if self.store is not None:
                 self.store.close()
@@ -326,6 +344,15 @@ def cold_start(
     prefetch: Optional[bool] = None,  # overrides the preset's prefetch default
     prefetch_batch_units: int = 8,
     predictor: Optional[TransitionPredictor] = None,  # profile-trained prefetch
+    host_arbiter: Optional[HostArbiter] = None,  # one device budget shared by N tenants
+    tenant_name: Optional[str] = None,  # arbiter registration name (default: the config's name)
+    tenant_share: Optional[float] = None,  # overrides the preset-derived share
+    tenant_floor_bytes: int = 0,  # the arbiter never evicts this tenant below it
+    retier_online: bool = False,  # attach a RetierDaemon (implies a live trace)
+    retier_interval: int = 32,  # daemon cadence, serving steps per tick
+    retier_interval_s: Optional[float] = None,  # or wall-clock seconds
+    retier_decay: float = 0.5,  # trace-window merge decay per tick
+    retier_compact_every: int = 0,  # artifact rewrite every N applies (0 = never)
     warm_shapes: tuple = ((1, 64),),  # (B, S) or (B, S, S_max): prefill (B, S), decode (B, S_max or S)
     compile_warm_set: bool = True,
     trace: bool = False,  # attach an AccessTrace to the tiered params
@@ -333,7 +360,8 @@ def cold_start(
 ) -> ColdStartServer:
     """Run one timed cold start from ``artifact_dir``. ``result`` (the plan)
     is required for after2; before/after1 read ``<artifact_dir>/<mode>``, as
-    ``core.analyzer.write_monolithic`` writes it."""
+    ``core.analyzer.write_monolithic`` writes it. The arbiter and re-tiering
+    arguments are after2-only and ignored by the monolithic modes."""
     if residency is not None and residency not in RESIDENCY_PRESETS:
         raise ValueError(f"unknown residency policy {residency!r}; want one of {sorted(RESIDENCY_PRESETS)}")
     device = torch.device(device)
@@ -374,10 +402,13 @@ def cold_start(
         tree = tree_from_flat(live_flat)
         _synchronize(device)
 
-        budget, want_prefetch = device_budget_bytes, prefetch
+        budget, want_prefetch, share = device_budget_bytes, prefetch, tenant_share
         if residency is not None:
             frac, preset_prefetch = RESIDENCY_PRESETS[residency]
-            if budget is None and frac is not None:
+            if host_arbiter is not None:
+                if share is None:
+                    share = frac if frac is not None else 1.0
+            elif budget is None and frac is not None:
                 budget = int(frac * plan.tier1_bytes)
                 # never below two of the largest units (one incoming + one pinned)
                 max_unit = max((e.rsize for e in store.entries.values()), default=0)
@@ -385,7 +416,12 @@ def cold_start(
             if want_prefetch is None:
                 want_prefetch = preset_prefetch
         tiered = TieredParams(tree, plan, store, device_budget_bytes=budget)
-        if trace:
+        if host_arbiter is not None:
+            # join the host pool before the hot-set preload
+            name = tenant_name or model.cfg.name or f"tenant-{id(tiered):x}"
+            host_arbiter.register(name, tiered, share=share if share is not None else 1.0,
+                                  floor_bytes=tenant_floor_bytes)
+        if trace or retier_online:  # the daemon watches a live trace
             tiered.start_trace()
         # preload the hot set (the paper's offline-profiled module-init list)
         hot = [k for d in plan.decisions.values() for k in d.resident_units]
@@ -396,8 +432,13 @@ def cold_start(
         report.bytes_uploaded = report.bytes_read + moved
         prefetcher = (Prefetcher(tiered, batch_units=prefetch_batch_units, predictor=predictor)
                       if want_prefetch else None)
+        daemon = None
+        if retier_online:
+            daemon = RetierDaemon(tiered, result.reach, prefetcher=prefetcher, interval_steps=retier_interval,
+                                  interval_s=retier_interval_s, decay=retier_decay,
+                                  compact_every=retier_compact_every, artifact_dir=artifact_dir)
         server = ColdStartServer(model, tree, report, tiered=tiered, store=store, prefetcher=prefetcher,
-                                 artifact_dir=artifact_dir, device=device)
+                                 retier_daemon=daemon, artifact_dir=artifact_dir, device=device)
     else:
         raise ValueError(f"unknown mode {mode!r}; want before, after1 or after2")
 

@@ -1,5 +1,5 @@
 """Batched generation engine with on-demand fault-in — the request path
-(``repro.serving.engine`` counterpart, without the online re-tiering tick).
+(``repro.serving.engine`` counterpart).
 
 Execution never fails on a cold unit; it faults. Two fault classes:
 
@@ -32,8 +32,13 @@ replayed on the card, the plain model calls on the CPU. A decode step writes
 its K/V rows into the decode entry's caches in place, which a re-run after a
 fault rewrites; its new carry state (conv, LRU) comes back separately and is
 committed into the caches once the step has reached its fixed point
-(``commit_decode_caches``). The reference's online re-tiering tick
-(``tick_retier``) is not ported.
+(``commit_decode_caches``).
+
+With an online re-tiering daemon on the server, ``generate()`` ticks it
+(``tick_retier``) after the prefill and after each decode step: between
+steps, with the step's pins released and no forward run holding the gate.
+A tick's installs and evictions are in place, so the next graph replay
+reads them.
 """
 
 from __future__ import annotations
@@ -111,8 +116,17 @@ class GenerationEngine:
         self.max_seq = max_seq
         self.hint_topk = hint_topk
         self.prefetcher = server.prefetcher
+        self.retier_daemon = server.retier_daemon
         self._expert_units_index = self._build_expert_index()
         self._row_group = self._embed_row_group()
+
+    def tick_retier(self, steps: int = 1) -> None:
+        """Advance the online re-tiering daemon by ``steps`` serving steps.
+        Called between steps only: ``generate()`` after its prefill and after
+        each decode step, the scheduler at its own ``step()`` boundary (never
+        from ``prefill_step`` / ``decode_once``, which run inside a step)."""
+        if self.retier_daemon is not None:
+            self.retier_daemon.maybe_tick(steps)
 
     def _embed_row_group(self) -> int:
         tiered = self.server.tiered
@@ -322,6 +336,7 @@ class GenerationEngine:
         logits, caches, _ = self.prefill_step(tokens, stats)
         caches = _graft_prefill_cache(decode.caches, caches)
         out = [torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()]
+        self.tick_retier()  # between steps, after the prefill's outputs are read
         stats.steps = 1  # the prefill-produced token is step #1
         for step in range(n_steps - 1):
             dbatch = {
@@ -331,6 +346,7 @@ class GenerationEngine:
             logits, caches, _ = self.decode_once(decode, caches, dbatch, stats)
             out.append(torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy())
             stats.steps += 1
+            self.tick_retier()
         if tiered is not None:
             stats.prefetch_hits = tiered.stats.prefetch_hits + tiered.stats.prefetch_waits - hits_before
         return np.stack(out, axis=1), stats

@@ -1,5 +1,5 @@
 """Continuous-batching request scheduler over the on-demand engine
-(``repro.serving.scheduler`` counterpart, without the re-tiering tick).
+(``repro.serving.scheduler`` counterpart).
 
 ``GenerationEngine.generate()`` serves one batch synchronously. The
 scheduler turns the same fault-in, pin and prefetch machinery into a
@@ -33,6 +33,10 @@ serving loop:
     (max_batch, max_seq) caches, as the reference's does; the pool only
     counts what a paged layout would stream (``kv_tokens_paged`` against
     ``kv_tokens_dense``).
+  * **online re-tiering** — with a ``RetierDaemon`` on the server the loop
+    ticks it at the end of every step (and with ``steps=0`` on an idle
+    step, for its wall-clock cadence): between steps, never while a forward
+    run holds the tiered params' gate.
 
 Greedy outputs equal each request run alone through ``generate()`` (the
 tests hold that on the CPU): decode rows are independent, serving MoE is
@@ -497,6 +501,9 @@ class ContinuousBatchingScheduler:
         active = self.active
         self.stats.max_active = max(self.stats.max_active, len(active))
         if not active:
+            # still a step boundary: the re-tiering daemon may tick on its
+            # wall-clock cadence while the queue is drained
+            self.engine.tick_retier(steps=0)
             return admitted > 0
 
         device = self.server.device
@@ -569,6 +576,9 @@ class ContinuousBatchingScheduler:
         if expert_keys:
             hints.append(list(expert_keys))
         self._emit_hints(hints, observed=observed, by_request=by_request)
+        # the step is over (pins released, outputs read): the one place the
+        # serving loop advances the re-tiering daemon
+        self.engine.tick_retier()
         return True
 
     def run(self, *, max_steps: Optional[int] = None) -> None:

@@ -834,3 +834,143 @@ def test_retier_round_trip_on_card(card, tmp_path):
         assert server.prefetcher.drain(30.0)
     np.testing.assert_array_equal(got, want)
     print("faulted bytes before/after re-tiering:", before.faulted_bytes, after.faulted_bytes)
+
+
+@pytest.mark.gpu
+def test_daemon_apply_between_decode_replays_is_read_by_the_next(card, tmp_path):
+    """Reduced Mixtral on the card, every unit resident, the online daemon
+    attached. Between two replays of the decode graph on the same inputs an
+    ``apply_plan`` demotes the whole hot set (evicted in place): the next
+    replay equals the plain step on the emptied params and differs from the
+    first. A second apply promotes it back (a synchronous preload): the
+    replay after it equals the first bit for bit. Then, under strict with the
+    daemon ticking after every step, ``generate`` gives the tokens of the
+    same server without it."""
+    import dataclasses
+
+    from repro_torch.serving import GenerationEngine, RequestStats, cold_start
+    from repro_torch.serving.engine import _graft_prefill_cache
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
+
+    model, result = _reduced_bf16(card, str(tmp_path))
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(4)).to(card)
+    with cold_start(model, str(tmp_path), result, residency="full", prefetch=False, retier_online=True,
+                    retier_interval=10**9, warm_shapes=((2, 16, 32),), device=card) as server:
+        tiered, daemon = server.tiered, server.retier_daemon
+        tiered.ensure_all()
+
+        def with_hot(plan, hot: bool):
+            return dataclasses.replace(plan, decisions={
+                p: dataclasses.replace(d, resident_units=tuple(u.key for u in d.units) if hot else ())
+                if d.tier == 1 else d for p, d in plan.decisions.items()})
+
+        tiered.plan = with_hot(tiered.plan, True)
+        engine = GenerationEngine(server, max_seq=32)
+        decode = server.compiled_decode(2, 32)
+        logits, caches, _ = engine.prefill_step(prompt, RequestStats())
+        _graft_prefill_cache(decode.caches, caches)
+        saved = tree_map(torch.clone, decode.caches)
+        dbatch = {"tokens": logits.argmax(-1)[:, None].long(), "pos": torch.full((2,), 16, device=card)}
+        live = server.live_params()
+
+        def replay():
+            for (_, a), (_, b) in zip(flatten_with_paths(decode.caches), flatten_with_paths(saved)):
+                a.copy_(b)
+            out, _ = decode(live, decode.caches, dbatch)
+            return out.float().clone()
+
+        def plain():
+            with torch.inference_mode():
+                out, _ = model.decode_step(live, tree_map(torch.clone, saved), dbatch)
+            return out.float()
+
+        first = replay()
+        assert daemon.apply_plan(with_hot(tiered.plan, False)) == {"promoted": 0, "demoted": len(tiered._all_units)}
+        assert tiered.resident_bytes == 0
+        emptied = replay()
+        torch.testing.assert_close(emptied, plain(), atol=2e-2, rtol=2e-2)
+        assert not torch.allclose(emptied, first, atol=1e-1)
+        out = daemon.apply_plan(with_hot(tiered.plan, True), sync_preload=True)
+        assert out["promoted"] == len(tiered._all_units) and tiered.resident_fraction() == 1.0
+        assert torch.equal(replay(), first)
+        assert daemon.stats.remote_applies == daemon.stats.invariant_checks == 2 and daemon.stats.errors == 0
+
+    runs = {}
+    for online in (False, True):
+        with cold_start(model, str(tmp_path), result, residency="strict", retier_online=online, retier_interval=1,
+                        warm_shapes=((2, 16, 32),), device=card) as server:
+            runs[online], _ = GenerationEngine(server, max_seq=32).generate(prompt, 8)
+            if online:
+                s = server.retier_daemon.stats
+                assert s.ticks == 8 and s.applies >= 1 and s.errors == 0 and s.invariant_checks == s.applies
+                assert server.tiered.resident_bytes <= server.tiered.residency.budget_bytes
+    np.testing.assert_array_equal(runs[True], runs[False])
+
+
+@pytest.mark.gpu
+def test_two_arbitered_tenants_serve_their_solo_tokens_on_card(card, tmp_path):
+    """Two tenants cold-started from one reduced bf16 artifact under one
+    HostArbiter whose budget is a single strict tenant's, each serving its
+    own prompt from its own thread (b's request starts once a's prefill has
+    returned, so b's pinned prefill must take a's unpinned units): both
+    finish (joined with a timeout), each gives its solo strict tokens, the
+    books audit, the budget holds at rest, the arbiter evicted across
+    tenants, and close() unregisters both."""
+    import threading
+
+    from repro_torch.core import HostArbiter
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    model, result = _reduced_bf16(card, str(tmp_path))
+    prompts = [torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(10 + i))
+               .to(card) for i in range(2)]
+    solo = []
+    for p in prompts:
+        with cold_start(model, str(tmp_path), result, residency="strict", warm_shapes=((2, 16, 32),),
+                        device=card) as server:
+            budget = server.tiered.residency.budget_bytes
+            solo.append(GenerationEngine(server, max_seq=32).generate(p, 8)[0])
+    arb = HostArbiter(budget)
+    servers = [cold_start(model, str(tmp_path), result, residency="strict", host_arbiter=arb, tenant_name=n,
+                          warm_shapes=((2, 16, 32),), device=card) for n in "ab"]
+    outs, errors = [None, None], []
+    a_prefilled = threading.Event()
+
+    def serve(i):
+        try:
+            eng = GenerationEngine(servers[i], max_seq=32)
+            if i == 0:
+                prefill = eng.prefill_step
+
+                def prefill_then_signal(*args, **kw):
+                    try:
+                        return prefill(*args, **kw)
+                    finally:
+                        a_prefilled.set()
+                eng.prefill_step = prefill_then_signal
+            else:
+                assert a_prefilled.wait(300), "tenant a's prefill never returned"
+            outs[i] = eng.generate(prompts[i], 8)[0]
+        except Exception as e:  # pragma: no cover - failure reporting
+            errors.append(e)
+        finally:
+            a_prefilled.set()
+
+    threads = [threading.Thread(target=serve, args=(i,), name=f"tenant-{i}") for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not [t.name for t in threads if t.is_alive()], "a tenant thread hung"
+        assert not errors, errors
+        for got, want in zip(outs, solo):
+            np.testing.assert_array_equal(got, want)
+        audit = arb.audit()
+        assert audit["pinned_bytes"] == 0 and (audit["resident_bytes"] <= budget or arb.stats.overshoots > 0)
+        assert audit["resident_bytes"] <= budget
+        assert arb.stats.evictions > 0 and arb.stats.cross_evictions > 0
+    finally:
+        for s in servers:
+            s.close()
+    assert arb.tenants == {} and arb.stats.unregistered == 2

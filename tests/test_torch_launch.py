@@ -4,8 +4,12 @@ the reference's ``[serve]`` lines and the same greedy tokens in every run
 (same seeded weights and prompt). Traffic mode (``--concurrency``): every
 request finishes with the tokens of its own ``generate()`` on the artifact
 the launcher wrote. argparse refuses a bogus policy, bad traffic flags and
-the reference's unported flags. Its stats profile reads the synthetic token
-pipeline, which gives the reference's tokens and row-group stats."""
+the reference's unported flags, and refuses the host-arbiter and
+online re-tiering flags where the reference refuses them. With
+``--retier-online --host-budget-bytes`` both launchers print the reference's
+``[serve] host arbiter:`` and ``[serve] online retier:`` lines, with the same
+tick counts. Its stats profile reads the synthetic token pipeline, which
+gives the reference's tokens and row-group stats."""
 
 import json
 import os
@@ -88,7 +92,7 @@ def test_launcher_cuts_depth(tmp_path):
     ["--policy", "bogus"],
     ["--mode", "after3"],
     ["--profile-out", "t.json", "--mode", "before"],  # re-tiering needs the two-tier runtime
-    ["--host-budget-bytes", "1024"],  # the host arbiter is not ported
+    ["--host-budget-bytes", "-5"],
     ["--fleet", "2"],
     ["--retier-from", "t.json", "--no-prefetch"],  # the predictor needs a prefetcher
     ["--retier-from", "t.json", "--policy", "strict"],
@@ -98,6 +102,26 @@ def test_launcher_refuses_bad_and_unported_flags(argv):
     res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
     assert res.returncode == 2
     assert "error:" in res.stderr
+
+
+def _ref_serve(*argv):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    return subprocess.run([sys.executable, "-m", "repro.launch.serve", *argv], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--host-budget-bytes", "-5"], "--host-budget-bytes must be >= 0"),
+    (["--retier-decay", "2"], "--retier-decay must be in [0, 1]"),
+    (["--retier-interval", "0"], "--retier-interval must be >= 1"),
+    (["--retier-online", "--mode", "before"], "need the two-tier runtime"),
+    (["--host-budget-bytes", "1024", "--mode", "after1"], "--mode after2 only"),
+])
+def test_launcher_refuses_arbiter_and_online_flags_as_the_reference_does(argv, want):
+    ref = _ref_serve("--arch", "mixtral-8x22b", "--reduced", *argv)
+    res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
+    assert ref.returncode == res.returncode == 2
+    assert want in ref.stderr and want in res.stderr
 
 
 @pytest.mark.parametrize("argv", [
@@ -115,6 +139,44 @@ def test_launcher_refuses_retier_flags_as_the_reference_does(argv):
     assert ref.returncode == res.returncode == 2
     want = "two-tier runtime" if "--mode" in argv else "drives the predictive prefetcher"
     assert want in ref.stderr and want in res.stderr
+
+
+ONLINE_RE = (r"^\[serve\] online retier: (\d+) ticks, (\d+) applies \(\+(\d+)/-(\d+) units, ([\d,]+)B evicted, "
+             r"(\d+) predictor refreshes, (\d+) compactions\); zero restarts$")
+ARBITER_RE = (r"^\[serve\] host arbiter: ([\d,]+)B resident / ([\d,]+)B host budget \(([\d,]+)B pinned\); "
+              r"(\d+) evictions \(([\d,]+)B\), (\d+) overshoots, (\d+) prefetch headroom denials$")
+
+
+def test_launcher_online_retier_under_host_arbiter(tmp_path, before_tokens):
+    """Strict with ``--retier-online --retier-interval 1 --host-budget-bytes``
+    in both launchers: exit 0, both new lines in each, the daemon ticked
+    after the prefill and after each decode step in both with the same
+    counts, resident bytes within the host budget at rest; the port's tokens
+    equal those of its runs without the flags, and ``--profile-out`` saves
+    the daemon's merged trace (which the reference's AccessTrace loads)."""
+    from repro.core import AccessTrace as RefTrace
+
+    flags = ["--policy", "strict", "--retier-online", "--retier-interval", "1", "--host-budget-bytes", "200000"]
+    trace = str(tmp_path / "t.json")
+    res = _serve(*ARGS, "--artifact-dir", str(tmp_path / "port"), *flags, "--profile-out", trace)
+    assert res.returncode == 0, res.stderr
+    ref = _ref_serve(*[a for a in ARGS if a not in ("--device", "cpu")], "--artifact-dir", str(tmp_path / "ref"),
+                     *flags)
+    assert ref.returncode == 0, ref.stderr
+    assert _tokens(res.stdout) == before_tokens
+    lines = {}
+    for who, out in (("port", res.stdout), ("ref", ref.stdout)):
+        online = re.search(ONLINE_RE, out, re.M)
+        arbiter = re.search(ARBITER_RE, out, re.M)
+        assert online and arbiter, (who, out)
+        resident, budget = (int(arbiter.group(i).replace(",", "")) for i in (1, 2))
+        assert budget == 200000 and resident <= budget and int(arbiter.group(6)) > 0  # strict overshoots mid-step
+        lines[who] = [int(g) for g in online.groups()[:3]]
+    assert lines["port"] == lines["ref"] and lines["port"][:2] == [4, 4]  # 4 steps: 4 ticks, 4 applies
+    stats = json.loads(re.search(r"^\[serve\] online retier stats: (.*)$", res.stdout, re.M).group(1))
+    assert stats["errors"] == stats["compact_errors"] == 0 and stats["invariant_checks"] == stats["applies"]
+    doc = RefTrace.load(trace).to_dict()
+    assert doc["version"] == 3 and doc["faults"] and doc["batches"] >= 4
 
 
 def test_profile_then_retier_cycle(tmp_path):
@@ -197,7 +259,7 @@ def test_launcher_traffic_mode_matches_solo_runs(tmp_path, extra):
     ["--concurrency", "2", "--deadline-ms", "5"],  # FIFO never sheds
     ["--concurrency", "2", "--admission", "slo", "--deadline-ms", "-1"],
     ["--concurrency", "2", "--requests", "0"],
-    ["--concurrency", "2", "--retier-online"],  # online re-tiering is not ported
+    ["--concurrency", "2", "--retier-online", "--retier-interval", "0"],
     ["--concurrency", "2", "--snapshot-out", "s.json"],  # nor snapshots
     ["--mesh", "1x1"],  # nor meshes
 ])
