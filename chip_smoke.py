@@ -74,6 +74,12 @@ Phases (any failure exits non-zero before the result line):
    Every served forward run replays a CUDA graph: the warm set (prefill
    (2, 1024), decode (2, 1035)) is captured at cold start, and each replay
    adds the launches its graph recorded to the wrappers' counts.
+   [snapshot] The strict server's ``snapshot()`` (taken after its request)
+   saved outside the artifact, then a strict cold start with
+   ``restore_from=`` it on the same artifact: fingerprint matched, restored
+   == requested == the donor's resident count, the donor's keys and stamps,
+   the replayed bytes those units' bytes, and a capture of the restored
+   server lists the same keys in the same order; closed without serving.
    [graph] With every unit resident, the same request replayed from the
    graphs and run eagerly (the entries made as plain calls): tokens equal,
    logits within LOGITS_TOL (bit equality printed), capture seconds,
@@ -105,6 +111,14 @@ Phases (any failure exits non-zero before the result line):
    deadlock fails the phase), each gives strict's first 2 columns, the
    audit holds, the budget holds at rest, victims were taken across
    tenants, and ``close()`` unregisters both.
+   [fleet] Two replicas on the strict artifact with daemons registered to
+   one ``FleetController`` through ``cold_start(fleet=, replica_name=)``,
+   each with a budget of the whole tier-1: ``replica-0`` serves the request
+   cut to 1 new token, the fleet syncs, ``replica-1`` cold-starts
+   bootstrapped from the fleet's overlay (a synchronous preload inside
+   ``register``) and serves the same request. Both give strict's first
+   column, ``replica-1`` faults no unit, the fleet records one bootstrap and
+   no failure, no daemon absorbed an error; peak device memory printed.
 5. serve, stats — the same weights and request under the reference
    launcher's stats profile (one resident expert a layer, a quarter of the
    row groups hot by the synthetic pipeline's stats) with its own artifact,
@@ -138,10 +152,13 @@ Phases (any failure exits non-zero before the result line):
    ``python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced
    --param-dtype bfloat16`` (head_dim 16 through the padded kernel), B=2 ×
    16 + 8, the same command with the plain attention in the kernel's
-   place, and the same command with ``--retier-online --retier-interval 1
-   --host-budget-bytes 200000``: exit 0, flash launches > 0 (none in the
-   plain run), equal tokens; the online run prints its ``[serve] host
-   arbiter:`` and ``[serve] online retier:`` lines and absorbed no error.
+   place, the same command with ``--retier-online --retier-interval 1
+   --host-budget-bytes 200000 --snapshot-out``, then with ``--restore-from``
+   that snapshot, then with ``--fleet 2``: exit 0, flash launches > 0 (none
+   in the plain run), equal tokens (each fleet replica's too); the online
+   run prints its ``[serve] host arbiter:`` and ``[serve] online retier:``
+   lines and absorbed no error; the restore run replays at least one unit
+   with the predictor armed; the fleet's pushes and pulls all held.
 10. retier — profile → re-tier → re-serve through the launcher, Mixtral at
    full width cut to 1 layer, bf16, stats, B=2 × 1024 + 4: the modes
    phase's after2 run profiled (``--no-prefetch --profile-out``), then
@@ -221,6 +238,8 @@ MODES_NEW_TOKENS = 4  # the modes phase's request: B=2 × 1024 + 4
 # every step; [arbiter]: two tenants, each B=2 × 1024 + 2, on one budget
 ONLINE_NEW_TOKENS, ARBITER_NEW_TOKENS = 3, 2
 ARBITER_JOIN_S = 600.0  # a tenant thread still running then is a hang: the phase fails
+# [fleet]: two replicas on the strict artifact, each serving B=2 × 1024 + 1
+FLEET_NEW_TOKENS = 1
 # the scheduler phase: 4 slots, 8 requests of alternating prompt lengths and
 # new-token counts, so slots free at different steps; an admission round of
 # 4 consecutive requests holds at most 2 of either length, so no group passes
@@ -838,10 +857,16 @@ def serve_phase(wrappers: dict, workdir: Path) -> dict:
         raise AssertionError(f"flash kernel launched {launches} times for {prefill_runs} prefill runs "
                              f"of {LAYERS} layers")
 
+    donor = dict(snapshot=server.snapshot(),
+                 stamps={k: tiered.residency._stamp[k] for k in tiered.residency._lru},
+                 unit_bytes={k: tiered.unit_charge(k) for k in tiered.residency._lru})
     server.close()
     del server, engine, tiered
     torch.cuda.empty_cache()
     summary["tokens"] = out.tolist()
+    t0 = time.perf_counter()
+    summary["snapshot"] = snapshot_phase(model, result, artifact, donor, wrappers, warm_shapes, workdir)
+    summary["snapshot"]["wall_s"] = time.perf_counter() - t0
     summary["full"] = full_phase(model, result, artifact, tokens, out, wrappers, warm_shapes)
     summary["logits_max_abs_diff"] = summary["full"]["logits_max_abs_diff"]
     t0 = time.perf_counter()
@@ -851,7 +876,139 @@ def serve_phase(wrappers: dict, workdir: Path) -> dict:
     summary["arbiter"] = arbiter_phase(model, result, artifact, tokens, out, summary["budget_bytes"], wrappers,
                                        warm_shapes)
     summary["arbiter"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary["fleet"] = fleet_phase(model, result, artifact, tokens, out, wrappers, warm_shapes)
+    summary["fleet"]["wall_s"] = time.perf_counter() - t0
     shutil.rmtree(artifact, ignore_errors=True)
+    return summary
+
+
+def snapshot_phase(model, result, artifact: Path, donor: dict, wrappers: dict, warm_shapes, workdir: Path) -> dict:
+    """[snapshot] The strict server's snapshot (taken after its request,
+    before it closed) saved outside the artifact, then a strict cold start
+    on the same artifact with ``restore_from=`` that path. The restore must
+    match the artifact's fingerprint and bring back exactly the donor's
+    resident set: restored == requested == the donor's resident count, the
+    same keys with the donor's stamps, the replayed bytes those units' bytes,
+    and a capture of the restored server lists the same keys in the same
+    order. The server is closed without serving; its warm set's capture
+    launches flash attention only."""
+    import torch
+
+    from repro_torch.core import capture_server_snapshot
+    from repro_torch.core import snapshot as snap_mod
+    from repro_torch.serving import cold_start
+
+    snap, path = donor["snapshot"], workdir / "strict_snapshot.json"
+    snap_mod.save(snap, str(path))
+    size = path.stat().st_size
+    for fn in wrappers.values():
+        fn.launches = 0  # the restore path starts here
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = cold_start(model, str(artifact), result, residency="strict", restore_from=str(path),
+                        warm_shapes=warm_shapes)
+    cold_s = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the restore path ends here
+    rr, tiered = server.restore_report, server.tiered
+    res = tiered.residency
+    stamps = {k: res._stamp[k] for k in res._lru}
+    again = capture_server_snapshot(tiered)["resident"]
+    summary = dict(snapshot_bytes=size, restore=rr, cold_start=server.report.to_dict(), cold_start_wall_s=cold_s,
+                   resident_units=len(stamps), resident_bytes=res.resident_bytes, budget_bytes=res.budget_bytes,
+                   donor_resident_units=len(donor["stamps"]), peak_device_bytes=torch.cuda.max_memory_allocated(),
+                   launches=counts, prefill_runs=len(warm_shapes))
+    server.close()
+    path.unlink()
+    print("[snapshot] " + json.dumps(summary, default=str), flush=True)
+    want_bytes = sum(donor["unit_bytes"].values())
+    if not (rr["fingerprint_ok"] is True and rr["restored"] == rr["requested"] == len(donor["stamps"]) > 0
+            and rr["skipped_foreign"] == 0):
+        raise AssertionError(f"[snapshot] restore report {rr} against {len(donor['stamps'])} donor units")
+    if stamps != donor["stamps"] or rr["moved_bytes"] != want_bytes:
+        raise AssertionError(f"[snapshot] restored stamps {stamps} != donor's {donor['stamps']}, or moved "
+                             f"{rr['moved_bytes']} B != {want_bytes} B")
+    if again != snap["resident"]:
+        raise AssertionError(f"[snapshot] the restored server captures {again}, the donor {snap['resident']}")
+    _check_served_launches("mixtral-8x22b restore", counts, summary["prefill_runs"])
+    del server, tiered
+    torch.cuda.empty_cache()
+    return summary
+
+
+def fleet_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dict, warm_shapes) -> dict:
+    """[fleet] Two replicas on the strict artifact, each with a daemon (no
+    ticks) registered through ``cold_start(fleet=, replica_name=)`` to one
+    ``FleetController``, each with a budget of the whole tier-1, so what the
+    phase shows is federation rather than LRU churn. ``replica-0`` cold-starts
+    and serves the strict request cut to FLEET_NEW_TOKENS; the fleet syncs;
+    ``replica-1`` cold-starts, is bootstrapped from the fleet's overlay
+    inside ``register`` (a synchronous preload, counted as its cold start's
+    upload) and serves the same request. Both give strict's first column;
+    ``replica-1`` faults no unit; the fleet records one bootstrap and no
+    failure; no daemon absorbed an error; each prefill launches flash
+    attention only. Both replicas stay up until the end (two trees)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import FleetController
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    fc = FleetController()
+    kw = dict(residency="strict", device_budget_bytes=result.plan.tier1_bytes, retier_online=True,
+              retier_interval=10**9, fleet=fc, warm_shapes=warm_shapes)
+    for fn in wrappers.values():
+        fn.launches = 0  # the fleet path starts here
+    torch.cuda.reset_peak_memory_stats()
+    servers, replicas, sync = [], {}, None
+    try:
+        for i in range(2):
+            name = f"replica-{i}"
+            t0 = time.perf_counter()
+            servers.append(cold_start(model, str(artifact), result, replica_name=name, **kw))
+            cold_wall = time.perf_counter() - t0
+            s = servers[-1]
+            preloaded = _loads_by_source(s.tiered.stats.events)
+            t1 = time.perf_counter()
+            out, st = GenerationEngine(s, max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8).generate(tokens, FLEET_NEW_TOKENS)
+            replicas[name] = dict(
+                cold_start=s.report.to_dict(), cold_start_wall_s=cold_wall, loads_at_cold_start=preloaded,
+                generate_s=time.perf_counter() - t1, faulted_units=st.faulted_units, faulted_bytes=st.faulted_bytes,
+                fault_s=st.fault_s, prefill_runs=st.prefill_runs, prefill_retries=st.prefill_retries,
+                resident_bytes=s.tiered.resident_bytes, tokens=out.tolist())
+            if i == 0:
+                t2 = time.perf_counter()
+                sync = fc.sync()
+                sync["wall_s"] = time.perf_counter() - t2
+        counts = {name: fn.launches for name, fn in wrappers.items()}  # the fleet path ends here
+        for name, s in zip(replicas, servers):
+            replicas[name].update(daemon=s.retier_daemon.stats.to_dict(), last_error=s.retier_daemon.last_error)
+        summary = dict(replicas=replicas, sync=sync, fleet=fc.stats.to_dict(), last_errors=dict(fc.last_errors),
+                       overlay_units=sum(len(ks) for ks in (fc.overlay or {}).values()),
+                       budget_bytes=result.plan.tier1_bytes, peak_device_bytes=torch.cuda.max_memory_allocated(),
+                       launches=counts,
+                       prefill_runs=2 * len(warm_shapes) + sum(r["prefill_runs"] for r in replicas.values()))
+    finally:
+        for s in servers:
+            s.close()
+    print("[fleet] " + json.dumps(summary, default=str), flush=True)
+    for name, r in replicas.items():
+        if not np.array_equal(r["tokens"], strict_out[:, :FLEET_NEW_TOKENS]):
+            raise AssertionError(f"[fleet] {name} tokens {r['tokens']} differ from strict's first "
+                                 f"{FLEET_NEW_TOKENS} column(s)")
+        if r["daemon"]["errors"] or r["last_error"]:
+            raise AssertionError(f"[fleet] {name}'s daemon absorbed an error: {r['last_error']!r}")
+    late = replicas["replica-1"]
+    if late["faulted_units"] != 0 or replicas["replica-0"]["faulted_units"] <= 0:
+        raise AssertionError(f"[fleet] replica-1 faulted {late['faulted_units']} units after its bootstrap "
+                             f"(replica-0 {replicas['replica-0']['faulted_units']})")
+    fs = summary["fleet"]
+    if fs["bootstraps"] != 1 or fs["bootstrap_failures"] or fs["push_failures"] or fs["pull_failures"] \
+            or summary["last_errors"] or not sync["replanned"]:
+        raise AssertionError(f"[fleet] {fs}, errors {summary['last_errors']}, sync {sync}")
+    _check_served_launches("mixtral-8x22b fleet", counts, summary["prefill_runs"])
+    del servers
+    torch.cuda.empty_cache()
     return summary
 
 
@@ -1566,15 +1723,23 @@ def _launch(tag: str, args: list, plain: bool = False, timeout: int = 600) -> di
         return None if ln is None else json.loads(ln[len(prefix):])
 
     retiered = next((ln for ln in lines if ln.startswith("[serve] re-tiered from ")), None)
-    cold = next(ln for ln in lines if ln.startswith("[serve] cold start ("))
+    cold = next((ln for ln in lines if ln.startswith("[serve] cold start (")), None)  # none under --fleet
     arbiter = next((ln for ln in lines if ln.startswith("[serve] host arbiter: ")), None)
-    out = dict(wall_s=wall, serve_lines=len(lines), cold_start=json.loads(cold.split("): ", 1)[1]),
+    replicas = {}  # --fleet: each replica's request, tokens and daemon stats
+    for i in range(sum(ln.startswith("[serve] replica-") and " cold start: " in ln for ln in lines)):
+        replicas[f"replica-{i}"] = {k: field(f"[serve] replica-{i} {k}: ")
+                                    for k in ("cold start", "request", "tokens", "retier stats")}
+    out = dict(wall_s=wall, serve_lines=len(lines), cold_start=None if cold is None else json.loads(cold.split("): ", 1)[1]),
                request=field("[serve] request: "),
                tokens=field("[serve] tokens: "), launches=field("[serve] kernel launches: "),
                retier=None if retiered is None else json.loads(retiered.split(": ", 1)[1]),
                retier_artifact=field("[serve] retier artifact: "),
                online=field("[serve] online retier stats: "),
-               arbiter=None if arbiter is None else arbiter[len("[serve] host arbiter: "):])
+               arbiter=None if arbiter is None else arbiter[len("[serve] host arbiter: "):],
+               restore=field("[serve] restore report: "),
+               snapshot=next((ln for ln in lines if ln.startswith("[serve] wrote server snapshot to ")), None),
+               replicas=replicas, fleet=field("[serve] fleet stats: "),
+               syncs=[ln for ln in lines if ln.startswith("[serve] fleet sync: ")])
     print(f"{tag} launcher wall {wall:.1f} s", flush=True)
     return out
 
@@ -1584,27 +1749,42 @@ def reduced_phase(workdir: Path) -> dict:
     Mixtral (head_dim 16, through the zero-padded hd-64 kernel) via
     ``python -m repro_torch.launch.serve --reduced --param-dtype bfloat16``,
     B=2 × REDUCED_PROMPT + REDUCED_NEW_TOKENS, the same command with the
-    attention's plain version in the kernel's place, and the same command
+    attention's plain version in the kernel's place, the same command
     with ``--retier-online --retier-interval 1 --host-budget-bytes
-    REDUCED_HOST_BUDGET`` (the online daemon and the host arbiter through
-    the launcher's flags). All exit 0; the kernel and online runs launch
-    flash attention (and no other kernel), the plain run none; the tokens
-    are equal; the online run's daemon absorbed no error."""
+    REDUCED_HOST_BUDGET --snapshot-out`` (the online daemon and the host
+    arbiter through the launcher's flags, and the warmed server's snapshot
+    written outside the artifact), the same command with ``--restore-from``
+    that snapshot (each run rebuilds the same artifact in the same place, so
+    its fingerprint holds), and the same command with ``--fleet 2``. All exit
+    0; every run but the plain one launches flash attention (and no other
+    kernel), the plain run none; the tokens are equal (each fleet replica's
+    too); the online run's daemon absorbed no error; the restore replays at
+    least one unit with the predictor armed; the fleet's pushes all held."""
     outdir = workdir / "reduced"
     shutil.rmtree(outdir, ignore_errors=True)
+    snap = outdir / "snapshot.json"  # beside the artifact directory, not in it
     args = ["--arch", "mixtral-8x22b", "--reduced", "--param-dtype", "bfloat16", "--batch", str(BATCH),
             "--prompt-len", str(REDUCED_PROMPT), "--gen-steps", str(REDUCED_NEW_TOKENS), "--artifact-dir", str(outdir)]
-    online = ["--retier-online", "--retier-interval", "1", "--host-budget-bytes", str(REDUCED_HOST_BUDGET)]
-    runs = {how: _launch(f"[reduced] {how}:", args + (online if how == "online" else []), plain=how == "plain")
-            for how in ("kernel", "plain", "online")}
+    extra = {"kernel": [], "plain": [], "restore": ["--restore-from", str(snap)], "fleet": ["--fleet", "2"],
+             "online": ["--retier-online", "--retier-interval", "1", "--host-budget-bytes", str(REDUCED_HOST_BUDGET),
+                        "--snapshot-out", str(snap)]}
+    runs = {how: _launch(f"[reduced] {how}:", args + extra[how], plain=how == "plain")
+            for how in ("kernel", "plain", "online", "restore", "fleet")}
     shutil.rmtree(outdir, ignore_errors=True)
-    k, p, o = runs["kernel"], runs["plain"], runs["online"]
-    summary = dict(tokens=k["tokens"], tokens_equal=k["tokens"] == p["tokens"] == o["tokens"], launches=k["launches"],
-                   plain_launches=p["launches"], online_launches=o["launches"], request=k["request"],
-                   online_request=o["request"], online=o["online"], arbiter=o["arbiter"],
-                   wall_s={h: r["wall_s"] for h, r in runs.items()})
+    k, p, o, r, f = (runs[h] for h in ("kernel", "plain", "online", "restore", "fleet"))
+    fleet_tokens = [rep["tokens"] for rep in f["replicas"].values()]
+    summary = dict(tokens=k["tokens"], tokens_equal=k["tokens"] == p["tokens"] == o["tokens"] == r["tokens"],
+                   fleet_tokens_equal=len(fleet_tokens) == 2 and all(t == k["tokens"] for t in fleet_tokens),
+                   launches=k["launches"], plain_launches=p["launches"], online_launches=o["launches"],
+                   restore_launches=r["launches"], fleet_launches=f["launches"], request=k["request"],
+                   online_request=o["request"], online=o["online"], arbiter=o["arbiter"], snapshot=o["snapshot"],
+                   restore=r["restore"], restore_request=r["request"], restore_cold_start=r["cold_start"],
+                   fleet=f["fleet"], fleet_syncs=f["syncs"],
+                   fleet_replicas={n: dict(request=rep["request"], cold_start=rep["cold start"],
+                                           daemon=rep["retier stats"]) for n, rep in f["replicas"].items()},
+                   wall_s={h: run["wall_s"] for h, run in runs.items()})
     print("[reduced] " + json.dumps(summary), flush=True)
-    for run in (k, o):
+    for run in (k, o, r, f):
         if not run["launches"]["flash_attention"] > 0 or any(n for name, n in run["launches"].items()
                                                             if name != "flash_attention"):
             raise AssertionError(f"[reduced] kernel launches {run['launches']}")
@@ -1614,7 +1794,18 @@ def reduced_phase(workdir: Path) -> dict:
     if any(p["launches"].values()):
         raise AssertionError(f"[reduced] the plain run launched {p['launches']}")
     if not summary["tokens_equal"]:
-        raise AssertionError(f"[reduced] kernel tokens {k['tokens']} != plain {p['tokens']} or online {o['tokens']}")
+        raise AssertionError(f"[reduced] kernel tokens {k['tokens']} != plain {p['tokens']}, online {o['tokens']} "
+                             f"or restore {r['tokens']}")
+    if o["snapshot"] is None or "predictor included" not in o["snapshot"]:
+        raise AssertionError(f"[reduced] the online run's snapshot line: {o['snapshot']!r}")
+    rr = r["restore"]
+    if rr is None or rr["restored"] < 1 or not rr["predictor_armed"] or rr["fingerprint_ok"] is not True:
+        raise AssertionError(f"[reduced] restore report {rr}")
+    fs = f["fleet"]
+    if not summary["fleet_tokens_equal"] or fs is None or fs["syncs"] != 2 or fs["push_failures"] \
+            or fs["pull_failures"] or fs["bootstrap_failures"] or any(
+                rep["retier stats"]["errors"] for rep in f["replicas"].values()):
+        raise AssertionError(f"[reduced] fleet run: tokens {fleet_tokens} vs {k['tokens']}, stats {fs}")
     return summary
 
 
@@ -1868,10 +2059,14 @@ def main() -> int:
     paths["mixtral-8x22b-full"] = strict["full"]["launches"]
     paths["mixtral-8x22b-online"] = strict["online"]["launches"]
     paths["mixtral-8x22b-arbiter"] = strict["arbiter"]["launches"]
-    phase_s["serve strict + full + online + arbiter"] = time.perf_counter() - t_phase
+    paths["mixtral-8x22b-restore"] = strict["snapshot"]["launches"]
+    paths["mixtral-8x22b-fleet"] = strict["fleet"]["launches"]
+    phase_s["serve strict + snapshot + full + online + arbiter + fleet"] = time.perf_counter() - t_phase
+    phase_s["(snapshot, inside serve)"] = strict["snapshot"]["wall_s"]
     phase_s["(entries, inside serve full)"] = strict["full"]["entries"]["wall_s"]
     phase_s["(online, inside serve)"] = strict["online"]["wall_s"]
     phase_s["(arbiter, inside serve)"] = strict["arbiter"]["wall_s"]
+    phase_s["(fleet, inside serve)"] = strict["fleet"]["wall_s"]
     t_phase = time.perf_counter()
     paths["mixtral-8x22b-stats"] = stats_phase(wrappers, workdir, strict["tokens"])["launches"]
     phase_s["serve stats"] = time.perf_counter() - t_phase
@@ -1889,6 +2084,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     reduced = reduced_phase(workdir)
     paths["reduced"], paths["reduced-online"] = reduced["launches"], reduced["online_launches"]
+    paths["reduced-restore"], paths["reduced-fleet"] = reduced["restore_launches"], reduced["fleet_launches"]
     phase_s["reduced (launcher)"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     paths["retier-serve"] = retier_phase(workdir, modes["after2"], trace)["retier"]["launches"]
@@ -1899,7 +2095,9 @@ def main() -> int:
     for path, served in (("mixtral-8x22b", {"flash_attention"}), ("mixtral-8x22b-full", {"flash_attention"}),
                          ("mixtral-8x22b-stats", {"flash_attention"}),
                          ("mixtral-8x22b-online", {"flash_attention"}), ("mixtral-8x22b-arbiter", {"flash_attention"}),
-                         ("reduced-online", {"flash_attention"}),
+                         ("mixtral-8x22b-restore", {"flash_attention"}), ("mixtral-8x22b-fleet", {"flash_attention"}),
+                         ("reduced-online", {"flash_attention"}), ("reduced-restore", {"flash_attention"}),
+                         ("reduced-fleet", {"flash_attention"}),
                          ("recurrentgemma-9b", {"flash_attention", "rglru_scan"}),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"})):

@@ -1,13 +1,16 @@
 """FaaSLight core: Program Analyzer (entry recognition, parameter
 reachability, tier partitioning) and Code Generator (optional store,
 on-demand loader and prefetcher, artifact builder), profile-guided
-re-tiering offline and online (``RetierDaemon``), and the host arbiter
-(``HostArbiter``: N models under one device budget)."""
+re-tiering offline and online (``RetierDaemon``), the host arbiter
+(``HostArbiter``: N models under one device budget), warm server snapshots
+and the fleet controller (``FleetController``: N replicas, one learned hot
+set)."""
 
 from repro_torch.core.analyzer import AnalysisResult, analyze, build_artifact, write_monolithic
 from repro_torch.core.arbiter import HostArbiter, HostArbiterStats
 from repro_torch.core.entrypoints import DeploymentProfile, recognize_entries
 from repro_torch.core.file_elim import eliminate_collections, eliminate_files
+from repro_torch.core.fleet import FleetController, FleetStats
 from repro_torch.core.on_demand import AccessTrace, LoadEvent, LoaderStats, ResidencyManager, TieredParams
 from repro_torch.core.optional_store import (
     CorruptFrameError,
@@ -33,6 +36,12 @@ from repro_torch.core.retier import (
     retier_artifact,
 )
 from repro_torch.core.retier_daemon import RetierDaemon, RetierDaemonStats
+from repro_torch.core.snapshot import (
+    SNAPSHOT_VERSION,
+    artifact_fingerprint,
+    capture as capture_server_snapshot,
+    restore as restore_server_snapshot,
+)
 
 __all__ = [
     "AnalysisResult",
@@ -79,4 +88,10 @@ __all__ = [
     "RetierDaemonStats",
     "HostArbiter",
     "HostArbiterStats",
+    "FleetController",
+    "FleetStats",
+    "SNAPSHOT_VERSION",
+    "artifact_fingerprint",
+    "capture_server_snapshot",
+    "restore_server_snapshot",
 ]

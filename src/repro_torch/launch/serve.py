@@ -44,6 +44,21 @@ a ``HostArbiter`` with an N-byte budget (the single-tenant form of the
 multi-model pool; the policy's budget fraction becomes the tenant's share)
 and prints ``[serve] host arbiter:``.
 
+Warm snapshots (after2 only): ``--snapshot-out s.json`` writes the warmed
+server's resident set, LRU stamps, predictor and artifact fingerprint at the
+end of the run; ``--restore-from s.json`` faults that set in again and arms
+the predictor before the first request (``[serve] warm restore:``). The
+fingerprint covers every file of the artifact directory, so write the
+snapshot outside it; a restore against another artifact raises.
+
+Fleet (``--fleet N``, after2, one-shot): N in-process replicas, each with its
+own daemon (``--fleet`` implies ``--retier-online``) registered to one
+``FleetController(decay=--retier-decay)``. All N cold-start first; then each
+serves the one-shot request, and the controller syncs after each, so by the
+time replica k serves it carries the hot set replicas 0..k-1 learned. It
+prints each replica's request, tokens and daemon stats, each sync and the
+``[serve] fleet:`` totals, and exits 1 if a replica's output is short.
+
 Runs on ``--device cuda`` unless told ``--device cpu``. Every config serves
 on the card, the reduced ones (``--reduced``: head_dim 8 or 16, which the
 flash kernel's wrapper pads to 64) included; a published config can have its
@@ -53,8 +68,7 @@ config, which the flash kernel takes; attention in fp32 (the parity tests'
 ``cfg.replace(dtype="float32")``) runs on the CPU only, and the kernel's
 wrapper refuses it on the card.
 
-Not ported (argparse refuses their flags): the fleet (``--fleet``), meshes
-(``--mesh``) and snapshots (``--snapshot-out``, ``--restore-from``).
+Not ported (argparse refuses the flag): meshes (``--mesh``).
 """
 
 from __future__ import annotations
@@ -73,6 +87,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import (
     AccessTrace,
     DeploymentProfile,
+    FleetController,
     HostArbiter,
     TransitionPredictor,
     analyze,
@@ -81,6 +96,7 @@ from repro_torch.core import (
     retier_artifact,
     write_monolithic,
 )
+from repro_torch.core import snapshot as server_snapshot
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
 from repro_torch.kernels import kernel_wrappers
 from repro_torch.models import build_model
@@ -142,12 +158,24 @@ def main(argv=None) -> int:
     ap.add_argument("--retier-compact-every", type=int, default=0,
                     help="online mode: rewrite the artifact (out of place, rename-committed) every N "
                          "plan applications so the next cold start boots the adapted hot set (0 = never)")
+    ap.add_argument("--snapshot-out", default="",
+                    help="write the warmed server's snapshot (resident set and LRU stamps, predictor, artifact "
+                         "fingerprint) here at the end of the run (after2 only); keep it outside the artifact")
+    ap.add_argument("--restore-from", default="",
+                    help="restore a --snapshot-out document before the first request: the replica starts "
+                         "RESIDENT-warm instead of faulting its hot set in again (after2 only)")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="serve through N in-process replicas federated by a FleetController: each replica "
+                         "runs the one-shot request, the controller syncs traces and pushes the learned hot set "
+                         "to all of them (implies --retier-online; after2 one-shot only)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     if (args.profile_out or args.retier_from or args.retier_online) and args.mode != "after2":
         ap.error("--profile-out/--retier-from/--retier-online need the two-tier runtime (--mode after2)")
     if args.host_budget_bytes and args.mode != "after2":
         ap.error("--host-budget-bytes governs the tier-1 residency layer (--mode after2 only)")
+    if (args.snapshot_out or args.restore_from) and args.mode != "after2":
+        ap.error("--snapshot-out/--restore-from serialize the tier-1 residency set (--mode after2 only)")
     if args.retier_from and (args.no_prefetch or args.policy == "strict"):
         # without a prefetcher the trained predictor would be dropped silently
         ap.error("--retier-from drives the predictive prefetcher; drop --no-prefetch / use "
@@ -171,6 +199,16 @@ def main(argv=None) -> int:
     if args.retier_interval < 1:
         # a usage error now, not a traceback after the whole cold start
         ap.error("--retier-interval must be >= 1")
+    if args.fleet:
+        if args.fleet < 2:
+            ap.error("--fleet needs at least 2 replicas to federate")
+        if args.mode != "after2":
+            ap.error("--fleet needs the two-tier runtime (--mode after2)")
+        if args.concurrency > 0:
+            ap.error("--fleet drives the one-shot path; drop --concurrency")
+        if args.host_budget_bytes or args.profile_out or args.retier_from:
+            ap.error("--fleet composes with none of --host-budget-bytes/--profile-out/--retier-from (yet)")
+        args.retier_online = True  # the fleet federates RetierDaemons
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is visible (pass --device cpu)")
 
@@ -236,9 +274,14 @@ def main(argv=None) -> int:
             tier1_compressed_bytes=meta["tier1_compressed_bytes"], **meta["compaction"])), flush=True)
 
     max_seq = args.prompt_len + args.gen_steps + 8
+    if args.fleet:
+        return _serve_fleet(model, result, outdir, args, cfg, max_seq)
     warm_B = 1 if args.concurrency > 0 else args.batch
     failed = 0
     arbiter = HostArbiter(args.host_budget_bytes) if args.host_budget_bytes else None
+    admission = None
+    if args.admission == "slo":
+        admission = SLOAdmission(default_deadline_s=(args.deadline_ms / 1e3) if args.deadline_ms else None)
     with cold_start(model, outdir, result if args.mode == "after2" else None,
                     mode=args.mode, warm_shapes=((warm_B, args.prompt_len, max_seq),),
                     residency=args.policy if args.mode == "after2" else None,
@@ -248,23 +291,19 @@ def main(argv=None) -> int:
                     trace=bool(args.profile_out), predictor=predictor,
                     retier_online=args.retier_online, retier_interval=args.retier_interval,
                     retier_decay=args.retier_decay, retier_compact_every=args.retier_compact_every,
+                    admission=admission, restore_from=args.restore_from or None,
                     device=args.device) as server:
         print(f"[serve] cold start ({args.mode}):", json.dumps(server.report.to_dict(), default=float), flush=True)
+        if server.restore_report is not None:
+            rr = server.restore_report
+            print(f"[serve] warm restore: {rr['restored']}/{rr['requested']} units resident "
+                  f"({rr['moved_bytes']:,}B replayed, predictor {'armed' if rr['predictor_armed'] else 'absent'})")
+            print("[serve] restore report: " + json.dumps(rr))
         engine = GenerationEngine(server, max_seq=max_seq)
         if args.concurrency > 0:
             failed = _serve_traffic(engine, args, cfg)
         else:
-            prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                                    generator=torch.Generator().manual_seed(1)).to(args.device)
-            out, stats_r = engine.generate(prompts, args.gen_steps)
-            print(f"[serve] generated {out.shape}; prefill={stats_r.prefill_s*1e3:.1f}ms "
-                  f"decode={stats_r.decode_s*1e3:.1f}ms faults={stats_r.faulted_units} "
-                  f"({stats_r.faulted_bytes/2**20:.1f}MiB, {stats_r.fault_s*1e3:.1f}ms)")
-            print("[serve] request: " + json.dumps(dict(
-                faulted_units=stats_r.faulted_units, faulted_bytes=stats_r.faulted_bytes, fault_s=stats_r.fault_s,
-                prefill_runs=stats_r.prefill_runs, prefill_retries=stats_r.prefill_retries,
-                decode_retries=stats_r.decode_retries)))
-            print(f"[serve] tokens: {json.dumps(out.tolist())}")
+            _serve_one_shot(engine, args, cfg)
         # every kernel launch of this process (the warm set's and the request's)
         print("[serve] kernel launches: " + json.dumps({name: f.launches for name, f in kernel_wrappers().items()}))
         if server.tiered is not None:
@@ -300,26 +339,90 @@ def main(argv=None) -> int:
             print(f"[serve] wrote access trace to {args.profile_out} "
                   f"({t.batches} batches, {len(t.faults)} faulted units, "
                   f"{len(t.transitions)} transition sources)", flush=True)
+        if args.snapshot_out and server.tiered is not None:
+            snap = server.snapshot()
+            server_snapshot.save(snap, args.snapshot_out)
+            print(f"[serve] wrote server snapshot to {args.snapshot_out} "
+                  f"({len(snap['resident'])} resident units, "
+                  f"predictor {'included' if snap['predictor'] else 'absent'})", flush=True)
     if failed:
         print(f"[serve] FAILED: {failed} request(s) failed or never finished")
     return 1 if failed else 0
 
 
-def _print_daemon_stats(server) -> None:
+def _serve_one_shot(engine: GenerationEngine, args, cfg, label: str = ""):
+    """One ``generate()`` of ``--batch`` prompts from a CPU generator seeded
+    with 1; prints its ``[serve]{label}`` generated, request and tokens lines
+    and returns ``(ids, RequestStats)``."""
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=torch.Generator().manual_seed(1)).to(args.device)
+    out, st = engine.generate(prompts, args.gen_steps)
+    print(f"[serve]{label} generated {out.shape}; prefill={st.prefill_s*1e3:.1f}ms "
+          f"decode={st.decode_s*1e3:.1f}ms faults={st.faulted_units} "
+          f"({st.faulted_bytes/2**20:.1f}MiB, {st.fault_s*1e3:.1f}ms)")
+    print(f"[serve]{label} request: " + json.dumps(dict(
+        faulted_units=st.faulted_units, faulted_bytes=st.faulted_bytes, fault_s=st.fault_s,
+        prefill_runs=st.prefill_runs, prefill_retries=st.prefill_retries, decode_retries=st.decode_retries)))
+    print(f"[serve]{label} tokens: {json.dumps(out.tolist())}", flush=True)
+    return out, st
+
+
+def _serve_fleet(model, result, outdir: str, args, cfg, max_seq: int) -> int:
+    """``--fleet N``: the one-shot request through N in-process replicas
+    federated by one ``FleetController``. Every replica cold-starts with its
+    own daemon registered to the fleet; then each serves the request, and
+    the controller syncs after each. Returns 1 if a replica's output is short."""
+    fleet = FleetController(decay=args.retier_decay)
+    servers, failed = [], 0
+    try:
+        for i in range(args.fleet):
+            s = cold_start(model, outdir, result, mode="after2",
+                           warm_shapes=((args.batch, args.prompt_len, max_seq),), residency=args.policy,
+                           device_budget_bytes=args.device_budget_bytes or None,
+                           prefetch=False if args.no_prefetch else None, retier_online=True,
+                           retier_interval=args.retier_interval, retier_decay=args.retier_decay,
+                           retier_compact_every=args.retier_compact_every, fleet=fleet,
+                           replica_name=f"replica-{i}", device=args.device)
+            servers.append(s)
+            print(f"[serve] replica-{i} cold start:", json.dumps(s.report.to_dict(), default=float), flush=True)
+        for i, s in enumerate(servers):
+            out, _ = _serve_one_shot(GenerationEngine(s, max_seq=max_seq), args, cfg, label=f" replica-{i}")
+            if tuple(out.shape) != (args.batch, args.gen_steps):
+                failed += 1
+            rep = fleet.sync()
+            print(f"[serve] fleet sync: {rep['windows']}/{rep['pulled']} windows, "
+                  f"pushed to {len(rep['pushed'])} replicas (+{rep['promoted']}/-{rep['demoted']} units)"
+                  + (f", FAILED {sorted(rep['failed'])}" if rep["failed"] else ""), flush=True)
+        for i, s in enumerate(servers):
+            _print_daemon_stats(s, label=f"replica-{i} retier")
+        fs = fleet.stats
+        print(f"[serve] fleet: {fs.syncs} syncs, {fs.replans} replans, {fs.pushes} pushes "
+              f"({fs.push_failures} failed), {fs.bootstraps} warm bootstraps")
+        print(f"[serve] fleet stats: {json.dumps(fs.to_dict())}")
+        print("[serve] kernel launches: " + json.dumps({name: f.launches for name, f in kernel_wrappers().items()}))
+    finally:
+        for s in servers:
+            s.close()
+    if failed:
+        print(f"[serve] FAILED: {failed} replica run(s) produced short output")
+    return 1 if failed else 0
+
+
+def _print_daemon_stats(server, label: str = "online retier") -> None:
     """One line of daemon accounting and the predictor counters its refresh
-    feeds; then the stats in full as JSON (``[serve] online retier stats:``)."""
+    feeds; then the stats in full as JSON (``[serve] <label> stats:``)."""
     ds = server.retier_daemon.stats
     pred = ""
     if server.tiered is not None and server.prefetcher is not None:
         ts, ps = server.tiered.stats, server.prefetcher.stats
         pred = (f", predictor hit rate {ts.prefetch_hit_rate:.2f} "
                 f"({ps.observed} observed, {ps.predicted} predicted)")
-    print(f"[serve] online retier: {ds.ticks} ticks, {ds.applies} applies "
+    print(f"[serve] {label}: {ds.ticks} ticks, {ds.applies} applies "
           f"(+{ds.promoted_units}/-{ds.demoted_units} units, "
           f"{ds.evicted_bytes:,}B evicted, "
           f"{ds.predictor_refreshes} predictor refreshes, "
           f"{ds.compactions} compactions{pred}); zero restarts")
-    print(f"[serve] online retier stats: {json.dumps(ds.to_dict())}")
+    print(f"[serve] {label} stats: {json.dumps(ds.to_dict())}")
 
 
 def traffic_prompts(cfg, n: int, prompt_len: int) -> list[np.ndarray]:
@@ -331,10 +434,8 @@ def traffic_prompts(cfg, n: int, prompt_len: int) -> list[np.ndarray]:
 def _serve_traffic(engine: GenerationEngine, args, cfg) -> int:
     """Open-loop traffic through the continuous-batching scheduler. Returns
     the number of failed or unfinished requests (SLO sheds excluded)."""
-    admission = None
-    if args.admission == "slo":
-        admission = SLOAdmission(default_deadline_s=(args.deadline_ms / 1e3) if args.deadline_ms else None)
-    sched = ContinuousBatchingScheduler(engine, max_batch=args.concurrency, admission=admission)
+    # the admission policy is the server's (cold_start(admission=...))
+    sched = ContinuousBatchingScheduler(engine, max_batch=args.concurrency)
     sched.warm_compile()  # the first step should serve, not capture
     rng = np.random.default_rng(0)
     prompts = traffic_prompts(cfg, args.requests, args.prompt_len)

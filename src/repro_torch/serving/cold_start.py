@@ -30,7 +30,14 @@ fraction becomes the tenant's share of the arbiter's budget instead, and the
 tenant registers before the hot-set preload, so even cold-start bytes are
 admitted by the arbiter's make-room path. ``retier_online=True`` attaches a
 ``RetierDaemon`` (and a live trace), which the engine and the scheduler tick
-between steps.
+between steps; ``fleet=`` registers that daemon with a ``FleetController``
+before the server exists, so a late joiner is warm-bootstrapped before its
+warm set is captured (the bootstrap's seconds and bytes count as upload). ``restore_from=`` (a snapshot dict or a JSON path)
+faults a warmed server's resident set in again and arms its predictor, after
+the server is built and before its warm set is captured; its seconds and
+bytes count as upload. ``ColdStartServer.snapshot()`` writes that state.
+``admission=``, ``kv_page_size=`` and ``kv_pages=`` are kept on the server as
+the defaults of a scheduler built on it.
 
 Compiled entries. ``ColdStartServer.compiled_prefill(B, S)``,
 ``compiled_decode(B, S_max)`` and ``compiled_decode_masked(B, S_max)`` are
@@ -70,6 +77,7 @@ import torch
 
 from repro_torch.checkpoint import tensorstore_lite as tsl
 from repro_torch.core.analyzer import AnalysisResult
+from repro_torch.core import snapshot as server_snapshot
 from repro_torch.core.arbiter import HostArbiter
 from repro_torch.core.on_demand import TieredParams
 from repro_torch.core.optional_store import OptionalStore
@@ -215,14 +223,17 @@ class GraphEntry(EagerEntry):
 
 class ColdStartServer:
     """A cold-started model server: the live params (tiered in after2), the
-    optional store, the prefetcher, the online re-tiering daemon and the
-    compiled entries."""
+    optional store, the prefetcher, the online re-tiering daemon, the
+    compiled entries, and the defaults of a scheduler built on it
+    (``admission``, ``kv_page_size``, ``kv_pages``; None = the scheduler's
+    own)."""
 
     def __init__(self, model: Model, params: Any, report: ColdStartReport, *,
                  tiered: Optional[TieredParams] = None, store: Optional[OptionalStore] = None,
                  prefetcher: Optional[Prefetcher] = None, retier_daemon: Optional[RetierDaemon] = None,
                  artifact_dir: Optional[str] = None, device="cuda",
-                 max_prefill_entries: int = MAX_PREFILL_ENTRIES):
+                 max_prefill_entries: int = MAX_PREFILL_ENTRIES, admission: Any = None,
+                 kv_page_size: Optional[int] = None, kv_pages: Optional[int] = None):
         if max_prefill_entries < 1:
             raise ValueError(f"max_prefill_entries must be >= 1, got {max_prefill_entries}")
         self.model = model
@@ -235,6 +246,10 @@ class ColdStartServer:
         self.artifact_dir = artifact_dir
         self.device = torch.device(device)
         self.max_prefill_entries = max_prefill_entries
+        self.admission = admission
+        self.kv_page_size = kv_page_size
+        self.kv_pages = kv_pages
+        self.restore_report: Optional[dict] = None  # set by cold_start(restore_from=)
         self._compiled: OrderedDict[tuple, EagerEntry] = OrderedDict()
         self._kept: set = set()  # keys never evicted: the warm set's (``keep_entries``)
         self.evicted_prefill_entries = 0
@@ -270,6 +285,14 @@ class ColdStartServer:
 
     def live_params(self) -> Any:
         return self.tiered.tree() if self.tiered is not None else self.params
+
+    def snapshot(self) -> dict:
+        """This server's warm state (resident set and LRU stamps, the
+        predictor's tables, the artifact's identity) as a plain-JSON dict
+        that a new replica restores from (``cold_start(restore_from=...)``)."""
+        if self.tiered is None:
+            raise ValueError("snapshot() needs a tiered (after2) server")
+        return server_snapshot.capture(self.tiered, prefetcher=self.prefetcher, artifact_dir=self.artifact_dir)
 
     # -- warm-set / on-demand compilation ------------------------------------
     def keep_entries(self) -> None:
@@ -353,6 +376,12 @@ def cold_start(
     retier_interval_s: Optional[float] = None,  # or wall-clock seconds
     retier_decay: float = 0.5,  # trace-window merge decay per tick
     retier_compact_every: int = 0,  # artifact rewrite every N applies (0 = never)
+    fleet=None,  # FleetController the daemon joins (needs retier_online)
+    replica_name: Optional[str] = None,  # fleet registration name (default: replica-<n>)
+    restore_from=None,  # server snapshot dict or JSON path: warm restore (after2 only)
+    admission=None,  # default AdmissionPolicy of schedulers built on the server
+    kv_page_size: Optional[int] = None,  # their default page size
+    kv_pages: Optional[int] = None,  # their default page-pool size
     warm_shapes: tuple = ((1, 64),),  # (B, S) or (B, S, S_max): prefill (B, S), decode (B, S_max or S)
     compile_warm_set: bool = True,
     trace: bool = False,  # attach an AccessTrace to the tiered params
@@ -360,10 +389,15 @@ def cold_start(
 ) -> ColdStartServer:
     """Run one timed cold start from ``artifact_dir``. ``result`` (the plan)
     is required for after2; before/after1 read ``<artifact_dir>/<mode>``, as
-    ``core.analyzer.write_monolithic`` writes it. The arbiter and re-tiering
-    arguments are after2-only and ignored by the monolithic modes."""
+    ``core.analyzer.write_monolithic`` writes it. The arbiter, re-tiering and
+    fleet arguments are after2-only and ignored by the monolithic modes;
+    ``restore_from`` outside after2 raises."""
     if residency is not None and residency not in RESIDENCY_PRESETS:
         raise ValueError(f"unknown residency policy {residency!r}; want one of {sorted(RESIDENCY_PRESETS)}")
+    if restore_from is not None and mode != "after2":
+        raise ValueError("restore_from= is after2-only (the monolithic modes have no residency set)")
+    if fleet is not None and not retier_online and mode == "after2":
+        raise ValueError("fleet= needs retier_online=True (the fleet federates RetierDaemons, not bare loaders)")
     device = torch.device(device)
     report = ColdStartReport(mode=mode)
 
@@ -382,7 +416,8 @@ def cold_start(
         _synchronize(device)
         t2 = time.perf_counter()
         report.read_s, report.upload_s = t1 - t0, t2 - t1
-        server = ColdStartServer(model, params, report, artifact_dir=artifact_dir, device=device)
+        server = ColdStartServer(model, params, report, artifact_dir=artifact_dir, device=device,
+                                 admission=admission, kv_page_size=kv_page_size, kv_pages=kv_pages)
     elif mode == "after2":
         if result is None:
             raise ValueError("after2 cold start needs the AnalysisResult (plan)")
@@ -437,8 +472,33 @@ def cold_start(
             daemon = RetierDaemon(tiered, result.reach, prefetcher=prefetcher, interval_steps=retier_interval,
                                   interval_s=retier_interval_s, decay=retier_decay,
                                   compact_every=retier_compact_every, artifact_dir=artifact_dir)
+            if fleet is not None:
+                # join before any traffic: a controller with learned state
+                # warm-bootstraps this replica here, synchronously; what that
+                # moves counts as upload, as a restore's does
+                t_f, n_events = time.perf_counter(), len(tiered.stats.events)
+                fleet.register(replica_name or f"replica-{len(fleet.replicas)}", daemon)
+                _synchronize(device)
+                report.upload_s += time.perf_counter() - t_f
+                report.bytes_uploaded += sum(e.nbytes for e in tiered.stats.events[n_events:])
         server = ColdStartServer(model, tree, report, tiered=tiered, store=store, prefetcher=prefetcher,
-                                 retier_daemon=daemon, artifact_dir=artifact_dir, device=device)
+                                 retier_daemon=daemon, artifact_dir=artifact_dir, device=device,
+                                 admission=admission, kv_page_size=kv_page_size, kv_pages=kv_pages)
+        if restore_from is not None:
+            # warm restore: the donor's resident set faulted in again (LRU
+            # order, through the arbiter's make-room path) and its predictor
+            # armed before the server admits traffic; counted as upload
+            t_r = time.perf_counter()
+            try:
+                snap = server_snapshot.load(restore_from) if isinstance(restore_from, str) else restore_from
+                server.restore_report = server_snapshot.restore(tiered, snap, prefetcher=prefetcher,
+                                                                artifact_dir=artifact_dir)
+            except BaseException:
+                server.close()  # the prefetcher's threads and the store go with it
+                raise
+            _synchronize(device)
+            report.upload_s += time.perf_counter() - t_r
+            report.bytes_uploaded += server.restore_report["moved_bytes"]
     else:
         raise ValueError(f"unknown mode {mode!r}; want before, after1 or after2")
 

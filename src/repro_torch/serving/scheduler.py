@@ -317,12 +317,16 @@ class ContinuousBatchingScheduler:
         self.model = engine.model
         self.max_batch = max_batch
         self.queue = queue if queue is not None else RequestQueue()
-        self.admission = admission if admission is not None else FIFOAdmission()
-        # the pool defaults to exactly max_batch × max_seq positions, where
-        # exhaustion is impossible
-        ps = kv_page_size or 16
+        # each of the policy and the pool's shape: the keyword argument, else
+        # the server's default (cold_start(admission=, kv_page_size=,
+        # kv_pages=)), else FIFO and a pool of exactly max_batch × max_seq
+        # positions, where exhaustion is impossible
+        self.admission = (admission if admission is not None
+                          else getattr(self.server, "admission", None) or FIFOAdmission())
+        ps = kv_page_size or getattr(self.server, "kv_page_size", None) or 16
         per_slot = -(-engine.max_seq // ps)
-        self.page_pool = PagePool(kv_pages or max_batch * per_slot, ps, max_batch)
+        n_pages = kv_pages or getattr(self.server, "kv_pages", None) or max_batch * per_slot
+        self.page_pool = PagePool(n_pages, ps, max_batch)
         self.stats = SchedulerStats()
         self._slots: list[Optional[Request]] = [None] * max_batch
         self._pos = np.zeros(max_batch, np.int64)       # next decode position

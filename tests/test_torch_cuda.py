@@ -732,7 +732,9 @@ except RuntimeError as e:
 
 def _reduced_bf16(card, tmp, policy="full"):
     """Reduced Mixtral as the launcher serves it on the card (head_dim 16,
-    bf16 weights from a seeded generator), its artifact and plan."""
+    bf16 weights from a seeded generator), its artifact and plan: the
+    launcher's stats profile (a hot set), or with ``policy="strict"`` its
+    strict one (no hot set)."""
     from repro_torch.configs import get_reduced
     from repro_torch.core import DeploymentProfile, analyze, build_artifact
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
@@ -743,6 +745,9 @@ def _reduced_bf16(card, tmp, policy="full"):
     prof = dict(resident_experts=1, hot_vocab_fraction=0.25, min_tier1_bytes=1 << 14,
                 vocab_row_group=max(64, cfg.vocab_size // 16))
     hot = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 128, 8)).vocab_row_stats(row_group=prof["vocab_row_group"])
+    if policy == "strict":
+        prof.update(resident_experts=0, hot_vocab_fraction=0.0)
+        hot = None
     result = analyze(model, DeploymentProfile(**prof), hot_units_stats=hot, trace_B=1, trace_S=32)
     build_artifact(model.init(torch.Generator(card).manual_seed(0), device=card), result, tmp)
     return model, result
@@ -974,3 +979,132 @@ def test_two_arbitered_tenants_serve_their_solo_tokens_on_card(card, tmp_path):
         for s in servers:
             s.close()
     assert arb.tenants == {} and arb.stats.unregistered == 2
+
+
+def _unit_rows(tiered, key):
+    return tiered._unit_view(tiered._all_units[key])
+
+
+@pytest.mark.gpu
+def test_snapshot_restore_on_card(card, tmp_path):
+    """A strict server warmed by one request writes its snapshot; a new one
+    cold-starts with ``restore_from=``: every donor unit restored with the
+    donor's stamps and LRU order, its rows on the card bit-equal to the
+    donor's, the replayed bytes counted as upload, and the next request's
+    tokens equal the donor's."""
+    from repro_torch.core import snapshot as snap_mod
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    art = str(tmp_path / "artifact")
+    model, result = _reduced_bf16(card, art, policy="strict")
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(6)).to(card)
+    kw = dict(residency="strict", warm_shapes=((2, 16, 32),), device=card)
+    with cold_start(model, art, result, **kw) as donor:
+        want, _ = GenerationEngine(donor, max_seq=32).generate(prompt, 8)
+        snap = donor.snapshot()
+        rows = {k: _unit_rows(donor.tiered, k).clone() for k, _ in snap["resident"]}
+        stamps = dict(donor.tiered.residency._stamp)
+    assert snap["resident"]
+    path = str(tmp_path / "snap.json")  # outside the artifact
+    snap_mod.save(snap, path)
+    with cold_start(model, art, result, restore_from=path, **kw) as server:
+        rr, tiered = server.restore_report, server.tiered
+        assert rr["fingerprint_ok"] and rr["restored"] == rr["requested"] == len(snap["resident"])
+        assert rr["moved_bytes"] == sum(tiered.unit_charge(k) for k in rows)
+        assert server.report.bytes_uploaded == server.report.bytes_read + rr["moved_bytes"]
+        assert list(tiered.residency._lru) == [k for k, _ in snap["resident"]]
+        assert {k: tiered.residency._stamp[k] for k in rows} == {k: stamps[k] for k in rows}
+        for k, r in rows.items():
+            assert torch.equal(_unit_rows(tiered, k), r), k
+        got, _ = GenerationEngine(server, max_seq=32).generate(prompt, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_fleet_late_joiner_bootstrap_on_card(card, tmp_path):
+    """Two strict replicas with daemons in one ``FleetController``: replica-0
+    serves, the fleet syncs, replica-1 cold-starts and is bootstrapped inside
+    ``register`` (synchronous preload, counted as upload): it faults fewer
+    units than replica-0 did, its bootstrapped rows equal replica-0's, and
+    both give the tokens of a solo run."""
+    from repro_torch.core import FleetController
+    from repro_torch.serving import GenerationEngine, cold_start
+
+    art = str(tmp_path / "artifact")
+    model, result = _reduced_bf16(card, art, policy="strict")
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(7)).to(card)
+    kw = dict(residency="strict", warm_shapes=((2, 16, 32),), device=card)
+    with cold_start(model, art, result, **kw) as solo:
+        want, _ = GenerationEngine(solo, max_seq=32).generate(prompt, 8)
+    fc = FleetController()
+    online = dict(retier_online=True, retier_interval=10**9, fleet=fc)
+    with cold_start(model, art, result, replica_name="replica-0", **online, **kw) as r0:
+        out0, st0 = GenerationEngine(r0, max_seq=32).generate(prompt, 8)
+        summary = fc.sync()
+        assert summary["replanned"] and summary["pushed"] == ["replica-0"] and not summary["failed"]
+        with cold_start(model, art, result, **online, **kw) as r1:
+            preloaded = [e.key for e in r1.tiered.stats.events]
+            assert preloaded and all(e.source == "preload" for e in r1.tiered.stats.events)
+            assert r1.report.bytes_uploaded == r1.report.bytes_read + sum(e.nbytes for e in r1.tiered.stats.events)
+            for k in preloaded:
+                if r0.tiered.is_resident(k) and r1.tiered.is_resident(k):
+                    assert torch.equal(_unit_rows(r1.tiered, k), _unit_rows(r0.tiered, k)), k
+            out1, st1 = GenerationEngine(r1, max_seq=32).generate(prompt, 8)
+    assert fc.replicas == ["replica-0", "replica-1"]
+    assert fc.stats.bootstraps == 1 and fc.stats.bootstrap_failures == 0 and not fc.last_errors
+    assert st1.faulted_units < st0.faulted_units
+    for out in (out0, out1):
+        np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.gpu
+def test_decode_graph_replayed_after_a_fleet_push_reads_the_pushed_bytes(card, tmp_path):
+    """Replica ``a`` captures its decode graph and takes replica ``b``'s
+    prefill caches; ``b``'s prefill faults its units in; a fleet sync pushes
+    them into ``a`` in place (a synchronous preload). The replay after the
+    push equals the plain step on ``a``'s live params and differs from the
+    replay before it; the pushed rows equal ``b``'s bit for bit; the decode
+    entry is the one captured before (nothing captured again)."""
+    from repro_torch.core import FleetController
+    from repro_torch.serving import GenerationEngine, RequestStats, cold_start
+    from repro_torch.serving.engine import _graft_prefill_cache
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
+
+    art = str(tmp_path / "artifact")
+    model, result = _reduced_bf16(card, art, policy="strict")
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(8)).to(card)
+    fc = FleetController(sync_preload=True)
+    kw = dict(residency="full", prefetch=False, retier_online=True, retier_interval=10**9, fleet=fc,
+              warm_shapes=((2, 16, 32),), device=card)
+    with cold_start(model, art, result, replica_name="a", **kw) as a, \
+            cold_start(model, art, result, replica_name="b", **kw) as b:
+        decode = a.compiled_decode(2, 32)
+        entries = dict(a._compiled)
+        logits, caches, _ = GenerationEngine(b, max_seq=32).prefill_step(prompt, RequestStats())
+        _graft_prefill_cache(decode.caches, caches)
+        saved = tree_map(torch.clone, decode.caches)
+        dbatch = {"tokens": logits.argmax(-1)[:, None].long(), "pos": torch.full((2,), 16, device=card)}
+        live = a.live_params()
+
+        def replay():
+            for (_, x), (_, y) in zip(flatten_with_paths(decode.caches), flatten_with_paths(saved)):
+                x.copy_(y)
+            out, _ = decode(live, decode.caches, dbatch)
+            return out.float().clone()
+
+        def plain():
+            with torch.inference_mode():
+                return model.decode_step(live, tree_map(torch.clone, saved), dbatch)[0].float()
+
+        before_keys = a.tiered.resident_keys
+        first = replay()
+        summary = fc.sync()
+        assert sorted(summary["pushed"]) == ["a", "b"] and not summary["failed"]
+        installed = a.tiered.resident_keys - before_keys
+        assert installed and a.retier_daemon.stats.remote_applies == 1
+        for k in installed:
+            assert torch.equal(_unit_rows(a.tiered, k), _unit_rows(b.tiered, k)), k
+        pushed = replay()
+        torch.testing.assert_close(pushed, plain(), atol=2e-2, rtol=2e-2)
+        assert not torch.allclose(pushed, first, atol=1e-1)
+        assert a._compiled == entries and a.compiled_decode(2, 32) is decode

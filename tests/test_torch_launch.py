@@ -4,8 +4,8 @@ the reference's ``[serve]`` lines and the same greedy tokens in every run
 (same seeded weights and prompt). Traffic mode (``--concurrency``): every
 request finishes with the tokens of its own ``generate()`` on the artifact
 the launcher wrote. argparse refuses a bogus policy, bad traffic flags and
-the reference's unported flags, and refuses the host-arbiter and
-online re-tiering flags where the reference refuses them. With
+the unported ``--mesh``, and refuses the host-arbiter, online re-tiering,
+snapshot and fleet flags where the reference refuses them. With
 ``--retier-online --host-budget-bytes`` both launchers print the reference's
 ``[serve] host arbiter:`` and ``[serve] online retier:`` lines, with the same
 tick counts. Its stats profile reads the synthetic token pipeline, which
@@ -93,7 +93,7 @@ def test_launcher_cuts_depth(tmp_path):
     ["--mode", "after3"],
     ["--profile-out", "t.json", "--mode", "before"],  # re-tiering needs the two-tier runtime
     ["--host-budget-bytes", "-5"],
-    ["--fleet", "2"],
+    ["--fleet", "1"],  # a fleet federates at least 2 replicas
     ["--retier-from", "t.json", "--no-prefetch"],  # the predictor needs a prefetcher
     ["--retier-from", "t.json", "--policy", "strict"],
     ["--retier-from", "t.json", "--mode", "after1"],
@@ -260,13 +260,85 @@ def test_launcher_traffic_mode_matches_solo_runs(tmp_path, extra):
     ["--concurrency", "2", "--admission", "slo", "--deadline-ms", "-1"],
     ["--concurrency", "2", "--requests", "0"],
     ["--concurrency", "2", "--retier-online", "--retier-interval", "0"],
-    ["--concurrency", "2", "--snapshot-out", "s.json"],  # nor snapshots
+    ["--concurrency", "2", "--fleet", "2"],  # the fleet drives the one-shot path
     ["--mesh", "1x1"],  # nor meshes
 ])
 def test_launcher_refuses_bad_traffic_and_unported_flags(argv):
     res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
     assert res.returncode == 2
     assert "error:" in res.stderr
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--fleet", "1"], "at least 2 replicas"),
+    (["--fleet", "2", "--mode", "after1"], "two-tier runtime"),
+    (["--fleet", "2", "--concurrency", "2"], "drop --concurrency"),
+    (["--fleet", "2", "--host-budget-bytes", "1024"], "composes with none of"),
+    (["--fleet", "2", "--profile-out", "t.json"], "composes with none of"),
+    (["--fleet", "2", "--retier-from", "t.json"], "composes with none of"),
+    (["--snapshot-out", "s.json", "--mode", "before"], "--mode after2 only"),
+    (["--restore-from", "s.json", "--mode", "after1"], "--mode after2 only"),
+])
+def test_launcher_refuses_fleet_and_snapshot_flags_as_the_reference_does(argv, want):
+    ref = _ref_serve("--arch", "mixtral-8x22b", "--reduced", *argv)
+    res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
+    assert ref.returncode == res.returncode == 2
+    assert want in ref.stderr and want in res.stderr
+
+
+def test_launcher_snapshot_then_restore(tmp_path, before_tokens):
+    """``--snapshot-out`` after an online run (its daemon refreshes the
+    predictor, so the snapshot carries one), then ``--restore-from`` on the
+    artifact the second run rebuilds in the same place: both exit 0, the
+    restore replays the snapshot's units with the predictor armed, and the
+    tokens equal those of the runs without the flags. A snapshot of another
+    artifact makes the restore run fail."""
+    snap = str(tmp_path / "snap.json")  # outside the artifact directory
+    art = ["--artifact-dir", str(tmp_path / "art")]
+    first = _serve(*ARGS, *art, "--retier-online", "--retier-interval", "1", "--snapshot-out", snap)
+    assert first.returncode == 0, first.stderr
+    m = re.search(r"^\[serve\] wrote server snapshot to .*snap\.json \((\d+) resident units, predictor included\)$",
+                  first.stdout, re.M)
+    assert m and int(m.group(1)) > 0, first.stdout
+    with open(snap) as f:
+        doc = json.load(f)
+    assert doc["version"] == 1 and len(doc["resident"]) == int(m.group(1)) and doc["predictor"]
+    res = _serve(*ARGS, *art, "--restore-from", snap)
+    assert res.returncode == 0, res.stderr
+    line = re.search(r"^\[serve\] warm restore: (\d+)/(\d+) units resident \(([\d,]+)B replayed, "
+                     r"predictor armed\)$", res.stdout, re.M)
+    assert line and int(line.group(1)) >= 1 and int(line.group(2)) == len(doc["resident"]), res.stdout
+    report = json.loads(re.search(r"^\[serve\] restore report: (.*)$", res.stdout, re.M).group(1))
+    assert report["fingerprint_ok"] is True and report["moved_bytes"] == int(line.group(3).replace(",", ""))
+    cold = json.loads(re.search(r"^\[serve\] cold start \(after2\): (.*)$", res.stdout, re.M).group(1))
+    assert cold["bytes_uploaded"] >= cold["bytes_read"] + report["moved_bytes"]
+    assert _tokens(first.stdout) == _tokens(res.stdout) == before_tokens
+    # the strict policy writes another artifact: its fingerprint differs
+    other = _serve(*ARGS, "--artifact-dir", str(tmp_path / "other"), "--policy", "strict", "--restore-from", snap)
+    assert other.returncode != 0 and "fingerprint mismatch" in other.stderr
+    assert "[serve] tokens:" not in other.stdout
+
+
+def test_launcher_fleet(tmp_path, before_tokens):
+    """``--fleet 2``: exit 0; both replicas' cold start, request and tokens
+    lines, a sync after each, each daemon's stats, the totals; every
+    replica's tokens equal the one-shot run's."""
+    res = _serve(*ARGS, "--artifact-dir", str(tmp_path), "--fleet", "2")
+    assert res.returncode == 0, res.stderr
+    out = res.stdout
+    for i in range(2):
+        assert re.search(rf"^\[serve\] replica-{i} cold start: ", out, re.M)
+        assert re.search(rf"^\[serve\] replica-{i} request: ", out, re.M)
+        tokens = json.loads(re.search(rf"^\[serve\] replica-{i} tokens: (.*)$", out, re.M).group(1))
+        assert tokens == before_tokens
+        stats = json.loads(re.search(rf"^\[serve\] replica-{i} retier stats: (.*)$", out, re.M).group(1))
+        assert stats["pulls"] == 2 and stats["remote_applies"] >= 1 and stats["errors"] == 0
+    syncs = re.findall(r"^\[serve\] fleet sync: (\d+)/2 windows, pushed to (\d+) replicas", out, re.M)
+    assert syncs == [("1", "2"), ("1", "2")]
+    assert re.search(r"^\[serve\] fleet: 2 syncs, 2 replans, 4 pushes \(0 failed\), \d+ warm bootstraps$", out, re.M)
+    fs = json.loads(re.search(r"^\[serve\] fleet stats: (.*)$", out, re.M).group(1))
+    assert fs["push_failures"] == fs["pull_failures"] == fs["bootstrap_failures"] == 0
+    assert "[serve] cold start (after2)" not in out and "[serve] tokens:" not in out
 
 
 @pytest.mark.parametrize("cfg", [(512, 16, 4, 0), (32768, 128, 8, 0), (1000, 600, 6, 3)])

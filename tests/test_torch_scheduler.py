@@ -9,7 +9,8 @@ weights:
   * each request's tokens equal its own ``generate()`` in the port;
   * mirrors of the reference's scheduler and admission tests: slot reuse,
     over-length rejection, pages freed at retire and none leaked by a failed
-    request, page exhaustion, FIFO and SLO admission;
+    request, page exhaustion, FIFO and SLO admission, and the policy and
+    pool shape a scheduler takes from ``cold_start``'s defaults;
   * ``decode_step_masked``'s usage masks equal the reference's, so a free
     slot never faults an expert;
   * the in-place decode: K/V written into the caches given, carry state
@@ -231,6 +232,40 @@ def test_failed_requests_leak_no_pages(app):
         sched.run()
     assert r3.done and r3.error is None and len(r3.out) == 2
     assert pool.used_pages == 0 and sched.stats.failed == 2
+
+
+def test_scheduler_takes_its_defaults_from_the_server(app):
+    """``cold_start(admission=, kv_page_size=, kv_pages=)`` keeps the three on
+    the server, and a scheduler built without keyword arguments takes the
+    policy and the pool's page size and count from it, as the reference's
+    does; a keyword argument still wins, and a server without them gives
+    FIFO and a pool of exactly max_batch × max_seq positions."""
+    from repro.serving import SLOAdmission as RefSLO
+
+    ref_model, ref_result, _, _, outdir = app
+    kw = dict(kv_page_size=8, kv_pages=5)
+    ref_server = ref_cold_start(ref_model, outdir, ref_result, mode="after2", residency="strict",
+                                compile_warm_set=False, admission=RefSLO(step_est_s=5e-3), **kw)
+    ref_sched = RefScheduler(RefEngine(ref_server, max_seq=MAX_SEQ), max_batch=2)
+    ref_server.close()
+    slo = SLOAdmission(step_est_s=5e-3)
+    with _port_server(app, admission=slo, **kw) as server:
+        assert (server.admission, server.kv_page_size, server.kv_pages) == (slo, 8, 5)
+        eng = GenerationEngine(server, max_seq=MAX_SEQ)
+        sched = ContinuousBatchingScheduler(eng, max_batch=2)
+        assert sched.admission is slo and type(ref_sched.admission).__name__ == "SLOAdmission"
+        for pool in (sched.page_pool, ref_sched.page_pool):
+            assert (pool.page_size, pool.n_pages, pool.n_slots) == (8, 5, 2)
+        fifo = FIFOAdmission()
+        own = ContinuousBatchingScheduler(eng, max_batch=2, admission=fifo, kv_page_size=4, kv_pages=9)
+        assert own.admission is fifo and (own.page_pool.page_size, own.page_pool.n_pages) == (4, 9)
+        reqs = [sched.submit(_prompt(6, 60 + i), 3) for i in range(3)]
+        sched.run()
+    assert all(r.done and r.error is None and len(r.out) == 3 for r in reqs)
+    with _port_server(app) as server:
+        plain = ContinuousBatchingScheduler(GenerationEngine(server, max_seq=MAX_SEQ), max_batch=2)
+        assert isinstance(plain.admission, FIFOAdmission)
+        assert (plain.page_pool.page_size, plain.page_pool.n_pages) == (16, 2)
 
 
 def test_page_exhaustion_rejects_cleanly(app):
