@@ -15,9 +15,10 @@ Phases (any failure exits non-zero before the result line):
    shapes the served prefills give it and at a longer one:
    flash attention in bf16 at Mixtral-8x22B widths (H=48, Hkv=8, hd=128:
    causal rows and one full-width row that is not causal and has a softcap,
-   so the unmasked tiles and the softcap kernel are held too) and at
-   RecurrentGemma-9B's (H=16, Hkv=1, hd=256), and at the reduced configs'
-   head dims, which the wrapper zero-pads to 64 (reduced Mixtral H=4, Hkv=2,
+   so the unmasked tiles and the softcap kernel are held too), at
+   RecurrentGemma-9B's (H=16, Hkv=1, hd=256), at Gemma-3-27B's (H=32,
+   Hkv=16, hd=128: B=2 × 1024 with window 1024 and with none, B=1 × 4096
+   with window 1024), and at the reduced configs' head dims, which the wrapper zero-pads to 64 (reduced Mixtral H=4, Hkv=2,
    hd 16, window 32; reduced Yi H=8, Hkv=2, hd 8); error ≤ 1e-2 per unit of
    max(1, |output|) (bf16 output rounding); each row prints its TFLOP/s and
    its share of the bound. The RG-LRU scan in fp32 at
@@ -127,13 +128,29 @@ Phases (any failure exits non-zero before the result line):
    install a unit, resident bytes stay within the budget or each overshoot
    is counted, flash attention runs in every prefill run and no other
    kernel does, and no prefetch thread outlives ``close()``.
-6. serve — RecurrentGemma-9B at full width and full depth (38 layers: 12
-   rec/rec/attn groups and a rec/rec tail), the same path, 16 new tokens. Its
-   tier-1 is empty (tied embeddings, dense MLPs), so nothing faults. Every
-   prefill run must launch the scan once per rec layer (26) and flash
-   attention once per attention layer (12). One more prefill through both
-   plain versions checks the kernel path's logits. [graph] as for Mixtral,
-   logits within RG_LOGITS_REL_TOL of the max |logit|.
+6. serve — RecurrentGemma-9B at full width, depth cut from 38 to 5 layers
+   (one rec/rec/attn group and a rec/rec tail: every layout section of the
+   full stack), the same path, 16 new tokens. Its tier-1 is empty (tied
+   embeddings, dense MLPs), so nothing faults. Every prefill run must launch
+   the scan once per rec layer (4) and flash attention once per attention
+   layer (1). One more prefill through both plain versions checks the
+   kernel path's logits. [graph] as for Mixtral, logits within
+   RG_LOGITS_REL_TOL of the max |logit|.
+   [gemma3] Gemma-3-27B at full width, depth cut from 62 to 6 layers (one
+   5:1 unit: five local layers of window 1024, one global), the same path
+   under strict, B=2 × 1024 + 3: tier-1 empty, nothing faults, flash
+   attention once a layer (6) in every prefill run and no other kernel; the
+   kernel path's prefill logits against the plain attention's on the same
+   server within ZOO_LOGITS_REL_TOL of the max |logit|; [graph] with
+   bit-equal logits. The prompt is as long as the window: the decode
+   writes positions 1024 and 1025 into slots 0 and 1 of the rolling caches.
+   [deepseek] DeepSeek-V2-Lite at full width, depth cut from 27 to 3 layers
+   (the dense lead layer and two groups of 64 experts top-6 plus 2 shared,
+   MLA with a 512-wide latent cache), the same path under strict, B=2 ×
+   1024 + 3: expert and row-group units fault (loads, bytes, evictions and
+   refaults printed) and no kernel launches (MLA's attention is plain, as
+   the reference's); then a ``full`` server of the same artifact serves the
+   request (the strict tokens) and runs [graph] with bit-equal logits.
    Every wrapper's count is read on every serve path: none may launch
    the decode or gather kernels (the served decode is the plain dense one,
    as in the reference), and Mixtral's may not launch the scan.
@@ -148,7 +165,8 @@ Phases (any failure exits non-zero before the result line):
 8. traffic — the launcher's traffic mode once: Mixtral-8x22B at full width
    cut to 1 layer, bf16, ``full``, ``--concurrency 4 --requests 8
    --prompt-len 256 --gen-steps 8``; exit 0 with 8/8 requests done.
-9. reduced — the reference's main-path command on the card:
+9. reduced — the reference's main-path command on the card, five launcher
+   processes run four at a time:
    ``python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced
    --param-dtype bfloat16`` (head_dim 16 through the padded kernel), B=2 ×
    16 + 8, the same command with the plain attention in the kernel's
@@ -159,7 +177,8 @@ Phases (any failure exits non-zero before the result line):
    run prints its ``[serve] host arbiter:`` and ``[serve] online retier:``
    lines and absorbed no error; the restore run replays at least one unit
    with the predictor armed; the fleet's pushes and pulls all held.
-10. retier — profile → re-tier → re-serve through the launcher, Mixtral at
+10. retier — run beside phases 8 and 9 (its own process, mostly host zlib):
+   profile → re-tier → re-serve through the launcher, Mixtral at
    full width cut to 1 layer, bf16, stats, B=2 × 1024 + 4: the modes
    phase's after2 run profiled (``--no-prefetch --profile-out``), then
    ``--retier-from``. Prints each run's fault bytes and
@@ -216,6 +235,11 @@ SCAN_TOL = 1e-5
 # moved the final hidden state by 3.8% and the logits by 3.5-4.3% of their
 # max, so 10% leaves a 2x margin and still catches a wrong kernel
 RG_LOGITS_REL_TOL = 0.1
+# Gemma-3's served prefill (6 layers, tied 262144-row table), kernel vs plain
+# attention, as a fraction of the plain path's max |logit|: the same bf16
+# rounding of the attention outputs walking through fewer residual blocks
+# than RecurrentGemma's, so RecurrentGemma's limit holds with room to spare
+ZOO_LOGITS_REL_TOL = RG_LOGITS_REL_TOL
 
 # paged KV: the scheduler's default page size, and 8 slots of ragged length
 PAGE_SIZE = 16
@@ -253,6 +277,15 @@ ENTRY_PROMPTS = (1000, 900, 800, 700, 600, 500, 400)
 # budget of its online run (under reduced bf16's 0.46 MB of tier-1)
 REDUCED_PROMPT, REDUCED_NEW_TOKENS, REDUCED_HOST_BUDGET = 16, 8, 200000
 RG_H, RG_HKV, RG_HD, RG_WINDOW, RG_WIDTH = 16, 1, 256, 2048, 4096  # RecurrentGemma-9B
+# RecurrentGemma's served depth: one (rec, rec, attn) group and a (rec, rec)
+# tail, every layout section and both kernels of the 38-layer stack (cut from
+# 38 to fit the new phases in the time limit)
+RG_LAYERS = 5
+GEMMA_H, GEMMA_HKV, GEMMA_HD, GEMMA_WINDOW = 32, 16, 128, 1024  # Gemma-3-27B
+# [gemma3]: one 5:1 unit of Gemma-3-27B; [deepseek]: DeepSeek-V2-Lite's dense
+# lead layer and two MoE groups; each B=2 × 1024 + 3, the prompt as long as
+# Gemma's window (the longest the prefill graft of both packages takes)
+GEMMA_LAYERS, DEEPSEEK_LAYERS, ZOO_NEW_TOKENS = 6, 3, 3
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
     ((H, HKV, HD), [(BATCH, PROMPT, 4096, True, None),
@@ -261,6 +294,12 @@ FLASH_ROWS = (
                     (1, 2048, None, False, 50.0)]),  # every key tile unmasked, the softcap on
     ((RG_H, RG_HKV, RG_HD), [(BATCH, PROMPT, RG_WINDOW, True, None),
                              (1, 8192, RG_WINDOW, True, None)]),
+    # Gemma-3's GQA group 2: its local layers' prefill (window 1024 = S, so
+    # it cuts nothing), its global layers' (no window), and a longer prompt
+    # where the window masks
+    ((GEMMA_H, GEMMA_HKV, GEMMA_HD), [(BATCH, PROMPT, GEMMA_WINDOW, True, None),
+                                      (BATCH, PROMPT, None, True, None),
+                                      (1, 4096, GEMMA_WINDOW, True, None)]),
     # the reduced configs' head dims, zero-padded to 64 by the wrapper:
     # reduced Mixtral (H=4, Hkv=2, hd 16, window 32) at the [reduced] phase's
     # prefill and at 1024 tokens, reduced Yi (H=8, Hkv=2, hd 8, no window)
@@ -1745,8 +1784,9 @@ def _launch(tag: str, args: list, plain: bool = False, timeout: int = 600) -> di
 
 
 def reduced_phase(workdir: Path) -> dict:
-    """[reduced] The reference's main-path command on the card: reduced
-    Mixtral (head_dim 16, through the zero-padded hd-64 kernel) via
+    """[reduced] The reference's main-path command on the card, five launcher
+    processes, four at a time: reduced Mixtral (head_dim 16, through the
+    zero-padded hd-64 kernel) via
     ``python -m repro_torch.launch.serve --reduced --param-dtype bfloat16``,
     B=2 × REDUCED_PROMPT + REDUCED_NEW_TOKENS, the same command with the
     attention's plain version in the kernel's place, the same command
@@ -1754,22 +1794,34 @@ def reduced_phase(workdir: Path) -> dict:
     REDUCED_HOST_BUDGET --snapshot-out`` (the online daemon and the host
     arbiter through the launcher's flags, and the warmed server's snapshot
     written outside the artifact), the same command with ``--restore-from``
-    that snapshot (each run rebuilds the same artifact in the same place, so
-    its fingerprint holds), and the same command with ``--fleet 2``. All exit
+    that snapshot (it rebuilds the online run's artifact in the same place,
+    so its fingerprint holds), and the same command with ``--fleet 2``. All exit
     0; every run but the plain one launches flash attention (and no other
     kernel), the plain run none; the tokens are equal (each fleet replica's
     too); the online run's daemon absorbed no error; the restore replays at
     least one unit with the predictor armed; the fleet's pushes all held."""
     outdir = workdir / "reduced"
     shutil.rmtree(outdir, ignore_errors=True)
-    snap = outdir / "snapshot.json"  # beside the artifact directory, not in it
+    snap = outdir / "snapshot.json"  # beside the artifact directories, not in one
     args = ["--arch", "mixtral-8x22b", "--reduced", "--param-dtype", "bfloat16", "--batch", str(BATCH),
-            "--prompt-len", str(REDUCED_PROMPT), "--gen-steps", str(REDUCED_NEW_TOKENS), "--artifact-dir", str(outdir)]
+            "--prompt-len", str(REDUCED_PROMPT), "--gen-steps", str(REDUCED_NEW_TOKENS)]
+    # each run has its artifact directory but the restore, which rebuilds
+    # the online run's in the same place, so its fingerprint holds
     extra = {"kernel": [], "plain": [], "restore": ["--restore-from", str(snap)], "fleet": ["--fleet", "2"],
              "online": ["--retier-online", "--retier-interval", "1", "--host-budget-bytes", str(REDUCED_HOST_BUDGET),
                         "--snapshot-out", str(snap)]}
-    runs = {how: _launch(f"[reduced] {how}:", args + extra[how], plain=how == "plain")
-            for how in ("kernel", "plain", "online", "restore", "fleet")}
+
+    def run(how: str) -> dict:
+        where = outdir / ("online" if how == "restore" else how)
+        return _launch(f"[reduced] {how}:", args + ["--artifact-dir", str(where)] + extra[how], plain=how == "plain")
+
+    # four processes at once (the card and the host's cores are mostly idle
+    # under one), the restore after the online run it restores
+    with ThreadPoolExecutor(4) as ex:
+        futs = {how: ex.submit(run, how) for how in ("kernel", "plain", "fleet")}
+        futs["online"] = ex.submit(lambda: (run("online"), run("restore")))
+        runs = {how: f.result() for how, f in futs.items()}
+    runs["online"], runs["restore"] = runs["online"]
     shutil.rmtree(outdir, ignore_errors=True)
     k, p, o, r, f = (runs[h] for h in ("kernel", "plain", "online", "restore", "fleet"))
     fleet_tokens = [rep["tokens"] for rep in f["replicas"].values()]
@@ -1901,7 +1953,7 @@ def modes_phase(workdir: Path, trace: Path) -> dict:
 
 
 def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict:
-    """RecurrentGemma-9B at full width and depth through the after2 path."""
+    """RecurrentGemma-9B at full width, depth cut to RG_LAYERS, through the after2 path."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1912,7 +1964,7 @@ def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict
     from repro_torch.serving import GenerationEngine, cold_start
     from repro_torch.utils.tree import flatten_with_paths
 
-    cfg = get_config("recurrentgemma-9b")
+    cfg = get_config("recurrentgemma-9b").replace(num_layers=RG_LAYERS)
     if PROMPT > cfg.recurrent.window:
         raise AssertionError("the prompt must stay inside the local window to graft the prefill cache")
     model = build_model(cfg, param_dtype=torch.bfloat16)
@@ -1922,7 +1974,7 @@ def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in flatten_with_paths(params))
-    print(f"[serve] {cfg.name} at full width and depth ({cfg.num_layers} layers: {n_rec} rec, {n_attn} attn; "
+    print(f"[serve] {cfg.name} at full width, {cfg.num_layers} of 38 layers ({n_rec} rec, {n_attn} attn; "
           f"{n_params / 1e9:.2f} B params), bf16 weights made in {time.perf_counter() - t0:.1f} s", flush=True)
     profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
                                 vocab_row_group=max(64, cfg.vocab_size // 16))
@@ -1995,6 +2047,128 @@ def recurrentgemma_phase(fa_ops, lru_ops, wrappers: dict, workdir: Path) -> dict
     return summary
 
 
+def zoo_phase(arch: str, layers: int, fa_ops, wrappers: dict, workdir: Path) -> dict:
+    """[gemma3] / [deepseek] One of the text-only zoo configs at full width,
+    depth cut to ``layers``, bf16 weights from a seeded generator, through
+    the after2 path under strict: analyze → build_artifact → cold_start →
+    generate (B=2 × 1024 + ZOO_NEW_TOKENS). Gemma-3 (one 5:1 unit: five local
+    layers of window 1024 and a global one) has an empty tier-1 and must
+    launch flash attention once a layer in every prefill run, and no other
+    kernel; its kernel-path logits are checked against the plain attention
+    on the same server, then its ``[graph]``. DeepSeek-V2-Lite (a dense lead
+    layer, two groups of 64 experts top-6 plus 2 shared, MLA) must fault
+    expert and row-group units and launch no kernel (its prefill attention
+    is plain, as the reference's); its ``[graph]`` runs on a ``full`` server
+    of the same artifact once the request has faulted what it routes to.
+    The decode graphs must give eager's tokens with bit-equal logits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+    from repro_torch.serving import GenerationEngine, cold_start
+    from repro_torch.utils.tree import flatten_with_paths
+
+    tag = "[gemma3]" if arch.startswith("gemma3") else "[deepseek]"
+    cfg = get_config(arch)
+    cfg = cfg.replace(num_layers=layers, collect_moe_usage=cfg.moe is not None)
+    if cfg.sliding_window is not None and PROMPT > cfg.sliding_window:
+        raise AssertionError("the prompt must stay inside the local window to graft the prefill cache")
+    model = build_model(cfg, param_dtype=torch.bfloat16)
+    per_prefill = {"flash_attention": layers} if cfg.mla is None else {}
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in flatten_with_paths(params))
+    print(f"{tag} {cfg.name} at full width, {layers} of {get_config(arch).num_layers} layers "
+          f"({n_params / 1e9:.2f} B params), bf16 weights made in {time.perf_counter() - t0:.1f} s", flush=True)
+    profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                vocab_row_group=max(64, cfg.vocab_size // 16))
+    artifact = workdir / f"artifact_{arch}"
+    shutil.rmtree(artifact, ignore_errors=True)
+    max_seq = PROMPT + ZOO_NEW_TOKENS + 8
+    warm_shapes = ((BATCH, PROMPT, max_seq),)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=torch.Generator().manual_seed(7)).cuda()
+
+    for fn in wrappers.values():
+        fn.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    result = analyze(model, profile, trace_B=1, trace_S=32)
+    t1 = time.perf_counter()
+    meta = build_artifact(params, result, str(artifact), compress_level=1)
+    t2 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = cold_start(model, str(artifact), result, residency="strict", warm_shapes=warm_shapes)
+    engine = GenerationEngine(server, max_seq=max_seq)
+    t3 = time.perf_counter()
+    out, stats = engine.generate(tokens, ZOO_NEW_TOKENS)
+    t4 = time.perf_counter()
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    tiered = server.tiered
+    prefill_runs = len(warm_shapes) + stats.prefill_runs
+    fault_bytes = sum(e.nbytes for e in tiered.stats.events)
+    summary = dict(
+        analyze_s=t1 - t0, build_s=t2 - t1, generate_s=t4 - t3, n_params=n_params,
+        plan=result.summary(), tier1_compressed_bytes=meta["tier1_compressed_bytes"],
+        cold_start=server.report.to_dict(), budget_bytes=tiered.residency.budget_bytes,
+        faulted_units=stats.faulted_units, faulted_bytes=stats.faulted_bytes, fault_s=stats.fault_s,
+        fault_rate_gb_s=fault_bytes / stats.fault_s / 1e9 if stats.fault_s else None,
+        prefill_s=stats.prefill_s, decode_s=stats.decode_s, prefill_retries=stats.prefill_retries,
+        decode_retries=stats.decode_retries, loads=len(tiered.stats.events), load_bytes=fault_bytes,
+        evictions=tiered.stats.evictions, refaults=tiered.stats.refaults,
+        overshoots=tiered.residency.overshoot_events, peak_device_bytes=peak, launches=counts,
+        prefill_runs=prefill_runs, tokens=out.tolist(),
+    )
+    print(f"{tag} " + json.dumps(summary, default=str), flush=True)
+    if out.shape != (BATCH, ZOO_NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{tag} bad generated ids: shape {out.shape}, range [{out.min()}, {out.max()}]")
+    want = {name: per_prefill.get(name, 0) * prefill_runs for name in wrappers}
+    if counts != want:
+        raise AssertionError(f"{tag} launched {counts}, expected {want} for {prefill_runs} prefill runs")
+    if (result.plan.summary()["units"] > 0) != (cfg.moe is not None) or (stats.faulted_units > 0) != (
+            cfg.moe is not None):
+        raise AssertionError(f"{tag} {result.plan.summary()['units']} units, {stats.faulted_units} faulted: "
+                             "only the MoE config has tier-1 units to fault")
+
+    if cfg.mla is None:
+        # the same live weights (all tier-0, all resident) through the plain attention
+        live = server.live_params()
+        with torch.inference_mode():
+            logits_kernel = model.prefill(live, {"tokens": tokens})[0].float()
+            with mock.patch.object(attn_mod, "flash_attention", fa_ops.flash_attention_plain):
+                logits_plain = model.prefill(live, {"tokens": tokens})[0].float()
+        if not torch.isfinite(logits_kernel).all():
+            raise AssertionError(f"{tag} non-finite logits on the kernel path")
+        diff = (logits_kernel - logits_plain).abs().max().item()
+        scale = logits_plain.abs().max().item()
+        agree = (logits_kernel.argmax(-1) == logits_plain.argmax(-1)).float().mean().item()
+        print(f"{tag} prefill logits kernel vs plain attention: max abs diff {diff:.4g} (max |logit| "
+              f"{scale:.4g}, {diff / scale:.4g} of it), argmax agreement {agree:.2f}", flush=True)
+        if not diff <= ZOO_LOGITS_REL_TOL * scale:
+            raise AssertionError(f"{tag} kernel-path logits differ from the plain path by {diff} (max |logit| {scale})")
+        summary.update(logits_max_abs_diff=diff, logits_max_abs=scale)
+        summary["graph"] = graph_phase(cfg.name, server, tokens, ZOO_NEW_TOKENS, wrappers, per_prefill, 0.0)
+        server.close()
+    else:
+        server.close()
+        del server, engine, tiered
+        torch.cuda.empty_cache()
+        server = cold_start(model, str(artifact), result, residency="full", warm_shapes=warm_shapes)
+        full_out, _ = GenerationEngine(server, max_seq=max_seq).generate(tokens, ZOO_NEW_TOKENS)
+        if not server.prefetcher.drain(120.0) or full_out.tolist() != out.tolist():
+            raise AssertionError(f"{tag} full tokens {full_out.tolist()} differ from strict's {out.tolist()}")
+        summary["graph"] = graph_phase(cfg.name, server, tokens, ZOO_NEW_TOKENS, wrappers, per_prefill, 0.0)
+        server.close()
+    del server
+    shutil.rmtree(artifact, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def _print_ptxas(name: str, log: str) -> None:
     for line in log.splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss", "setmaxnreg")):
@@ -2040,7 +2214,8 @@ def main() -> int:
 
     phase_s = {"build": time.perf_counter() - t0}  # wall seconds of each phase
     t_phase = time.perf_counter()
-    rows, rows_256, rows_16, rows_8 = [flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
+    rows, rows_256, rows_gemma, rows_16, rows_8 = [flash_phase(fa_ops, widths, shapes)
+                                                   for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)
     decode_rows = decode_phase(da_ops)
     paged_rows = paged_phase(da_ops)
@@ -2073,22 +2248,36 @@ def main() -> int:
     t_phase = time.perf_counter()
     paths["recurrentgemma-9b"] = recurrentgemma_phase(fa_ops, lru_ops, wrappers, workdir)["launches"]
     phase_s["serve recurrentgemma"] = time.perf_counter() - t_phase
+    for arch, layers in (("gemma3-27b", GEMMA_LAYERS), ("deepseek-v2-lite-16b", DEEPSEEK_LAYERS)):
+        t_phase = time.perf_counter()
+        paths[arch] = zoo_phase(arch, layers, fa_ops, wrappers, workdir)["launches"]
+        phase_s[f"serve {arch}"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     trace = workdir / "retier_trace.json"  # the modes phase's after2 run profiles for [retier]
     modes = modes_phase(workdir, trace)
     paths["modes-after2 (retier profile)"] = modes["after2"]["launches"]
     phase_s["modes (launcher)"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    traffic_phase(workdir)
-    phase_s["traffic (launcher)"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
-    reduced = reduced_phase(workdir)
-    paths["reduced"], paths["reduced-online"] = reduced["launches"], reduced["online_launches"]
-    paths["reduced-restore"], paths["reduced-fleet"] = reduced["restore_launches"], reduced["fleet_launches"]
-    phase_s["reduced (launcher)"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
-    paths["retier-serve"] = retier_phase(workdir, modes["after2"], trace)["retier"]["launches"]
-    phase_s["retier (launcher)"] = time.perf_counter() - t_phase
+
+    def retier() -> dict:
+        t0 = time.perf_counter()
+        out = retier_phase(workdir, modes["after2"], trace)
+        phase_s["retier (launcher, beside traffic and reduced)"] = time.perf_counter() - t0
+        return out
+
+    # [retier]'s launcher process (mostly its host zlib build) runs beside the
+    # traffic and reduced phases' processes: the card and most host cores
+    # idle under each alone
+    with ThreadPoolExecutor(1) as ex:
+        retier_run = ex.submit(retier)
+        traffic_phase(workdir)
+        phase_s["traffic (launcher)"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        reduced = reduced_phase(workdir)
+        paths["reduced"], paths["reduced-online"] = reduced["launches"], reduced["online_launches"]
+        paths["reduced-restore"], paths["reduced-fleet"] = reduced["restore_launches"], reduced["fleet_launches"]
+        phase_s["reduced (launcher)"] = time.perf_counter() - t_phase
+        paths["retier-serve"] = retier_run.result()["retier"]["launches"]
     phase_s["total"] = time.perf_counter() - t_start
     print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     # the served decode is the plain dense one, as in the reference, and Mixtral has no recurrent layer
@@ -2099,6 +2288,7 @@ def main() -> int:
                          ("reduced-online", {"flash_attention"}), ("reduced-restore", {"flash_attention"}),
                          ("reduced-fleet", {"flash_attention"}),
                          ("recurrentgemma-9b", {"flash_attention", "rglru_scan"}),
+                         ("gemma3-27b", {"flash_attention"}), ("deepseek-v2-lite-16b", set()),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"})):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
@@ -2114,7 +2304,7 @@ def main() -> int:
 
     kernels = [
         entry("flash_attention", "flash_attention/csrc/flash_attention.cu", "flash_attention/kernel.py:103",
-              rows + rows_256 + rows_16 + rows_8, rows[0]),
+              rows + rows_256 + rows_gemma + rows_16 + rows_8, rows[0]),
         entry("rglru_scan", "rglru_scan/csrc/rglru_scan.cu", "rglru_scan/kernel.py:50", scan_rows, scan_rows[0]),
         entry("decode_attention", "decode_attention/csrc/decode_attention.cu", "decode_attention/kernel.py:201",
               decode_rows, decode_rows[0]),

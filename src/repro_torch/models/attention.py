@@ -1,14 +1,18 @@
 """GQA attention with RoPE: prefill (causal / sliding window) through the
 flash-attention wrapper, one-token decode over linear and rolling KV
-caches, and one-token decode over a paged KV pool (``repro.models.attention``
-counterpart, GQA only).
+caches, and one-token decode over a paged KV pool; DeepSeek's MLA
+(expanded prefill, absorbed decode over the latent cache)
+(``repro.models.attention`` counterpart, without cross-attention).
 
 Prefill attention goes through ``kernels.flash_attention.ops.
 flash_attention`` and paged decode through ``kernels.decode_attention.ops.
 paged_decode_attention``, each by device: the CUDA kernel for CUDA tensors,
 its plain version for CPU tensors. ``cfg.use_pallas`` is not consulted. The
 dense decode calls ``decode_attention_plain`` on every device, as the
-reference's calls ``decode_attention_jnp``.
+reference's calls ``decode_attention_jnp``. MLA's prefill attention is
+``flash_attention_plain`` on every device, as the reference's calls
+``flash_attention_jnp`` directly: its qk head dim (192 at full width) is not
+one the kernel takes, and the reference has no kernel there.
 """
 
 from __future__ import annotations
@@ -17,10 +21,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention.ops import decode_attention_plain, paged_decode_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope
+from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.kernels.decode_attention.ops import NEG_INF, decode_attention_plain, paged_decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.spec import ParamSpec
 
 
@@ -30,6 +34,21 @@ def gqa_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int) -> 
         "wk": ParamSpec((d_model, num_kv_heads * head_dim), ("embed", "kv_heads")),
         "wv": ParamSpec((d_model, num_kv_heads * head_dim), ("embed", "kv_heads")),
         "wo": ParamSpec((num_heads * head_dim, d_model), ("heads", "embed")),
+    }
+
+
+def mla_spec(cfg: ModelConfig) -> dict:
+    m: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": ParamSpec((d, H * qd), ("embed", "heads")),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank), ("embed", None)),
+        "w_kr": ParamSpec((d, m.qk_rope_head_dim), ("embed", None)),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), (None,), init="ones"),
+        "w_uk": ParamSpec((m.kv_lora_rank, H * m.qk_nope_head_dim), (None, "heads")),
+        "w_uv": ParamSpec((m.kv_lora_rank, H * m.v_head_dim), (None, "heads")),
+        "wo": ParamSpec((H * m.v_head_dim, d), ("heads", "embed")),
     }
 
 
@@ -150,3 +169,74 @@ def paged_gqa_decode(
     )
     out = o.reshape(B, H * hd) @ params["wo"].to(x.dtype)
     return out[:, None, :], k_pages, v_pages
+
+
+def _mla_q(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """(q_nope (B, S, H, nope), roped q_rope (B, S, H, rope))."""
+    m = cfg.mla
+    q = _split_heads(x @ params["wq"].to(x.dtype), cfg.num_heads)
+    q_nope, q_rope = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """The cache rows of ``x`` (B, S, D): normed latent c_kv (B, S, r) and
+    roped shared rope key k_r (B, S, rope)."""
+    c_kv = rmsnorm(x @ params["w_dkv"].to(x.dtype), params["kv_norm"], cfg.norm_eps)
+    k_r = apply_rope((x @ params["w_kr"].to(x.dtype))[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_r
+
+
+def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Prefill with the heads expanded; returns ``(out, (c_kv, k_r))``, the
+    latent cache rows. v is zero-padded to the qk head dim for the attention
+    and trimmed back, as in the reference."""
+    m, H = cfg.mla, cfg.num_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c_kv, k_r = _mla_latent(params, x, positions, cfg)
+    k_nope = _split_heads(c_kv @ params["w_uk"].to(x.dtype), H)
+    value = _split_heads(c_kv @ params["w_uv"].to(x.dtype), H)
+    k_full = torch.cat([k_nope, k_r[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    v_pad = torch.nn.functional.pad(value, (0, qd - m.v_head_dim))
+    o = flash_attention_plain(q_full, k_full, v_pad, causal=True)[..., : m.v_head_dim]
+    out = o.reshape(B, S, H * m.v_head_dim) @ params["wo"].to(x.dtype)
+    return out, (c_kv, k_r)
+
+
+def mla_decode(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, D)
+    pos: torch.Tensor,  # (B,)
+    ckv_cache: torch.Tensor,  # (B, S, r)
+    kr_cache: torch.Tensor,  # (B, S, rope)
+    cfg: ModelConfig,
+):
+    """Absorbed decode: W_uk is folded into the query, and the scores are
+    taken against the latent cache and the rope keys directly (no per-step
+    K/V expansion). Returns (out, ckv_cache, kr_cache): the caches it was
+    given, with the new token's rows written in place at ``pos``."""
+    m, H = cfg.mla, cfg.num_heads
+    B = x.shape[0]
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    q_nope, q_rope = _mla_q(params, x, pos[:, None], cfg)
+    q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]  # (B, H, nope), (B, H, rope)
+    c_new, kr_new = _mla_latent(params, x, pos[:, None], cfg)
+    ckv_cache = _scatter_rows(ckv_cache, pos, c_new[:, 0])
+    kr_cache = _scatter_rows(kr_cache, pos, kr_new[:, 0])
+
+    w_uk = params["w_uk"].to(x.dtype).reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)  # W_uk absorbed into q
+    ckv = ckv_cache.to(torch.float32)
+    s = torch.einsum("bhr,bsr->bhs", q_lat.to(torch.float32), ckv)
+    s = s + torch.einsum("bhr,bsr->bhs", q_rope.to(torch.float32), kr_cache.to(torch.float32))
+    s = s * scale
+    valid = torch.arange(ckv_cache.shape[1], device=x.device)[None, :] < (pos + 1)[:, None]
+    p = torch.softmax(torch.where(valid[:, None, :], s, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", p, ckv).to(x.dtype)
+    w_uv = params["w_uv"].to(x.dtype).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
+    out = o.reshape(B, H * m.v_head_dim) @ params["wo"].to(x.dtype)
+    return out[:, None, :], ckv_cache, kr_cache

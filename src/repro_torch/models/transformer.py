@@ -1,7 +1,9 @@
 """Decoder-stack assembly for uniform attention stacks with a dense (SwiGLU)
 or MoE MLP — the Mixtral family plus the dense Yi / Phi-3 / Mistral-Large
-configs — and for RecurrentGemma's hybrid rec/rec/attn stack
-(``repro.models.transformer`` counterpart).
+configs — for Gemma-3's 5:1 local/global stack, for DeepSeek-V2-Lite's MLA
+stack with its dense lead layer and fine-grained MoE, and for
+RecurrentGemma's hybrid rec/rec/attn stack (``repro.models.transformer``
+counterpart).
 
 Layers are grouped into scanned units with stacked parameters
 (``groups.u{j}.*``, leading axis = group), plus unscanned ``lead.b{i}`` /
@@ -37,32 +39,32 @@ from repro_torch.models.spec import ParamSpec, stack_specs
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers uniform self-attention stacks (GQA) with dense or
-    routed MLPs and the RG-LRU hybrid; other families are still to be
-    ported."""
-    unsupported = [name for name in ("mla", "xlstm", "encdec", "vlm",
-                                     "local_global_pattern") if getattr(cfg, name) is not None]
-    if cfg.moe is not None and cfg.moe.first_dense_layers:
-        unsupported.append("moe.first_dense_layers")
+    """The port covers self-attention stacks (GQA, local/global, MLA) with
+    dense or routed MLPs and the RG-LRU hybrid; xLSTM, the encoder-decoder
+    and the vision-language families are still to be ported."""
+    unsupported = [name for name in ("xlstm", "encdec", "vlm") if getattr(cfg, name) is not None]
     if unsupported:
         raise NotImplementedError(f"{cfg.name}: {', '.join(unsupported)} not ported yet")
 
 
-def _mlp_spec(cfg: ModelConfig) -> dict:
+def _mlp_spec(cfg: ModelConfig, layer_idx: int) -> dict:
     if cfg.moe is not None:
+        if layer_idx < cfg.moe.first_dense_layers:
+            return {"dense": swiglu_spec(cfg.d_model, cfg.moe.dense_d_ff or cfg.d_ff)}
         return {"moe": moe_mod.moe_spec(cfg)}
     return {"dense": swiglu_spec(cfg.d_model, cfg.d_ff)}
 
 
-def block_spec(cfg: ModelConfig, kind: str) -> dict:
+def block_spec(cfg: ModelConfig, kind: str, layer_idx: int) -> dict:
     d = cfg.d_model
-    if kind in ("self", "attn"):
-        mixer = {"attn": attn.gqa_spec(d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)}
+    if kind in ("self", "local", "global", "attn"):
+        mixer = {"attn": attn.mla_spec(cfg) if cfg.mla is not None else
+                 attn.gqa_spec(d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)}
     elif kind == "rec":
         mixer = {"rglru": rec_mod.rglru_block_spec(cfg)}
     else:
         raise ValueError(f"block kind {kind!r} is not ported")
-    return {"norm1": rmsnorm_spec(d), **mixer, "norm2": rmsnorm_spec(d), **_mlp_spec(cfg)}
+    return {"norm1": rmsnorm_spec(d), **mixer, "norm2": rmsnorm_spec(d), **_mlp_spec(cfg, layer_idx)}
 
 
 @dataclass(frozen=True)
@@ -80,6 +82,8 @@ def stack_layout(cfg: ModelConfig) -> StackLayout:
     rest = kinds[lead:]
     if cfg.recurrent is not None:
         unit = len(cfg.recurrent.pattern)
+    elif cfg.local_global_pattern is not None:
+        unit = sum(cfg.local_global_pattern)
     else:
         unit = cfg.layers_per_unit if len(rest) % max(cfg.layers_per_unit, 1) == 0 else 1
     n_groups = len(rest) // unit
@@ -96,12 +100,13 @@ def stack_spec(cfg: ModelConfig) -> dict:
     else:
         spec["head"] = ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))
     if lay.lead_kinds:
-        spec["lead"] = {f"b{i}": block_spec(cfg, k) for i, k in enumerate(lay.lead_kinds)}
+        spec["lead"] = {f"b{i}": block_spec(cfg, k, i) for i, k in enumerate(lay.lead_kinds)}
     if lay.n_groups:
-        unit_spec = {f"u{j}": block_spec(cfg, k) for j, k in enumerate(lay.unit_kinds)}
+        unit_spec = {f"u{j}": block_spec(cfg, k, len(lay.lead_kinds) + j) for j, k in enumerate(lay.unit_kinds)}
         spec["groups"] = stack_specs(unit_spec, lay.n_groups)
     if lay.tail_kinds:
-        spec["tail"] = {f"b{i}": block_spec(cfg, k) for i, k in enumerate(lay.tail_kinds)}
+        spec["tail"] = {f"b{i}": block_spec(cfg, k, cfg.num_layers - len(lay.tail_kinds) + i)
+                        for i, k in enumerate(lay.tail_kinds)}
     spec["final_norm"] = rmsnorm_spec(cfg.d_model)
     return spec
 
@@ -109,6 +114,10 @@ def stack_spec(cfg: ModelConfig) -> dict:
 def _kind_window(cfg: ModelConfig, kind: str) -> Optional[int]:
     if kind == "attn":  # RecurrentGemma's local attention
         return cfg.recurrent.window
+    if kind == "local":  # Gemma-3's local layers
+        return cfg.sliding_window
+    if kind == "global":
+        return None
     return cfg.sliding_window  # "self": SWA if the config sets it (Mixtral)
 
 
@@ -129,6 +138,9 @@ def _block_forward(cfg, kind, params, x, positions, collect_cache):
     h = rmsnorm(x, params["norm1"], cfg.norm_eps)
     if kind == "rec":
         o, c = rec_mod.rglru_block_forward(params["rglru"], h, cfg)
+    elif cfg.mla is not None:
+        o, (ckv, kr) = attn.mla_forward(params["attn"], h, positions, cfg)
+        c = {"ckv": ckv, "kr": kr}
     else:
         o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg,
                                      causal=True, window=_kind_window(cfg, kind))
@@ -145,9 +157,10 @@ def _block_forward(cfg, kind, params, x, positions, collect_cache):
 
 
 def _block_decode(cfg, kind, params, x, pos, cache, active=None):
-    """x (B, 1, D); returns (x, new_cache). K/V are written into ``cache``'s
-    tensors in place and come back as the same tensors; a rec block's conv
-    and LRU state come back as new tensors, ``cache``'s left as they were.
+    """x (B, 1, D); returns (x, new_cache). K/V (MLA's latent ``ckv`` and
+    ``kr``) are written into ``cache``'s tensors in place and come back as
+    the same tensors; a rec block's conv and LRU state come back as new
+    tensors, ``cache``'s left as they were.
     ``active`` (B,) bool marks the rows whose routing counts toward the usage
     mask (None: every row)."""
     new_cache = dict(cache)
@@ -155,6 +168,9 @@ def _block_decode(cfg, kind, params, x, pos, cache, active=None):
     if kind == "rec":
         o, c = rec_mod.rglru_block_decode(params["rglru"], h, cache, cfg)
         new_cache.update(c)
+    elif cfg.mla is not None:
+        o, new_cache["ckv"], new_cache["kr"] = attn.mla_decode(params["attn"], h, pos, cache["ckv"],
+                                                               cache["kr"], cfg)
     else:
         window = _kind_window(cfg, kind)
         rolling = window if (window is not None and cache["k"].shape[1] == window) else None
@@ -234,11 +250,12 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
     """batch: tokens (B, 1), pos (B,), optional active (B,) bool. Returns
     (logits (B, V), new caches).
 
-    Every K/V cache is written in place (the scanned groups' through the
-    views ``_select`` returns) and comes back as the same tensor. Every other
-    leaf (a rec block's conv and LRU state, the usage masks) is a new tensor
-    (the groups' stacked into one buffer), and ``caches`` keeps the state the
-    step started from: a step re-run after an expert fault equals one run.
+    Every K/V cache (MLA's ``ckv`` / ``kr``) is written in place (the
+    scanned groups' through the views ``_select`` returns) and comes back as
+    the same tensor. Every other leaf (a rec block's conv and LRU state, the
+    usage masks) is a new tensor (the groups' stacked into one buffer), and
+    ``caches`` keeps the state the step started from: a step re-run after an
+    expert fault equals one run.
     The caller commits the new state once the step is final
     (``serving.engine.commit_decode_caches``). ``active`` only gates
     usage-mask collection (``Model.decode_step_masked``)."""

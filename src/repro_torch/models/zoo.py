@@ -87,6 +87,10 @@ class Model:
         dt = getattr(torch, cfg.dtype)
         if kind == "rec":
             return {k: CacheLeaf(shape, dt) for k, shape in rec_mod.rglru_cache_shapes(cfg, B).items()}
+        if cfg.mla is not None:  # the latent cache, every layer linear
+            m = cfg.mla
+            return {"ckv": CacheLeaf((B, S_max, m.kv_lora_rank), dt),
+                    "kr": CacheLeaf((B, S_max, m.qk_rope_head_dim), dt)}
         window = tf._kind_window(cfg, kind)
         Skv = min(S_max, window) if window else S_max
         leaf = CacheLeaf((B, Skv, cfg.num_kv_heads, cfg.resolved_head_dim), dt)

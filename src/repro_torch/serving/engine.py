@@ -81,6 +81,21 @@ def _usage_masks(caches: Any) -> dict[str, np.ndarray]:
     return {p: v.cpu().numpy() for p, v in flatten_with_paths(caches) if p.endswith("moe_usage")}
 
 
+def graft_prefix(big: torch.Tensor, small: torch.Tensor) -> None:
+    """Write ``small`` into ``big`` in place: whole where the shapes are
+    equal, else as a prefix of zeros. A prefix longer than ``big`` (a prompt
+    longer than a rolling window cache) raises ValueError, as the reference's
+    graft does: neither package serves such a prompt."""
+    if big.shape == small.shape:
+        big.copy_(small)
+        return
+    if any(s > b for s, b in zip(small.shape, big.shape)):
+        raise ValueError(f"a prefill cache of shape {tuple(small.shape)} does not fit the decode cache "
+                         f"{tuple(big.shape)}: the prompt is longer than a rolling window")
+    big.zero_()
+    big[tuple(slice(0, d) for d in small.shape)] = small
+
+
 def _graft_prefill_cache(big: Any, small: Any) -> Any:
     """Rebuild the max-length decode caches ``big`` in place as zeros with
     the prefill-sized K/V prefixes of ``small`` written in (carry states and
@@ -90,11 +105,7 @@ def _graft_prefill_cache(big: Any, small: Any) -> Any:
         for k in big:
             _graft_prefill_cache(big[k], small[k])
         return big
-    if big.shape == small.shape:
-        big.copy_(small)
-    else:
-        big.zero_()
-        big[tuple(slice(0, d) for d in small.shape)] = small
+    graft_prefix(big, small)
     return big
 
 

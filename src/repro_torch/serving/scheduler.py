@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.prefetch import merge_hints
-from repro_torch.serving.engine import GenerationEngine, RequestStats
+from repro_torch.serving.engine import GenerationEngine, RequestStats, graft_prefix
 from repro_torch.serving.paged_kv import PagePool
 from repro_torch.utils.tree import flatten_with_paths
 
@@ -617,10 +617,5 @@ def _graft_slot_cache(big: Any, small: Any, slots: list[int]) -> Any:
         b = big_flat[path]
         ax = 1 if path.startswith("groups.") else 0
         for i, slot in enumerate(slots):
-            src, row = s.select(ax, i), b.select(ax, slot)
-            if src.shape == row.shape:
-                row.copy_(src)
-            else:
-                row.zero_()
-                row[tuple(slice(0, d) for d in src.shape)] = src
+            graft_prefix(b.select(ax, slot), s.select(ax, i))
     return big

@@ -1,11 +1,13 @@
 """Program Analyzer parity of the PyTorch port: the tier plan (tier,
 granularity, reason, bytes, unit keys, resident units) equals the JAX
-reference's for the serve launcher's strict / stats / full profiles, and the
-traced reachability equals the jaxpr liveness leaf for leaf."""
+reference's for the serve launcher's strict / stats / full profiles (reduced
+configs, and Gemma-3 and DeepSeek-V2-Lite at full width cut in depth), and
+the traced reachability equals the jaxpr liveness leaf for leaf."""
 
 import pytest
 import torch
 
+from repro.configs import get_config as ref_get_config
 from repro.configs import get_reduced as ref_get_reduced
 from repro.core import DeploymentProfile as RefProfile
 from repro.core import analyze as ref_analyze
@@ -39,7 +41,8 @@ def _decisions(plan):
 
 
 @pytest.mark.parametrize("policy", ["strict", "stats", "full"])
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b", "recurrentgemma-9b", "gemma3-27b",
+                                  "deepseek-v2-lite-16b"])
 def test_tier_plan_matches_reference(arch, policy):
     ref_cfg = ref_get_reduced(arch).replace(collect_moe_usage=True)
     cfg = get_reduced(arch).replace(collect_moe_usage=True)
@@ -52,6 +55,32 @@ def test_tier_plan_matches_reference(arch, policy):
     assert mine.reach.reachable == ref.reach.reachable
     assert _decisions(mine.plan) == _decisions(ref.plan)
     assert mine.summary() == ref.summary()
+
+
+@pytest.mark.parametrize("arch,layers", [("gemma3-27b", 6), ("deepseek-v2-lite-16b", 3)])
+def test_full_width_plan_matches_reference(arch, layers):
+    """At full width (Gemma-3: one 5:1 unit; DeepSeek-V2-Lite: its dense lead
+    layer and two MoE groups) the strict plan, its units and bytes are the
+    reference's. Gemma-3's tier-1 is empty (tied embeddings, dense MLPs);
+    DeepSeek's dense lead MLP and shared experts stay tier-0 and only its
+    routed expert tables and vocab row groups are units."""
+    ref_cfg = ref_get_config(arch).replace(num_layers=layers, collect_moe_usage=True)
+    cfg = get_config(arch).replace(num_layers=layers, collect_moe_usage=True)
+    kwargs, _ = _profiles(cfg)["strict"]
+    ref = ref_analyze(ref_build_model(ref_cfg), RefProfile(**kwargs), trace_B=1, trace_S=32)
+    mine = analyze(build_model(cfg), DeploymentProfile(**kwargs), trace_B=1, trace_S=32)
+    assert mine.reach.reachable == ref.reach.reachable
+    assert _decisions(mine.plan) == _decisions(ref.plan)
+    assert mine.summary() == ref.summary()
+    decisions = mine.plan.decisions
+    if cfg.moe is None:
+        assert mine.plan.summary()["units"] == 0 and mine.plan.tier1_bytes == 0
+        return
+    assert all(d.tier == 0 for p, d in decisions.items() if p.startswith("lead.b0.dense.") or ".moe.shared." in p)
+    assert {p for p, d in decisions.items() if d.tier == 1} == {
+        "embed", "groups.u0.moe.w_gate", "groups.u0.moe.w_up", "groups.u0.moe.w_down"}
+    keys = decisions["groups.u0.moe.w_gate"].units
+    assert [u.key for u in keys] == [f"groups.u0.moe.w_gate#l{l}e{e}" for l in range(2) for e in range(64)]
 
 
 def test_liveness_leaves_unused_inputs_dead():

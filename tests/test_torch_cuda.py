@@ -1108,3 +1108,110 @@ def test_decode_graph_replayed_after_a_fleet_push_reads_the_pushed_bytes(card, t
         torch.testing.assert_close(pushed, plain(), atol=2e-2, rtol=2e-2)
         assert not torch.allclose(pushed, first, atol=1e-1)
         assert a._compiled == entries and a.compiled_decode(2, 32) is decode
+
+
+# Gemma-3-27B's attention widths (H=32, Hkv=16: GQA group 2, hd 128):
+# B, S, window — its local layers' prefill (window 1024 = S), its global
+# layers' (no window), and a longer prompt where the window masks
+GEMMA_CASES = [(2, 1024, 1024), (2, 1024, None), (1, 2048, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GEMMA_CASES, ids=str)
+def test_kernel_matches_plain_at_gemma3_widths(card, case):
+    B, S, window = case
+    rs = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rs.standard_normal(shape, dtype=np.float32)).to(card, torch.bfloat16)
+               for shape in ((B, S, 32, 128), (B, S, 16, 128), (B, S, 16, 128)))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    ref = fa_ops.flash_attention_plain(q.float(), k.float(), v.float(), causal=True, window=window)
+    assert ((out.float() - ref).abs() / ref.abs().clamp_min(1.0)).max().item() <= 1e-2
+
+
+def _zoo_server(arch, card, tmp, **kw):
+    """``arch``'s reduced config as the launcher serves it on the card (bf16
+    weights from a seeded generator, bf16 compute), on a strict artifact;
+    ``kw`` goes to ``cold_start`` (default: strict residency)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact
+    from repro_torch.models import build_model
+    from repro_torch.serving import cold_start
+
+    cfg = get_reduced(arch)
+    model = build_model(cfg.replace(collect_moe_usage=cfg.moe is not None), param_dtype=torch.bfloat16)
+    profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                vocab_row_group=max(64, cfg.vocab_size // 16))
+    result = analyze(model, profile, trace_B=1, trace_S=32)
+    build_artifact(model.init(torch.Generator(card).manual_seed(0), device=card), result, tmp)
+    kw.setdefault("residency", "strict")
+    return model, cold_start(model, tmp, result, warm_shapes=((2, 16, 32),), device=card, **kw)
+
+
+@pytest.mark.gpu
+def test_reduced_gemma3_serves_the_plain_path_tokens_on_card(card, tmp_path):
+    """Reduced Gemma-3 (head_dim 16 through the zero-padded hd-64 kernel,
+    window 16) serves a 16-token prompt and 12 new tokens, so its local
+    caches wrap: the tokens equal those of the same server with the plain
+    attention, and every prefill run launched the kernel in all 6 layers."""
+    from unittest import mock
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serving import GenerationEngine
+
+    model, server = _zoo_server("gemma3-27b", card, str(tmp_path / "kernel"))
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(5)).to(card)
+    with server:
+        before = fa_ops.flash_attention.launches
+        out, stats = GenerationEngine(server, max_seq=32).generate(prompt, 12)
+        assert fa_ops.flash_attention.launches - before == 6 * stats.prefill_runs
+    with mock.patch.object(attn_mod, "flash_attention", fa_ops.flash_attention_plain):
+        model, server = _zoo_server("gemma3-27b", card, str(tmp_path / "plain"))
+        with server:
+            before = fa_ops.flash_attention.launches
+            want, _ = GenerationEngine(server, max_seq=32).generate(prompt, 12)
+            assert fa_ops.flash_attention.launches == before
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.gpu
+def test_deepseek_decode_graph_is_bit_equal_to_eager_and_writes_latents_in_place(card, tmp_path):
+    """Reduced DeepSeek-V2-Lite on a full server: the decode graph replayed
+    on grafted prefill caches gives the eager step's logits and caches bit
+    for bit, writes ``ckv`` / ``kr`` of its own caches in place (the same
+    storage before and after), and launches no kernel."""
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.serving import GenerationEngine, RequestStats
+    from repro_torch.serving.engine import _graft_prefill_cache, commit_decode_caches
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
+
+    model, server = _zoo_server("deepseek-v2-lite-16b", card, str(tmp_path), residency="full", prefetch=False)
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(6)).to(card)
+    with server:
+        engine = GenerationEngine(server, max_seq=32)
+        logits, caches, _ = engine.prefill_step(prompt, RequestStats())
+        server.tiered.ensure_all()
+        decode = server.compiled_decode(2, 32)
+        _graft_prefill_cache(decode.caches, caches)
+        latents = {p: t.data_ptr() for p, t in flatten_with_paths(decode.caches) if p.endswith((".ckv", ".kr"))}
+        assert len(latents) == 2 * 2  # the lead layer's and the groups' stacked ckv and kr
+        live = server.live_params()
+        tok = logits.argmax(-1)[:, None].long()
+        launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
+        for step in range(3):
+            batch = {"tokens": tok, "pos": torch.full((2,), 16 + step, device=card)}
+            mine = tree_map(torch.clone, decode.caches)
+            with torch.inference_mode():
+                want_logits, want = model.decode_step(live, mine, batch)
+            commit_decode_caches(mine, want)
+            got_logits, got = decode(live, decode.caches, batch)
+            commit_decode_caches(decode.caches, got)
+            torch.cuda.synchronize()
+            assert torch.equal(got_logits, want_logits)
+            for (p, a), (_, b) in zip(flatten_with_paths(decode.caches), flatten_with_paths(mine)):
+                assert torch.equal(a, b), p
+            assert {p: t.data_ptr() for p, t in flatten_with_paths(decode.caches) if p in latents} == latents
+            tok = got_logits.argmax(-1)[:, None].long()
+        assert {name: fn.launches for name, fn in kernel_wrappers().items()} == launches

@@ -9,7 +9,9 @@ snapshot and fleet flags where the reference refuses them. With
 ``--retier-online --host-budget-bytes`` both launchers print the reference's
 ``[serve] host arbiter:`` and ``[serve] online retier:`` lines, with the same
 tick counts. Its stats profile reads the synthetic token pipeline, which
-gives the reference's tokens and row-group stats."""
+gives the reference's tokens and row-group stats. Reduced Gemma-3 and
+DeepSeek-V2-Lite: both launchers print the same plan, and the port's tokens
+and fault counts are the reference engine's on the same weights."""
 
 import json
 import os
@@ -355,3 +357,55 @@ def test_token_pipeline_matches_reference(cfg):
         assert port.vocab_row_stats(row_group=rg) == ref.vocab_row_stats(row_group=rg)
     with pytest.raises(ValueError, match="does not split"):
         SyntheticTokenPipeline(DataConfig(vocab, seq, batch), num_shards=5)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "deepseek-v2-lite-16b"])
+def test_launcher_serves_gemma3_and_deepseek_as_the_reference(tmp_path, arch):
+    """``--reduced`` Gemma-3 and DeepSeek-V2-Lite under strict: both launchers
+    exit 0 with the same plan line, and the port's tokens, faults, evictions
+    and refaults are those of the reference's engine serving the port
+    launcher's seeded weights and prompts (the two launchers seed their
+    weights with different generators)."""
+    from repro.configs import get_reduced as ref_get_reduced
+    from repro.core import DeploymentProfile as RefProfile
+    from repro.core import analyze as ref_analyze
+    from repro.core import build_artifact as ref_build_artifact
+    from repro.models.zoo import build_model as ref_build_model
+    from repro.serving import GenerationEngine as RefEngine
+    from repro.serving import cold_start as ref_cold_start
+    from repro.utils.tree import tree_from_flat
+    from repro_torch.utils.tree import flatten_with_paths
+
+    B, S, steps = 2, 8, 4
+    argv = ["--arch", arch, "--reduced", "--batch", str(B), "--prompt-len", str(S), "--gen-steps", str(steps),
+            "--policy", "strict"]
+    res = _serve(*argv, "--device", "cpu", "--artifact-dir", str(tmp_path / "port"))
+    ref = _ref_serve(*argv, "--artifact-dir", str(tmp_path / "ref"))
+    assert res.returncode == 0, res.stderr
+    assert ref.returncode == 0, ref.stderr
+
+    def plan(out):
+        return re.search(r"^\[serve\] plan: (.*)$", out, re.M).group(1)
+
+    assert plan(res.stdout) == plan(ref.stdout)
+    faults = int(re.search(r"^\[serve\] generated \(2, 4\); .* faults=(\d+) ", res.stdout, re.M).group(1))
+    evictions, refaults = map(int, re.search(r"; evictions (\d+); refaults (\d+);", res.stdout).groups())
+
+    cfg = get_reduced(arch).replace(collect_moe_usage=get_reduced(arch).moe is not None)
+    params = build_model(cfg).init(torch.Generator("cpu").manual_seed(0), device="cpu")
+    ref_params = tree_from_flat({p: v.numpy() for p, v in flatten_with_paths(params)})
+    ref_model = ref_build_model(ref_get_reduced(arch).replace(collect_moe_usage=cfg.moe is not None))
+    result = ref_analyze(ref_model, RefProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                               vocab_row_group=max(64, cfg.vocab_size // 16)), trace_B=1, trace_S=32)
+    ref_build_artifact(ref_params, result, str(tmp_path / "same"))
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1))
+    server = ref_cold_start(ref_model, str(tmp_path / "same"), result, mode="after2", residency="strict",
+                            compile_warm_set=False)
+    try:
+        out, stats = RefEngine(server, max_seq=S + steps + 8).generate(prompts.numpy().astype(np.int32), steps)
+        assert _tokens(res.stdout) == np.asarray(out).tolist()
+        assert (faults, evictions, refaults) == (stats.faulted_units, server.tiered.stats.evictions,
+                                                 server.tiered.stats.refaults)
+        assert (faults > 0) == (cfg.moe is not None)  # Gemma-3's tier-1 is empty
+    finally:
+        server.close()

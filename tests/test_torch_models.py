@@ -1,7 +1,10 @@
 """Model parity of the PyTorch port against the JAX reference: configs field
-for field, parameter paths and shapes, and — on reference weights carried
-over by ``convert.params_from_numpy`` — prefill logits, caches and MoE usage
-masks, then decode steps across the sliding window, at float32 on CPU."""
+for field, parameter paths and shapes (reduced, and at full width for
+RecurrentGemma, Gemma-3 and DeepSeek-V2-Lite), and — on reference weights
+carried over by ``convert.params_from_numpy`` — prefill logits, caches and
+MoE usage masks, then decode steps across the sliding window (Gemma-3's
+rolling local caches and its unwindowed global layer, DeepSeek's latent
+MLA caches), at float32 on CPU."""
 
 import dataclasses
 import gc
@@ -27,11 +30,16 @@ from repro_torch.models import build_model
 from repro_torch.serving.engine import _graft_prefill_cache, _strip_usage
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat
 
-PORTED = ["mixtral-8x22b", "yi-34b", "phi3-medium-14b", "mistral-large-123b", "recurrentgemma-9b"]
+PORTED = ["mixtral-8x22b", "yi-34b", "phi3-medium-14b", "mistral-large-123b", "recurrentgemma-9b",
+          "gemma3-27b", "deepseek-v2-lite-16b"]
 # depth of the parity runs where the reduced config's would skip a layout
 # section: 5 RecurrentGemma layers are one (rec, rec, attn) group plus a
 # (rec, rec) tail
 PARITY_LAYERS = {"recurrentgemma-9b": 5}
+# prompt length of the decode parity runs (default 28): reduced Gemma-3's
+# prompt must fit its 16-token local window (the prefill graft of both
+# packages needs it), and its decode then crosses position 16
+PARITY_PROMPT = {"gemma3-27b": 12}
 
 # fp32 tolerance: each logit is a few layers of D=64..128-term dot products,
 # so the two frameworks' reduction orders differ by O(10) ulps of O(1)
@@ -98,16 +106,39 @@ def test_full_depth_layout_equals_reference():
         [(p, tuple(c.shape)) for p, c in ref_flatten(ref.abstract_cache(2, 1048, multimodal=False))]
 
 
-def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="mla"):
-        build_model(get_reduced("deepseek-v2-lite-16b"))
+@pytest.mark.parametrize("arch,layout", [
+    ("gemma3-27b", ((), ("local",) * 5 + ("global",), 10, ("local", "local"))),
+    ("deepseek-v2-lite-16b", (("self",), ("self",), 26, ())),
+])
+def test_full_width_layout_equals_reference(arch, layout):
+    """Full-size Gemma-3 (62 layers: ten 5:1 units and a local/local tail)
+    and DeepSeek-V2-Lite (a dense lead layer and 26 MoE groups) lay out the
+    reference's paths, shapes, access and caches."""
+    ref = ref_build_model(ref_get_config(arch))
+    mine = build_model(get_config(arch), param_dtype=torch.bfloat16)
+    lay = mine.layout
+    assert (lay.lead_kinds, lay.unit_kinds, lay.n_groups, lay.tail_kinds) == layout
+    assert [(p, tuple(v.shape)) for p, v in ref_flatten(ref.abstract())] == \
+        [(p, tuple(v.shape)) for p, v in flatten_with_paths(mine.abstract())]
+    assert mine.access() == ref.access()
+    assert sum(v.numel() for _, v in flatten_with_paths(mine.abstract())) == ref.num_params()
+    assert [(p, tuple(c.shape)) for p, c in flatten_with_paths(mine.abstract_cache(2, 1048))] == \
+        [(p, tuple(c.shape)) for p, c in ref_flatten(ref.abstract_cache(2, 1048, multimodal=False))]
 
 
-@pytest.mark.parametrize("arch", PORTED[:3] + ["recurrentgemma-9b"])
+@pytest.mark.parametrize("arch,family", [("xlstm-125m", "xlstm"), ("whisper-base", "encdec"),
+                                         ("llama-3.2-vision-90b", "vlm")])
+def test_unported_family_raises(arch, family):
+    with pytest.raises(NotImplementedError, match=family):
+        build_model(get_reduced(arch))
+
+
+@pytest.mark.parametrize("arch", PORTED[:3] + ["recurrentgemma-9b", "gemma3-27b", "deepseek-v2-lite-16b"])
 def test_prefill_and_decode_match_reference(arch):
     ref_model, ref_params, flat = _reference(arch)
     model, params = _port(arch, flat)
-    B, S, S_max, steps = 2, 28, 64, 6  # decode crosses Mixtral's (and RecurrentGemma's) 32-token window
+    # decode crosses Mixtral's (and RecurrentGemma's) 32-token window, Gemma-3's 16-token one
+    B, S, S_max, steps = 2, PARITY_PROMPT.get(arch, 28), 64, 6
     tokens = np.random.default_rng(7).integers(0, model.cfg.vocab_size, (B, S))
 
     ref_decode = jax.jit(ref_model.decode_step)

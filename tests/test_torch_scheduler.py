@@ -15,7 +15,8 @@ weights:
     slot never faults an expert;
   * the in-place decode: K/V written into the caches given, carry state
     committed separately, N steps equal to the reference's for Mixtral, Yi
-    with a rolling window and RecurrentGemma; a step run twice equals one;
+    with a rolling window, RecurrentGemma, Gemma-3's local/global stack and
+    DeepSeek's latent MLA caches; a step run twice equals one;
   * ``_graft_slot_cache`` equals the reference's on group, lead and tail
     leaves and on carry-state leaves;
   * the compiled entries' contract on the CPU (the plain calls)."""
@@ -410,12 +411,14 @@ def test_masked_decode_usage_matches_reference():
 
 
 @pytest.mark.parametrize("arch,replace,S", [(ARCH, {}, 28), ("yi-34b", {"sliding_window": 8}, 6),
-                                            ("recurrentgemma-9b", {"num_layers": 5}, 28)], ids=str)
+                                            ("recurrentgemma-9b", {"num_layers": 5}, 28),
+                                            ("gemma3-27b", {}, 12), ("deepseek-v2-lite-16b", {}, 28)], ids=str)
 def test_in_place_decode_matches_reference(arch, replace, S):
-    """Steps across the window (32, or 8 for Yi; the prompt stays inside it,
-    as the prefill graft needs): every K/V leaf the step returns is the cache
-    tensor it was given (written in place), and after each commit the caches
-    and logits equal the reference's functional step."""
+    """Steps across the window (32, 16 for Gemma-3's local layers, or 8 for
+    Yi; the prompt stays inside it, as the prefill graft needs): every K/V
+    leaf the step returns (MLA's latent ``ckv`` / ``kr``) is the cache tensor
+    it was given (written in place), and after each commit the caches and
+    logits equal the reference's functional step."""
     ref_model, ref_params, model, params = _models(arch, **replace)
     B, S_max, steps = 2, 48, 6
     ref_decode = jax.jit(ref_model.decode_step)
@@ -434,7 +437,7 @@ def test_in_place_decode_matches_reference(arch, replace, S):
         logits, new = model.decode_step(params, caches, {"tokens": torch.from_numpy(tok[:, None]),
                                                         "pos": torch.full((B,), S + step)})
         for p, leaf in flatten_with_paths(_strip_usage(new)):
-            assert (leaf is leaves[p]) == p.endswith((".k", ".v")), p
+            assert (leaf is leaves[p]) == p.endswith((".k", ".v", ".ckv", ".kr")), p
         commit_decode_caches(caches, new)
         np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=TOL, rtol=TOL)
         ref_caches = ref_strip(ref_caches)
