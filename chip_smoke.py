@@ -18,7 +18,10 @@ Phases (any failure exits non-zero before the result line):
    so the unmasked tiles and the softcap kernel are held too), at
    RecurrentGemma-9B's (H=16, Hkv=1, hd=256), at Gemma-3-27B's (H=32,
    Hkv=16, hd=128: B=2 × 1024 with window 1024 and with none, B=1 × 4096
-   with window 1024), and at the reduced configs' head dims, which the wrapper zero-pads to 64 (reduced Mixtral H=4, Hkv=2,
+   with window 1024), at Whisper's decoder widths (H=Hkv=8, hd 64: G = 1,
+   B=2 × 448), at Llama-3.2-Vision's self layers' (H=64, Hkv=8, hd 128,
+   B=2 × 1024), and at the reduced configs' head dims, which the wrapper
+   zero-pads to 64 (reduced Mixtral H=4, Hkv=2,
    hd 16, window 32; reduced Yi H=8, Hkv=2, hd 8); error ≤ 1e-2 per unit of
    max(1, |output|) (bf16 output rounding); each row prints its TFLOP/s and
    its share of the bound. The RG-LRU scan in fp32 at
@@ -117,9 +120,11 @@ Phases (any failure exits non-zero before the result line):
    each with a budget of the whole tier-1: ``replica-0`` serves the request
    cut to 1 new token, the fleet syncs, ``replica-1`` cold-starts
    bootstrapped from the fleet's overlay (a synchronous preload inside
-   ``register``) and serves the same request. Both give strict's first
-   column, ``replica-1`` faults no unit, the fleet records one bootstrap and
-   no failure, no daemon absorbed an error; peak device memory printed.
+   ``register``, reported apart from its cold start's upload, which leaves
+   it out as the reference's does) and serves the same request. Both give
+   strict's first column, ``replica-1`` faults no unit, the fleet records one
+   bootstrap and no failure, no daemon absorbed an error; peak device
+   memory printed.
 5. serve, stats — the same weights and request under the reference
    launcher's stats profile (one resident expert a layer, a quarter of the
    row groups hot by the synthetic pipeline's stats) with its own artifact,
@@ -155,13 +160,33 @@ Phases (any failure exits non-zero before the result line):
    the decode or gather kernels (the served decode is the plain dense one,
    as in the reference), and Mixtral's may not launch the scan.
 7. modes — the paper's Table 2 through the launcher as a user runs it:
-   ``python -m repro_torch.launch.serve`` in before, after1 and after2
+   ``python -m repro_torch.launch.serve`` in after2, before and after1
    (its default stats policy, without the prefetcher and with
    ``--profile-out``: [retier]'s profiling run) on Mixtral-8x22B at full
    width cut to 1 layer, bf16 weights (a ≈29 GB before bundle with the
    fp32 AdamW moments), B=2 × 1024 + 4. Each must exit 0 and print its ``[serve]``
    lines; bytes read must shrink strictly and the tokens agree. Free disk
    and host RAM are printed first.
+   Beside it, in this process (the launchers' card idles while they write
+   and read their bundles), the two modal families, served text-only as the
+   reference serves them: [whisper] whisper-base (arXiv:2212.04356) at full
+   width and depth (d_model 512, 8 / 8 heads of 64, 6 decoder and 6 encoder
+   layers, tied 51865-row table), B=2 × 448 + 3; [llama-vision]
+   Llama-3.2-Vision at full width (d_model 8192, 64 / 8 heads of 128, d_ff
+   28672, vision_dim 7680, 1601 image tokens), depth cut from 100 to 5 (four
+   self layers and one gated cross layer), B=2 × 1024 + 3. Each first runs
+   one multimodal prefill on its seeded weights (audio frames (2, 448, 512);
+   image embeddings (2, 1601, 7680), the VLM's text-only logits held equal
+   to its multimodal ones with the gates at zero, then both gates set to
+   0.5): flash once per decoder self layer (the encoder and every cross-
+   attention are plain, as in the reference), logits against the plain
+   attention within ZOO_LOGITS_REL_TOL of the max |logit|. Then analyze
+   (the ``_text_only`` entries) → build_artifact → cold_start(strict) →
+   generate: flash once per self layer in every prefill run and no other
+   kernel; tier-1 is the encoder and the decoder's cross-attention
+   (Whisper: 0 faults) or the cross block and the vocab row groups (the
+   VLM: row groups fault, never the cross block); then [graph] on the
+   strict server, bit-equal.
 8. traffic — the launcher's traffic mode once: Mixtral-8x22B at full width
    cut to 1 layer, bf16, ``full``, ``--concurrency 4 --requests 8
    --prompt-len 256 --gen-steps 8``; exit 0 with 8/8 requests done.
@@ -177,7 +202,9 @@ Phases (any failure exits non-zero before the result line):
    run prints its ``[serve] host arbiter:`` and ``[serve] online retier:``
    lines and absorbed no error; the restore run replays at least one unit
    with the predictor armed; the fleet's pushes and pulls all held.
-10. retier — run beside phases 8 and 9 (its own process, mostly host zlib):
+10. retier — its own process, mostly host zlib, started as soon as the
+   modes phase's after2 run (which goes first) has ended, beside that
+   phase's before and after1 runs and phases 8 and 9:
    profile → re-tier → re-serve through the launcher, Mixtral at
    full width cut to 1 layer, bf16, stats, B=2 × 1024 + 4: the modes
    phase's after2 run profiled (``--no-prefetch --profile-out``), then
@@ -188,6 +215,13 @@ Each phase's wall time is printed on the ``[time]`` line.
 
 The last lines: ``nvidia-smi`` name and power limit, a JSON line with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --modal-alone
+
+builds the kernels, then runs only [whisper] and [llama-vision], one after
+the other with nothing beside them (their host times without the modes
+phase's contention), and prints their lines and the ``[time]`` line but no
+kernels or result line.
 """
 
 from __future__ import annotations
@@ -286,6 +320,19 @@ GEMMA_H, GEMMA_HKV, GEMMA_HD, GEMMA_WINDOW = 32, 16, 128, 1024  # Gemma-3-27B
 # lead layer and two MoE groups; each B=2 × 1024 + 3, the prompt as long as
 # Gemma's window (the longest the prefill graft of both packages takes)
 GEMMA_LAYERS, DEEPSEEK_LAYERS, ZOO_NEW_TOKENS = 6, 3, 3
+# [whisper]: whisper-base at full depth (6 decoder and 6 encoder layers),
+# B=2 × 448 + 3, 448 its decoder context; [llama-vision]: one 4-self:1-cross
+# unit of Llama-3.2-Vision, B=2 × 1024 + 3
+WHISPER_LAYERS, WHISPER_PROMPT, LLAMA_VISION_LAYERS = 6, 448, 5
+WHISPER_H, WHISPER_HKV, WHISPER_HD = 8, 8, 64
+LLAMA_H, LLAMA_HKV, LLAMA_HD = 64, 8, 128
+# the VLM's gates in the multimodal prefill check: tanh(0.5) ≈ 0.46, so the
+# image path moves the logits (at their init, zero, it would not)
+GATE_CHECK = 0.5
+# the VLM with zero gates: text-only logits against multimodal ones, the
+# reference's test_vlm_text_only_matches_zero_image limit (an image adds
+# tanh(0) · y = 0 to the residual, so they should be bit-equal)
+ZERO_GATE_TOL = 1e-4
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
     ((H, HKV, HD), [(BATCH, PROMPT, 4096, True, None),
@@ -305,6 +352,10 @@ FLASH_ROWS = (
     # prefill and at 1024 tokens, reduced Yi (H=8, Hkv=2, hd 8, no window)
     ((4, 2, 16), [(BATCH, REDUCED_PROMPT, 32, True, None), (BATCH, PROMPT, 32, True, None)]),
     ((8, 2, 8), [(BATCH, PROMPT, None, True, None)]),
+    # Whisper's decoder (hd 64, G = 1) at its served prefill, and
+    # Llama-3.2-Vision's self layers (G = 8)
+    ((WHISPER_H, WHISPER_HKV, WHISPER_HD), [(BATCH, WHISPER_PROMPT, None, True, None)]),
+    ((LLAMA_H, LLAMA_HKV, LLAMA_HD), [(BATCH, PROMPT, None, True, None)]),
 )
 
 
@@ -982,8 +1033,9 @@ def fleet_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dic
     phase shows is federation rather than LRU churn. ``replica-0`` cold-starts
     and serves the strict request cut to FLEET_NEW_TOKENS; the fleet syncs;
     ``replica-1`` cold-starts, is bootstrapped from the fleet's overlay
-    inside ``register`` (a synchronous preload, counted as its cold start's
-    upload) and serves the same request. Both give strict's first column;
+    inside ``register`` (a synchronous preload; its seconds and bytes are
+    ``server.fleet_bootstrap``, which the cold-start report leaves out, as
+    the reference's does) and serves the same request. Both give strict's first column;
     ``replica-1`` faults no unit; the fleet records one bootstrap and no
     failure; no daemon absorbed an error; each prefill launches flash
     attention only. Both replicas stay up until the end (two trees)."""
@@ -1011,7 +1063,8 @@ def fleet_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dic
             t1 = time.perf_counter()
             out, st = GenerationEngine(s, max_seq=PROMPT + MIXTRAL_NEW_TOKENS + 8).generate(tokens, FLEET_NEW_TOKENS)
             replicas[name] = dict(
-                cold_start=s.report.to_dict(), cold_start_wall_s=cold_wall, loads_at_cold_start=preloaded,
+                cold_start=s.report.to_dict(), bootstrap=s.fleet_bootstrap, cold_start_wall_s=cold_wall,
+                loads_at_cold_start=preloaded,
                 generate_s=time.perf_counter() - t1, faulted_units=st.faulted_units, faulted_bytes=st.faulted_bytes,
                 fault_s=st.fault_s, prefill_runs=st.prefill_runs, prefill_retries=st.prefill_retries,
                 resident_bytes=s.tiered.resident_bytes, tokens=out.tolist())
@@ -1038,6 +1091,12 @@ def fleet_phase(model, result, artifact: Path, tokens, strict_out, wrappers: dic
         if r["daemon"]["errors"] or r["last_error"]:
             raise AssertionError(f"[fleet] {name}'s daemon absorbed an error: {r['last_error']!r}")
     late = replicas["replica-1"]
+    print(f"[fleet] replica-1's warm bootstrap: {late['bootstrap']['bytes']:,}B in "
+          f"{late['bootstrap']['seconds']:.3f} s; its cold-start upload {late['cold_start']['upload_s']:.3f} s "
+          f"({late['cold_start']['bytes_uploaded']:,}B)", flush=True)
+    if late["cold_start"]["bytes_uploaded"] != late["cold_start"]["bytes_read"] or not late["bootstrap"]["bytes"] > 0:
+        raise AssertionError(f"[fleet] replica-1's upload {late['cold_start']} should leave out its bootstrap "
+                             f"{late['bootstrap']}")
     if late["faulted_units"] != 0 or replicas["replica-0"]["faulted_units"] <= 0:
         raise AssertionError(f"[fleet] replica-1 faulted {late['faulted_units']} units after its bootstrap "
                              f"(replica-0 {replicas['replica-0']['faulted_units']})")
@@ -1912,22 +1971,23 @@ def _host_resources(path: Path) -> str:
             f"{mem['MemAvailable'] / 1e9:.1f} of {mem['MemTotal'] / 1e9:.1f} GB")
 
 
-def modes_phase(workdir: Path, trace: Path) -> dict:
+def modes_phase(workdir: Path, trace: Path, on_profile=None) -> dict:
     """The paper's Table 2 on the card through the launcher, as a user runs
-    it: ``python -m repro_torch.launch.serve`` in each of before, after1 and
-    after2 on Mixtral-8x22B at full width, depth cut to 1 layer, bf16
+    it: ``python -m repro_torch.launch.serve`` in each of after2, before and
+    after1 on Mixtral-8x22B at full width, depth cut to 1 layer, bf16
     weights from the launcher's seeded generator, B=2 × prompt 1024 + 4 new
     tokens. The after2 run, under the launcher's default stats policy, is
     also ``[retier]``'s profiling run: no prefetcher, its access trace
-    written to ``trace``. Each run writes its own bundle or artifact. Bytes
-    read must shrink strictly from before to after1 to after2, and the
-    greedy tokens must agree."""
+    written to ``trace``; it runs first, and ``on_profile(run)`` is called
+    as soon as it has, so ``[retier]`` can start beside the other two. Each
+    run writes its own bundle or artifact. Bytes read must shrink strictly
+    from before to after1 to after2, and the greedy tokens must agree."""
     outdir = workdir / "launcher"
     shutil.rmtree(outdir, ignore_errors=True)
     outdir.mkdir(parents=True)
     print(f"[modes] {_host_resources(outdir)}", flush=True)
     runs = {}
-    for mode in ("before", "after1", "after2"):
+    for mode in ("after2", "before", "after1"):
         args = ["--arch", "mixtral-8x22b", "--layers", "1", "--param-dtype", "bfloat16", "--batch", str(BATCH),
                 "--prompt-len", str(PROMPT), "--gen-steps", str(MODES_NEW_TOKENS), "--mode", mode,
                 "--artifact-dir", str(outdir)]
@@ -1941,6 +2001,8 @@ def modes_phase(workdir: Path, trace: Path) -> dict:
         for name in os.listdir(outdir / "mixtral-8x22b"):  # each bundle or artifact is read once
             path = outdir / "mixtral-8x22b" / name
             shutil.rmtree(path) if path.is_dir() else path.unlink()
+        if mode == "after2" and on_profile is not None:
+            on_profile(run)
     shutil.rmtree(outdir, ignore_errors=True)
     read = [runs[m]["cold_start"]["bytes_read"] for m in ("before", "after1", "after2")]
     if not read[0] > read[1] > read[2]:
@@ -2169,15 +2231,193 @@ def zoo_phase(arch: str, layers: int, fa_ops, wrappers: dict, workdir: Path) -> 
     return summary
 
 
+def _modal_prefill_check(tag: str, model, params, fa_ops, wrappers: dict, tokens, self_layers: int) -> dict:
+    """[whisper] / [llama-vision] One multimodal prefill on the seeded weights
+    (Whisper: audio frames as long as the prompt; the VLM: its 1601 image
+    embeddings) through the kernel and through the plain attention: the
+    kernel runs once per decoder self layer (the encoder and every cross-
+    attention are plain, as in the reference), the logits agree within
+    ZOO_LOGITS_REL_TOL of the plain path's max |logit|. The VLM first with
+    its gates at zero (their init), where the text-only logits must equal the
+    multimodal ones (the reference's ``test_vlm_text_only_matches_zero_image``),
+    then with both gates at GATE_CHECK, so the cross path counts."""
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    if cfg.vlm is not None:
+        memory = {"image_embeds": torch.randn(BATCH, cfg.vlm.num_image_tokens, cfg.vlm.vision_dim, generator=gen,
+                                              device="cuda").to(torch.bfloat16)}
+        cross_units = [f"u{j}" for j, kind in enumerate(model.layout.unit_kinds) if kind == "cross"]
+        gates = [t for u in cross_units
+                 for t in (params["groups"][u]["cross"]["gate"], params["groups"][u]["gate_ffn"])]
+    else:
+        memory = {"frames": torch.randn(BATCH, tokens.shape[1], cfg.d_model, generator=gen,
+                                        device="cuda").to(torch.bfloat16)}
+        gates = []
+    out = {}
+    with torch.inference_mode():
+        if gates:
+            text = model.prefill(params, {"tokens": tokens})[0].float()
+            zero = model.prefill(params, {"tokens": tokens, **memory})[0].float()
+            out.update(zero_gate_max_abs_diff=(text - zero).abs().max().item(),
+                       zero_gate_bit_equal=torch.equal(text, zero))
+            del text, zero
+            for t in gates:
+                t.fill_(GATE_CHECK)
+        for fn in wrappers.values():
+            fn.launches = 0
+        kernel = model.prefill(params, {"tokens": tokens, **memory})[0].float()
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        with mock.patch.object(attn_mod, "flash_attention", fa_ops.flash_attention_plain):
+            plain = model.prefill(params, {"tokens": tokens, **memory})[0].float()
+        for t in gates:
+            t.zero_()
+    diff, scale = (kernel - plain).abs().max().item(), plain.abs().max().item()
+    out.update(launches=launches, logits_max_abs_diff=diff, logits_max_abs=scale,
+               argmax_agreement=(kernel.argmax(-1) == plain.argmax(-1)).float().mean().item())
+    print(f"{tag} multimodal prefill ({', '.join(f'{k} {tuple(v.shape)}' for k, v in memory.items())}): "
+          + json.dumps(out), flush=True)
+    if not torch.isfinite(kernel).all():
+        raise AssertionError(f"{tag} non-finite multimodal logits on the kernel path")
+    if launches != {name: self_layers if name == "flash_attention" else 0 for name in wrappers}:
+        raise AssertionError(f"{tag} the multimodal prefill launched {launches}, expected flash {self_layers} "
+                             "(the decoder's self layers) and nothing else")
+    if not diff <= ZOO_LOGITS_REL_TOL * scale:
+        raise AssertionError(f"{tag} multimodal kernel-path logits differ from the plain path by {diff} "
+                             f"(max |logit| {scale})")
+    if gates and not out["zero_gate_max_abs_diff"] <= ZERO_GATE_TOL:
+        raise AssertionError(f"{tag} with zero gates the text-only logits differ from the multimodal ones by "
+                             f"{out['zero_gate_max_abs_diff']}")
+    return out
+
+
+def modal_phase(arch: str, layers: int, prompt: int, fa_ops, wrappers: dict, workdir: Path) -> dict:
+    """[whisper] / [llama-vision] A modal config at full width (Whisper at full
+    depth, Llama-3.2-Vision cut to ``layers``), bf16 weights from a seeded
+    generator: the multimodal prefill check (``_modal_prefill_check``), then
+    text-only serving through the after2 path under strict, as the
+    reference serves these families: analyze (the ``_text_only`` entries) →
+    build_artifact → cold_start → generate (B=2 × ``prompt`` +
+    ZOO_NEW_TOKENS). Flash attention runs once per decoder self layer in
+    every prefill run and no other kernel does; no faulted unit belongs to
+    the encoder or a cross block (Whisper's tier-1 is only those: 0 faults;
+    the VLM faults vocab row groups only); then ``[graph]`` on the strict
+    server, logits bit-equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact
+    from repro_torch.models import build_model
+    from repro_torch.serving import GenerationEngine, cold_start
+    from repro_torch.utils.tree import flatten_with_paths
+
+    tag = "[whisper]" if arch.startswith("whisper") else "[llama-vision]"
+    cfg = get_config(arch).replace(num_layers=layers)
+    model = build_model(cfg, param_dtype=torch.bfloat16)
+    self_layers = cfg.attn_kinds.count("self")
+    per_prefill = {"flash_attention": self_layers}
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in flatten_with_paths(params))
+    print(f"{tag} {cfg.name} at full width, {layers} of {get_config(arch).num_layers} decoder layers "
+          f"({self_layers} self; {n_params / 1e9:.3f} B params), bf16 weights made in "
+          f"{time.perf_counter() - t0:.1f} s; {_host_resources(workdir)}", flush=True)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, prompt), generator=torch.Generator().manual_seed(7)).cuda()
+    t0 = time.perf_counter()
+    check = _modal_prefill_check(tag, model, params, fa_ops, wrappers, tokens, self_layers)
+    check["wall_s"] = time.perf_counter() - t0
+    profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                vocab_row_group=max(64, cfg.vocab_size // 16))
+    artifact = workdir / f"artifact_{arch}"
+    shutil.rmtree(artifact, ignore_errors=True)
+    max_seq = prompt + ZOO_NEW_TOKENS + 8
+    warm_shapes = ((BATCH, prompt, max_seq),)
+
+    for fn in wrappers.values():
+        fn.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    result = analyze(model, profile, trace_B=1, trace_S=32)
+    t1 = time.perf_counter()
+    meta = build_artifact(params, result, str(artifact), compress_level=1)
+    t2 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = cold_start(model, str(artifact), result, residency="strict", warm_shapes=warm_shapes)
+    engine = GenerationEngine(server, max_seq=max_seq)
+    t3 = time.perf_counter()
+    out, stats = engine.generate(tokens, ZOO_NEW_TOKENS)
+    t4 = time.perf_counter()
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    tiered = server.tiered
+    prefill_runs = len(warm_shapes) + stats.prefill_runs
+    decisions = result.plan.decisions
+    # the leaves a text request never reads: the encoder, the decoder's cross-
+    # attention, and every leaf of the VLM's cross blocks
+    cross_units = tuple(f"groups.u{j}." for j, kind in enumerate(model.layout.unit_kinds) if kind == "cross")
+    modal = {p for p in decisions if p.startswith(("encoder.",) + cross_units) or ".cross." in p
+             or p.endswith(".norm_x")}
+    faulted = sorted({e.key for e in tiered.stats.events})
+    fault_bytes = sum(e.nbytes for e in tiered.stats.events)
+    summary = dict(
+        analyze_s=t1 - t0, build_s=t2 - t1, generate_s=t4 - t3, n_params=n_params, prefill_check=check,
+        plan=result.summary(), tier1_compressed_bytes=meta["tier1_compressed_bytes"],
+        tier1_leaves=sorted(p for p, d in decisions.items() if d.tier == 1),
+        modal_tier1_bytes=sum(decisions[p].nbytes for p in modal if decisions[p].tier == 1),
+        cold_start=server.report.to_dict(), budget_bytes=tiered.residency.budget_bytes,
+        faulted_units=stats.faulted_units, faulted_bytes=stats.faulted_bytes, fault_s=stats.fault_s,
+        fault_rate_gb_s=fault_bytes / stats.fault_s / 1e9 if stats.fault_s else None,
+        prefill_s=stats.prefill_s, decode_s=stats.decode_s, prefill_retries=stats.prefill_retries,
+        decode_retries=stats.decode_retries, loads=len(tiered.stats.events), load_bytes=fault_bytes,
+        faulted_keys=faulted, evictions=tiered.stats.evictions, refaults=tiered.stats.refaults,
+        overshoots=tiered.residency.overshoot_events, peak_device_bytes=peak, launches=counts,
+        prefill_runs=prefill_runs, tokens=out.tolist(),
+    )
+    print(f"{tag} " + json.dumps(summary, default=str), flush=True)
+    if out.shape != (BATCH, ZOO_NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{tag} bad generated ids: shape {out.shape}, range [{out.min()}, {out.max()}]")
+    want = {name: per_prefill.get(name, 0) * prefill_runs for name in wrappers}
+    if counts != want:
+        raise AssertionError(f"{tag} launched {counts}, expected {want} for {prefill_runs} prefill runs")
+    if not {p for p in modal if decisions[p].tier == 1} or any(decisions[p].tier == 1 for p in decisions
+                                                               if p not in modal and p != "embed"):
+        raise AssertionError(f"{tag} tier-1 should be the modal leaves (and the VLM's row groups): "
+                             f"{summary['tier1_leaves']}")
+    bad = [k for k in faulted if k.split("#")[0] in modal]
+    if bad or (stats.faulted_units > 0) != (not cfg.tie_embeddings):
+        raise AssertionError(f"{tag} faulted {faulted}: modal units {bad}; only an untied table's rows may fault")
+    summary["graph"] = graph_phase(cfg.name, server, tokens, ZOO_NEW_TOKENS, wrappers, per_prefill, 0.0)
+    if any(e.key.split("#")[0] in modal for e in tiered.stats.events):
+        raise AssertionError(f"{tag} [graph] faulted a modal unit")
+    server.close()
+    del server, engine, tiered
+    shutil.rmtree(artifact, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def _print_ptxas(name: str, log: str) -> None:
     for line in log.splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss", "setmaxnreg")):
             print(f"[build] {name} ptxas: {line.strip()}", flush=True)
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA card.")
+    ap.add_argument("--modal-alone", action="store_true",
+                    help="build the kernels, run only [whisper] and [llama-vision], with no other phase beside "
+                         "them, and stop without the result line")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2213,9 +2453,27 @@ def main() -> int:
               f"{da_ops.resident_blocks(torch.device('cuda'), hd, True)}", flush=True)
 
     phase_s = {"build": time.perf_counter() - t0}  # wall seconds of each phase
+    workdir = REPO / "build" / "chip_smoke"
+    workdir.mkdir(parents=True, exist_ok=True)
+
+    def modal(label: str) -> dict:
+        out = {}
+        for arch, layers, prompt in (("whisper-base", WHISPER_LAYERS, WHISPER_PROMPT),
+                                     ("llama-3.2-vision-90b", LLAMA_VISION_LAYERS, PROMPT)):
+            t0 = time.perf_counter()
+            out[arch] = modal_phase(arch, layers, prompt, fa_ops, wrappers, workdir)["launches"]
+            phase_s[f"serve {arch}{label}"] = time.perf_counter() - t0
+        return out  # modal_phase holds each path to flash alone, once per self layer a prefill run
+
+    if args.modal_alone:
+        modal(" (alone)")
+        phase_s["total"] = time.perf_counter() - t_start
+        print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
+        print(_gpu_line())
+        return 0
     t_phase = time.perf_counter()
-    rows, rows_256, rows_gemma, rows_16, rows_8 = [flash_phase(fa_ops, widths, shapes)
-                                                   for widths, shapes in FLASH_ROWS]
+    rows, rows_256, rows_gemma, rows_16, rows_8, rows_whisper, rows_llama = [
+        flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)
     decode_rows = decode_phase(da_ops)
     paged_rows = paged_phase(da_ops)
@@ -2226,8 +2484,6 @@ def main() -> int:
     paths = {f"paged-decode-{mode}": paged_path_phase(wrappers, rolling=mode == "rolling")["launches"]
              for mode in ("linear", "rolling")}
     phase_s["paged decode"] = time.perf_counter() - t_phase
-    workdir = REPO / "build" / "chip_smoke"
-    workdir.mkdir(parents=True, exist_ok=True)
     t_phase = time.perf_counter()
     strict = serve_phase(wrappers, workdir)
     paths["mixtral-8x22b"] = strict["launches"]
@@ -2252,24 +2508,31 @@ def main() -> int:
         t_phase = time.perf_counter()
         paths[arch] = zoo_phase(arch, layers, fa_ops, wrappers, workdir)["launches"]
         phase_s[f"serve {arch}"] = time.perf_counter() - t_phase
+
     t_phase = time.perf_counter()
     trace = workdir / "retier_trace.json"  # the modes phase's after2 run profiles for [retier]
-    modes = modes_phase(workdir, trace)
-    paths["modes-after2 (retier profile)"] = modes["after2"]["launches"]
-    phase_s["modes (launcher)"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
 
-    def retier() -> dict:
+    def retier(profile: dict) -> dict:
         t0 = time.perf_counter()
-        out = retier_phase(workdir, modes["after2"], trace)
-        phase_s["retier (launcher, beside traffic and reduced)"] = time.perf_counter() - t0
+        out = retier_phase(workdir, profile, trace)
+        phase_s["retier (launcher, beside modes before / after1, traffic and reduced)"] = time.perf_counter() - t0
         return out
 
-    # [retier]'s launcher process (mostly its host zlib build) runs beside the
-    # traffic and reduced phases' processes: the card and most host cores
-    # idle under each alone
-    with ThreadPoolExecutor(1) as ex:
-        retier_run = ex.submit(retier)
+    # [whisper] and [llama-vision] run in this process beside the modes
+    # phase's launcher processes, whose card idles while they write and read
+    # their bundles; the in-process launch counts are theirs alone. The
+    # modes phase's after2 run goes first: it is [retier]'s profiling run,
+    # and [retier]'s launcher process (mostly its host zlib build) then runs
+    # beside the before and after1 runs, traffic and [reduced]
+    retier_run = []
+    with ThreadPoolExecutor(2) as ex:
+        modal_run = ex.submit(modal, " (beside modes)")
+        modes = modes_phase(workdir, trace, on_profile=lambda run: retier_run.append(ex.submit(retier, run)))
+        phase_s["modes (launcher)"] = time.perf_counter() - t_phase
+        paths.update(modal_run.result())
+        paths["modes-after2 (retier profile)"] = modes["after2"]["launches"]
+        phase_s["modes + whisper + llama-vision"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
         traffic_phase(workdir)
         phase_s["traffic (launcher)"] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
@@ -2277,7 +2540,7 @@ def main() -> int:
         paths["reduced"], paths["reduced-online"] = reduced["launches"], reduced["online_launches"]
         paths["reduced-restore"], paths["reduced-fleet"] = reduced["restore_launches"], reduced["fleet_launches"]
         phase_s["reduced (launcher)"] = time.perf_counter() - t_phase
-        paths["retier-serve"] = retier_run.result()["retier"]["launches"]
+        paths["retier-serve"] = retier_run[0].result()["retier"]["launches"]
     phase_s["total"] = time.perf_counter() - t_start
     print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     # the served decode is the plain dense one, as in the reference, and Mixtral has no recurrent layer
@@ -2289,6 +2552,7 @@ def main() -> int:
                          ("reduced-fleet", {"flash_attention"}),
                          ("recurrentgemma-9b", {"flash_attention", "rglru_scan"}),
                          ("gemma3-27b", {"flash_attention"}), ("deepseek-v2-lite-16b", set()),
+                         ("whisper-base", {"flash_attention"}), ("llama-3.2-vision-90b", {"flash_attention"}),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"})):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
@@ -2304,7 +2568,7 @@ def main() -> int:
 
     kernels = [
         entry("flash_attention", "flash_attention/csrc/flash_attention.cu", "flash_attention/kernel.py:103",
-              rows + rows_256 + rows_gemma + rows_16 + rows_8, rows[0]),
+              rows + rows_256 + rows_gemma + rows_16 + rows_8 + rows_whisper + rows_llama, rows[0]),
         entry("rglru_scan", "rglru_scan/csrc/rglru_scan.cu", "rglru_scan/kernel.py:50", scan_rows, scan_rows[0]),
         entry("decode_attention", "decode_attention/csrc/decode_attention.cu", "decode_attention/kernel.py:201",
               decode_rows, decode_rows[0]),

@@ -8,7 +8,12 @@ set)."""
 
 from repro_torch.core.analyzer import AnalysisResult, analyze, build_artifact, write_monolithic
 from repro_torch.core.arbiter import HostArbiter, HostArbiterStats
-from repro_torch.core.entrypoints import DeploymentProfile, recognize_entries
+from repro_torch.core.entrypoints import (
+    SERVING_MULTIMODAL_PROFILE,
+    SERVING_PROFILE,
+    DeploymentProfile,
+    recognize_entries,
+)
 from repro_torch.core.file_elim import eliminate_collections, eliminate_files
 from repro_torch.core.fleet import FleetController, FleetStats
 from repro_torch.core.on_demand import AccessTrace, LoadEvent, LoaderStats, ResidencyManager, TieredParams
@@ -49,6 +54,8 @@ __all__ = [
     "build_artifact",
     "write_monolithic",
     "DeploymentProfile",
+    "SERVING_PROFILE",
+    "SERVING_MULTIMODAL_PROFILE",
     "recognize_entries",
     "eliminate_collections",
     "eliminate_files",

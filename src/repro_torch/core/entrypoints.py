@@ -2,8 +2,8 @@
 
 ``DeploymentProfile`` is the deployment's declared entry set (the FaaSLight
 configuration file); ``recognize_entries`` filters the model's registered
-entries by their ``kind`` tag, and ``extra_entries`` is the explicit escape
-hatch.
+entries by their ``kind`` tag and the profile's modalities, and
+``extra_entries`` is the explicit escape hatch.
 """
 
 from __future__ import annotations
@@ -38,6 +38,10 @@ class DeploymentProfile:
         return "train" in self.kinds
 
 
+SERVING_PROFILE = DeploymentProfile(name="serving")
+SERVING_MULTIMODAL_PROFILE = DeploymentProfile(name="serving-multimodal", modalities=("text", "image", "audio"))
+
+
 def recognize_entries(
     model: Model,
     profile: DeploymentProfile,
@@ -46,8 +50,15 @@ def recognize_entries(
     S: int = 128,
     extra_entries: Sequence[EntryPoint] = (),
 ) -> list[EntryPoint]:
-    """The model's entries whose kind the profile serves, plus ``extra_entries``."""
-    out = [ep for ep in model.entries(B=B, S=S) if ep.kind in profile.kinds]
+    """The model's entries whose kind the profile serves, plus ``extra_entries``.
+    A text-only profile (no image or audio modality) drops each modal entry
+    that has a ``_text_only`` twin, so the modal weights stay unreachable (the
+    Whisper-encoder and VLM-cross case); a multimodal profile keeps both."""
+    multimodal = any(m in profile.modalities for m in ("image", "audio"))
+    entries = model.entries(B=B, S=S)
+    names = {ep.name for ep in entries}
+    out = [ep for ep in entries if ep.kind in profile.kinds
+           and (multimodal or ep.name.endswith("_text_only") or ep.name + "_text_only" not in names)]
     out.extend(extra_entries)
     if not out:
         raise ValueError(

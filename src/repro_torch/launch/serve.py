@@ -6,7 +6,8 @@ chosen mode (the monolithic before/after1 bundle, or the two-tier after2
 artifact) → timed cold start (its compile phase captures the warm set as
 CUDA graphs on the card) → serve, with the reference's ``[serve]`` lines
 (cold start, resident fraction, prefetch hit rate, evictions, refaults,
-stall p99) and the generated tokens. Two request modes:
+stall p99), the keys of the units the requests faulted in (a line of the
+port's own) and the generated tokens. Two request modes:
 
   * one-shot (default): one batched ``GenerationEngine.generate()`` of
     ``--batch`` prompts; ``[serve] tokens:`` prints its (B, gen-steps) ids;
@@ -57,7 +58,15 @@ own daemon (``--fleet`` implies ``--retier-online``) registered to one
 serves the one-shot request, and the controller syncs after each, so by the
 time replica k serves it carries the hot set replicas 0..k-1 learned. It
 prints each replica's request, tokens and daemon stats, each sync and the
-``[serve] fleet:`` totals, and exits 1 if a replica's output is short.
+``[serve] fleet:`` totals (with the joiners' warm-bootstrap bytes and
+seconds, which their cold-start reports leave out, as the reference's do),
+and exits 1 if a replica's output is short.
+
+Every family but xLSTM serves. Whisper (``--arch whisper-base``) and
+Llama-3.2-Vision (``--arch llama-3.2-vision-90b``) serve text-only, as the
+reference's launcher does: the analyzer sees only their ``_text_only``
+entries, so the encoder and the image cross-attention blocks go to tier-1
+(or stay tier-0 under ``min_tier1_bytes``) and no request faults them in.
 
 Runs on ``--device cuda`` unless told ``--device cpu``. Every config serves
 on the card, the reduced ones (``--reduced``: head_dim 8 or 16, which the
@@ -315,6 +324,7 @@ def main(argv=None) -> int:
             print(f"[serve] prefetch hit rate {ts.prefetch_hit_rate:.2f}; "
                   f"evictions {ts.evictions}; refaults {ts.refaults}; "
                   f"stall p99 {ts.stall_percentile(99)*1e3:.2f}ms", flush=True)
+            print("[serve] faulted units: " + json.dumps(sorted({e.key for e in ts.events if e.source == "fault"})))
             if server.prefetcher is not None and server.prefetcher.predictor is not None:
                 ps = server.prefetcher.stats
                 print(f"[serve] predictor: observed {ps.observed} keys, "
@@ -396,8 +406,11 @@ def _serve_fleet(model, result, outdir: str, args, cfg, max_seq: int) -> int:
         for i, s in enumerate(servers):
             _print_daemon_stats(s, label=f"replica-{i} retier")
         fs = fleet.stats
+        # the joiners' warm bootstraps, which their cold-start reports leave out
+        boot_bytes = sum(s.fleet_bootstrap["bytes"] for s in servers)
+        boot_s = sum(s.fleet_bootstrap["seconds"] for s in servers)
         print(f"[serve] fleet: {fs.syncs} syncs, {fs.replans} replans, {fs.pushes} pushes "
-              f"({fs.push_failures} failed), {fs.bootstraps} warm bootstraps")
+              f"({fs.push_failures} failed), {fs.bootstraps} warm bootstraps ({boot_bytes:,}B in {boot_s:.3f}s)")
         print(f"[serve] fleet stats: {json.dumps(fs.to_dict())}")
         print("[serve] kernel launches: " + json.dumps({name: f.launches for name, f in kernel_wrappers().items()}))
     finally:

@@ -1,8 +1,9 @@
 """GQA attention with RoPE: prefill (causal / sliding window) through the
 flash-attention wrapper, one-token decode over linear and rolling KV
 caches, and one-token decode over a paged KV pool; DeepSeek's MLA
-(expanded prefill, absorbed decode over the latent cache)
-(``repro.models.attention`` counterpart, without cross-attention).
+(expanded prefill, absorbed decode over the latent cache); cross-attention
+over an encoder's or an image's memory (Whisper's decoder, Llama-3.2-Vision's
+gated image layers) (``repro.models.attention`` counterpart).
 
 Prefill attention goes through ``kernels.flash_attention.ops.
 flash_attention`` and paged decode through ``kernels.decode_attention.ops.
@@ -12,11 +13,16 @@ dense decode calls ``decode_attention_plain`` on every device, as the
 reference's calls ``decode_attention_jnp``. MLA's prefill attention is
 ``flash_attention_plain`` on every device, as the reference's calls
 ``flash_attention_jnp`` directly: its qk head dim (192 at full width) is not
-one the kernel takes, and the reference has no kernel there.
+one the kernel takes, and the reference has no kernel there. The kernel is
+reached only through ``gqa_forward``: every attention the reference runs
+plain calls ``flash_attention_plain`` itself, with no flag to choose. Those
+are MLA's prefill, cross-attention (not causal) and the Whisper encoder's
+self-attention (``encoder_attn_forward``).
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 import torch
@@ -35,6 +41,18 @@ def gqa_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int) -> 
         "wv": ParamSpec((d_model, num_kv_heads * head_dim), ("embed", "kv_heads")),
         "wo": ParamSpec((num_heads * head_dim, d_model), ("heads", "embed")),
     }
+
+
+def cross_attn_spec(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int, mem_dim: int) -> dict:
+    """A gated image cross-attention's weights, each ``modal:image`` (only a
+    multimodal entry reaches them): ``wk`` / ``wv`` read the image memory's
+    ``mem_dim``, and the tanh ``gate`` starts at zero."""
+    gqa = gqa_spec(d_model, num_heads, num_kv_heads, head_dim)
+    spec = {k: replace(s, access="modal:image") for k, s in gqa.items()}
+    spec["wk"] = ParamSpec((mem_dim, num_kv_heads * head_dim), ("embed", "kv_heads"), access="modal:image")
+    spec["wv"] = ParamSpec((mem_dim, num_kv_heads * head_dim), ("embed", "kv_heads"), access="modal:image")
+    spec["gate"] = ParamSpec((1,), (None,), init="zeros", access="modal:image")
+    return spec
 
 
 def mla_spec(cfg: ModelConfig) -> dict:
@@ -81,6 +99,16 @@ def gqa_forward(
     o = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_logit_softcap)
     out = o.reshape(*o.shape[:2], H * hd) @ params["wo"].to(x.dtype)
     return out, (k, v)
+
+
+def encoder_attn_forward(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The Whisper encoder's self-attention: RoPE, not causal, plain on every
+    device, as the reference's encoder calls ``gqa_forward`` without
+    ``use_pallas``."""
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(params, x, positions, cfg)
+    o = flash_attention_plain(q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
+    return o.reshape(*o.shape[:2], H * hd) @ params["wo"].to(x.dtype)
 
 
 def _scatter_rows(cache: torch.Tensor, slot: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
@@ -240,3 +268,34 @@ def mla_decode(
     o = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
     out = o.reshape(B, H * m.v_head_dim) @ params["wo"].to(x.dtype)
     return out[:, None, :], ckv_cache, kr_cache
+
+
+def cross_attn_forward(
+    params: dict,
+    x: torch.Tensor,  # (B, S, D)
+    memory_kv: tuple,  # projected (B, T, Hkv, hd) k and v of the memory
+    cfg: ModelConfig,
+    *,
+    gated: bool = False,
+) -> torch.Tensor:
+    """Attention of ``x`` over a memory's keys and values, not causal and
+    without RoPE; ``gated`` scales the output by tanh(``gate``) (the VLM's
+    image layers)."""
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    k, v = memory_kv
+    q = _split_heads(x @ params["wq"].to(x.dtype), H)
+    o = flash_attention_plain(q, k, v, causal=False)
+    out = o.reshape(*o.shape[:2], H * hd) @ params["wo"].to(x.dtype)
+    if gated:
+        out = out * torch.tanh(params["gate"].to(x.dtype))
+    return out
+
+
+def cross_attn_memory(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """The memory (encoder output or image embeddings, (B, T, mem_dim))
+    projected once to (k, v) of (B, T, Hkv, hd): a prefill's cross cache,
+    which decode reads."""
+    Hkv = cfg.num_kv_heads
+    k = _split_heads(memory @ params["wk"].to(memory.dtype), Hkv)
+    v = _split_heads(memory @ params["wv"].to(memory.dtype), Hkv)
+    return k, v

@@ -1,8 +1,9 @@
 """Decoder-stack assembly for uniform attention stacks with a dense (SwiGLU)
 or MoE MLP — the Mixtral family plus the dense Yi / Phi-3 / Mistral-Large
 configs — for Gemma-3's 5:1 local/global stack, for DeepSeek-V2-Lite's MLA
-stack with its dense lead layer and fine-grained MoE, and for
-RecurrentGemma's hybrid rec/rec/attn stack (``repro.models.transformer``
+stack with its dense lead layer and fine-grained MoE, for RecurrentGemma's
+hybrid rec/rec/attn stack, for Whisper's encoder-decoder and for
+Llama-3.2-Vision's 4-self:1-cross stack (``repro.models.transformer``
 counterpart).
 
 Layers are grouped into scanned units with stacked parameters
@@ -11,13 +12,22 @@ Layers are grouped into scanned units with stacked parameters
 exactly as the reference lays them out, so one artifact serves both
 packages. A Python loop over the groups takes the place of ``lax.scan``.
 
+The modal families. Whisper's encoder (``encoder.*``, every leaf
+``modal:audio``) runs only when the batch carries ``frames``, and its
+decoder blocks attend to the encoder's output through ``cross`` only then;
+Llama-3.2-Vision's ``cross`` blocks (every leaf ``modal:image``) run only when
+the batch carries ``image_embeds`` and are skipped whole otherwise. Both are
+Python control flow, so a text-only entry's trace never touches their
+weights, and the analyzer leaves them dead.
+
 Entry points: ``prefill`` (last-token logits + caches) and ``decode_step``
 (one token against the caches).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, replace
 from typing import Any, Optional
 
 import torch
@@ -36,15 +46,18 @@ from repro_torch.models.layers import (
     swiglu_spec,
 )
 from repro_torch.models.spec import ParamSpec, stack_specs
+from repro_torch.utils.tree import tree_map
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers self-attention stacks (GQA, local/global, MLA) with
-    dense or routed MLPs and the RG-LRU hybrid; xLSTM, the encoder-decoder
-    and the vision-language families are still to be ported."""
-    unsupported = [name for name in ("xlstm", "encdec", "vlm") if getattr(cfg, name) is not None]
-    if unsupported:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(unsupported)} not ported yet")
+    """The port covers every family but xLSTM, which is still to be ported."""
+    if cfg.xlstm is not None:
+        raise NotImplementedError(f"{cfg.name}: xlstm not ported yet")
+
+
+def _modal(spec_tree: Any, modality: str) -> Any:
+    """``spec_tree`` with every leaf annotated ``modal:<modality>``."""
+    return tree_map(lambda s: replace(s, access=f"modal:{modality}"), spec_tree)
 
 
 def _mlp_spec(cfg: ModelConfig, layer_idx: int) -> dict:
@@ -57,14 +70,21 @@ def _mlp_spec(cfg: ModelConfig, layer_idx: int) -> dict:
 
 def block_spec(cfg: ModelConfig, kind: str, layer_idx: int) -> dict:
     d = cfg.d_model
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if kind == "cross":  # the VLM's gated image block: both halves gated, all modal:image
+        return {"norm1": rmsnorm_spec(d), "cross": attn.cross_attn_spec(d, H, Hkv, hd, cfg.vlm.vision_dim),
+                "norm2": rmsnorm_spec(d), **_modal(_mlp_spec(cfg, layer_idx), "image"),
+                "gate_ffn": ParamSpec((1,), (None,), init="zeros", access="modal:image")}
     if kind in ("self", "local", "global", "attn"):
-        mixer = {"attn": attn.mla_spec(cfg) if cfg.mla is not None else
-                 attn.gqa_spec(d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)}
+        mixer = {"attn": attn.mla_spec(cfg) if cfg.mla is not None else attn.gqa_spec(d, H, Hkv, hd)}
     elif kind == "rec":
         mixer = {"rglru": rec_mod.rglru_block_spec(cfg)}
     else:
         raise ValueError(f"block kind {kind!r} is not ported")
-    return {"norm1": rmsnorm_spec(d), **mixer, "norm2": rmsnorm_spec(d), **_mlp_spec(cfg, layer_idx)}
+    spec = {"norm1": rmsnorm_spec(d), **mixer, "norm2": rmsnorm_spec(d), **_mlp_spec(cfg, layer_idx)}
+    if cfg.encdec is not None:  # the decoder's cross-attention over the encoder output
+        spec.update(norm_x=rmsnorm_spec(d), cross=attn.gqa_spec(d, H, Hkv, hd))
+    return spec
 
 
 @dataclass(frozen=True)
@@ -84,6 +104,8 @@ def stack_layout(cfg: ModelConfig) -> StackLayout:
         unit = len(cfg.recurrent.pattern)
     elif cfg.local_global_pattern is not None:
         unit = sum(cfg.local_global_pattern)
+    elif cfg.vlm is not None:
+        unit = cfg.vlm.cross_attn_every
     else:
         unit = cfg.layers_per_unit if len(rest) % max(cfg.layers_per_unit, 1) == 0 else 1
     n_groups = len(rest) // unit
@@ -108,6 +130,13 @@ def stack_spec(cfg: ModelConfig) -> dict:
         spec["tail"] = {f"b{i}": block_spec(cfg, k, cfg.num_layers - len(lay.tail_kinds) + i)
                         for i, k in enumerate(lay.tail_kinds)}
     spec["final_norm"] = rmsnorm_spec(cfg.d_model)
+    if cfg.encdec is not None:
+        d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        # reachable only from entries that take audio frames
+        enc_block = {"norm1": rmsnorm_spec(d), "attn": attn.gqa_spec(d, H, Hkv, hd), "norm2": rmsnorm_spec(d),
+                     "dense": swiglu_spec(d, cfg.d_ff)}
+        spec["encoder"] = {"blocks": stack_specs(_modal(enc_block, "audio"), cfg.encdec.num_encoder_layers),
+                           "final_norm": ParamSpec((d,), ("embed",), init="ones", access="modal:audio")}
     return spec
 
 
@@ -133,26 +162,41 @@ def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool
     return swiglu(params["dense"], x), None
 
 
-def _block_forward(cfg, kind, params, x, positions, collect_cache):
+def _block_forward(cfg, kind, params, x, positions, memory, collect_cache):
+    """Returns (x, cache). ``memory`` holds the encoder output (``enc``) or
+    the image embeddings (``image``) of a multimodal batch; a ``cross`` block
+    without an image is skipped whole and has an empty cache."""
+    eps = cfg.norm_eps
     cache = {}
-    h = rmsnorm(x, params["norm1"], cfg.norm_eps)
-    if kind == "rec":
-        o, c = rec_mod.rglru_block_forward(params["rglru"], h, cfg)
-    elif cfg.mla is not None:
-        o, (ckv, kr) = attn.mla_forward(params["attn"], h, positions, cfg)
-        c = {"ckv": ckv, "kr": kr}
+    if kind == "cross":
+        if memory.get("image") is None:
+            return x, cache
+        mem_kv = attn.cross_attn_memory(params["cross"], memory["image"], cfg)
+        x = x + attn.cross_attn_forward(params["cross"], rmsnorm(x, params["norm1"], eps), mem_kv, cfg, gated=True)
+        c, gate = {"xk": mem_kv[0], "xv": mem_kv[1]}, torch.tanh(params["gate_ffn"].to(x.dtype))
     else:
-        o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg,
-                                     causal=True, window=_kind_window(cfg, kind))
-        c = {"k": k, "v": v}
+        h = rmsnorm(x, params["norm1"], eps)
+        if kind == "rec":
+            o, c = rec_mod.rglru_block_forward(params["rglru"], h, cfg)
+        elif cfg.mla is not None:
+            o, (ckv, kr) = attn.mla_forward(params["attn"], h, positions, cfg)
+            c = {"ckv": ckv, "kr": kr}
+        else:
+            o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg,
+                                         causal=True, window=_kind_window(cfg, kind))
+            c = {"k": k, "v": v}
+        x = x + o
+        if cfg.encdec is not None and memory.get("enc") is not None:
+            mem_kv = attn.cross_attn_memory(params["cross"], memory["enc"], cfg)
+            x = x + attn.cross_attn_forward(params["cross"], rmsnorm(x, params["norm_x"], eps), mem_kv, cfg)
+            c.update(xk=mem_kv[0], xv=mem_kv[1])
+        gate = None
+    y, usage = _mlp_apply(cfg, params, rmsnorm(x, params["norm2"], eps), serving=collect_cache)
+    x = x + (y if gate is None else gate * y)
     if collect_cache:
         cache.update(c)
-    x = x + o
-    h2 = rmsnorm(x, params["norm2"], cfg.norm_eps)
-    y, usage = _mlp_apply(cfg, params, h2, serving=collect_cache)
-    x = x + y
-    if collect_cache and usage is not None:
-        cache["moe_usage"] = usage  # rides the cache; the engine strips it
+        if usage is not None:
+            cache["moe_usage"] = usage  # rides the cache; the engine strips it
     return x, cache
 
 
@@ -160,27 +204,41 @@ def _block_decode(cfg, kind, params, x, pos, cache, active=None):
     """x (B, 1, D); returns (x, new_cache). K/V (MLA's latent ``ckv`` and
     ``kr``) are written into ``cache``'s tensors in place and come back as
     the same tensors; a rec block's conv and LRU state come back as new
-    tensors, ``cache``'s left as they were.
+    tensors, ``cache``'s left as they were. Cross K/V (``xk`` / ``xv``, only
+    in a multimodal cache) are read, never written; a ``cross`` block whose
+    cache has none is skipped whole.
     ``active`` (B,) bool marks the rows whose routing counts toward the usage
     mask (None: every row)."""
+    eps = cfg.norm_eps
     new_cache = dict(cache)
-    h = rmsnorm(x, params["norm1"], cfg.norm_eps)
-    if kind == "rec":
-        o, c = rec_mod.rglru_block_decode(params["rglru"], h, cache, cfg)
-        new_cache.update(c)
-    elif cfg.mla is not None:
-        o, new_cache["ckv"], new_cache["kr"] = attn.mla_decode(params["attn"], h, pos, cache["ckv"],
-                                                               cache["kr"], cfg)
+    if kind == "cross":
+        if "xk" not in cache:
+            return x, new_cache
+        h = rmsnorm(x, params["norm1"], eps)
+        x = x + attn.cross_attn_forward(params["cross"], h, (cache["xk"], cache["xv"]), cfg, gated=True)
+        gate = torch.tanh(params["gate_ffn"].to(x.dtype))
     else:
-        window = _kind_window(cfg, kind)
-        rolling = window if (window is not None and cache["k"].shape[1] == window) else None
-        o, new_cache["k"], new_cache["v"] = attn.gqa_decode(
-            params["attn"], h, pos, cache["k"], cache["v"], cfg, rolling_window=rolling)
-    x = x + o
-    h2 = rmsnorm(x, params["norm2"], cfg.norm_eps)
+        h = rmsnorm(x, params["norm1"], eps)
+        if kind == "rec":
+            o, c = rec_mod.rglru_block_decode(params["rglru"], h, cache, cfg)
+            new_cache.update(c)
+        elif cfg.mla is not None:
+            o, new_cache["ckv"], new_cache["kr"] = attn.mla_decode(params["attn"], h, pos, cache["ckv"],
+                                                                   cache["kr"], cfg)
+        else:
+            window = _kind_window(cfg, kind)
+            rolling = window if (window is not None and cache["k"].shape[1] == window) else None
+            o, new_cache["k"], new_cache["v"] = attn.gqa_decode(
+                params["attn"], h, pos, cache["k"], cache["v"], cfg, rolling_window=rolling)
+        x = x + o
+        if cfg.encdec is not None and "xk" in cache:
+            hx = rmsnorm(x, params["norm_x"], eps)
+            x = x + attn.cross_attn_forward(params["cross"], hx, (cache["xk"], cache["xv"]), cfg)
+        gate = None
+    h2 = rmsnorm(x, params["norm2"], eps)
     y, usage = _mlp_apply(cfg, params, h2, serving=True,
                           usage_rows=active[:, None] if active is not None else None)
-    x = x + y
+    x = x + (y if gate is None else gate * y)
     if usage is not None:
         new_cache["moe_usage"] = usage
     return x, new_cache
@@ -204,9 +262,45 @@ def _model_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, collect_cache: bool = False):
+def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder: frames (B, T, d_model), precomputed embeddings (the
+    conv/mel frontend is a stub, as in the reference), plus sinusoidal
+    positions built in fp32, then non-causal self-attention with RoPE on
+    positions 0..T-1 and SwiGLU per layer, with plain attention on every
+    device (``attention.encoder_attn_forward``)."""
+    B, T, D = frames.shape
+    eps = cfg.norm_eps
+    pos = torch.arange(T, device=frames.device)
+    half = D // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=frames.device) / half)
+    ang = pos[:, None].to(torch.float32) * freqs[None, :]
+    x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(frames.dtype)[None]
+    positions = pos[None].expand(B, T)
+    blocks = params["encoder"]["blocks"]
+    for i in range(cfg.encdec.num_encoder_layers):
+        p = _select(blocks, i)
+        x = x + attn.encoder_attn_forward(p["attn"], rmsnorm(x, p["norm1"], eps), positions, cfg)
+        x = x + swiglu(p["dense"], rmsnorm(x, p["norm2"], eps))
+    return rmsnorm(x, params["encoder"]["final_norm"], eps)
+
+
+def _memory_from_batch(cfg: ModelConfig, params: dict, batch: dict) -> dict:
+    """The cross-attention memory of a multimodal batch: the encoder's
+    output for ``frames``, the ``image_embeds`` as they are; empty for a
+    text-only batch."""
+    memory = {}
+    if cfg.encdec is not None and "frames" in batch:
+        memory["enc"] = _encode(cfg, params, batch["frames"])
+    if cfg.vlm is not None and "image_embeds" in batch:
+        memory["image"] = batch["image_embeds"]
+    return memory
+
+
+def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, memory: Optional[dict] = None,
+                   collect_cache: bool = False):
     """Embed + full stack. Returns (hidden (B, S, D), caches or None)."""
     lay = stack_layout(cfg)
+    memory = memory or {}
     B, S = tokens.shape
     x = embed(params["embed"], tokens, _model_dtype(cfg), cfg.d_model)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -216,7 +310,8 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, coll
         nonlocal x
         sec = {}
         for i, kind in enumerate(kinds):
-            x, sec[f"b{i}"] = _block_forward(cfg, kind, params[section][f"b{i}"], x, positions, collect_cache)
+            x, sec[f"b{i}"] = _block_forward(cfg, kind, params[section][f"b{i}"], x, positions, memory,
+                                             collect_cache)
         caches[section] = sec
 
     if lay.lead_kinds:
@@ -227,7 +322,7 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, coll
             gp = _select(params["groups"], gi)
             cs = {}
             for j, kind in enumerate(lay.unit_kinds):
-                x, cs[f"u{j}"] = _block_forward(cfg, kind, gp[f"u{j}"], x, positions, collect_cache)
+                x, cs[f"u{j}"] = _block_forward(cfg, kind, gp[f"u{j}"], x, positions, memory, collect_cache)
             group_caches.append(cs)
         caches["groups"] = _stack(group_caches)
     if lay.tail_kinds:
@@ -241,8 +336,10 @@ def _logits_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict):
-    """Returns (last-token logits (B, V), caches)."""
-    hidden, caches = forward_hidden(cfg, params, batch["tokens"], collect_cache=True)
+    """Returns (last-token logits (B, V), caches). A multimodal batch (with
+    ``frames`` or ``image_embeds``) also fills the cross caches ``xk`` / ``xv``."""
+    hidden, caches = forward_hidden(cfg, params, batch["tokens"], memory=_memory_from_batch(cfg, params, batch),
+                                    collect_cache=True)
     return logits_from_embedding(hidden[:, -1, :], _logits_table(cfg, params)), caches
 
 

@@ -4,7 +4,9 @@ for the families ``transformer.check_supported`` accepts).
 
 ``Model.entries()`` is the Application Entry Recognition surface: each entry
 is a function plus ``meta``-device example arguments, which the Program
-Analyzer traces without allocating.
+Analyzer traces without allocating. A modal family (Whisper, the VLM)
+registers each entry twice, a multimodal one and its ``_text_only`` twin,
+as the reference does; a text-only deployment recognizes only the twins.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.spec import abstract_params, access_annotations, init_params
 from repro_torch.utils.tree import flatten_with_paths, tree_map
+
+WHISPER_DECODE_ENC_LEN = 1500  # 30 s of audio: the encoder memory an audio decode attends to
 
 
 @dataclass(frozen=True)
@@ -82,9 +86,15 @@ class Model:
         return tf.decode_step(self.cfg, params, caches, batch)
 
     # -- caches --------------------------------------------------------------
-    def _block_cache_template(self, kind: str, B: int, S_max: int) -> dict:
+    def _block_cache_template(self, kind: str, B: int, S_max: int, multimodal: bool) -> dict:
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
+        Hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        if kind == "cross":  # the VLM's image block: cross K/V, for multimodal decode only
+            if not multimodal:
+                return {}
+            leaf = CacheLeaf((B, cfg.vlm.num_image_tokens, Hkv, hd), dt)
+            return {"xk": leaf, "xv": leaf}
         if kind == "rec":
             return {k: CacheLeaf(shape, dt) for k, shape in rec_mod.rglru_cache_shapes(cfg, B).items()}
         if cfg.mla is not None:  # the latent cache, every layer linear
@@ -93,34 +103,57 @@ class Model:
                     "kr": CacheLeaf((B, S_max, m.qk_rope_head_dim), dt)}
         window = tf._kind_window(cfg, kind)
         Skv = min(S_max, window) if window else S_max
-        leaf = CacheLeaf((B, Skv, cfg.num_kv_heads, cfg.resolved_head_dim), dt)
-        return {"k": leaf, "v": leaf}
+        leaf = CacheLeaf((B, Skv, Hkv, hd), dt)
+        out = {"k": leaf, "v": leaf}
+        if cfg.encdec is not None and multimodal:
+            # audio serving only: a text-only decode carries no cross state
+            enc = CacheLeaf((B, WHISPER_DECODE_ENC_LEN, Hkv, hd), dt)
+            out.update(xk=enc, xv=enc)
+        return out
 
-    def cache_template(self, B: int, S_max: int) -> dict:
-        """Text-only caches per block kind, in the params' lead / groups /
-        tail sections (group leaves stacked on a leading axis)."""
+    def cache_template(self, B: int, S_max: int, *, multimodal: bool) -> dict:
+        """Caches per block kind, in the params' lead / groups / tail sections
+        (group leaves stacked on a leading axis). ``multimodal`` adds the
+        cross K/V of a modal family; serving is text-only and passes False.
+        It has no default, so no caller gets cross K/V it did not ask for."""
         lay = self.layout
+
+        def section(kinds: tuple, prefix: str = "b") -> dict:
+            return {f"{prefix}{i}": self._block_cache_template(k, B, S_max, multimodal) for i, k in enumerate(kinds)}
+
         tpl: dict = {}
         if lay.lead_kinds:
-            tpl["lead"] = {f"b{i}": self._block_cache_template(k, B, S_max) for i, k in enumerate(lay.lead_kinds)}
+            tpl["lead"] = section(lay.lead_kinds)
         if lay.n_groups:
-            unit = {f"u{j}": self._block_cache_template(k, B, S_max) for j, k in enumerate(lay.unit_kinds)}
-            tpl["groups"] = tree_map(lambda c: CacheLeaf((lay.n_groups,) + c.shape, c.dtype), unit)
+            tpl["groups"] = tree_map(lambda c: CacheLeaf((lay.n_groups,) + c.shape, c.dtype),
+                                     section(lay.unit_kinds, "u"))
         if lay.tail_kinds:
-            tpl["tail"] = {f"b{i}": self._block_cache_template(k, B, S_max) for i, k in enumerate(lay.tail_kinds)}
+            tpl["tail"] = section(lay.tail_kinds)
         return tpl
 
-    def abstract_cache(self, B: int, S_max: int) -> dict:
+    def abstract_cache(self, B: int, S_max: int, *, multimodal: bool) -> dict:
         return tree_map(lambda c: torch.empty(c.shape, dtype=c.dtype, device="meta"),
-                        self.cache_template(B, S_max))
+                        self.cache_template(B, S_max, multimodal=multimodal))
 
-    def init_cache(self, B: int, S_max: int, *, device="cuda") -> dict:
+    def init_cache(self, B: int, S_max: int, *, multimodal: bool, device="cuda") -> dict:
         return tree_map(lambda c: torch.zeros(c.shape, dtype=c.dtype, device=device),
-                        self.cache_template(B, S_max))
+                        self.cache_template(B, S_max, multimodal=multimodal))
 
     # -- batches -------------------------------------------------------------
-    def prefill_batch_spec(self, B: int, S: int) -> dict:
-        return {"tokens": torch.empty((B, S), dtype=torch.int64, device="meta")}
+    def prefill_batch_spec(self, B: int, S: int, *, multimodal: bool) -> dict:
+        """``tokens``, plus a multimodal batch's ``frames`` (encoder-decoder)
+        or ``image_embeds`` (VLM). The reference adds ``frames`` to its
+        text-only batches too and its callers pop it; here a text-only batch
+        never holds it, so no text-only entry can trace the encoder."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        spec = {"tokens": torch.empty((B, S), dtype=torch.int64, device="meta")}
+        if cfg.encdec is not None and multimodal:
+            spec["frames"] = torch.empty((B, S, cfg.d_model), dtype=dt, device="meta")
+        if cfg.vlm is not None and multimodal:
+            spec["image_embeds"] = torch.empty((B, cfg.vlm.num_image_tokens, cfg.vlm.vision_dim), dtype=dt,
+                                               device="meta")
+        return spec
 
     def decode_batch_spec(self, B: int) -> dict:
         return {
@@ -134,12 +167,19 @@ class Model:
 
     # -- entry registry (Application Entry Recognition) ----------------------
     def entries(self, B: int = 1, S: int = 128) -> list[EntryPoint]:
-        """The serving entries at a given (B, S)."""
-        return [
-            EntryPoint("prefill", self.prefill, (self.prefill_batch_spec(B, S),), "prefill"),
-            EntryPoint("decode_step", self.decode_step,
-                       (self.abstract_cache(B, S), self.decode_batch_spec(B)), "decode"),
-        ]
+        """The serving entries at a given (B, S). A modal family registers
+        both variants (what the analyzer needs), each prefill before its
+        decode and the multimodal pair first, as the reference orders them;
+        the twins are named ``*_text_only``."""
+        modal = self.cfg.vlm is not None or self.cfg.encdec is not None
+        out = []
+        for mm in ((True, False) if modal else (False,)):
+            suffix = "_text_only" if modal and not mm else ""
+            out.append(EntryPoint(f"prefill{suffix}", self.prefill,
+                                  (self.prefill_batch_spec(B, S, multimodal=mm),), "prefill"))
+            out.append(EntryPoint(f"decode_step{suffix}", self.decode_step,
+                                  (self.abstract_cache(B, S, multimodal=mm), self.decode_batch_spec(B)), "decode"))
+        return out
 
 
 def build_model(cfg: ModelConfig, *, param_dtype: Optional[torch.dtype] = None) -> Model:

@@ -32,7 +32,9 @@ admitted by the arbiter's make-room path. ``retier_online=True`` attaches a
 ``RetierDaemon`` (and a live trace), which the engine and the scheduler tick
 between steps; ``fleet=`` registers that daemon with a ``FleetController``
 before the server exists, so a late joiner is warm-bootstrapped before its
-warm set is captured (the bootstrap's seconds and bytes count as upload). ``restore_from=`` (a snapshot dict or a JSON path)
+warm set is captured; as in the reference, the report does not count the
+bootstrap, whose seconds and bytes are ``ColdStartServer.fleet_bootstrap``.
+``restore_from=`` (a snapshot dict or a JSON path)
 faults a warmed server's resident set in again and arms its predictor, after
 the server is built and before its warm set is captured; its seconds and
 bytes count as upload. ``ColdStartServer.snapshot()`` writes that state.
@@ -250,6 +252,8 @@ class ColdStartServer:
         self.kv_page_size = kv_page_size
         self.kv_pages = kv_pages
         self.restore_report: Optional[dict] = None  # set by cold_start(restore_from=)
+        # a fleet joiner's warm bootstrap, {"seconds", "bytes"}: set by cold_start(fleet=)
+        self.fleet_bootstrap: Optional[dict] = None
         self._compiled: OrderedDict[tuple, EagerEntry] = OrderedDict()
         self._kept: set = set()  # keys never evicted: the warm set's (``keep_entries``)
         self.evicted_prefill_entries = 0
@@ -328,7 +332,7 @@ class ColdStartServer:
                          for k, v in batch_spec.items()}
                 caches = None
                 if cache_shape is not None:
-                    caches = self.model.init_cache(*cache_shape, device=self.device)
+                    caches = self.model.init_cache(*cache_shape, multimodal=False, device=self.device)
             cls = EagerEntry
             if self.device.type == "cuda":
                 cls = GraphEntry
@@ -339,8 +343,10 @@ class ColdStartServer:
         return self._compiled[key]
 
     def compiled_prefill(self, B: int, S: int) -> EagerEntry:
-        """The prefill entry at (B, S): ``entry(params, batch)``."""
-        return self._entry(("prefill", B, S), self.model.prefill, self.model.prefill_batch_spec(B, S))
+        """The prefill entry at (B, S): ``entry(params, batch)``. Serving is
+        text-only, as the reference's: a modal family's batch carries no
+        ``frames`` or ``image_embeds`` and its caches no cross K/V."""
+        return self._entry(("prefill", B, S), self.model.prefill, self.model.prefill_batch_spec(B, S, multimodal=False))
 
     def compiled_decode(self, B: int, S_max: int) -> EagerEntry:
         """The decode entry over (B, S_max) caches: ``entry(params,
@@ -467,23 +473,24 @@ def cold_start(
         report.bytes_uploaded = report.bytes_read + moved
         prefetcher = (Prefetcher(tiered, batch_units=prefetch_batch_units, predictor=predictor)
                       if want_prefetch else None)
-        daemon = None
+        daemon, bootstrap = None, None
         if retier_online:
             daemon = RetierDaemon(tiered, result.reach, prefetcher=prefetcher, interval_steps=retier_interval,
                                   interval_s=retier_interval_s, decay=retier_decay,
                                   compact_every=retier_compact_every, artifact_dir=artifact_dir)
             if fleet is not None:
                 # join before any traffic: a controller with learned state
-                # warm-bootstraps this replica here, synchronously; what that
-                # moves counts as upload, as a restore's does
+                # warm-bootstraps this replica here, synchronously; the report
+                # leaves it out, as the reference's does
                 t_f, n_events = time.perf_counter(), len(tiered.stats.events)
                 fleet.register(replica_name or f"replica-{len(fleet.replicas)}", daemon)
                 _synchronize(device)
-                report.upload_s += time.perf_counter() - t_f
-                report.bytes_uploaded += sum(e.nbytes for e in tiered.stats.events[n_events:])
+                bootstrap = {"seconds": time.perf_counter() - t_f,
+                             "bytes": sum(e.nbytes for e in tiered.stats.events[n_events:])}
         server = ColdStartServer(model, tree, report, tiered=tiered, store=store, prefetcher=prefetcher,
                                  retier_daemon=daemon, artifact_dir=artifact_dir, device=device,
                                  admission=admission, kv_page_size=kv_page_size, kv_pages=kv_pages)
+        server.fleet_bootstrap = bootstrap
         if restore_from is not None:
             # warm restore: the donor's resident set faulted in again (LRU
             # order, through the arbiter's make-room path) and its predictor

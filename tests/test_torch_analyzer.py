@@ -1,8 +1,9 @@
 """Program Analyzer parity of the PyTorch port: the tier plan (tier,
 granularity, reason, bytes, unit keys, resident units) equals the JAX
 reference's for the serve launcher's strict / stats / full profiles (reduced
-configs, and Gemma-3 and DeepSeek-V2-Lite at full width cut in depth), and
-the traced reachability equals the jaxpr liveness leaf for leaf."""
+configs, and Gemma-3, DeepSeek-V2-Lite, Whisper and Llama-3.2-Vision at full
+width, cut in depth where the card needs it), and the traced reachability
+equals the jaxpr liveness leaf for leaf."""
 
 import pytest
 import torch
@@ -42,7 +43,7 @@ def _decisions(plan):
 
 @pytest.mark.parametrize("policy", ["strict", "stats", "full"])
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b", "recurrentgemma-9b", "gemma3-27b",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "whisper-base", "llama-3.2-vision-90b"])
 def test_tier_plan_matches_reference(arch, policy):
     ref_cfg = ref_get_reduced(arch).replace(collect_moe_usage=True)
     cfg = get_reduced(arch).replace(collect_moe_usage=True)
@@ -57,13 +58,19 @@ def test_tier_plan_matches_reference(arch, policy):
     assert mine.summary() == ref.summary()
 
 
-@pytest.mark.parametrize("arch,layers", [("gemma3-27b", 6), ("deepseek-v2-lite-16b", 3)])
+@pytest.mark.parametrize("arch,layers", [("gemma3-27b", 6), ("deepseek-v2-lite-16b", 3), ("whisper-base", 6),
+                                         ("llama-3.2-vision-90b", 5)])
 def test_full_width_plan_matches_reference(arch, layers):
     """At full width (Gemma-3: one 5:1 unit; DeepSeek-V2-Lite: its dense lead
-    layer and two MoE groups) the strict plan, its units and bytes are the
-    reference's. Gemma-3's tier-1 is empty (tied embeddings, dense MLPs);
-    DeepSeek's dense lead MLP and shared experts stay tier-0 and only its
-    routed expert tables and vocab row groups are units."""
+    layer and two MoE groups; Whisper: all 6 decoder and 6 encoder layers;
+    Llama-3.2-Vision: one 4-self:1-cross unit) the strict plan, its units and
+    bytes are the reference's. Gemma-3's tier-1 is empty (tied embeddings,
+    dense MLPs); DeepSeek's dense lead MLP and shared experts stay tier-0 and
+    only its routed expert tables and vocab row groups are units. The text-
+    only plans of the modal families put exactly the encoder (Whisper) or
+    the cross block (Llama) in tier-1, whole leaves, beside the decoder's
+    cross-attention (Whisper, tied table: no row groups) or the vocab row
+    groups (Llama)."""
     ref_cfg = ref_get_config(arch).replace(num_layers=layers, collect_moe_usage=True)
     cfg = get_config(arch).replace(num_layers=layers, collect_moe_usage=True)
     kwargs, _ = _profiles(cfg)["strict"]
@@ -73,6 +80,15 @@ def test_full_width_plan_matches_reference(arch, layers):
     assert _decisions(mine.plan) == _decisions(ref.plan)
     assert mine.summary() == ref.summary()
     decisions = mine.plan.decisions
+    tier1 = {p for p, d in decisions.items() if d.tier == 1}
+    if cfg.encdec is not None:
+        assert tier1 == {p for p in decisions if p.startswith("encoder.") or ".cross." in p or ".norm_x" in p}
+        assert mine.reach.entry_names == ["prefill_text_only", "decode_step_text_only"]
+        return
+    if cfg.vlm is not None:
+        assert tier1 == {"embed"} | {p for p in decisions if p.startswith("groups.u4.")}
+        assert len(decisions["embed"].units) == 16 and all(len(decisions[p].units) == 1 for p in tier1 - {"embed"})
+        return
     if cfg.moe is None:
         assert mine.plan.summary()["units"] == 0 and mine.plan.tier1_bytes == 0
         return

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels (flash attention, RG-LRU scan, dense and
 paged decode attention, tiered gather and gather-matmul) against their
-plain PyTorch versions, on the card. Needs an NVIDIA GPU and nvcc (the kernel has no CPU
-mode); skips elsewhere. Imports no JAX (and ``--noconftest`` skips the
-JAX fixtures of tests/conftest.py), so it runs where only torch is
-installed:
+plain PyTorch versions, on the card, at every served model's attention
+widths; and a reduced modal config's multimodal prefill launching the flash
+kernel for its decoder self layers only. Needs an NVIDIA GPU and nvcc (the
+kernel has no CPU mode); skips elsewhere. Imports no JAX (and
+``--noconftest`` skips the JAX fixtures of tests/conftest.py), so it runs
+where only torch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 """
@@ -38,6 +40,14 @@ CASES = [
     (2, 256, 256, 48, 8, 128, True, None, None, 0),  # Mixtral's G = 6
     (1, 200, 333, 4, 2, 64, False, None, 30.0, 0),  # hd 64, not causal, softcap
     (1, 300, 300, 16, 1, 256, True, 100, 25.0, 0),  # hd 256, window and softcap
+    # served widths: Whisper's decoder (hd 64, G = 1, its 448-token context),
+    # Llama-3.2-Vision's self layers (G = 8), Yi-34B (G = 7), Phi-3-medium
+    # (G = 4) and Mistral-Large (G = 12)
+    (2, 448, 448, 8, 8, 64, True, None, None, 0),
+    (1, 300, 300, 64, 8, 128, True, None, None, 0),
+    (1, 200, 200, 56, 8, 128, True, None, None, 0),
+    (1, 200, 200, 40, 10, 128, True, None, None, 0),
+    (1, 200, 200, 96, 8, 128, True, None, None, 0),
 ]
 
 
@@ -583,6 +593,56 @@ def _batch(kind, B, S, vocab, card, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-base"])
+def test_multimodal_prefill_launches_flash_for_self_layers_only(card, arch):
+    """A reduced modal config's multimodal prefill on the card (bf16, gates
+    set nonzero so the image path counts): the flash kernel runs once per
+    decoder self layer, never for the encoder or the cross-attention (plain,
+    as in the reference), and the logits match the same prefill through the
+    plain attention; the text-only prefill launches as many."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+
+    model = build_model(get_reduced(arch))
+    cfg = model.cfg
+    params = model.init(torch.Generator(card).manual_seed(0), device=card)
+    if cfg.vlm is not None:  # both gates start at zero
+        params["groups"]["u4"]["cross"]["gate"].fill_(0.7)
+        params["groups"]["u4"]["gate_ffn"].fill_(0.7)
+    g = torch.Generator().manual_seed(3)
+    B, S = 2, 24
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g).to(card)}
+    if cfg.vlm is not None:
+        batch["image_embeds"] = torch.randn(B, cfg.vlm.num_image_tokens, cfg.vlm.vision_dim, generator=g).to(
+            card, torch.bfloat16)
+    else:
+        batch["frames"] = torch.randn(B, S, cfg.d_model, generator=g).to(card, torch.bfloat16)
+    self_layers = cfg.attn_kinds.count("self")
+    with torch.inference_mode():
+        before = fa_ops.flash_attention.launches
+        logits, caches = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        assert fa_ops.flash_attention.launches == before + self_layers
+        xk = caches["groups"]["u4" if cfg.vlm is not None else "u0"]["xk"]
+        assert xk.shape[-2:] == (cfg.num_kv_heads, cfg.resolved_head_dim)
+        orig = attn_mod.flash_attention
+        attn_mod.flash_attention = fa_ops.flash_attention_plain
+        try:
+            plain, _ = model.prefill(params, batch)
+        finally:
+            attn_mod.flash_attention = orig
+        assert fa_ops.flash_attention.launches == before + self_layers
+        before = fa_ops.flash_attention.launches
+        model.prefill(params, {"tokens": batch["tokens"]})
+        assert fa_ops.flash_attention.launches == before + self_layers
+    assert torch.isfinite(logits.float()).all()
+    # bf16 attention outputs (kernel: P rounded to bf16) walking through a
+    # few residual blocks: within 10% of the plain path's max |logit|
+    assert (logits.float() - plain.float()).abs().max().item() <= 0.1 * plain.float().abs().max().item()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["prefill", "decode", "decode_masked"])
 def test_graph_replay_equals_eager(card, kind):
     """Each compiled entry replayed twice on new inputs equals the plain call
@@ -1024,7 +1084,8 @@ def test_snapshot_restore_on_card(card, tmp_path):
 def test_fleet_late_joiner_bootstrap_on_card(card, tmp_path):
     """Two strict replicas with daemons in one ``FleetController``: replica-0
     serves, the fleet syncs, replica-1 cold-starts and is bootstrapped inside
-    ``register`` (synchronous preload, counted as upload): it faults fewer
+    ``register`` (synchronous preload, reported as ``fleet_bootstrap``, not
+    in its cold start's upload): it faults fewer
     units than replica-0 did, its bootstrapped rows equal replica-0's, and
     both give the tokens of a solo run."""
     from repro_torch.core import FleetController
@@ -1045,7 +1106,10 @@ def test_fleet_late_joiner_bootstrap_on_card(card, tmp_path):
         with cold_start(model, art, result, **online, **kw) as r1:
             preloaded = [e.key for e in r1.tiered.stats.events]
             assert preloaded and all(e.source == "preload" for e in r1.tiered.stats.events)
-            assert r1.report.bytes_uploaded == r1.report.bytes_read + sum(e.nbytes for e in r1.tiered.stats.events)
+            # the bootstrap is reported on its own; as in the reference, the
+            # cold-start report leaves it out (strict has no hot set)
+            assert r1.fleet_bootstrap["bytes"] == sum(e.nbytes for e in r1.tiered.stats.events)
+            assert r1.fleet_bootstrap["seconds"] > 0 and r1.report.bytes_uploaded == r1.report.bytes_read
             for k in preloaded:
                 if r0.tiered.is_resident(k) and r1.tiered.is_resident(k):
                     assert torch.equal(_unit_rows(r1.tiered, k), _unit_rows(r0.tiered, k)), k

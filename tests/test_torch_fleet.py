@@ -284,18 +284,20 @@ def test_cold_start_fleet_late_joiner_matches_reference(app):
     replica-0 serves, the fleet syncs, replica-1 cold-starts (named by
     default), is bootstrapped from the overlay inside ``register`` and serves
     the same request. Tokens, ``FleetStats``, faults and residency equal the
-    reference's; both replicas' tokens equal a solo run's; ``fleet=`` without
-    ``retier_online`` is refused."""
+    reference's; each replica's ``ColdStartReport`` equals the reference's
+    (modes and bytes; the bootstrap is not upload) and the bootstrap's bytes
+    are ``server.fleet_bootstrap``'s; both replicas' tokens equal a solo
+    run's; ``fleet=`` without ``retier_online`` is refused."""
     ref_model, ref_result, model, result, outdir = app
     tokens = np.random.default_rng(9).integers(0, 512, (2, PROMPT_LEN)).astype(np.int32)
     kw = dict(residency="strict", retier_online=True, retier_interval=10_000, compile_warm_set=False)
 
     def drive(start, engine_cls, fleet, prompt):
-        views, uploaded = [], []
+        views, reports = [], []
         for name in ("replica-0", None):
             server = start(fleet, name)
             faults_at_start = len(server.tiered.stats.events)
-            uploaded.append(server.report.bytes_uploaded - server.report.bytes_read)
+            reports.append((server.report.to_dict(), getattr(server, "fleet_bootstrap", None)))
             out, st = engine_cls(server, max_seq=MAX_SEQ).generate(prompt, NEW_TOKENS)
             views.append(dict(tokens=np.asarray(out).tolist(), faulted_units=st.faulted_units,
                               preloaded=faults_at_start, resident=sorted(server.tiered.resident_keys),
@@ -303,22 +305,31 @@ def test_cold_start_fleet_late_joiner_matches_reference(app):
             if name:
                 views.append(fleet.sync())
             server.close()
-        return (views, fleet.stats.to_dict(), fleet.replicas), uploaded
+        return (views, fleet.stats.to_dict(), fleet.replicas), reports
 
     ref_fleet = RefFleet()
-    want, _ = drive(lambda fc, name: ref_cold_start(ref_model, outdir, ref_result, mode="after2", fleet=fc,
-                                                 replica_name=name, **kw),
-                 RefEngine, ref_fleet, jnp.asarray(tokens))
+    want, ref_reports = drive(lambda fc, name: ref_cold_start(ref_model, outdir, ref_result, mode="after2", fleet=fc,
+                                                           replica_name=name, **kw),
+                              RefEngine, ref_fleet, jnp.asarray(tokens))
     fleet = FleetController()
-    got, uploaded = drive(lambda fc, name: cold_start(model, outdir, result, fleet=fc, replica_name=name, device="cpu", **kw),
-                GenerationEngine, fleet, torch.from_numpy(tokens).long())
+    got, reports = drive(lambda fc, name: cold_start(model, outdir, result, fleet=fc, replica_name=name, device="cpu", **kw),
+                         GenerationEngine, fleet, torch.from_numpy(tokens).long())
     assert got == want
     (r0, summary, r1), stats, names = got
     assert names == ["replica-0", "replica-1"] and summary["replanned"]
     assert stats["bootstraps"] == 1 and stats["bootstrap_failures"] == 0 and not fleet.last_errors
     assert r1["preloaded"] > 0 and r1["faulted_units"] < r0["faulted_units"]
-    # strict has no hot set: what replica-1 uploaded past tier-0 is its bootstrap
-    assert uploaded == [0, sum(nb for _, nb, src in r1["loads"][:r1["preloaded"]])] and uploaded[1] > 0
+    # each replica's report equals the reference's field for field (seconds
+    # aside): the late joiner's bootstrap is not in its upload
+    for (mine, _), (ref, _) in zip(reports, ref_reports):
+        assert list(mine) == list(ref)
+        assert {k: mine[k] for k in ("mode", "bytes_read", "bytes_uploaded")} == \
+            {k: ref[k] for k in ("mode", "bytes_read", "bytes_uploaded")}
+        assert mine["bytes_uploaded"] == mine["bytes_read"]  # strict has no hot set
+    # strict has no hot set: what replica-1 preloaded at cold start is its bootstrap
+    boot = [b for _, b in reports]
+    assert [b["bytes"] for b in boot] == [0, sum(nb for _, nb, src in r1["loads"][:r1["preloaded"]])]
+    assert boot[1]["bytes"] > 0 and all(b["seconds"] >= 0 for b in boot)
     with cold_start(model, outdir, result, residency="strict", compile_warm_set=False, device="cpu") as solo:
         out, _ = GenerationEngine(solo, max_seq=MAX_SEQ).generate(torch.from_numpy(tokens).long(), NEW_TOKENS)
     assert r0["tokens"] == r1["tokens"] == out.tolist()

@@ -135,7 +135,7 @@ def test_prompt_longer_than_the_window_is_refused_by_both(reference):
     params = params_from_numpy({p: np.asarray(v) for p, v in ref_flatten(ref_params)}, "cpu")
     _, small = model.prefill(params, {"tokens": torch.from_numpy(long[:1])})
     small = _strip_usage(small)
-    big = model.init_cache(3, 32, device="cpu")
+    big = model.init_cache(3, 32, multimodal=False, device="cpu")
     assert dict(flatten_with_paths(big))["groups.u0.k"].shape[2] == WINDOW
     with pytest.raises(ValueError, match="longer than a rolling window"):
         _graft_slot_cache(big, small, [1])

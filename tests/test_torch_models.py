@@ -1,10 +1,12 @@
 """Model parity of the PyTorch port against the JAX reference: configs field
 for field, parameter paths and shapes (reduced, and at full width for
-RecurrentGemma, Gemma-3 and DeepSeek-V2-Lite), and — on reference weights
-carried over by ``convert.params_from_numpy`` — prefill logits, caches and
-MoE usage masks, then decode steps across the sliding window (Gemma-3's
-rolling local caches and its unwindowed global layer, DeepSeek's latent
-MLA caches), at float32 on CPU."""
+RecurrentGemma, Gemma-3, DeepSeek-V2-Lite, Whisper and Llama-3.2-Vision),
+and — on reference weights carried over by ``convert.params_from_numpy`` —
+prefill logits, caches and MoE usage masks, then decode steps across the
+sliding window (Gemma-3's rolling local caches and its unwindowed global
+layer, DeepSeek's latent MLA caches, the modal families text-only), at
+float32 on CPU. The modal families' multimodal paths are held in
+tests/test_torch_encdec.py and tests/test_torch_vlm.py."""
 
 import dataclasses
 import gc
@@ -31,7 +33,7 @@ from repro_torch.serving.engine import _graft_prefill_cache, _strip_usage
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat
 
 PORTED = ["mixtral-8x22b", "yi-34b", "phi3-medium-14b", "mistral-large-123b", "recurrentgemma-9b",
-          "gemma3-27b", "deepseek-v2-lite-16b"]
+          "gemma3-27b", "deepseek-v2-lite-16b", "whisper-base", "llama-3.2-vision-90b"]
 # depth of the parity runs where the reduced config's would skip a layout
 # section: 5 RecurrentGemma layers are one (rec, rec, attn) group plus a
 # (rec, rec) tail
@@ -102,18 +104,22 @@ def test_full_depth_layout_equals_reference():
         [(p, tuple(v.shape)) for p, v in flatten_with_paths(mine.abstract())]
     assert mine.access() == ref.access()
     assert sum(v.numel() for _, v in flatten_with_paths(mine.abstract())) == ref.num_params()
-    assert [(p, tuple(c.shape)) for p, c in flatten_with_paths(mine.abstract_cache(2, 1048))] == \
+    assert [(p, tuple(c.shape)) for p, c in flatten_with_paths(mine.abstract_cache(2, 1048, multimodal=False))] == \
         [(p, tuple(c.shape)) for p, c in ref_flatten(ref.abstract_cache(2, 1048, multimodal=False))]
 
 
 @pytest.mark.parametrize("arch,layout", [
     ("gemma3-27b", ((), ("local",) * 5 + ("global",), 10, ("local", "local"))),
     ("deepseek-v2-lite-16b", (("self",), ("self",), 26, ())),
+    ("whisper-base", ((), ("self",), 6, ())),
+    ("llama-3.2-vision-90b", ((), ("self",) * 4 + ("cross",), 20, ())),
 ])
 def test_full_width_layout_equals_reference(arch, layout):
-    """Full-size Gemma-3 (62 layers: ten 5:1 units and a local/local tail)
-    and DeepSeek-V2-Lite (a dense lead layer and 26 MoE groups) lay out the
-    reference's paths, shapes, access and caches."""
+    """Full-size Gemma-3 (62 layers: ten 5:1 units and a local/local tail),
+    DeepSeek-V2-Lite (a dense lead layer and 26 MoE groups), Whisper (6
+    decoder layers, 6 encoder layers) and Llama-3.2-Vision (twenty 4-self:1-
+    cross units) lay out the reference's paths, shapes, access and caches,
+    text-only and multimodal."""
     ref = ref_build_model(ref_get_config(arch))
     mine = build_model(get_config(arch), param_dtype=torch.bfloat16)
     lay = mine.layout
@@ -122,19 +128,21 @@ def test_full_width_layout_equals_reference(arch, layout):
         [(p, tuple(v.shape)) for p, v in flatten_with_paths(mine.abstract())]
     assert mine.access() == ref.access()
     assert sum(v.numel() for _, v in flatten_with_paths(mine.abstract())) == ref.num_params()
-    assert [(p, tuple(c.shape)) for p, c in flatten_with_paths(mine.abstract_cache(2, 1048))] == \
-        [(p, tuple(c.shape)) for p, c in ref_flatten(ref.abstract_cache(2, 1048, multimodal=False))]
+    for mm in (False, True):
+        assert [(p, tuple(c.shape)) for p, c in flatten_with_paths(mine.abstract_cache(2, 1048, multimodal=mm))] \
+            == [(p, tuple(c.shape)) for p, c in ref_flatten(ref.abstract_cache(2, 1048, multimodal=mm))]
 
 
-@pytest.mark.parametrize("arch,family", [("xlstm-125m", "xlstm"), ("whisper-base", "encdec"),
-                                         ("llama-3.2-vision-90b", "vlm")])
+@pytest.mark.parametrize("arch,family", [("xlstm-125m", "xlstm")])
 def test_unported_family_raises(arch, family):
     with pytest.raises(NotImplementedError, match=family):
         build_model(get_reduced(arch))
 
 
-@pytest.mark.parametrize("arch", PORTED[:3] + ["recurrentgemma-9b", "gemma3-27b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", PORTED[:3] + ["recurrentgemma-9b", "gemma3-27b", "deepseek-v2-lite-16b",
+                                  "whisper-base", "llama-3.2-vision-90b"])
 def test_prefill_and_decode_match_reference(arch):
+    """Text-only prefill and decode (the served path of every family)."""
     ref_model, ref_params, flat = _reference(arch)
     model, params = _port(arch, flat)
     # decode crosses Mixtral's (and RecurrentGemma's) 32-token window, Gemma-3's 16-token one
@@ -150,7 +158,7 @@ def test_prefill_and_decode_match_reference(arch):
         assert any(p.endswith("moe_usage") for p, _ in flatten_with_paths(caches))
 
     ref_caches = ref_graft(ref_model.init_cache(B, S_max, multimodal=False), ref_strip(ref_caches))
-    caches = _graft_prefill_cache(model.init_cache(B, S_max, device="cpu"), _strip_usage(caches))
+    caches = _graft_prefill_cache(model.init_cache(B, S_max, multimodal=False, device="cpu"), _strip_usage(caches))
     tok = np.argmax(np.asarray(ref_logits), -1)
     for step in range(steps):
         ref_logits, ref_caches = ref_decode(ref_params, ref_caches, {

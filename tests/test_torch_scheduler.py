@@ -391,7 +391,7 @@ def test_masked_decode_usage_matches_reference():
     _, c = model.prefill(params, {"tokens": torch.from_numpy(tokens)})
     tok = np.random.default_rng(6).integers(0, 512, (B, 1))
     for active in ([True, False, True], [False, False, False]):
-        caches = _graft_prefill_cache(model.init_cache(B, S_max, device="cpu"), _strip_usage(c))
+        caches = _graft_prefill_cache(model.init_cache(B, S_max, multimodal=False, device="cpu"), _strip_usage(c))
         ref_caches = ref_graft(ref_model.init_cache(B, S_max, multimodal=False), ref_strip(ref_c))
         batch = {"tokens": torch.from_numpy(tok), "pos": torch.full((B,), S), "active": torch.tensor(active)}
         ref_batch = {"tokens": jnp.asarray(tok, jnp.int32), "pos": jnp.full((B,), S, jnp.int32),
@@ -426,7 +426,7 @@ def test_in_place_decode_matches_reference(arch, replace, S):
     ref_logits, ref_c = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens, jnp.int32)})
     _, c = model.prefill(params, {"tokens": torch.from_numpy(tokens)})
     ref_caches = ref_graft(ref_model.init_cache(B, S_max, multimodal=False), ref_strip(ref_c))
-    caches = _graft_prefill_cache(model.init_cache(B, S_max, device="cpu"), _strip_usage(c))
+    caches = _graft_prefill_cache(model.init_cache(B, S_max, multimodal=False, device="cpu"), _strip_usage(c))
     leaves = dict(flatten_with_paths(caches))
     if replace.get("sliding_window"):
         assert leaves["groups.u0.k"].shape[2] == 8  # rolling: the cache holds the window
@@ -454,8 +454,8 @@ def test_decode_step_run_twice_equals_one_run():
     tokens = torch.from_numpy(np.random.default_rng(8).integers(0, 512, (B, S)))
     _, c = model.prefill(params, {"tokens": tokens})
     batch = {"tokens": tokens[:, -1:], "pos": torch.full((B,), S)}
-    once = _graft_prefill_cache(model.init_cache(B, 20, device="cpu"), _strip_usage(c))
-    twice = _graft_prefill_cache(model.init_cache(B, 20, device="cpu"), _strip_usage(c))
+    once = _graft_prefill_cache(model.init_cache(B, 20, multimodal=False, device="cpu"), _strip_usage(c))
+    twice = _graft_prefill_cache(model.init_cache(B, 20, multimodal=False, device="cpu"), _strip_usage(c))
     logits_once, new = model.decode_step(params, once, batch)
     commit_decode_caches(once, new)
     first, _ = model.decode_step(params, twice, batch)
@@ -477,7 +477,7 @@ def test_graft_slot_cache_matches_reference():
     _, c = model.prefill(params, {"tokens": torch.from_numpy(rs.integers(0, 512, (2, S)))})
     small = _strip_usage(c)
     small["lead"] = {"b0": {"k": torch.from_numpy(rs.standard_normal((2, S, 1, 4), dtype=np.float32))}}
-    big = model.init_cache(B, S_max, device="cpu")
+    big = model.init_cache(B, S_max, multimodal=False, device="cpu")
     big["lead"] = {"b0": {"k": torch.zeros(B, S_max, 1, 4)}}
     for _, leaf in flatten_with_paths(big):
         leaf.copy_(torch.from_numpy(rs.standard_normal(tuple(leaf.shape), dtype=np.float32)))
@@ -508,7 +508,7 @@ def test_compiled_entries_on_cpu(app):
         with pytest.raises(ValueError, match="params"):
             pre(dict(params), {"tokens": torch.zeros(1, 6, dtype=torch.int64)})
         with pytest.raises(ValueError, match="own caches"):
-            dec(params, server.model.init_cache(1, MAX_SEQ, device="cpu"), batch)
+            dec(params, server.model.init_cache(1, MAX_SEQ, multimodal=False, device="cpu"), batch)
         with pytest.raises(ValueError, match="shape"):
             pre(params, {"tokens": torch.zeros(2, 6, dtype=torch.int64)})
         before = {p: t.data_ptr() for p, t in flatten_with_paths(dec.caches)}
