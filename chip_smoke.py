@@ -228,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -310,6 +311,7 @@ ENTRY_PROMPTS = (1000, 900, 800, 700, 600, 500, 400)
 # [reduced]: the launcher's reduced Mixtral request, B=2 × 16 + 8, and the host
 # budget of its online run (under reduced bf16's 0.46 MB of tier-1)
 REDUCED_PROMPT, REDUCED_NEW_TOKENS, REDUCED_HOST_BUDGET = 16, 8, 200000
+REDUCED_TRAIN_STEPS = 4  # [reduced]'s training launcher run
 RG_H, RG_HKV, RG_HD, RG_WINDOW, RG_WIDTH = 16, 1, 256, 2048, 4096  # RecurrentGemma-9B
 # RecurrentGemma's served depth: one (rec, rec, attn) group and a (rec, rec)
 # tail, every layout section and both kernels of the 38-layer stack (cut from
@@ -324,6 +326,16 @@ GEMMA_LAYERS, DEEPSEEK_LAYERS, ZOO_NEW_TOKENS = 6, 3, 3
 # B=2 × 448 + 3, 448 its decoder context; [llama-vision]: one 4-self:1-cross
 # unit of Llama-3.2-Vision, B=2 × 1024 + 3
 WHISPER_LAYERS, WHISPER_PROMPT, LLAMA_VISION_LAYERS = 6, 448, 5
+# [xlstm]: xlstm-125m at full width and depth (no cut: 134 M params), B=2 ×
+# 1024 + 3; 1024 is 8 chunks of 128, so the prefill takes the chunkwise
+# mLSTM. The analyzer traces it at S = XLSTM_TRACE_S (the plan does not
+# depend on S; the sLSTM's step loop makes a long trace slow)
+XLSTM_TRACE_S = 8
+# [train]: the same model trained at B = TRAIN_BATCH × S = TRAIN_SEQ (4
+# chunks: the chunkwise mLSTM) for TRAIN_STEPS steps straight, beside a run
+# stopped at half and resumed by a fresh Trainer; the restored server's
+# request is B=2 × TRAIN_PROMPT + ZOO_NEW_TOKENS
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROMPT = 8, 512, 6, 64
 WHISPER_H, WHISPER_HKV, WHISPER_HD = 8, 8, 64
 LLAMA_H, LLAMA_HKV, LLAMA_HD = 64, 8, 128
 # the VLM's gates in the multimodal prefill check: tanh(0.5) ≈ 0.46, so the
@@ -1842,6 +1854,28 @@ def _launch(tag: str, args: list, plain: bool = False, timeout: int = 600) -> di
     return out
 
 
+def _train_launch(tag: str, args: list, timeout: int = 600) -> dict:
+    """One training launcher run on the card in a subprocess; prints its
+    ``[train]`` lines under ``tag`` and returns its first and last loss and
+    its kernel launches."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args, "--device", "cuda"],
+                         capture_output=True, text=True, timeout=timeout, env=env, cwd=str(REPO))
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[train] ")]
+    for ln in lines:
+        print(f"{tag} {ln}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"{tag} the training launcher exited {res.returncode}: {res.stderr[-3000:]}")
+    done = next(ln for ln in lines if ln.startswith("[train] done @ step "))
+    first, last = (float(x) for x in done.split("; loss ", 1)[1].split(";", 1)[0].split(" -> "))
+    launches = json.loads(next(ln for ln in lines if ln.startswith("[train] kernel launches: "))
+                          [len("[train] kernel launches: "):])
+    print(f"{tag} launcher wall {wall:.1f} s", flush=True)
+    return dict(wall_s=wall, loss_first=first, loss_last=last, launches=launches)
+
+
 def reduced_phase(workdir: Path) -> dict:
     """[reduced] The reference's main-path command on the card, five launcher
     processes, four at a time: reduced Mixtral (head_dim 16, through the
@@ -1854,11 +1888,15 @@ def reduced_phase(workdir: Path) -> dict:
     arbiter through the launcher's flags, and the warmed server's snapshot
     written outside the artifact), the same command with ``--restore-from``
     that snapshot (it rebuilds the online run's artifact in the same place,
-    so its fingerprint holds), and the same command with ``--fleet 2``. All exit
-    0; every run but the plain one launches flash attention (and no other
-    kernel), the plain run none; the tokens are equal (each fleet replica's
-    too); the online run's daemon absorbed no error; the restore replays at
-    least one unit with the predictor armed; the fleet's pushes all held."""
+    so its fingerprint holds), and the same command with ``--fleet 2``; beside
+    them, a sixth process trains the same config on the card
+    (``python -m repro_torch.launch.train --arch mixtral-8x22b --reduced
+    --steps REDUCED_TRAIN_STEPS``: plain attention under autograd, so the
+    kernels' grad guard never trips). All exit 0; every serve run but the
+    plain one launches flash attention (and no other kernel), the plain run
+    none; the tokens are equal (each fleet replica's too); the online run's
+    daemon absorbed no error; the restore replays at least one unit with the
+    predictor armed; the fleet's pushes all held; the training loss falls."""
     outdir = workdir / "reduced"
     shutil.rmtree(outdir, ignore_errors=True)
     snap = outdir / "snapshot.json"  # beside the artifact directories, not in one
@@ -1876,10 +1914,14 @@ def reduced_phase(workdir: Path) -> dict:
 
     # four processes at once (the card and the host's cores are mostly idle
     # under one), the restore after the online run it restores
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(5) as ex:
+        train = ex.submit(_train_launch, "[reduced] train:", ["--arch", "mixtral-8x22b", "--reduced", "--steps",
+                                                               str(REDUCED_TRAIN_STEPS), "--ckpt-dir",
+                                                               str(outdir / "checkpoints")])
         futs = {how: ex.submit(run, how) for how in ("kernel", "plain", "fleet")}
         futs["online"] = ex.submit(lambda: (run("online"), run("restore")))
         runs = {how: f.result() for how, f in futs.items()}
+        train = train.result()
     runs["online"], runs["restore"] = runs["online"]
     shutil.rmtree(outdir, ignore_errors=True)
     k, p, o, r, f = (runs[h] for h in ("kernel", "plain", "online", "restore", "fleet"))
@@ -1890,7 +1932,7 @@ def reduced_phase(workdir: Path) -> dict:
                    restore_launches=r["launches"], fleet_launches=f["launches"], request=k["request"],
                    online_request=o["request"], online=o["online"], arbiter=o["arbiter"], snapshot=o["snapshot"],
                    restore=r["restore"], restore_request=r["request"], restore_cold_start=r["cold_start"],
-                   fleet=f["fleet"], fleet_syncs=f["syncs"],
+                   fleet=f["fleet"], fleet_syncs=f["syncs"], train=train, train_launches=train["launches"],
                    fleet_replicas={n: dict(request=rep["request"], cold_start=rep["cold start"],
                                            daemon=rep["retier stats"]) for n, rep in f["replicas"].items()},
                    wall_s={h: run["wall_s"] for h, run in runs.items()})
@@ -1904,6 +1946,8 @@ def reduced_phase(workdir: Path) -> dict:
         raise AssertionError(f"[reduced] online run: daemon {o['online']}, arbiter {o['arbiter']}")
     if any(p["launches"].values()):
         raise AssertionError(f"[reduced] the plain run launched {p['launches']}")
+    if not train["loss_last"] < train["loss_first"]:
+        raise AssertionError(f"[reduced] the training launcher's loss did not fall: {train}")
     if not summary["tokens_equal"]:
         raise AssertionError(f"[reduced] kernel tokens {k['tokens']} != plain {p['tokens']}, online {o['tokens']} "
                              f"or restore {r['tokens']}")
@@ -2402,6 +2446,225 @@ def modal_phase(arch: str, layers: int, prompt: int, fa_ops, wrappers: dict, wor
     return summary
 
 
+def xlstm_phase(wrappers: dict, workdir: Path) -> dict:
+    """[xlstm] xlstm-125m (arXiv:2405.04517) at full width and full depth
+    (d_model 768, 4 heads, six m/s units, a tied 50304-row table), bf16
+    weights from a seeded generator, through the after2 path under strict:
+    analyze → build_artifact → cold_start → generate (B=2 × 1024 +
+    ZOO_NEW_TOKENS; the prefill runs the chunkwise mLSTM). The plan's tier-1
+    is empty (the tied table is read whole by the logits), so nothing
+    faults; no kernel launches (the reference runs xLSTM in jnp); then
+    ``[graph]`` on the same server, tokens equal and logits bit-equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact
+    from repro_torch.models import build_model
+    from repro_torch.serving import GenerationEngine, cold_start
+    from repro_torch.utils.tree import flatten_with_paths
+
+    tag = "[xlstm]"
+    cfg = get_config("xlstm-125m")
+    model = build_model(cfg, param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in flatten_with_paths(params))
+    print(f"{tag} {cfg.name} at full width and depth ({cfg.num_layers} layers, {n_params:,} params), bf16 "
+          f"weights made in {time.perf_counter() - t0:.1f} s; {_host_resources(workdir)}", flush=True)
+    profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                vocab_row_group=max(64, cfg.vocab_size // 16))
+    artifact = workdir / "artifact_xlstm"
+    shutil.rmtree(artifact, ignore_errors=True)
+    max_seq = PROMPT + ZOO_NEW_TOKENS + 8
+    warm_shapes = ((BATCH, PROMPT, max_seq),)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=torch.Generator().manual_seed(7)).cuda()
+
+    for fn in wrappers.values():
+        fn.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    result = analyze(model, profile, trace_B=1, trace_S=XLSTM_TRACE_S)
+    t1 = time.perf_counter()
+    build_artifact(params, result, str(artifact), compress_level=1)
+    t2 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = cold_start(model, str(artifact), result, residency="strict", warm_shapes=warm_shapes)
+    engine = GenerationEngine(server, max_seq=max_seq)
+    t3 = time.perf_counter()
+    out, stats = engine.generate(tokens, ZOO_NEW_TOKENS)
+    t4 = time.perf_counter()
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    summary = dict(
+        analyze_s=t1 - t0, build_s=t2 - t1, generate_s=t4 - t3, n_params=n_params, plan=result.summary(),
+        cold_start=server.report.to_dict(), faulted_units=stats.faulted_units, faulted_bytes=stats.faulted_bytes,
+        prefill_s=stats.prefill_s, decode_s=stats.decode_s, decode_s_per_step=stats.decode_s / (ZOO_NEW_TOKENS - 1),
+        loads=len(server.tiered.stats.events), peak_device_bytes=peak, launches=counts, tokens=out.tolist(),
+    )
+    print(f"{tag} " + json.dumps(summary, default=str), flush=True)
+    if out.shape != (BATCH, ZOO_NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{tag} bad generated ids: shape {out.shape}, range [{out.min()}, {out.max()}]")
+    if any(counts.values()):
+        raise AssertionError(f"{tag} launched {counts}: xLSTM reaches no kernel")
+    if result.plan.summary()["tier1_leaves"] or stats.faulted_units or summary["loads"]:
+        raise AssertionError(f"{tag} tier-1 {result.plan.summary()}, {stats.faulted_units} faults: the plan's "
+                             "tier-1 is empty")
+    summary["graph"] = graph_phase(cfg.name, server, tokens, ZOO_NEW_TOKENS, wrappers, {}, 0.0)
+    g = summary["graph"]
+    print(f"{tag} prefill {stats.prefill_s:.3f} s, decode {summary['decode_s_per_step'] * 1e3:.3f} ms/step; "
+          f"[graph] replayed decode {g['graph']['decode_s_per_step'] * 1e3:.3f} ms/step against eager "
+          f"{g['eager']['decode_s_per_step'] * 1e3:.3f}; peak {peak / 1e9:.2f} GB", flush=True)
+    if not g["logits_bit_equal"]:
+        raise AssertionError(f"{tag} [graph] logits are not bit-equal to eager's")
+    server.close()
+    del server, engine
+    shutil.rmtree(artifact, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _max_param_diff(a, b) -> tuple[float, bool]:
+    """Max |a - b| over two param trees, and whether every leaf is bit-equal."""
+    import torch
+
+    from repro_torch.utils.tree import flatten_with_paths
+
+    pairs = list(zip(flatten_with_paths(a), flatten_with_paths(b)))
+    if [p for (p, _), _ in pairs] != [p for _, (p, _) in pairs]:
+        raise AssertionError("the two runs' param trees differ in their paths")
+    return (max((x.float() - y.float()).abs().max().item() for (_, x), (_, y) in pairs),
+            all(torch.equal(x, y) for (_, x), (_, y) in pairs))
+
+
+def train_phase(wrappers: dict, workdir: Path) -> dict:
+    """[train] The training round trip on xlstm-125m at full width and depth:
+    ``Trainer`` with AdamW (fp32 masters, bf16 compute) on the synthetic
+    token pipeline at B = TRAIN_BATCH × S = TRAIN_SEQ for TRAIN_STEPS steps,
+    beside a run stopped at half and resumed by a fresh Trainer on its
+    directory (the max |Δ| of the params at the end, and whether they are
+    bit-equal, printed). No kernel may launch under training. Then the last
+    committed step: ``CheckpointManager.restore`` → analyze under strict
+    (file elimination drops ``opt_state`` and ``data_state``) → the before
+    and after1 bundles and the after2 artifact → cold_start in all three
+    modes: before reads more than after1, which reads what after2 does
+    (tier-1 is empty). The after2 server's tokens (B=2 × TRAIN_PROMPT +
+    ZOO_NEW_TOKENS) must equal an engine's on the trainer's in-memory
+    params, and its prefill logits theirs bit for bit."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import DeploymentProfile, analyze, build_artifact, write_monolithic
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serving import ColdStartReport, ColdStartServer, GenerationEngine, cold_start
+    from repro_torch.training import TrainConfig, Trainer
+
+    tag = "[train]"
+    cfg = get_config("xlstm-125m")
+    model = build_model(cfg)  # fp32 masters; compute in the config's bf16
+    data = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    tc = TrainConfig(num_steps=TRAIN_STEPS, save_every=TRAIN_STEPS // 2, warmup_steps=2,
+                     adamw=AdamWConfig(lr=1e-3))
+    outdir = workdir / "train"
+    shutil.rmtree(outdir, ignore_errors=True)
+    print(f"{tag} {cfg.name} at full width and depth: {model.num_params():,} params, B={TRAIN_BATCH} × "
+          f"S={TRAIN_SEQ}, {TRAIN_STEPS} steps; {_host_resources(workdir)}", flush=True)
+
+    for fn in wrappers.values():
+        fn.launches = 0  # the main path starts here
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    t0 = time.perf_counter()
+    # keep_n=1: each directory holds its newest step only (2.15 GB a step)
+    straight = Trainer(model, tc, data, str(outdir / "straight"), keep_n=1, device="cuda")
+    r_straight = straight.run()
+    walls["straight"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    r_first = Trainer(model, tc, data, str(outdir / "resumed"), keep_n=1, device="cuda").run(TRAIN_STEPS // 2)
+    resumed = Trainer(model, tc, data, str(outdir / "resumed"), keep_n=1, device="cuda")
+    r_second = resumed.run()
+    walls["preempted + resumed"] = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}  # the main path ends here
+    diff, bitwise = _max_param_diff(straight.params, resumed.params)
+    losses_resumed = r_first.losses + r_second.losses
+    summary = dict(losses=r_straight.losses, losses_resumed=losses_resumed, restored_from=r_second.restored_from,
+                   param_max_abs_diff=diff, params_bit_equal=bitwise, launches=counts, peak_device_bytes=peak,
+                   wall_s=walls, step_s=walls["straight"] / TRAIN_STEPS,
+                   mean_step_s=straight.watchdog.mean_step_s, stragglers=r_straight.flagged_steps)
+    print(f"{tag} loss per step, straight: {[round(x, 4) for x in r_straight.losses]}; stopped at "
+          f"{TRAIN_STEPS // 2} and resumed: {[round(x, 4) for x in losses_resumed]}", flush=True)
+    print(f"{tag} resumed vs straight at step {TRAIN_STEPS}: params max |Δ| {diff:.3g} "
+          f"({'bit-equal' if bitwise else 'not bit-equal'}); {summary['step_s']:.3f} s/step "
+          f"(checkpoint copies included); peak {peak / 1e9:.2f} GB; launches {counts}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"{tag} launched {counts} under training: the loss must run the plain versions")
+    if r_second.restored_from != TRAIN_STEPS // 2 or not all(map(math.isfinite, r_straight.losses + losses_resumed)):
+        raise AssertionError(f"{tag} resumed from {r_second.restored_from}, losses {summary['losses']} / "
+                             f"{losses_resumed}")
+
+    # the last committed step through FaaSLight
+    t0 = time.perf_counter()
+    restored = CheckpointManager(str(outdir / "straight")).restore()
+    profile = DeploymentProfile(resident_experts=0, hot_vocab_fraction=0.0, min_tier1_bytes=1 << 14,
+                                vocab_row_group=max(64, cfg.vocab_size // 16))
+    result = analyze(model, profile, collections=restored.collections, trace_B=1, trace_S=XLSTM_TRACE_S)
+    artifact = outdir / "artifact"
+    build_artifact(restored.collections["params"], result, str(artifact), compress_level=1)
+    for pruned in (False, True):
+        write_monolithic(restored.collections, str(artifact), pruned=pruned)
+    walls["restore + analyze + write"] = time.perf_counter() - t0
+    del restored
+    max_seq = TRAIN_PROMPT + ZOO_NEW_TOKENS + 8
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, TRAIN_PROMPT), generator=torch.Generator().manual_seed(7)).cuda()
+    read = {}
+    for mode in ("before", "after1", "after2"):
+        t0 = time.perf_counter()
+        server = cold_start(model, str(artifact), result, mode=mode, residency="strict" if mode == "after2" else None,
+                            warm_shapes=((BATCH, TRAIN_PROMPT, max_seq),), compile_warm_set=mode == "after2")
+        read[mode] = server.report.to_dict()
+        walls[f"cold start {mode}"] = time.perf_counter() - t0
+        if mode == "after2":
+            out, stats = GenerationEngine(server, max_seq=max_seq).generate(tokens, ZOO_NEW_TOKENS)
+            with torch.inference_mode():
+                logits = model.prefill(server.live_params(), {"tokens": tokens})[0]
+        server.close()
+        del server
+    torch.cuda.empty_cache()
+    memory = ColdStartServer(model, straight.params, ColdStartReport(mode="before"), device="cuda")
+    want, _ = GenerationEngine(memory, max_seq=max_seq).generate(tokens, ZOO_NEW_TOKENS)
+    with torch.inference_mode():
+        want_logits = model.prefill(straight.params, {"tokens": tokens})[0]
+    memory.close()
+    del memory, straight, resumed
+    logits_equal = torch.equal(logits, want_logits)
+    nbytes = {m: r["bytes_read"] for m, r in read.items()}
+    summary.update(plan=result.summary(), cold_start=read, bytes_read=nbytes, tokens=out.tolist(),
+                   memory_tokens=want.tolist(), prefill_logits_bit_equal=logits_equal,
+                   faulted_units=stats.faulted_units)
+    print(f"{tag} " + json.dumps({k: v for k, v in summary.items() if k not in ("losses", "losses_resumed")},
+                                 default=str), flush=True)
+    print(f"{tag} dropped collections {result.summary()['dropped_collections_bytes']:,} B; bytes read before "
+          f"{nbytes['before']:,}, after1 {nbytes['after1']:,}, after2 {nbytes['after2']:,} (tier-1 empty: after1 "
+          f"= after2); restored after2 tokens {out.tolist()}, in-memory params' {want.tolist()}; their prefill "
+          f"logits {'bit-equal' if logits_equal else 'differ'}", flush=True)
+    if not nbytes["before"] > nbytes["after1"] == nbytes["after2"]:
+        raise AssertionError(f"{tag} bytes read {nbytes}: expected before > after1 = after2")
+    if result.summary()["dropped_collections_bytes"] <= 0 or stats.faulted_units:
+        raise AssertionError(f"{tag} plan {result.summary()}, {stats.faulted_units} faults")
+    if out.tolist() != want.tolist() or not logits_equal:
+        raise AssertionError(f"{tag} restored server tokens {out.tolist()} vs the in-memory params' "
+                             f"{want.tolist()}; prefill logits bit-equal: {logits_equal}")
+    shutil.rmtree(outdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def _print_ptxas(name: str, log: str) -> None:
     for line in log.splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling entry", "Performance Loss", "setmaxnreg")):
@@ -2415,8 +2678,8 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA card.")
     ap.add_argument("--modal-alone", action="store_true",
-                    help="build the kernels, run only [whisper] and [llama-vision], with no other phase beside "
-                         "them, and stop without the result line")
+                    help="build the kernels, run only [whisper], [llama-vision], [xlstm] and [train], one after "
+                         "the other with no other phase beside them, and stop without the result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2457,13 +2720,22 @@ def main(argv: list[str] | None = None) -> int:
     workdir.mkdir(parents=True, exist_ok=True)
 
     def modal(label: str) -> dict:
+        """[whisper], [llama-vision], [xlstm] and [train], one after the other."""
         out = {}
+        t_thread = time.perf_counter()
         for arch, layers, prompt in (("whisper-base", WHISPER_LAYERS, WHISPER_PROMPT),
                                      ("llama-3.2-vision-90b", LLAMA_VISION_LAYERS, PROMPT)):
             t0 = time.perf_counter()
             out[arch] = modal_phase(arch, layers, prompt, fa_ops, wrappers, workdir)["launches"]
             phase_s[f"serve {arch}{label}"] = time.perf_counter() - t0
-        return out  # modal_phase holds each path to flash alone, once per self layer a prefill run
+        t0 = time.perf_counter()
+        out["xlstm-125m"] = xlstm_phase(wrappers, workdir)["launches"]
+        phase_s[f"serve xlstm-125m{label}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["xlstm-125m-train"] = train_phase(wrappers, workdir)["launches"]
+        phase_s[f"train xlstm-125m{label}"] = time.perf_counter() - t0
+        phase_s[f"whisper + llama-vision + xlstm + train{label}"] = time.perf_counter() - t_thread
+        return out  # each phase holds its own path's launches
 
     if args.modal_alone:
         modal(" (alone)")
@@ -2518,29 +2790,33 @@ def main(argv: list[str] | None = None) -> int:
         phase_s["retier (launcher, beside modes before / after1, traffic and reduced)"] = time.perf_counter() - t0
         return out
 
-    # [whisper] and [llama-vision] run in this process beside the modes
-    # phase's launcher processes, whose card idles while they write and read
-    # their bundles; the in-process launch counts are theirs alone. The
-    # modes phase's after2 run goes first: it is [retier]'s profiling run,
-    # and [retier]'s launcher process (mostly its host zlib build) then runs
-    # beside the before and after1 runs, traffic and [reduced]
+    # [whisper], [llama-vision], [xlstm] and [train] run on a thread of this
+    # process beside the modes, traffic and [reduced] launcher processes,
+    # whose card idles while they write and read their bundles; the
+    # in-process launch counts are theirs alone, and the thread is waited
+    # for after [reduced]. The modes phase's after2 run goes first: it is
+    # [retier]'s profiling run, and [retier]'s launcher process (mostly its
+    # host zlib build) then runs beside the before and after1 runs, traffic
+    # and [reduced]
     retier_run = []
+    t_modes = t_phase
     with ThreadPoolExecutor(2) as ex:
         modal_run = ex.submit(modal, " (beside modes)")
         modes = modes_phase(workdir, trace, on_profile=lambda run: retier_run.append(ex.submit(retier, run)))
         phase_s["modes (launcher)"] = time.perf_counter() - t_phase
-        paths.update(modal_run.result())
         paths["modes-after2 (retier profile)"] = modes["after2"]["launches"]
-        phase_s["modes + whisper + llama-vision"] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
         traffic_phase(workdir)
         phase_s["traffic (launcher)"] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
         reduced = reduced_phase(workdir)
         paths["reduced"], paths["reduced-online"] = reduced["launches"], reduced["online_launches"]
+        paths["reduced-train"] = reduced["train_launches"]
         paths["reduced-restore"], paths["reduced-fleet"] = reduced["restore_launches"], reduced["fleet_launches"]
         phase_s["reduced (launcher)"] = time.perf_counter() - t_phase
         paths["retier-serve"] = retier_run[0].result()["retier"]["launches"]
+        paths.update(modal_run.result())
+        phase_s["modes + traffic + reduced, the in-process thread beside them"] = time.perf_counter() - t_modes
     phase_s["total"] = time.perf_counter() - t_start
     print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     # the served decode is the plain dense one, as in the reference, and Mixtral has no recurrent layer
@@ -2553,6 +2829,7 @@ def main(argv: list[str] | None = None) -> int:
                          ("recurrentgemma-9b", {"flash_attention", "rglru_scan"}),
                          ("gemma3-27b", {"flash_attention"}), ("deepseek-v2-lite-16b", set()),
                          ("whisper-base", {"flash_attention"}), ("llama-3.2-vision-90b", {"flash_attention"}),
+                         ("xlstm-125m", set()), ("xlstm-125m-train", set()), ("reduced-train", set()),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"})):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}

@@ -53,7 +53,9 @@ def write_bundle(prefix: str, arrays: Mapping[str, torch.Tensor]) -> dict:
     offset = 0
     with open(bin_tmp, "wb") as f:
         for key, t in arrays.items():
-            arr = to_numpy(t)
+            # as the reference's np.ascontiguousarray: a 0-d leaf (a step
+            # counter) is stored with shape [1]
+            arr = np.ascontiguousarray(to_numpy(t))
             pad = (-offset) % _ALIGN
             if pad:
                 f.write(b"\0" * pad)

@@ -11,6 +11,7 @@ from repro_torch.core.arbiter import HostArbiter, HostArbiterStats
 from repro_torch.core.entrypoints import (
     SERVING_MULTIMODAL_PROFILE,
     SERVING_PROFILE,
+    TRAINING_PROFILE,
     DeploymentProfile,
     recognize_entries,
 )
@@ -56,6 +57,7 @@ __all__ = [
     "DeploymentProfile",
     "SERVING_PROFILE",
     "SERVING_MULTIMODAL_PROFILE",
+    "TRAINING_PROFILE",
     "recognize_entries",
     "eliminate_collections",
     "eliminate_files",

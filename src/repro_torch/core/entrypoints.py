@@ -1,7 +1,8 @@
 """② Application Entry Recognition (``repro.core.entrypoints`` counterpart).
 
 ``DeploymentProfile`` is the deployment's declared entry set (the FaaSLight
-configuration file); ``recognize_entries`` filters the model's registered
+configuration file: a server declares ``prefill`` / ``decode``, a trainer
+``train``); ``recognize_entries`` filters the model's registered
 entries by their ``kind`` tag and the profile's modalities, and
 ``extra_entries`` is the explicit escape hatch.
 """
@@ -38,6 +39,10 @@ class DeploymentProfile:
         return "train" in self.kinds
 
 
+TRAINING_PROFILE = DeploymentProfile(
+    name="training", kinds=("train",), modalities=("text", "image", "audio"),
+    hot_vocab_fraction=1.0, resident_experts=-1,
+)
 SERVING_PROFILE = DeploymentProfile(name="serving")
 SERVING_MULTIMODAL_PROFILE = DeploymentProfile(name="serving-multimodal", modalities=("text", "image", "audio"))
 

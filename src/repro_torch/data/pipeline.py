@@ -13,6 +13,7 @@ stats residency policy preloads.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 
@@ -32,7 +33,8 @@ class SyntheticTokenPipeline:
     """{"tokens": (B, S) i32, "labels": (B, S) i32} batches by step.
 
     ``shard``/``num_shards`` split the batch dimension: each shard emits its
-    (B/num_shards, S) slice. ``batch_at(step)`` is random access.
+    (B/num_shards, S) slice. ``batch_at(step)`` is random access, and a
+    resumed run iterates from its step (``iterate_from``).
     """
 
     def __init__(self, cfg: DataConfig, *, shard: int = 0, num_shards: int = 1):
@@ -67,6 +69,15 @@ class SyntheticTokenPipeline:
             "tokens": toks[:, :-1].copy(),
             "labels": toks[:, 1:].copy(),
         }
+
+    def __iter__(self) -> Iterator[dict]:
+        return self.iterate_from(0)
+
+    def iterate_from(self, step: int) -> Iterator[dict]:
+        """Batches from ``step`` on: a resumed run needs no cursor replay."""
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
     # -- offline stats (the paper's profiling of module-init functions) -----
     def vocab_row_stats(self, n_steps: int = 4, row_group: int = 2048) -> dict[str, float]:

@@ -34,7 +34,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, refuse_grad
 
 NEG_INF = -1.0e30
 
@@ -357,6 +357,7 @@ def decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
     _check_cuda_inputs(q, k_cache, v_cache, softcap)
+    refuse_grad("decode_attention_plain", q, k_cache, v_cache)
     if Skv == 0:
         raise ValueError("the cache holds no position")
     kv_len = _lengths(kv_len, B, q.device)
@@ -405,6 +406,7 @@ def paged_decode_attention(
         raise ValueError(f"paged_decode_attention runs on cpu or cuda, not {q.device}")
     page_table = page_table.to(torch.int32)
     _check_cuda_inputs(q, k_pages, v_pages, softcap, ("page_table", page_table))
+    refuse_grad("paged_decode_attention_plain", q, k_pages, v_pages)
     if page_table.dim() != 2 or page_table.shape[0] != B or NP == 0 or P == 0 or ps == 0:
         raise ValueError(f"bad pool or table: pool {tuple(k_pages.shape)}, table {tuple(page_table.shape)}")
     kv_len = _lengths(kv_len, B, q.device)

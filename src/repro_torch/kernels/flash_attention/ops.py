@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, refuse_grad
 
 NEG_INF = -1.0e30
 
@@ -163,6 +163,7 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     _check_cuda_inputs(q, k, v, window, softcap, q_offset)
+    refuse_grad("flash_attention_plain", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = hd**-0.5

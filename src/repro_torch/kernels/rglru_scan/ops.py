@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import nvcc, sm_count
+from repro_torch.kernels import nvcc, refuse_grad, sm_count
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 _PRODUCER_THREADS = 32  # each block has one producer warp beside its consumer warps
@@ -88,6 +88,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cpu or cuda, not {a.device}")
     _check_cuda_inputs(a, b)
+    refuse_grad("rglru_scan_plain", a, b)
     B, S, W = a.shape
     lanes = lane_plan(B, W, sm_count(a.device))[0]
     s = torch.empty_like(a)

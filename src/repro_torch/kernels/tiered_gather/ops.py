@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, refuse_grad
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "tiered_gather.cu"
 _lib: Optional[ctypes.CDLL] = None
@@ -127,6 +127,7 @@ def tiered_gather(
     if table.device.type != "cuda":
         raise ValueError(f"tiered_gather runs on cpu or cuda, not {table.device}")
     _check_cuda_inputs(table, ids, group_mask, group_size)
+    refuse_grad("tiered_gather_plain", table)
     if table.element_size() not in (2, 4):
         raise TypeError(f"the CUDA kernel copies 2- or 4-byte elements, the table is {table.dtype}")
     N, (V, D) = ids.shape[0], table.shape
@@ -163,6 +164,7 @@ def tiered_gather_matmul(
     if table.device.type != "cuda":
         raise ValueError(f"tiered_gather_matmul runs on cpu or cuda, not {table.device}")
     _check_cuda_inputs(table, ids, group_mask, group_size)
+    refuse_grad("tiered_gather_matmul_plain", table, w)
     (V, D), N = table.shape, ids.shape[0]
     if w.dim() != 2 or w.shape[0] != D:
         raise ValueError(f"w must be (D, F) with D = {D}, got {tuple(w.shape)}")

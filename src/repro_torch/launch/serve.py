@@ -62,7 +62,8 @@ prints each replica's request, tokens and daemon stats, each sync and the
 seconds, which their cold-start reports leave out, as the reference's do),
 and exits 1 if a replica's output is short.
 
-Every family but xLSTM serves. Whisper (``--arch whisper-base``) and
+Every family of the reference serves, xLSTM (``--arch xlstm-125m``) among
+them. Whisper (``--arch whisper-base``) and
 Llama-3.2-Vision (``--arch llama-3.2-vision-90b``) serve text-only, as the
 reference's launcher does: the analyzer sees only their ``_text_only``
 entries, so the encoder and the image cross-attention blocks go to tier-1

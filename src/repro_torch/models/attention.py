@@ -17,13 +17,15 @@ one the kernel takes, and the reference has no kernel there. The kernel is
 reached only through ``gqa_forward``: every attention the reference runs
 plain calls ``flash_attention_plain`` itself, with no flag to choose. Those
 are MLA's prefill, cross-attention (not causal) and the Whisper encoder's
-self-attention (``encoder_attn_forward``).
+self-attention (``encoder_attn_forward``). The training loss passes
+``flash_attention_plain`` to ``gqa_forward`` as its ``attend``: no kernel
+has a backward, and the reference trains with ``use_pallas=False``.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -91,12 +93,16 @@ def gqa_forward(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    attend: Optional[Callable] = None,
 ):
     """Prefill/forward attention; returns ``(out, (k, v))`` with the roped
-    keys and the values for the cache."""
+    keys and the values for the cache. ``attend`` is the attention itself:
+    None for this module's ``flash_attention`` (the kernel's wrapper, looked
+    up at the call), or ``flash_attention_plain`` named by a caller that
+    needs a backward (the training loss)."""
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(params, x, positions, cfg)
-    o = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_logit_softcap)
+    o = (attend or flash_attention)(q, k, v, causal=causal, window=window, softcap=cfg.attn_logit_softcap)
     out = o.reshape(*o.shape[:2], H * hd) @ params["wo"].to(x.dtype)
     return out, (k, v)
 

@@ -1,4 +1,4 @@
-"""Common layers: RMSNorm, RoPE, SwiGLU MLP, embeddings
+"""Common layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, cross-entropy
 (``repro.models.layers`` counterpart, same numerics contract).
 
 All weights are 2D matrices (d_in, d_out); head structure is recovered by
@@ -72,3 +72,28 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype, d_model
 
 def logits_from_embedding(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return x @ table.to(x.dtype).T
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position logsumexp(logits) - logits[label], in fp32."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy; logits (..., V) in any float dtype, fp32 softmax."""
+    return torch.mean(_xent(logits, labels))
+
+
+def chunked_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mean cross-entropy without the whole (B, S, V) logits: logits are
+    made one sequence chunk at a time and their fp32 sums added in chunk
+    order. ``chunk`` must divide S."""
+    B, S, _ = x.shape
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the logits chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S, chunk):
+        total = total + torch.sum(_xent(logits_from_embedding(x[:, c:c + chunk], table), labels[:, c:c + chunk]))
+    return total / (B * S)

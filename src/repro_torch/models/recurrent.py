@@ -9,12 +9,13 @@ RG-LRU:           r_t = σ(W_r h_t + b_r); i_t = σ(W_i h_t + b_i)
 Prefill computes the gates in fp32 and hands ``a, b`` to
 ``kernels.rglru_scan.ops.rglru_scan``, which owns only the serial
 dependency (the reference's ``use_pallas`` branch): the CUDA kernel for CUDA
-tensors, the plain step loop for CPU ones. Decode is one fused step.
+tensors, the plain step loop for CPU ones; the training loss names
+``rglru_scan_plain`` itself, on every device. Decode is one fused step.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -92,13 +93,16 @@ def _gate_branch(params: dict, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(g.float(), approximate="tanh").to(x.dtype)
 
 
-def rglru_block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    """Prefill path. Returns (y, cache) with cache = {conv, lru}."""
+def rglru_block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *, scan: Optional[Callable] = None):
+    """Prefill / training path. Returns (y, cache) with cache = {conv, lru}.
+    ``scan`` is None for this module's ``rglru_scan`` (the kernel's wrapper,
+    looked up at the call), or ``rglru_scan_plain`` named by a caller that
+    needs a backward (the training loss)."""
     gate = _gate_branch(params, x)
     h = x @ params["w_in"].to(x.dtype)
     h, conv_state = causal_conv1d(h, params["conv_w"], params["conv_b"])
     a, b = _gates(params, h)
-    s = rglru_scan(a, b)
+    s = (scan or rglru_scan)(a, b)
     y = (gate * s.to(h.dtype)) @ params["w_out"].to(x.dtype)
     return y, {"conv": conv_state, "lru": s[:, -1].to(x.dtype)}
 

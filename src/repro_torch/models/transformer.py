@@ -1,10 +1,10 @@
-"""Decoder-stack assembly for uniform attention stacks with a dense (SwiGLU)
-or MoE MLP — the Mixtral family plus the dense Yi / Phi-3 / Mistral-Large
-configs — for Gemma-3's 5:1 local/global stack, for DeepSeek-V2-Lite's MLA
-stack with its dense lead layer and fine-grained MoE, for RecurrentGemma's
-hybrid rec/rec/attn stack, for Whisper's encoder-decoder and for
-Llama-3.2-Vision's 4-self:1-cross stack (``repro.models.transformer``
-counterpart).
+"""Decoder-stack assembly for every family of the reference: uniform
+attention stacks with a dense (SwiGLU) or MoE MLP — the Mixtral family plus
+the dense Yi / Phi-3 / Mistral-Large configs — Gemma-3's 5:1 local/global
+stack, DeepSeek-V2-Lite's MLA stack with its dense lead layer and
+fine-grained MoE, RecurrentGemma's hybrid rec/rec/attn stack, xLSTM's m/s
+stack, Whisper's encoder-decoder and Llama-3.2-Vision's 4-self:1-cross stack
+(``repro.models.transformer`` counterpart).
 
 Layers are grouped into scanned units with stacked parameters
 (``groups.u{j}.*``, leading axis = group), plus unscanned ``lead.b{i}`` /
@@ -20,8 +20,18 @@ the batch carries ``image_embeds`` and are skipped whole otherwise. Both are
 Python control flow, so a text-only entry's trace never touches their
 weights, and the analyzer leaves them dead.
 
-Entry points: ``prefill`` (last-token logits + caches) and ``decode_step``
-(one token against the caches).
+Entry points: ``loss_fn`` (the training forward and its cross-entropy),
+``prefill`` (last-token logits + caches) and ``decode_step`` (one token
+against the caches).
+
+Kernels on the training path. The loss runs the stack without collecting
+caches, and there every block names the plain versions itself:
+``gqa_forward(attend=flash_attention_plain)`` and
+``rglru_block_forward(scan=rglru_scan_plain)``, on every device. No kernel
+has a backward, and the reference trains with ``use_pallas=False``, so its
+training runs these same plain forms. (A kernel wrapper refuses a CUDA
+launch whose inputs require grad.) ``cfg.remat`` is not consulted:
+activations are kept, which the sizes trained here allow.
 """
 
 from __future__ import annotations
@@ -33,26 +43,25 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+from repro_torch.kernels.rglru_scan.ops import rglru_scan_plain
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
+    chunked_xent,
     embed,
     embedding_spec,
     logits_from_embedding,
     rmsnorm,
     rmsnorm_spec,
+    softmax_xent,
     swiglu,
     swiglu_spec,
 )
 from repro_torch.models.spec import ParamSpec, stack_specs
 from repro_torch.utils.tree import tree_map
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """The port covers every family but xLSTM, which is still to be ported."""
-    if cfg.xlstm is not None:
-        raise NotImplementedError(f"{cfg.name}: xlstm not ported yet")
 
 
 def _modal(spec_tree: Any, modality: str) -> Any:
@@ -75,6 +84,10 @@ def block_spec(cfg: ModelConfig, kind: str, layer_idx: int) -> dict:
         return {"norm1": rmsnorm_spec(d), "cross": attn.cross_attn_spec(d, H, Hkv, hd, cfg.vlm.vision_dim),
                 "norm2": rmsnorm_spec(d), **_modal(_mlp_spec(cfg, layer_idx), "image"),
                 "gate_ffn": ParamSpec((1,), (None,), init="zeros", access="modal:image")}
+    if kind == "m":  # xLSTM blocks carry their own projections: no MLP
+        return {"norm": rmsnorm_spec(d), "mlstm": xlstm_mod.mlstm_block_spec(cfg)}
+    if kind == "s":
+        return {"norm": rmsnorm_spec(d), "slstm": xlstm_mod.slstm_block_spec(cfg)}
     if kind in ("self", "local", "global", "attn"):
         mixer = {"attn": attn.mla_spec(cfg) if cfg.mla is not None else attn.gqa_spec(d, H, Hkv, hd)}
     elif kind == "rec":
@@ -96,12 +109,13 @@ class StackLayout:
 
 
 def stack_layout(cfg: ModelConfig) -> StackLayout:
-    check_supported(cfg)
     kinds = list(cfg.attn_kinds)
     lead = cfg.moe.first_dense_layers if cfg.moe else 0
     rest = kinds[lead:]
     if cfg.recurrent is not None:
         unit = len(cfg.recurrent.pattern)
+    elif cfg.xlstm is not None:
+        unit = len(cfg.xlstm.pattern)
     elif cfg.local_global_pattern is not None:
         unit = sum(cfg.local_global_pattern)
     elif cfg.vlm is not None:
@@ -165,9 +179,20 @@ def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool
 def _block_forward(cfg, kind, params, x, positions, memory, collect_cache):
     """Returns (x, cache). ``memory`` holds the encoder output (``enc``) or
     the image embeddings (``image``) of a multimodal batch; a ``cross`` block
-    without an image is skipped whole and has an empty cache."""
+    without an image is skipped whole and has an empty cache. Without
+    ``collect_cache`` (the training loss) attention and the RG-LRU scan run
+    their plain versions."""
     eps = cfg.norm_eps
     cache = {}
+    if kind in ("m", "s"):
+        h = rmsnorm(x, params["norm"], eps)
+        if kind == "m":
+            o, c = xlstm_mod.mlstm_block_forward(params["mlstm"], h, cfg)
+        else:
+            o, c = xlstm_mod.slstm_block_forward(params["slstm"], h, cfg)
+        if collect_cache:
+            cache.update(c)
+        return x + o, cache
     if kind == "cross":
         if memory.get("image") is None:
             return x, cache
@@ -177,13 +202,15 @@ def _block_forward(cfg, kind, params, x, positions, memory, collect_cache):
     else:
         h = rmsnorm(x, params["norm1"], eps)
         if kind == "rec":
-            o, c = rec_mod.rglru_block_forward(params["rglru"], h, cfg)
+            o, c = rec_mod.rglru_block_forward(params["rglru"], h, cfg,
+                                               scan=None if collect_cache else rglru_scan_plain)
         elif cfg.mla is not None:
             o, (ckv, kr) = attn.mla_forward(params["attn"], h, positions, cfg)
             c = {"ckv": ckv, "kr": kr}
         else:
-            o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg,
-                                         causal=True, window=_kind_window(cfg, kind))
+            o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg, causal=True,
+                                         window=_kind_window(cfg, kind),
+                                         attend=None if collect_cache else flash_attention_plain)
             c = {"k": k, "v": v}
         x = x + o
         if cfg.encdec is not None and memory.get("enc") is not None:
@@ -204,13 +231,22 @@ def _block_decode(cfg, kind, params, x, pos, cache, active=None):
     """x (B, 1, D); returns (x, new_cache). K/V (MLA's latent ``ckv`` and
     ``kr``) are written into ``cache``'s tensors in place and come back as
     the same tensors; a rec block's conv and LRU state come back as new
-    tensors, ``cache``'s left as they were. Cross K/V (``xk`` / ``xv``, only
+    tensors, ``cache``'s left as they were, and so does an xLSTM block's
+    whole state. Cross K/V (``xk`` / ``xv``, only
     in a multimodal cache) are read, never written; a ``cross`` block whose
     cache has none is skipped whole.
     ``active`` (B,) bool marks the rows whose routing counts toward the usage
     mask (None: every row)."""
     eps = cfg.norm_eps
     new_cache = dict(cache)
+    if kind in ("m", "s"):
+        h = rmsnorm(x, params["norm"], eps)
+        if kind == "m":
+            o, c = xlstm_mod.mlstm_block_decode(params["mlstm"], h, cache, cfg)
+        else:
+            o, c = xlstm_mod.slstm_block_decode(params["slstm"], h, cache, cfg)
+        new_cache.update(c)
+        return x + o, new_cache
     if kind == "cross":
         if "xk" not in cache:
             return x, new_cache
@@ -333,6 +369,18 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, memo
 
 def _logits_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (fp32 scalar); per sequence chunk of
+    ``cfg.logits_chunk`` when it is set, so the (B, S, V) logits never exist
+    whole. Attention and the RG-LRU scan run plain (module docstring)."""
+    hidden, _ = forward_hidden(cfg, params, batch["tokens"], memory=_memory_from_batch(cfg, params, batch))
+    table = _logits_table(cfg, params)
+    if cfg.logits_chunk:
+        return chunked_xent(hidden, table, batch["labels"], cfg.logits_chunk)
+    return softmax_xent(logits_from_embedding(hidden, table), batch["labels"])
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict):

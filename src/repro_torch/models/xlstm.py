@@ -1,0 +1,299 @@
+"""xLSTM blocks: mLSTM (matrix memory, exponentially gated) and sLSTM
+(scalar memory with a nonlinear recurrence) (``repro.models.xlstm``
+counterpart).
+
+Both use the stabilized exponential gating of the xLSTM paper
+(arXiv:2405.04517): a running stabilizer ``m`` keeps exp(i), exp(f)
+bounded. mLSTM blocks up-project by ``proj_factor_m`` and carry no separate
+FFN; sLSTM blocks run the cell at d_model with a gated FFN tail.
+
+Shapes: the mLSTM head dim is ``d_model * proj_factor_m / H`` (384 at
+xlstm-125m's full width), the sLSTM head dim ``d_model / H`` (192); neither
+is ``cfg.head_dim``. ``q``, ``k``, ``v``, the gates and every state leaf
+(mLSTM ``C``, ``n``, ``m``; sLSTM ``c``, ``n``, ``h``, ``m``) are fp32 whatever
+``cfg.dtype`` is; only the conv state is in ``cfg.dtype``.
+
+Prefill takes the chunkwise form when ``S > chunk`` and ``S % chunk == 0``,
+else the step-by-step scan, as the reference does. The chunkwise form runs
+the stabilizer's exact max-plus recurrence with the scan's operations, so
+its ``m`` equals the scan's bit for bit. Nothing here reaches a kernel: the
+reference runs both cells in ``jnp``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.recurrent import causal_conv1d
+from repro_torch.models.spec import ParamSpec
+
+M_INIT = -1e30  # the stabilizer's starting value inside the block functions
+
+
+def _groupnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head layernorm (GroupNorm with one group per head). x (..., H, hd)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_block_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    xc = cfg.xlstm
+    di = int(d * xc.proj_factor_m)  # inner width
+    H = cfg.num_heads
+    return {
+        "w_up": ParamSpec((d, 2 * di), ("embed", "ffn")),
+        "conv_w": ParamSpec((xc.conv_width, di), (None, "ffn"), scale=0.5),
+        "conv_b": ParamSpec((di,), ("ffn",), init="zeros"),
+        "w_q": ParamSpec((di, di), ("ffn", None)),
+        "w_k": ParamSpec((di, di), ("ffn", None)),
+        "w_v": ParamSpec((di, di), ("ffn", None)),
+        "w_if": ParamSpec((di, 2 * H), ("ffn", None), scale=0.1),
+        "b_if": ParamSpec((2 * H,), (None,), init="zeros"),
+        "gn_scale": ParamSpec((di,), ("ffn",), init="ones"),
+        "w_down": ParamSpec((di, d), ("ffn", "embed")),
+    }
+
+
+def mlstm_cache_shapes(cfg: ModelConfig, batch: int) -> dict[str, tuple]:
+    """The ``m`` block's decode cache: the matrix memory ``C``, the
+    normalizer ``n``, the stabilizer ``m`` (fp32) and the last (cw-1) conv
+    inputs (``cfg.dtype``)."""
+    xc = cfg.xlstm
+    di = int(cfg.d_model * xc.proj_factor_m)
+    H = cfg.num_heads
+    hd = di // H
+    return {"C": (batch, H, hd, hd), "n": (batch, H, hd), "m": (batch, H), "conv": (batch, xc.conv_width - 1, di)}
+
+
+def _mlstm_heads(x: torch.Tensor, H: int) -> torch.Tensor:
+    b, s, di = x.shape
+    return x.reshape(b, s, H, di // H)
+
+
+def _initial_state(B: int, H: int, hd: int, device) -> tuple:
+    return (torch.zeros(B, H, hd, hd, dtype=torch.float32, device=device),
+            torch.zeros(B, H, hd, dtype=torch.float32, device=device),
+            torch.full((B, H), M_INIT, dtype=torch.float32, device=device))
+
+
+def mlstm_scan(q, k, v, log_i, log_f, state=None):
+    """The stabilized mLSTM recurrence, one step at a time.
+
+    q, k, v (B, S, H, hd) fp32; log_i, log_f (B, S, H) fp32; ``state`` is
+    (C (B, H, hd, hd), n (B, H, hd), m (B, H)) or None.
+    Returns (h (B, S, H, hd) fp32, final state)."""
+    B, S, H, hd = q.shape
+    C, n, m = state if state is not None else _initial_state(B, H, hd, q.device)
+    hs = []
+    for t in range(S):
+        qt, kt, vt, li, lf = q[:, t], k[:, t], v[:, t], log_i[:, t], log_f[:, t]
+        m_new = torch.maximum(lf + m, li)
+        i_bar = torch.exp(li - m_new)[..., None]
+        f_bar = torch.exp(lf + m - m_new)[..., None]
+        C = f_bar[..., None] * C + i_bar[..., None] * (kt[..., :, None] * vt[..., None, :])
+        n = f_bar * n + i_bar * kt
+        denom = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qt)), torch.exp(-m_new))[..., None]
+        hs.append(torch.einsum("bhdk,bhd->bhk", C, qt) / denom)
+        m = m_new
+    return torch.stack(hs, dim=1), (C, n, m)
+
+
+def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int, state=None):
+    """Chunkwise-parallel stabilized mLSTM: the same function as
+    ``mlstm_scan``, taking time in blocks of ``chunk``. Within a chunk the
+    contributions come from an (L, L) masked score matrix; across chunks
+    they flow through the carried state.
+
+    q, k, v (B, S, H, hd) fp32 (k pre-scaled by 1/sqrt(hd)); log_i, log_f
+    (B, S, H) fp32. Returns ((B, S, H, hd) fp32, final state)."""
+    B, S, H, hd = q.shape
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
+    n_chunks, L = S // chunk, chunk
+    C, nvec, m_prev = state if state is not None else _initial_state(B, H, hd, q.device)
+    causal = torch.tril(torch.ones(L, L, dtype=torch.bool, device=q.device))
+    hs = []
+    for c in range(n_chunks):
+        sl = slice(c * L, (c + 1) * L)
+        qb, kb, vb, li, lf = q[:, sl], k[:, sl], v[:, sl], log_i[:, sl], log_f[:, sl]
+        # cumulative log decay including step t: B_t = sum_{s<=t} lf_s
+        Bcum = torch.cumsum(lf, dim=1)  # (B, L, H)
+        u = li - Bcum
+        # the stabilizer is state (it crosses chunk and request boundaries),
+        # so it runs the exact max-plus recurrence m_t = max(lf_t + m_{t-1},
+        # li_t) with mlstm_scan's operations, not the cumsum form, whose
+        # float32 rounding drifts by ~eps·|B_t|
+        m_steps, m = [], m_prev
+        for t in range(L):
+            m = torch.maximum(lf[:, t] + m, li[:, t])
+            m_steps.append(m)
+        m_t = torch.stack(m_steps, dim=1)  # (B, L, H)
+        # inter-chunk: exp(B_t + m_prev - m_t) * q_t C_prev
+        w_inter = torch.exp(Bcum + m_prev[:, None, :] - m_t)
+        h_inter = torch.einsum("blhd,bhdk->blhk", qb, C) * w_inter[..., None]
+        n_inter = torch.einsum("blhd,bhd->blh", qb, nvec) * w_inter
+        # intra-chunk: D_{t,s} = exp(B_t - B_s + li_s - m_t) for s <= t
+        logD = (Bcum - m_t)[:, :, None, :] + u[:, None, :, :]  # (B, t, s, H)
+        # masked before the exp (the reference masks after it): the same
+        # values, but under torch's autograd a masked lane whose exp
+        # overflows would turn its zero gradient into 0·inf = NaN
+        D = torch.exp(torch.where(causal[None, :, :, None], logD, -math.inf))
+        scores = torch.einsum("bthd,bshd->btsh", qb, kb) * D
+        h_intra = torch.einsum("btsh,bshd->bthd", scores, vb)
+        n_intra = scores.sum(dim=2)  # (B, L, H)
+        denom = torch.maximum(torch.abs(n_inter + n_intra), torch.exp(-m_t))[..., None]
+        hs.append((h_inter + h_intra) / denom)
+        # carry to the next chunk (row t = L of the same recurrence)
+        BL = Bcum[:, -1, :]
+        m_next = m_t[:, -1, :]
+        w_C = torch.exp(BL + m_prev - m_next)  # (B, H)
+        w_s = torch.exp(BL[:, None, :] - Bcum + li - m_next[:, None, :])  # (B, L, H)
+        C = w_C[..., None, None] * C + torch.einsum("blh,blhd,blhk->bhdk", w_s, kb, vb)
+        nvec = w_C[..., None] * nvec + torch.einsum("blh,blhd->bhd", w_s, kb)
+        m_prev = m_next
+    return torch.cat(hs, dim=1), (C, nvec, m_prev)
+
+
+def _mlstm_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, conv_state: Optional[torch.Tensor] = None):
+    H = cfg.num_heads
+    up = x @ params["w_up"].to(x.dtype)
+    z, o_gate = torch.chunk(up, 2, dim=-1)
+    zc, conv_state = causal_conv1d(z, params["conv_w"], params["conv_b"], state=conv_state)
+    zc = F.silu(zc.to(torch.float32)).to(x.dtype)
+    q = _mlstm_heads(zc @ params["w_q"].to(x.dtype), H).to(torch.float32)
+    k = _mlstm_heads(zc @ params["w_k"].to(x.dtype), H).to(torch.float32)
+    v = _mlstm_heads(z @ params["w_v"].to(x.dtype), H).to(torch.float32)
+    k = k / math.sqrt(k.shape[-1])
+    gates = (zc @ params["w_if"].to(x.dtype)).to(torch.float32) + params["b_if"].to(torch.float32)
+    log_i, f_raw = torch.chunk(gates, 2, dim=-1)  # (B, S, H) each
+    log_f = -F.softplus(-f_raw)  # log sigmoid(f)
+    return q, k, v, log_i, log_f, o_gate, conv_state
+
+
+def _mlstm_out(params: dict, h: torch.Tensor, o_gate: torch.Tensor, x: torch.Tensor, H: int) -> torch.Tensor:
+    h = h.to(x.dtype).reshape(x.shape[0], x.shape[1], -1)
+    h = _groupnorm(_mlstm_heads(h, H), params["gn_scale"].reshape(H, -1)).reshape(h.shape)
+    h = h * F.silu(o_gate.to(torch.float32)).to(x.dtype)
+    return h @ params["w_down"].to(x.dtype)
+
+
+def mlstm_block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Prefill / training path. Returns (y, cache) with cache = {C, n, m, conv}."""
+    q, k, v, log_i, log_f, o_gate, conv_state = _mlstm_qkv(params, x, cfg)
+    S, chunk = x.shape[1], cfg.xlstm.chunk_size
+    if S > chunk and S % chunk == 0:
+        h, state = mlstm_chunkwise(q, k, v, log_i, log_f, chunk)
+    else:
+        h, state = mlstm_scan(q, k, v, log_i, log_f)
+    y = _mlstm_out(params, h, o_gate, x, cfg.num_heads)
+    return y, {"C": state[0], "n": state[1], "m": state[2], "conv": conv_state}
+
+
+def mlstm_block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+    """x (B, 1, D) one step. The new state comes back as new tensors and
+    ``cache`` is only read (the caller commits it once the step is final)."""
+    q, k, v, log_i, log_f, o_gate, conv_state = _mlstm_qkv(params, x, cfg, conv_state=cache["conv"])
+    h, state = mlstm_scan(q, k, v, log_i, log_f, state=(cache["C"], cache["n"], cache["m"]))
+    y = _mlstm_out(params, h, o_gate, x, cfg.num_heads)
+    return y, {"C": state[0], "n": state[1], "m": state[2], "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_block_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    H = cfg.num_heads
+    hd = d // H
+    f = int(d * cfg.xlstm.proj_factor_s)
+    return {
+        "w_zifo": ParamSpec((d, 4 * d), ("embed", "ffn")),
+        "r_zifo": ParamSpec((H, hd, 4 * hd), (None, None, None), scale=0.5),
+        "b_zifo": ParamSpec((4 * d,), ("ffn",), init="zeros"),
+        "gn_scale": ParamSpec((d,), ("embed",), init="ones"),
+        "ffn_up": ParamSpec((d, 2 * f), ("embed", "ffn")),
+        "ffn_down": ParamSpec((f, d), ("ffn", "embed")),
+    }
+
+
+def slstm_cache_shapes(cfg: ModelConfig, batch: int) -> dict[str, tuple]:
+    """The ``s`` block's decode cache: cell, normalizer, output and the
+    per-channel stabilizer, each (B, H, hd) fp32."""
+    H = cfg.num_heads
+    shape = (batch, H, cfg.d_model // H)
+    return {"c": shape, "n": shape, "h": shape, "m": shape}
+
+
+def _slstm_cell_step(params: dict, xt: torch.Tensor, carry: tuple, H: int, hd: int):
+    """xt (B, 4d) pre-activation from the input; carry (c, n, h, m), each
+    (B, H, hd) (the stabilizer is per channel)."""
+    c, n, h, m = carry
+    rec = torch.einsum("bhd,hdk->bhk", h, params["r_zifo"].to(h.dtype))  # (B, H, 4hd)
+    pre = xt.reshape(xt.shape[0], H, 4 * hd).to(torch.float32) + rec.to(torch.float32)
+    z, i_raw, f_raw, o_raw = torch.chunk(pre, 4, dim=-1)
+    z = torch.tanh(z)
+    o = torch.sigmoid(o_raw)
+    log_f = -F.softplus(-f_raw)  # log sigmoid(f)
+    m_new = torch.maximum(log_f + m, i_raw)
+    i_bar = torch.exp(i_raw - m_new)
+    f_bar = torch.exp(log_f + m - m_new)
+    c = f_bar * c + i_bar * z
+    n = f_bar * n + i_bar
+    h_new = o * c / torch.clamp(n, min=1e-6)
+    return (c, n, h_new, m_new), h_new
+
+
+def slstm_cell(params: dict, x_pre: torch.Tensor, cfg: ModelConfig, state=None):
+    """x_pre (B, S, 4d). Returns (h (B, S, H, hd) fp32, state)."""
+    B, S, _ = x_pre.shape
+    H = cfg.num_heads
+    hd = cfg.d_model // H
+    if state is None:
+        zeros = torch.zeros(B, H, hd, dtype=torch.float32, device=x_pre.device)
+        state = (zeros, zeros, zeros, torch.full((B, H, hd), M_INIT, dtype=torch.float32, device=x_pre.device))
+    hs = []
+    for t in range(S):
+        state, h = _slstm_cell_step(params, x_pre[:, t], state, H, hd)
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+def _slstm_tail(params: dict, h: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    B, S = x.shape[0], x.shape[1]
+    h = _groupnorm(h.to(x.dtype), params["gn_scale"].reshape(cfg.num_heads, -1)).reshape(B, S, -1)
+    a, b = torch.chunk(h @ params["ffn_up"].to(x.dtype), 2, dim=-1)
+    # jax.nn.gelu's default is the tanh approximation
+    hf = F.gelu(a.to(torch.float32), approximate="tanh").to(x.dtype) * b
+    return hf @ params["ffn_down"].to(x.dtype)
+
+
+def _slstm_pre(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["w_zifo"].to(x.dtype) + params["b_zifo"].to(x.dtype)
+
+
+def slstm_block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Prefill / training path. Returns (y, cache) with cache = {c, n, h, m}."""
+    h, state = slstm_cell(params, _slstm_pre(params, x), cfg)
+    return _slstm_tail(params, h, x, cfg), dict(zip("cnhm", state))
+
+
+def slstm_block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+    """x (B, 1, D) one step; ``cache`` is only read, the new state is new tensors."""
+    state = tuple(cache[k] for k in "cnhm")
+    h, state = slstm_cell(params, _slstm_pre(params, x), cfg, state=state)
+    return _slstm_tail(params, h, x, cfg), dict(zip("cnhm", state))

@@ -1,16 +1,17 @@
 """Model facade: one object per architecture binding config → params,
-entries, caches, and FaaSLight metadata (``repro.models.zoo`` counterpart,
-for the families ``transformer.check_supported`` accepts).
+entries, caches, and FaaSLight metadata (``repro.models.zoo`` counterpart).
 
 ``Model.entries()`` is the Application Entry Recognition surface: each entry
 is a function plus ``meta``-device example arguments, which the Program
-Analyzer traces without allocating. A modal family (Whisper, the VLM)
-registers each entry twice, a multimodal one and its ``_text_only`` twin,
-as the reference does; a text-only deployment recognizes only the twins.
+Analyzer traces without allocating: ``train_step`` (the loss), ``prefill``
+and ``decode_step``. A modal family (Whisper, the VLM) registers each entry
+twice, a multimodal one and its ``_text_only`` twin, as the reference does;
+a text-only deployment recognizes only the twins.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.spec import abstract_params, access_annotations, init_params
 from repro_torch.utils.tree import flatten_with_paths, tree_map
 
@@ -38,7 +40,7 @@ class EntryPoint:
     name: str
     fn: Callable  # fn(params, *args)
     args: tuple  # example argument trees on the meta device
-    kind: str  # prefill | decode
+    kind: str  # train | prefill | decode
 
 
 class Model:
@@ -67,7 +69,24 @@ class Model:
         """dotted-path -> logical axes tuple (ParamSpec.axes)."""
         return {p: s.axes for p, s in flatten_with_paths(self.spec)}
 
+    def num_params(self) -> int:
+        return sum(math.prod(s.shape) for _, s in flatten_with_paths(self.spec))
+
+    def active_params(self) -> int:
+        """Parameters touched per token (MoE experts scaled by top_k/E)."""
+        access, m = self.access(), self.cfg.moe
+        total = 0
+        for path, s in flatten_with_paths(self.spec):
+            n = math.prod(s.shape)
+            if access[path] == "routed" and m is not None:
+                n = int(n * m.top_k / m.num_experts)
+            total += n
+        return total
+
     # -- forward fns ---------------------------------------------------------
+    def loss_fn(self, params, batch):
+        return tf.loss_fn(self.cfg, params, batch)
+
     def prefill(self, params, batch):
         return tf.prefill(self.cfg, params, batch)
 
@@ -97,6 +116,11 @@ class Model:
             return {"xk": leaf, "xv": leaf}
         if kind == "rec":
             return {k: CacheLeaf(shape, dt) for k, shape in rec_mod.rglru_cache_shapes(cfg, B).items()}
+        if kind == "m":  # the recurrent state is fp32, only the conv inputs in cfg.dtype
+            return {k: CacheLeaf(shape, dt if k == "conv" else torch.float32)
+                    for k, shape in xlstm_mod.mlstm_cache_shapes(cfg, B).items()}
+        if kind == "s":
+            return {k: CacheLeaf(shape, torch.float32) for k, shape in xlstm_mod.slstm_cache_shapes(cfg, B).items()}
         if cfg.mla is not None:  # the latent cache, every layer linear
             m = cfg.mla
             return {"ckv": CacheLeaf((B, S_max, m.kv_lora_rank), dt),
@@ -155,6 +179,11 @@ class Model:
                                                device="meta")
         return spec
 
+    def train_batch_spec(self, B: int, S: int, *, multimodal: bool) -> dict:
+        """``prefill_batch_spec`` plus the next-token ``labels``."""
+        return {**self.prefill_batch_spec(B, S, multimodal=multimodal),
+                "labels": torch.empty((B, S), dtype=torch.int64, device="meta")}
+
     def decode_batch_spec(self, B: int) -> dict:
         return {
             "tokens": torch.empty((B, 1), dtype=torch.int64, device="meta"),
@@ -167,14 +196,16 @@ class Model:
 
     # -- entry registry (Application Entry Recognition) ----------------------
     def entries(self, B: int = 1, S: int = 128) -> list[EntryPoint]:
-        """The serving entries at a given (B, S). A modal family registers
-        both variants (what the analyzer needs), each prefill before its
-        decode and the multimodal pair first, as the reference orders them;
-        the twins are named ``*_text_only``."""
+        """Every entry at a given (B, S). A modal family registers both
+        variants (what the analyzer needs), the multimodal ones first; each
+        variant's train step, prefill and decode come in that order, as the
+        reference orders them. The twins are named ``*_text_only``."""
         modal = self.cfg.vlm is not None or self.cfg.encdec is not None
         out = []
         for mm in ((True, False) if modal else (False,)):
             suffix = "_text_only" if modal and not mm else ""
+            out.append(EntryPoint(f"train_step{suffix}", self.loss_fn,
+                                  (self.train_batch_spec(B, S, multimodal=mm),), "train"))
             out.append(EntryPoint(f"prefill{suffix}", self.prefill,
                                   (self.prefill_batch_spec(B, S, multimodal=mm),), "prefill"))
             out.append(EntryPoint(f"decode_step{suffix}", self.decode_step,

@@ -1279,3 +1279,123 @@ def test_deepseek_decode_graph_is_bit_equal_to_eager_and_writes_latents_in_place
             assert {p: t.data_ptr() for p, t in flatten_with_paths(decode.caches) if p in latents} == latents
             tok = got_logits.argmax(-1)[:, None].long()
         assert {name: fn.launches for name, fn in kernel_wrappers().items()} == launches
+
+
+@pytest.mark.gpu
+def test_xlstm_graphs_are_bit_equal_to_eager_and_launch_nothing(card, tmp_path):
+    """Reduced xLSTM on a full server: the prefill graph at a chunkwise
+    prompt (32 = two chunks) and the decode graph replayed on its grafted
+    caches give the eager calls' logits and caches bit for bit; the state
+    leaves stay fp32 through the graphs' static outputs and the commit, and
+    no kernel launches."""
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.serving.engine import _graft_prefill_cache, commit_decode_caches
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
+
+    model, server = _zoo_server("xlstm-125m", card, str(tmp_path), residency="full", prefetch=False)
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(6)).to(card)
+    with server:
+        server.tiered.ensure_all()
+        live = server.live_params()
+        launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
+        prefill = server.compiled_prefill(2, 32)
+        logits, caches = prefill(live, {"tokens": prompt})
+        with torch.inference_mode():
+            want_logits, want_caches = model.prefill(live, {"tokens": prompt})
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want_logits)
+        for (p, a), (_, b) in zip(flatten_with_paths(caches), flatten_with_paths(want_caches)):
+            assert torch.equal(a, b), p
+        decode = server.compiled_decode(2, 48)
+        _graft_prefill_cache(decode.caches, caches)
+        dtypes = {p: t.dtype for p, t in flatten_with_paths(decode.caches)}
+        assert {p for p, d in dtypes.items() if d != torch.float32} == {"groups.u0.conv"}
+        tok = logits.argmax(-1)[:, None].long()
+        for step in range(3):
+            batch = {"tokens": tok, "pos": torch.full((2,), 32 + step, device=card)}
+            mine = tree_map(torch.clone, decode.caches)
+            with torch.inference_mode():
+                want_logits, want = model.decode_step(live, mine, batch)
+            commit_decode_caches(mine, want)
+            got_logits, got = decode(live, decode.caches, batch)
+            commit_decode_caches(decode.caches, got)
+            torch.cuda.synchronize()
+            assert torch.equal(got_logits, want_logits)
+            for (p, a), (_, b) in zip(flatten_with_paths(decode.caches), flatten_with_paths(mine)):
+                assert torch.equal(a, b) and a.dtype == dtypes[p], p
+            tok = got_logits.argmax(-1)[:, None].long()
+        assert {name: fn.launches for name, fn in kernel_wrappers().items()} == launches
+
+
+def _grad_guard_call(name, card):
+    """(wrapper call, its inputs) for one kernel at a small shape it takes."""
+    g = torch.Generator(card).manual_seed(0)
+    if name == "flash_attention":
+        q, k, v = (torch.randn(1, 64, 4, 64, generator=g, device=card).to(torch.bfloat16) for _ in range(3))
+        return (lambda: fa_ops.flash_attention(q, k, v)), (q, k, v)
+    if name == "rglru_scan":
+        a, b = (torch.rand(1, 64, 128, generator=g, device=card) for _ in range(2))
+        return (lambda: lru_ops.rglru_scan(a, b)), (a, b)
+    if name == "decode_attention":
+        q = torch.randn(2, 4, 64, generator=g, device=card).to(torch.bfloat16)
+        k, v = (torch.randn(2, 128, 2, 64, generator=g, device=card).to(torch.bfloat16) for _ in range(2))
+        return (lambda: da_ops.decode_attention(q, k, v, 100)), (q, k, v)
+    table = torch.randn(256, 64, generator=g, device=card).to(torch.bfloat16)
+    ids = torch.randint(0, 256, (32,), generator=torch.Generator().manual_seed(1)).to(card)
+    mask = torch.ones(4, dtype=torch.bool, device=card)
+    if name == "tiered_gather":
+        return (lambda: tg_ops.tiered_gather(table, ids, mask, group_size=64)), (table,)
+    w = torch.randn(64, 128, generator=g, device=card).to(torch.bfloat16)
+    return (lambda: tg_ops.tiered_gather_matmul(table, w, ids, mask, group_size=64)), (table, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "decode_attention", "tiered_gather",
+                                  "tiered_gather_matmul"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(card, name):
+    """No kernel has a backward: with grad mode on and an input that requires
+    grad, the CUDA launch raises, naming the plain version, and counts
+    nothing; under ``torch.no_grad()`` the same call launches."""
+    from repro_torch.kernels import kernel_wrappers
+
+    call, inputs = _grad_guard_call(name, card)
+    wrapper = kernel_wrappers()[name]
+    call()  # builds the kernel
+    for t in inputs:
+        t.requires_grad_(True)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match=f"{name}_plain"):
+        call()
+    assert wrapper.launches == before
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_training_on_card_launches_no_kernel_and_resumes(card, tmp_path):
+    """Reduced Mixtral with head_dim 64 (a width the flash kernel takes)
+    trains on the card: attention runs plain under autograd, so no kernel
+    launches and the guard never trips; the loss is finite and falls over 6
+    steps, and a run preempted at 3 and resumed by a fresh Trainer ends on
+    the uninterrupted run's params."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, Trainer
+    from repro_torch.utils.tree import flatten_with_paths
+
+    model = _reduced_card_model()
+    data = SyntheticTokenPipeline(DataConfig(model.cfg.vocab_size, 64, 4, seed=1))
+    tc = TrainConfig(num_steps=6, save_every=3, warmup_steps=1, adamw=AdamWConfig(lr=1e-3))
+    launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    straight = Trainer(model, tc, data, str(tmp_path / "a"), device=card)
+    r = straight.run()
+    assert all(np.isfinite(r.losses)) and r.losses[-1] < r.losses[0]
+    Trainer(model, tc, data, str(tmp_path / "b"), device=card).run(3)
+    resumed = Trainer(model, tc, data, str(tmp_path / "b"), device=card)
+    assert resumed.run().restored_from == 3
+    assert {name: fn.launches for name, fn in kernel_wrappers().items()} == launches
+    for (p, a), (_, b) in zip(flatten_with_paths(straight.params), flatten_with_paths(resumed.params)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=p)

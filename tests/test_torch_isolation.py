@@ -10,7 +10,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
-EXAMPLES = [os.path.join(REPO, "examples", n) for n in ("quickstart_torch.py", "cold_start_comparison_torch.py")]
+EXAMPLES = [os.path.join(REPO, "examples", n)
+            for n in ("quickstart_torch.py", "cold_start_comparison_torch.py", "train_e2e_torch.py")]
 STANDALONE = EXAMPLES + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
 
 

@@ -1,10 +1,12 @@
 """Model parity of the PyTorch port against the JAX reference: configs field
 for field, parameter paths and shapes (reduced, and at full width for
-RecurrentGemma, Gemma-3, DeepSeek-V2-Lite, Whisper and Llama-3.2-Vision),
+RecurrentGemma, Gemma-3, DeepSeek-V2-Lite, Whisper, Llama-3.2-Vision and
+xLSTM),
 and — on reference weights carried over by ``convert.params_from_numpy`` —
 prefill logits, caches and MoE usage masks, then decode steps across the
 sliding window (Gemma-3's rolling local caches and its unwindowed global
-layer, DeepSeek's latent MLA caches, the modal families text-only), at
+layer, DeepSeek's latent MLA caches, xLSTM's fp32 recurrent state, the
+modal families text-only), at
 float32 on CPU. The modal families' multimodal paths are held in
 tests/test_torch_encdec.py and tests/test_torch_vlm.py."""
 
@@ -33,15 +35,17 @@ from repro_torch.serving.engine import _graft_prefill_cache, _strip_usage
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat
 
 PORTED = ["mixtral-8x22b", "yi-34b", "phi3-medium-14b", "mistral-large-123b", "recurrentgemma-9b",
-          "gemma3-27b", "deepseek-v2-lite-16b", "whisper-base", "llama-3.2-vision-90b"]
+          "gemma3-27b", "deepseek-v2-lite-16b", "whisper-base", "llama-3.2-vision-90b", "xlstm-125m"]
 # depth of the parity runs where the reduced config's would skip a layout
 # section: 5 RecurrentGemma layers are one (rec, rec, attn) group plus a
 # (rec, rec) tail
 PARITY_LAYERS = {"recurrentgemma-9b": 5}
 # prompt length of the decode parity runs (default 28): reduced Gemma-3's
 # prompt must fit its 16-token local window (the prefill graft of both
-# packages needs it), and its decode then crosses position 16
-PARITY_PROMPT = {"gemma3-27b": 12}
+# packages needs it), and its decode then crosses position 16; reduced
+# xLSTM's 32 is two chunks of 16, so its prefill takes the chunkwise mLSTM
+# (tests/test_torch_xlstm.py holds the scan prompt)
+PARITY_PROMPT = {"gemma3-27b": 12, "xlstm-125m": 32}
 
 # fp32 tolerance: each logit is a few layers of D=64..128-term dot products,
 # so the two frameworks' reduction orders differ by O(10) ulps of O(1)
@@ -113,12 +117,14 @@ def test_full_depth_layout_equals_reference():
     ("deepseek-v2-lite-16b", (("self",), ("self",), 26, ())),
     ("whisper-base", ((), ("self",), 6, ())),
     ("llama-3.2-vision-90b", ((), ("self",) * 4 + ("cross",), 20, ())),
+    ("xlstm-125m", ((), ("m", "s"), 6, ())),
 ])
 def test_full_width_layout_equals_reference(arch, layout):
     """Full-size Gemma-3 (62 layers: ten 5:1 units and a local/local tail),
     DeepSeek-V2-Lite (a dense lead layer and 26 MoE groups), Whisper (6
-    decoder layers, 6 encoder layers) and Llama-3.2-Vision (twenty 4-self:1-
-    cross units) lay out the reference's paths, shapes, access and caches,
+    decoder layers, 6 encoder layers), Llama-3.2-Vision (twenty 4-self:1-
+    cross units) and xLSTM (six m/s units; 134,333,232 params) lay out the
+    reference's paths, shapes, access and caches (shapes and dtypes),
     text-only and multimodal."""
     ref = ref_build_model(ref_get_config(arch))
     mine = build_model(get_config(arch), param_dtype=torch.bfloat16)
@@ -129,18 +135,14 @@ def test_full_width_layout_equals_reference(arch, layout):
     assert mine.access() == ref.access()
     assert sum(v.numel() for _, v in flatten_with_paths(mine.abstract())) == ref.num_params()
     for mm in (False, True):
-        assert [(p, tuple(c.shape)) for p, c in flatten_with_paths(mine.abstract_cache(2, 1048, multimodal=mm))] \
-            == [(p, tuple(c.shape)) for p, c in ref_flatten(ref.abstract_cache(2, 1048, multimodal=mm))]
-
-
-@pytest.mark.parametrize("arch,family", [("xlstm-125m", "xlstm")])
-def test_unported_family_raises(arch, family):
-    with pytest.raises(NotImplementedError, match=family):
-        build_model(get_reduced(arch))
+        assert [(p, tuple(c.shape), str(c.dtype).removeprefix("torch."))
+                for p, c in flatten_with_paths(mine.abstract_cache(2, 1048, multimodal=mm))] \
+            == [(p, tuple(c.shape), np.dtype(c.dtype).name)
+                for p, c in ref_flatten(ref.abstract_cache(2, 1048, multimodal=mm))]
 
 
 @pytest.mark.parametrize("arch", PORTED[:3] + ["recurrentgemma-9b", "gemma3-27b", "deepseek-v2-lite-16b",
-                                  "whisper-base", "llama-3.2-vision-90b"])
+                                  "whisper-base", "llama-3.2-vision-90b", "xlstm-125m"])
 def test_prefill_and_decode_match_reference(arch):
     """Text-only prefill and decode (the served path of every family)."""
     ref_model, ref_params, flat = _reference(arch)

@@ -16,7 +16,8 @@ weights:
   * the in-place decode: K/V written into the caches given, carry state
     committed separately, N steps equal to the reference's for Mixtral, Yi
     with a rolling window, RecurrentGemma, Gemma-3's local/global stack and
-    DeepSeek's latent MLA caches; a step run twice equals one;
+    DeepSeek's latent MLA caches, and xLSTM's fp32 state; a step run twice
+    equals one;
   * ``_graft_slot_cache`` equals the reference's on group, lead and tail
     leaves and on carry-state leaves;
   * the compiled entries' contract on the CPU (the plain calls)."""
@@ -412,13 +413,15 @@ def test_masked_decode_usage_matches_reference():
 
 @pytest.mark.parametrize("arch,replace,S", [(ARCH, {}, 28), ("yi-34b", {"sliding_window": 8}, 6),
                                             ("recurrentgemma-9b", {"num_layers": 5}, 28),
-                                            ("gemma3-27b", {}, 12), ("deepseek-v2-lite-16b", {}, 28)], ids=str)
+                                            ("gemma3-27b", {}, 12), ("deepseek-v2-lite-16b", {}, 28),
+                                            ("xlstm-125m", {}, 32)], ids=str)
 def test_in_place_decode_matches_reference(arch, replace, S):
     """Steps across the window (32, 16 for Gemma-3's local layers, or 8 for
     Yi; the prompt stays inside it, as the prefill graft needs): every K/V
     leaf the step returns (MLA's latent ``ckv`` / ``kr``) is the cache tensor
-    it was given (written in place), and after each commit the caches and
-    logits equal the reference's functional step."""
+    it was given (written in place), every other leaf (xLSTM's whole state)
+    a new one, and after each commit the caches and logits equal the
+    reference's functional step."""
     ref_model, ref_params, model, params = _models(arch, **replace)
     B, S_max, steps = 2, 48, 6
     ref_decode = jax.jit(ref_model.decode_step)

@@ -75,7 +75,6 @@ ARCH = "llama-3.2-vision-90b"
 TOL = 256 * float(np.finfo(np.float32).eps)
 GATE, GATE_FFN = 0.8, -0.6  # tanh ≈ 0.66 and -0.54: the cross block's output counts
 MAX_SEQ = 16
-TRAIN_ENTRIES = {"train_step", "train_step_text_only"}  # the reference's; the port registers serving kinds
 
 
 def _strict(cfg):
@@ -204,20 +203,16 @@ def test_text_only_matches_zero_image(reference, with_gates):
         torch.testing.assert_close(logits_mm, logits_txt, rtol=0, atol=0)
 
 
-def _serving_names(entries):
-    return [e.name for e in entries if e.kind in ("prefill", "decode")]
-
-
 def test_entries_and_reachability_match_reference(reference):
     """Entries in the reference's order, both profiles; the reference's three
     reachability assertions (tests/test_core_analyzer.py) on the port's
     traced graphs, and every leaf's reaching entries equal to the
-    reference's (its training entries aside)."""
+    reference's, its training entries included."""
     ref_model, _, _, _, _, port, _, _ = reference
-    assert [e.name for e in port.entries(B=1, S=8)] == _serving_names(ref_model.entries(B=1, S=8))
+    assert [e.name for e in port.entries(B=1, S=8)] == [e.name for e in ref_model.entries(B=1, S=8)]
     for mm in (True, False):  # the port registers both; split them by the twins' suffix
         assert [e.name for e in port.entries(B=1, S=8) if e.name.endswith("_text_only") != mm] == \
-            _serving_names(ref_model.entries(B=1, S=8, multimodal=mm))
+            [e.name for e in ref_model.entries(B=1, S=8, multimodal=mm)]
     for mine, ref in ((SERVING_PROFILE, REF_SERVING), (SERVING_MULTIMODAL_PROFILE, REF_MULTIMODAL)):
         assert [e.name for e in recognize_entries(port, mine, B=1, S=8)] == \
             [e.name for e in ref_recognize(ref_model, ref, B=1, S=8)]
@@ -226,7 +221,7 @@ def test_entries_and_reachability_match_reference(reference):
 
     rep = build_reachability(port.entries(B=1, S=8), port.abstract())
     ref_rep = ref_build_reachability(ref_model.entries(B=1, S=8), ref_model.abstract())
-    assert rep.reachable == {p: s - TRAIN_ENTRIES for p, s in ref_rep.reachable.items()}
+    assert rep.reachable == ref_rep.reachable
     cross = [p for p in rep.reachable if ".cross." in p]
     assert cross
     for p in cross:  # text-only never reaches the image block
