@@ -63,11 +63,11 @@ Phases (any failure exits non-zero before the result line):
    bit for bit after every write, exactly one paged launch per step. Once
    with a linear cache and once rolling, with the pages holding exactly the
    4096-token window.
-4. serve — Mixtral-8x22B at full width, depth cut from 56 to 2 layers, bf16
+4. serve — Mixtral-8x22B at full width, depth cut from 56 to 1 layer, bf16
    weights from a seeded ``torch.Generator``: analyze → build_artifact →
    cold_start(after2, strict) → generate (B=2, prompt 1024, 3 new tokens).
    Launch counts are zeroed just before and read just after; every prefill
-   of the run must have gone through the kernel in both layers. Then the
+   of the run must have gone through the kernel in its layer. Then the
    same artifact under ``full`` (no budget, the prefetcher on) serves the
    same request: the same tokens, 0 evictions, flash attention in every
    prefill run and no other kernel; it prints loads by source, the
@@ -211,6 +211,20 @@ Phases (any failure exits non-zero before the result line):
    ``--retier-from``. Prints each run's fault bytes and
    count, cold-start read/upload, tier-0 bytes, the re-tier report and the
    raw-copied / recompressed frame counts; the tokens must be equal.
+11. mesh — the device mesh on a world of one (``launch.mesh``: NCCL on an
+   in-memory store). (a) Started with [retier] once the modes phase's
+   after2 run has ended, the launcher as that run with ``--mesh 1x1`` on its own
+   artifact directory: the same tokens, cold-start bytes read, faulted units
+   and bytes, and flash launches (> 0) as that run, every leaf's shard
+   divisor 1, its entries' kind printed (a mesh of 1s gathers with no
+   collective, so the warm set is still captured as CUDA graphs). (b) On the
+   in-process thread after [train]: ``reshard_for_mesh`` of [train]'s last
+   checkpoint onto a 1×1 mesh on the card, every leaf bit-equal to the host
+   arrays; one resumed ``Trainer(mesh=1×1)`` step beside the same step with
+   no mesh, loss and params bit-equal, no kernel launched. (c) Then
+   ``gpipe_forward`` over a 1-stage mesh equals ``stage_fn`` on each
+   microbatch and ``compressed_psum`` over a 1-rank ``pod`` dim equals
+   ``dequantize_int8(quantize_int8(g))``, bit for bit.
 Each phase's wall time is printed on the ``[time]`` line.
 
 The last lines: ``nvidia-smi`` name and power limit, a JSON line with the
@@ -256,7 +270,7 @@ KERNEL_TOL = 1e-2
 # m·2^-7 ≈ 0.0078·m (P rounded to bf16 in the kernel moves the fp32 value by
 # far less): the limit is 1e-2 of max |plain output|
 DECODE_TOL = 1e-2
-# served prefill: bf16 logits of O(1) after two layers whose attention
+# served prefill: bf16 logits of O(1) after layers whose attention
 # outputs differ by bf16 rounding (kernel: P·V from bf16 P; plain: fp32)
 LOGITS_TOL = 5e-2
 # fp32 scan, kernel and plain both: the error grows with the carried
@@ -287,7 +301,10 @@ ROLLING_PREFIXES = (5000, 4090, 2048, 1500, 1024, 700, 100, 17)
 VOCAB, D_MODEL, D_FF, ROW_GROUP = 32768, 6144, 16384, 2048  # Mixtral's table, expert and vocab_row_group
 
 H, HKV, HD = 48, 8, 128  # Mixtral-8x22B attention widths
-PROMPT, NEW_TOKENS, BATCH, LAYERS = 1024, 16, 2, 2
+# the serve and stats phases' Mixtral depth: 1 of 56 layers keeps the whole
+# run, the [mesh] launcher beside the modes block included, well inside its
+# 1200 s (2 layers took it past 1000 s)
+PROMPT, NEW_TOKENS, BATCH, LAYERS = 1024, 16, 2, 1
 # Mixtral's served request is B=2 × 1024 + 3: its strict budget is below one
 # decode step's working set, so every step faults gigabytes (PERF.md §5); cut
 # from 8 new tokens to keep the run well inside its time limit
@@ -1510,7 +1527,7 @@ def entries_phase(server) -> dict:
 
 
 def stats_phase(wrappers: dict, workdir: Path, strict_tokens: list) -> dict:
-    """Mixtral-8x22B at full width, 2 of 56 layers, under the reference
+    """Mixtral-8x22B at full width, 1 of 56 layers, under the reference
     launcher's stats profile (one resident expert per layer, a quarter of
     the vocab's row groups hot by the synthetic pipeline's stats) with its
     own artifact: half of tier-1 on the device and the prefetcher on. The
@@ -1849,7 +1866,8 @@ def _launch(tag: str, args: list, plain: bool = False, timeout: int = 600) -> di
                restore=field("[serve] restore report: "),
                snapshot=next((ln for ln in lines if ln.startswith("[serve] wrote server snapshot to ")), None),
                replicas=replicas, fleet=field("[serve] fleet stats: "),
-               syncs=[ln for ln in lines if ln.startswith("[serve] fleet sync: ")])
+               syncs=[ln for ln in lines if ln.startswith("[serve] fleet sync: ")],
+               mesh=field("[serve] mesh: "), faulted=field("[serve] faulted units: "))
     print(f"{tag} launcher wall {wall:.1f} s", flush=True)
     return out
 
@@ -2001,6 +2019,143 @@ def retier_phase(workdir: Path, profile: dict, trace: Path) -> dict:
                              f"{runs['profile']['tokens']}")
     if not summary["retier"]["compaction"]["raw_copied"] > 0:
         raise AssertionError(f"[retier] no tier-1 frame was copied raw: {summary['retier']['compaction']}")
+    return summary
+
+
+def mesh_launch_phase(workdir: Path) -> dict:
+    """[mesh] (a) The launcher under a 1×1 mesh at full width, as the modes
+    phase's after2 run: Mixtral-8x22B cut to 1 layer, bf16, B=2 × PROMPT +
+    MODES_NEW_TOKENS, its default stats policy without the prefetcher, with
+    ``--mesh 1x1`` (a world of one on an in-memory store, NCCL) and its own
+    artifact directory. ``check_mesh_launch`` holds it to that run."""
+    outdir = workdir / "mesh_launcher"
+    shutil.rmtree(outdir, ignore_errors=True)
+    args = ["--arch", "mixtral-8x22b", "--layers", "1", "--param-dtype", "bfloat16", "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen-steps", str(MODES_NEW_TOKENS), "--mode", "after2", "--no-prefetch",
+            "--mesh", "1x1", "--artifact-dir", str(outdir)]
+    try:
+        return _launch("[mesh] launcher 1x1:", args)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
+def check_mesh_launch(run: dict, after2: dict) -> dict:
+    """The 1×1 launcher run against the modes phase's after2 run: the same
+    tokens, cold-start bytes read, faulted units and bytes, and flash
+    launches (> 0); every leaf's divisor 1; its entries' kind printed."""
+    mesh = run["mesh"]
+    summary = dict(mesh=mesh, tokens_equal=run["tokens"] == after2["tokens"],
+                   bytes_read=(run["cold_start"]["bytes_read"], after2["cold_start"]["bytes_read"]),
+                   faulted_units=(run["request"]["faulted_units"], after2["request"]["faulted_units"]),
+                   faulted_bytes=(run["request"]["faulted_bytes"], after2["request"]["faulted_bytes"]),
+                   flash=(run["launches"]["flash_attention"], after2["launches"]["flash_attention"]),
+                   cold_start=run["cold_start"], wall_s=run["wall_s"], launches=run["launches"])
+    print("[mesh] " + json.dumps(summary), flush=True)
+    print(f"[mesh] launcher 1x1 against modes after2: tokens {'equal' if summary['tokens_equal'] else 'DIFFER'}; "
+          f"bytes read {summary['bytes_read']}; faults {summary['faulted_units']} units, "
+          f"{summary['faulted_bytes']} B; flash launches {summary['flash']}; divisors {mesh and mesh['divisors']}; "
+          f"entries {mesh and mesh['entries']}", flush=True)
+    if mesh is None or mesh["geometry"] != "1x1" or set(mesh["divisors"]) != {"1"}:
+        raise AssertionError(f"[mesh] the 1x1 run's mesh line: {mesh}")
+    if not summary["tokens_equal"] or run["faulted"] != after2["faulted"] or any(
+            a != b for a, b in (summary["bytes_read"], summary["faulted_units"], summary["faulted_bytes"])):
+        raise AssertionError(f"[mesh] the 1x1 launcher run differs from the modes after2 run: {summary}")
+    if not summary["flash"][0] == summary["flash"][1] > 0:
+        raise AssertionError(f"[mesh] flash launches {summary['flash']}")
+    return summary
+
+
+def mesh_train_phase(model, tc, data, ckpt: Path, workdir: Path, wrappers: dict) -> dict:
+    """[mesh] (b) and (c), on the in-process thread after [train], on a world
+    of one (NCCL on an in-memory store). (b) ``reshard_for_mesh`` of
+    [train]'s last checkpoint onto a 1×1 mesh on the card: every leaf
+    bit-equal to the host arrays; one resumed ``Trainer(mesh=1×1)`` step
+    from that checkpoint beside the same step with no mesh: loss and params
+    bit-equal, no kernel launched. (c) ``gpipe_forward`` over a 1-stage mesh
+    equals ``stage_fn`` on each microbatch, and ``compressed_psum`` over a
+    1-rank ``pod`` dim equals ``dequantize_int8(quantize_int8(g))``, bit for
+    bit."""
+    import torch
+    import torch.distributed
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import EFState, compressed_psum, dequantize_int8, quantize_int8
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.rules import gather
+    from repro_torch.training import TrainConfig, Trainer, gpipe_forward, reshard_for_mesh
+    from repro_torch.utils.tree import flatten_with_paths
+
+    tag = "[mesh]"
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(1, 1, device="cuda")
+    mesh_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    restored = CheckpointManager(str(ckpt)).restore()
+    placed = reshard_for_mesh(restored.collections, mesh, model)
+    host = dict(flatten_with_paths(restored.collections))
+    leaves = list(flatten_with_paths(placed))
+    reshard_equal = all(torch.equal(gather(v).cpu(), host[p]) for p, v in leaves)
+    on_card = all(gather(v).is_cuda for _, v in leaves)
+    del placed, restored
+    reshard_s = time.perf_counter() - t1
+
+    # one more step from the checkpoint, with and without the mesh
+    step = tc.num_steps + 1
+    tc1 = TrainConfig(num_steps=step, save_every=step, warmup_steps=tc.warmup_steps, adamw=tc.adamw)
+    runs = {}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for label in ("plain", "mesh"):
+        where = workdir / f"mesh_train_{label}"
+        shutil.rmtree(where, ignore_errors=True)
+        shutil.copytree(ckpt, where)
+        trainer = Trainer(model, tc1, data, str(where), keep_n=1, mesh=mesh if label == "mesh" else None,
+                          device="cuda")
+        runs[label] = trainer.run(), trainer.params
+        shutil.rmtree(where, ignore_errors=True)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    (r_plain, p_plain), (r_mesh, p_mesh) = runs["plain"], runs["mesh"]
+    params_equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten_with_paths(p_plain),
+                                                                     flatten_with_paths(p_mesh)))
+    del runs, p_plain, p_mesh
+
+    # (c) the collectives on a world of one
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    stage = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    w = torch.randn(1, 64, 64, generator=gen, device="cuda") * 0.1
+    b = torch.randn(1, 64, generator=gen, device="cuda") * 0.1
+    x = torch.randn(6, 4, 64, generator=gen, device="cuda")
+    stage_fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])  # noqa: E731
+    y = gpipe_forward(stage_fn, {"w": w, "b": b}, x, stage)
+    gpipe_equal = torch.equal(y, torch.stack([stage_fn({"w": w[0], "b": b[0]}, h) for h in x]))
+    g = torch.randn(4096, 1024, generator=gen, device="cuda")
+    with use_mesh(init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))):
+        avg, ef = compressed_psum({"g": g}, EFState({"g": torch.zeros_like(g)}), "pod")
+    q, scale = quantize_int8(g)
+    psum_equal = torch.equal(avg["g"], dequantize_int8(q, scale))
+    residual_equal = torch.equal(ef.residual["g"], g - dequantize_int8(q, scale))
+    torch.distributed.destroy_process_group()
+    summary = dict(mesh_s=mesh_s, reshard_leaves=len(leaves), reshard_bit_equal=reshard_equal,
+                   reshard_on_card=on_card, reshard_s=reshard_s, losses=(r_plain.losses, r_mesh.losses),
+                   restored_from=(r_plain.restored_from, r_mesh.restored_from), params_bit_equal=params_equal,
+                   launches=launches, gpipe_equal=gpipe_equal, psum_equal=psum_equal,
+                   residual_equal=residual_equal, wall_s=time.perf_counter() - t0)
+    print(f"{tag} " + json.dumps(summary), flush=True)
+    print(f"{tag} world of one in {mesh_s:.2f} s; reshard_for_mesh 1x1 on the card: {len(leaves)} leaves "
+          f"{'bit-equal' if reshard_equal else 'DIFFER'} in {reshard_s:.2f} s (restore and checks included); "
+          f"resumed step {step} with a 1x1 mesh "
+          f"loss {r_mesh.losses} vs {r_plain.losses} without, params {'bit-equal' if params_equal else 'DIFFER'}; "
+          f"gpipe 1 stage {'= stage_fn' if gpipe_equal else 'DIFFERS'}; compressed_psum 1 rank "
+          f"{'= dequantize(quantize(g))' if psum_equal and residual_equal else 'DIFFERS'}", flush=True)
+    if not (reshard_equal and on_card and params_equal and gpipe_equal and psum_equal and residual_equal):
+        raise AssertionError(f"{tag} {summary}")
+    if r_plain.losses != r_mesh.losses or r_mesh.restored_from != tc.num_steps or len(r_mesh.losses) != 1:
+        raise AssertionError(f"{tag} resumed step: {summary}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag} launched {launches} under training")
+    torch.cuda.empty_cache()
     return summary
 
 
@@ -2660,6 +2815,7 @@ def train_phase(wrappers: dict, workdir: Path) -> dict:
     if out.tolist() != want.tolist() or not logits_equal:
         raise AssertionError(f"{tag} restored server tokens {out.tolist()} vs the in-memory params' "
                              f"{want.tolist()}; prefill logits bit-equal: {logits_equal}")
+    summary["mesh"] = mesh_train_phase(model, tc, data, outdir / "straight", workdir, wrappers)
     shutil.rmtree(outdir, ignore_errors=True)
     torch.cuda.empty_cache()
     return summary
@@ -2732,8 +2888,10 @@ def main(argv: list[str] | None = None) -> int:
         out["xlstm-125m"] = xlstm_phase(wrappers, workdir)["launches"]
         phase_s[f"serve xlstm-125m{label}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["xlstm-125m-train"] = train_phase(wrappers, workdir)["launches"]
+        train = train_phase(wrappers, workdir)
+        out["xlstm-125m-train"], out["xlstm-125m-train-mesh"] = train["launches"], train["mesh"]["launches"]
         phase_s[f"train xlstm-125m{label}"] = time.perf_counter() - t0
+        phase_s[f"(mesh: reshard, trainer, collectives, inside train{label})"] = train["mesh"]["wall_s"]
         phase_s[f"whisper + llama-vision + xlstm + train{label}"] = time.perf_counter() - t_thread
         return out  # each phase holds its own path's launches
 
@@ -2795,14 +2953,25 @@ def main(argv: list[str] | None = None) -> int:
     # whose card idles while they write and read their bundles; the
     # in-process launch counts are theirs alone, and the thread is waited
     # for after [reduced]. The modes phase's after2 run goes first: it is
-    # [retier]'s profiling run, and [retier]'s launcher process (mostly its
-    # host zlib build) then runs beside the before and after1 runs, traffic
-    # and [reduced]
-    retier_run = []
+    # [retier]'s profiling run, and [retier]'s launcher process and [mesh]'s
+    # 1x1 launcher (mostly their host zlib builds; two at once beside the
+    # after2 run would slow it, and [retier] with it) then run beside the
+    # before and after1 runs, traffic and [reduced]
+    after2_runs = {}
     t_modes = t_phase
-    with ThreadPoolExecutor(2) as ex:
+
+    def mesh_launch() -> dict:
+        t0 = time.perf_counter()
+        out = mesh_launch_phase(workdir)
+        phase_s["mesh launcher 1x1 (beside modes before / after1, traffic and reduced)"] = time.perf_counter() - t0
+        return out
+
+    def after_profile(run: dict) -> None:
+        after2_runs.update(retier=ex.submit(retier, run), mesh=ex.submit(mesh_launch))
+
+    with ThreadPoolExecutor(3) as ex:
         modal_run = ex.submit(modal, " (beside modes)")
-        modes = modes_phase(workdir, trace, on_profile=lambda run: retier_run.append(ex.submit(retier, run)))
+        modes = modes_phase(workdir, trace, on_profile=after_profile)
         phase_s["modes (launcher)"] = time.perf_counter() - t_phase
         paths["modes-after2 (retier profile)"] = modes["after2"]["launches"]
         t_phase = time.perf_counter()
@@ -2814,7 +2983,8 @@ def main(argv: list[str] | None = None) -> int:
         paths["reduced-train"] = reduced["train_launches"]
         paths["reduced-restore"], paths["reduced-fleet"] = reduced["restore_launches"], reduced["fleet_launches"]
         phase_s["reduced (launcher)"] = time.perf_counter() - t_phase
-        paths["retier-serve"] = retier_run[0].result()["retier"]["launches"]
+        paths["retier-serve"] = after2_runs["retier"].result()["retier"]["launches"]
+        paths["mesh-1x1-launcher"] = check_mesh_launch(after2_runs["mesh"].result(), modes["after2"])["launches"]
         paths.update(modal_run.result())
         phase_s["modes + traffic + reduced, the in-process thread beside them"] = time.perf_counter() - t_modes
     phase_s["total"] = time.perf_counter() - t_start
@@ -2831,7 +3001,8 @@ def main(argv: list[str] | None = None) -> int:
                          ("whisper-base", {"flash_attention"}), ("llama-3.2-vision-90b", {"flash_attention"}),
                          ("xlstm-125m", set()), ("xlstm-125m-train", set()), ("reduced-train", set()),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
-                         ("retier-serve", {"flash_attention"})):
+                         ("retier-serve", {"flash_attention"}), ("mesh-1x1-launcher", {"flash_attention"}),
+                         ("xlstm-125m-train-mesh", set())):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
         if stray:
             raise AssertionError(f"the {path} serve path launched {stray}")

@@ -16,5 +16,8 @@ prefill attention and the RG-LRU scan in hand-written CUDA kernels
 (``serving/paged_kv.PagePool``, ``models/attention.paged_gqa_decode``)
 through the paged decode kernel (``kernels/decode_attention``); and the
 dense decode and tiered gather kernels as ops (``kernels/decode_attention``,
-``kernels/tiered_gather``) that, as in the reference, no served path calls.
+``kernels/tiered_gather``) that, as in the reference, no served path calls;
+the training round trip (``optim``, ``checkpoint``, ``training``); and the
+device mesh (``sharding``, ``launch/mesh``) that shards serving and training
+over ``torch.distributed``'s ``DeviceMesh``.
 """

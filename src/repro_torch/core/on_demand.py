@@ -58,9 +58,11 @@ from typing import Iterable, Optional
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.optional_store import OptionalStore, ReadStats
 from repro_torch.core.partition import TierPlan, Unit
+from repro_torch.sharding.rules import is_dtensor, local_box
 from repro_torch.utils.tree import flatten_with_paths
 
 COLD = "cold"          # placeholder zeros on device; bytes not charged
@@ -527,12 +529,35 @@ class TieredParams:
     leaf. ``device_budget_bytes`` bounds the RESIDENT tier-1 bytes.
     ``gate`` serializes writes to the tree with the engine's forward runs
     (see the module docstring).
+
+    Under a mesh the leaves are ``DTensor``s and ``shard_divisors`` maps a
+    leaf's path to its shard count (``sharding.spec_shard_divisor``). A unit
+    then charges the budget and the arbiter ``ceil(nbytes / divisor)``, its
+    bytes per device, while the IO statistics (the return of ``ensure``,
+    ``LoadEvent``, fault bytes) keep raw host bytes. An install or eviction
+    writes only the part of its unit inside this rank's shard, into the
+    DTensor's local tensor (``_unit_slices``): a unit outside the shard
+    writes nothing here. A DTensor is never written through a slice of
+    itself.
     """
 
     def __init__(self, tree: dict, plan: TierPlan, store: OptionalStore, *,
-                 device_budget_bytes: Optional[int] = None):
+                 device_budget_bytes: Optional[int] = None, shard_divisors: Optional[dict] = None):
         self._tree = tree
-        self._flat = dict(flatten_with_paths(tree))
+        self._leaves = dict(flatten_with_paths(tree))
+        # what installs write into: a DTensor's local shard, with the global
+        # (start, stop) of each of its dims where the shard is not the whole leaf
+        self._flat, self._box = dict(self._leaves), {}
+        self._mesh = None  # set when the leaves span more than one rank (``missing``)
+        for path, leaf in self._leaves.items():
+            if is_dtensor(leaf):
+                self._flat[path] = leaf.to_local()
+                if leaf.device_mesh.size() > 1:
+                    self._mesh = leaf.device_mesh
+                box = local_box(leaf.shape, leaf.device_mesh, leaf.placements)
+                if any((a, b) != (0, n) for (a, b), n in zip(box, leaf.shape)):
+                    self._box[path] = box
+        self._shard_div: dict[str, int] = dict(shard_divisors or {})
         self.plan = plan
         self.store = store
         self.stats = LoaderStats()
@@ -591,6 +616,20 @@ class TieredParams:
     def is_resident(self, key: str) -> bool:
         return self.residency.is_resident(key)
 
+    def missing(self, keys: list) -> list:
+        """The keys a forward run just read as placeholders: those not
+        RESIDENT here, or, when the leaves span several ranks, not RESIDENT
+        on some rank (an all-reduce over the mesh), since a run gathers every
+        rank's shard. Every rank passes the same keys (its run's outputs are
+        the same) and gets the same list back, so all retry together."""
+        flags = [not self.residency.is_resident(k) for k in keys]
+        if self._mesh is not None and keys:
+            t = torch.tensor(flags, dtype=torch.int32, device=self._flat[next(iter(self._flat))].device)
+            for dim in range(self._mesh.ndim):  # the max over each dim in turn is the mesh's
+                dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._mesh.get_group(dim))
+            flags = t.tolist()
+        return [k for k, f in zip(keys, flags) if f]
+
     @property
     def resident_keys(self) -> set:
         return self.residency.resident_keys
@@ -604,17 +643,18 @@ class TieredParams:
         return len(self.residency.resident_keys) / n if n else 1.0
 
     def unit_charge(self, key: str, nbytes: Optional[int] = None) -> int:
-        """Device-budget charge of one unit: ``nbytes`` if given, else the
-        unit's bytes (``Unit.nbytes``, else its frame's raw size). The
-        reference divides by the leaf's shard count under a mesh; the port has
-        no mesh, so the charge is the bytes."""
-        if nbytes is not None:
-            return nbytes
+        """Device-budget charge of one unit: its bytes (``nbytes`` if given,
+        else ``Unit.nbytes``, else its frame's raw size) divided by the
+        owning leaf's shard divisor, rounded up so a charge is never free.
+        The bytes themselves where the leaf is replicated or no mesh is
+        attached."""
         u = self._all_units.get(key)
-        if u is not None and u.nbytes:
-            return u.nbytes
-        e = self.store.entries.get(key)
-        return e.rsize if e is not None else 0
+        nb = nbytes
+        if nb is None:
+            e = self.store.entries.get(key) if self.store is not None else None
+            nb = u.nbytes if u is not None and u.nbytes else e.rsize if e is not None else 0
+        div = self._shard_div.get(u.path, 1) if u is not None else 1
+        return nb if div <= 1 else -(-nb // div)
 
     # -- the rewrite_template analogue ---------------------------------------
     def ensure(self, keys: Iterable[str], *, pin: bool = False, source: str = "fault") -> int:
@@ -727,15 +767,16 @@ class TieredParams:
         """Evict to fit, install one claimed unit and commit it RESIDENT."""
         res = self.residency
         nbytes = host.numel() * host.element_size()
+        charge = self.unit_charge(key, nbytes)
         if self.arbiter is not None:
             # cross-tenant make-room before the gate (the arbiter's lock comes first)
-            self.arbiter.make_room(self, nbytes)
+            self.arbiter.make_room(self, charge)
         with self.gate, self._lock:
             t1 = time.perf_counter()
-            self._evict_to_fit(nbytes)
+            self._evict_to_fit(charge)
             self._install(self._all_units[key], host)
             t2 = time.perf_counter()
-            res.commit_load(key, nbytes, source)
+            res.commit_load(key, charge, source)
             if res.was_evicted(key):
                 self.stats.refaults += 1
             if source == "fault":  # preload is not a request-path miss
@@ -801,17 +842,18 @@ class TieredParams:
         if unit is None or self.residency.state_of(key) != LOADING:
             return 0
         nbytes = host.numel() * host.element_size()
+        charge = self.unit_charge(key, nbytes)
         if self.arbiter is not None:
-            self.arbiter.make_room(self, nbytes)
+            self.arbiter.make_room(self, charge)
         with self.gate, self._lock:
             if self.residency.state_of(key) != LOADING:
                 return 0
             self.residency.advance_clock()
-            self._evict_to_fit(nbytes)
+            self._evict_to_fit(charge)
             t0 = time.perf_counter()
             self._install(unit, host)
             upload_s = time.perf_counter() - t0
-            self.residency.commit_load(key, nbytes, "prefetch")
+            self.residency.commit_load(key, charge, "prefetch")
             self.stats.events.append(LoadEvent(
                 key, nbytes, fetch_s, upload_s, t=time.monotonic(),
                 source="prefetch", phase=self._phase))
@@ -844,7 +886,9 @@ class TieredParams:
             res.overshoot_events += 1
 
     def _evict_one(self, key: str) -> int:
-        self._unit_view(self._all_units[key]).zero_()
+        view = self._unit_view(self._all_units[key])
+        if view is not None:
+            view.zero_()
         nb = self.residency.evict_commit(key)
         self.stats.evictions += 1
         self.stats.evicted_bytes += nb
@@ -868,24 +912,52 @@ class TieredParams:
             return [(k, res._nbytes.get(k, 0), res._stamp.get(k, 0)) for k in res._lru if res.pins_of(k) == 0]
 
     # -- installation (in place, under the gate) ----------------------------------
-    def _unit_view(self, unit: Unit) -> torch.Tensor:
-        view = self._flat[unit.path]
-        for i in unit.sel:
-            view = view[i]
-        if unit.rows is not None:
-            view = view[unit.rows[0]:unit.rows[1]]
-        return view
+    def _unit_slices(self, unit: Unit) -> Optional[tuple]:
+        """``(leaf index, host index)``: where the unit lies in the tensor
+        installs write (``_flat``) and which part of the unit's host tensor
+        goes there. The unit is ``leaf[sel][r0:r1]``, so its host tensor's
+        dims are the leaf's after ``sel``. Without a shard box the whole unit;
+        in a shard, the rows and trailing dims inside the box, and None when
+        none of the unit is."""
+        box = self._box.get(unit.path)
+        rows = () if unit.rows is None else (slice(*unit.rows),)
+        if box is None:
+            return tuple(unit.sel) + rows, ()
+        leaf_idx, host_idx = [], []
+        for d, i in enumerate(unit.sel):
+            if not box[d][0] <= i < box[d][1]:
+                return None
+            leaf_idx.append(i - box[d][0])
+        for d in range(len(unit.sel), len(box)):
+            start, stop = box[d]
+            r0, r1 = unit.rows if unit.rows is not None and d == len(unit.sel) else (0, None)
+            lo, hi = max(r0, start), stop if r1 is None else min(r1, stop)
+            if lo >= hi:
+                return None
+            leaf_idx.append(slice(lo - start, hi - start))
+            host_idx.append(slice(lo - r0, hi - r0))
+        return tuple(leaf_idx), tuple(host_idx)
+
+    def _unit_view(self, unit: Unit) -> Optional[torch.Tensor]:
+        """The part of the unit this rank holds, as a view of ``_flat``
+        (None when it holds none)."""
+        view = self._unit_slices(unit)
+        return None if view is None else self._flat[unit.path][view[0]]
 
     def _install(self, unit: Unit, host: torch.Tensor) -> None:
-        view = self._unit_view(unit)
-        if view.shape != host.shape:
-            raise ValueError(f"unit {unit.key!r}: stored shape {tuple(host.shape)} "
-                             f"!= leaf slice {tuple(view.shape)}")
-        view.copy_(host)
+        want = tuple(self._leaves[unit.path].shape[len(unit.sel):])
+        if unit.rows is not None:
+            want = (unit.rows[1] - unit.rows[0],) + want[1:]
+        if tuple(host.shape) != want:
+            raise ValueError(f"unit {unit.key!r}: stored shape {tuple(host.shape)} != leaf slice {want}")
+        view = self._unit_slices(unit)
+        if view is not None:
+            self._flat[unit.path][view[0]].copy_(host[view[1]])
 
     # -- access ----------------------------------------------------------------
     def tree(self) -> dict:
         return self._tree
 
     def leaf(self, path: str) -> torch.Tensor:
-        return self._flat[path]
+        """The live leaf at ``path`` (a ``DTensor`` under a mesh)."""
+        return self._leaves[path]

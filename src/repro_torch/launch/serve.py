@@ -78,12 +78,24 @@ config, which the flash kernel takes; attention in fp32 (the parity tests'
 ``cfg.replace(dtype="float32")``) runs on the CPU only, and the kernel's
 wrapper refuses it on the card.
 
-Not ported (argparse refuses the flag): meshes (``--mesh``).
+Mesh (``--mesh DATAxMODEL``): the params are sharded over a ("data",
+"model") ``DeviceMesh`` by the param rules (``cold_start(mesh=)``), each
+unit charged its bytes per shard; it prints ``[serve] mesh:`` (geometry,
+ranks, the leaves' shard divisors, the entries' kind). One process serves
+1x1; a larger mesh needs one process per rank,
+``torchrun --nproc-per-node N -m repro_torch.launch.serve ... --mesh DxM``,
+and a geometry the world does not hold is a usage error. Every rank runs the
+same request on its own device and gathers the leaves at each forward run
+(compute is replicated, resident bytes are per shard); rank 0 writes the
+artifact and every file and prints every line. A multi-rank mesh serves the
+one-shot path only (the scheduler admits on each rank's own clock), and the
+fleet's replicas, as in the reference, serve without it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import threading
@@ -109,9 +121,12 @@ from repro_torch.core import (
 from repro_torch.core import snapshot as server_snapshot
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
 from repro_torch.kernels import kernel_wrappers
+from repro_torch.launch.mesh import make_debug_mesh, mesh_label
 from repro_torch.models import build_model
 from repro_torch.optim import init_adamw
 from repro_torch.serving import ContinuousBatchingScheduler, GenerationEngine, SLOAdmission, cold_start
+from repro_torch.sharding import param_shardings, spec_shard_divisor
+from repro_torch.utils.tree import flatten_with_paths
 
 
 def main(argv=None) -> int:
@@ -178,6 +193,10 @@ def main(argv=None) -> int:
                     help="serve through N in-process replicas federated by a FleetController: each replica "
                          "runs the one-shot request, the controller syncs traces and pushes the learned hot set "
                          "to all of them (implies --retier-online; after2 one-shot only)")
+    ap.add_argument("--mesh", default="",
+                    help="shard serving over a DATAxMODEL mesh (e.g. 2x4): tier-0 leaves and tier-1 placeholders "
+                         "are placed as shards, the residency budget charges bytes per shard; a mesh of more than "
+                         "one rank needs that many processes (torchrun --nproc-per-node N)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     if (args.profile_out or args.retier_from or args.retier_online) and args.mode != "after2":
@@ -221,6 +240,33 @@ def main(argv=None) -> int:
         args.retier_online = True  # the fleet federates RetierDaemons
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is visible (pass --device cpu)")
+    mesh = None
+    if args.mesh:
+        try:
+            data_ax, model_ax = (int(x) for x in args.mesh.lower().split("x"))
+        except ValueError:
+            ap.error(f"--mesh wants DATAxMODEL (e.g. 2x4), got {args.mesh!r}")
+        try:
+            mesh = make_debug_mesh(data_ax, model_ax, device=args.device)
+        except ValueError as e:  # the world does not hold the geometry: name the launcher
+            ap.error(str(e))
+        if mesh.size() > 1 and args.concurrency > 0:
+            ap.error("--concurrency with a mesh of more than one rank: the scheduler admits on each rank's own "
+                     "clock, so the ranks' forward runs (and their gathers) would differ")
+    rank = torch.distributed.get_rank() if mesh is not None else 0
+    try:
+        with contextlib.ExitStack() as stack:
+            if rank:  # rank 0 prints every line
+                stack.enter_context(contextlib.redirect_stdout(stack.enter_context(open(os.devnull, "w"))))
+            return _serve(args, mesh, rank)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _serve(args, mesh, rank: int) -> int:
+    """The launcher's run after its flags are checked; ``mesh`` is None or
+    the ``DeviceMesh`` this process is rank ``rank`` of."""
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.layers:
@@ -250,22 +296,23 @@ def main(argv=None) -> int:
     result = analyze(model, profile, hot_units_stats=stats, trace_B=1, trace_S=32)
     print("[serve] plan:", json.dumps(result.summary(), default=str)[:400], flush=True)
 
-    params = model.init(torch.Generator(args.device).manual_seed(0), device=args.device)
-    os.makedirs(outdir, exist_ok=True)
-    # crash recovery before any writer exists: staging directories of a
-    # rewrite that never reached its rename are never committed, safe to drop
-    removed = clean_partials(outdir)
-    if removed:
-        print(f"[serve] removed {len(removed)} orphaned partial(s): "
-              + ", ".join(os.path.basename(p) for p in removed))
-    if args.mode in ("before", "after1"):
-        opt = init_adamw(params)
-        write_monolithic({"params": params, "opt_state": {"m": opt.m, "v": opt.v}},
-                         outdir, pruned=args.mode == "after1")
-        del opt
-    else:
-        build_artifact(params, result, outdir)
-    del params  # the server reads its weights from the artifact
+    if rank == 0:  # one writer of the artifact; the other ranks wait for it below
+        params = model.init(torch.Generator(args.device).manual_seed(0), device=args.device)
+        os.makedirs(outdir, exist_ok=True)
+        # crash recovery before any writer exists: staging directories of a
+        # rewrite that never reached its rename are never committed, safe to drop
+        removed = clean_partials(outdir)
+        if removed:
+            print(f"[serve] removed {len(removed)} orphaned partial(s): "
+                  + ", ".join(os.path.basename(p) for p in removed))
+        if args.mode in ("before", "after1"):
+            opt = init_adamw(params)
+            write_monolithic({"params": params, "opt_state": {"m": opt.m, "v": opt.v}},
+                             outdir, pruned=args.mode == "after1")
+            del opt
+        else:
+            build_artifact(params, result, outdir)
+        del params  # the server reads its weights from the artifact
 
     predictor = None
     if args.retier_from:
@@ -275,13 +322,16 @@ def main(argv=None) -> int:
         result.plan, rep = replan_from_trace(result.plan, prof_trace, result.reach)
         retier_dir = outdir.rstrip("/") + "-retier"
         t0 = time.perf_counter()
-        meta = retier_artifact(outdir, result.plan, out_dir=retier_dir, report=rep)
+        if rank == 0:
+            meta = retier_artifact(outdir, result.plan, out_dir=retier_dir, report=rep)
+            print(f"[serve] re-tiered from {args.retier_from} -> {retier_dir}:", json.dumps(rep.summary()))
+            print("[serve] retier artifact: " + json.dumps(dict(
+                rewrite_s=time.perf_counter() - t0, tier0_bytes=meta["tier0_bytes"],
+                tier1_compressed_bytes=meta["tier1_compressed_bytes"], **meta["compaction"])), flush=True)
         outdir = retier_dir
         predictor = TransitionPredictor.from_trace(prof_trace)
-        print(f"[serve] re-tiered from {args.retier_from} -> {retier_dir}:", json.dumps(rep.summary()))
-        print("[serve] retier artifact: " + json.dumps(dict(
-            rewrite_s=time.perf_counter() - t0, tier0_bytes=meta["tier0_bytes"],
-            tier1_compressed_bytes=meta["tier1_compressed_bytes"], **meta["compaction"])), flush=True)
+    if mesh is not None:
+        torch.distributed.barrier()  # the artifact is whole before any rank reads it
 
     max_seq = args.prompt_len + args.gen_steps + 8
     if args.fleet:
@@ -300,10 +350,13 @@ def main(argv=None) -> int:
                     prefetch=False if args.no_prefetch else None,
                     trace=bool(args.profile_out), predictor=predictor,
                     retier_online=args.retier_online, retier_interval=args.retier_interval,
-                    retier_decay=args.retier_decay, retier_compact_every=args.retier_compact_every,
-                    admission=admission, restore_from=args.restore_from or None,
+                    retier_decay=args.retier_decay,
+                    retier_compact_every=args.retier_compact_every if rank == 0 else 0,
+                    admission=admission, restore_from=args.restore_from or None, mesh=mesh,
                     device=args.device) as server:
         print(f"[serve] cold start ({args.mode}):", json.dumps(server.report.to_dict(), default=float), flush=True)
+        if mesh is not None:
+            print("[serve] mesh: " + json.dumps(_mesh_summary(server, mesh)), flush=True)
         if server.restore_report is not None:
             rr = server.restore_report
             print(f"[serve] warm restore: {rr['restored']}/{rr['requested']} units resident "
@@ -341,7 +394,7 @@ def main(argv=None) -> int:
                   f"{hs.headroom_denials} prefetch headroom denials")
         if server.retier_daemon is not None:
             _print_daemon_stats(server)
-        if args.profile_out and server.tiered is not None and server.tiered.trace is not None:
+        if args.profile_out and rank == 0 and server.tiered is not None and server.tiered.trace is not None:
             # with the daemon on, the live trace is only the newest window:
             # save the decayed merge of everything the run observed instead
             t = (server.retier_daemon.trace_snapshot()
@@ -350,7 +403,7 @@ def main(argv=None) -> int:
             print(f"[serve] wrote access trace to {args.profile_out} "
                   f"({t.batches} batches, {len(t.faults)} faulted units, "
                   f"{len(t.transitions)} transition sources)", flush=True)
-        if args.snapshot_out and server.tiered is not None:
+        if args.snapshot_out and rank == 0 and server.tiered is not None:
             snap = server.snapshot()
             server_snapshot.save(snap, args.snapshot_out)
             print(f"[serve] wrote server snapshot to {args.snapshot_out} "
@@ -359,6 +412,20 @@ def main(argv=None) -> int:
     if failed:
         print(f"[serve] FAILED: {failed} request(s) failed or never finished")
     return 1 if failed else 0
+
+
+def _mesh_summary(server, mesh) -> dict:
+    """The ``[serve] mesh:`` line: geometry, ranks, how many leaves have
+    each shard divisor, and the server's entries' kind (CUDA graphs need a
+    mesh of 1s on the card)."""
+    model = server.model
+    shardings = param_shardings(model.logical_axes(), model.abstract(), mesh, fsdp=bool(model.cfg.fsdp))
+    divisors: dict = {}
+    for _, sh in flatten_with_paths(shardings):
+        d = str(spec_shard_divisor(sh.spec, mesh))
+        divisors[d] = divisors.get(d, 0) + 1
+    return dict(geometry=mesh_label(mesh), ranks=mesh.size(), divisors=dict(sorted(divisors.items())),
+                entries=server.entry_kind)
 
 
 def _serve_one_shot(engine: GenerationEngine, args, cfg, label: str = ""):

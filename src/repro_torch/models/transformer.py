@@ -61,6 +61,7 @@ from repro_torch.models.layers import (
     swiglu_spec,
 )
 from repro_torch.models.spec import ParamSpec, stack_specs
+from repro_torch.sharding.rules import constrain
 from repro_torch.utils.tree import tree_map
 
 
@@ -177,6 +178,13 @@ def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool
 
 
 def _block_forward(cfg, kind, params, x, positions, memory, collect_cache):
+    """``_block_body`` with its output constrained to the activation rules
+    (the layer boundary)."""
+    x, cache = _block_body(cfg, kind, params, x, positions, memory, collect_cache)
+    return constrain(x, ("batch", "seq", "embed")), cache
+
+
+def _block_body(cfg, kind, params, x, positions, memory, collect_cache):
     """Returns (x, cache). ``memory`` holds the encoder output (``enc``) or
     the image embeddings (``image``) of a multimodal batch; a ``cross`` block
     without an image is skipped whole and has an empty cache. Without
@@ -338,7 +346,7 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, memo
     lay = stack_layout(cfg)
     memory = memory or {}
     B, S = tokens.shape
-    x = embed(params["embed"], tokens, _model_dtype(cfg), cfg.d_model)
+    x = constrain(embed(params["embed"], tokens, _model_dtype(cfg), cfg.d_model), ("batch", "seq", "embed"))
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     caches: dict = {}
 
@@ -380,7 +388,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     table = _logits_table(cfg, params)
     if cfg.logits_chunk:
         return chunked_xent(hidden, table, batch["labels"], cfg.logits_chunk)
-    return softmax_xent(logits_from_embedding(hidden, table), batch["labels"])
+    return softmax_xent(constrain(logits_from_embedding(hidden, table), ("batch", "seq", "vocab")), batch["labels"])
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict):

@@ -22,7 +22,7 @@ from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.spec import abstract_params, access_annotations, init_params
-from repro_torch.utils.tree import flatten_with_paths, tree_map
+from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
 
 WHISPER_DECODE_ENC_LEN = 1500  # 30 s of audio: the encoder memory an audio decode attends to
 
@@ -61,6 +61,10 @@ class Model:
 
     def abstract(self, dtype=None) -> dict:
         return abstract_params(self.spec, dtype_override=dtype or self.param_dtype)
+
+    def logical_axes(self) -> dict:
+        """The param tree's shape with each leaf's logical axes tuple."""
+        return tree_from_flat(self.axes())
 
     def access(self) -> dict[str, str]:
         return access_annotations(self.spec)

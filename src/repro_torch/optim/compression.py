@@ -5,9 +5,11 @@ residual ``g - q·scale`` into the next step's gradient, so the quantization
 error is compensated rather than accumulated. Per-leaf symmetric scaling
 (max-abs / 127) keeps the quantizer parameter-free.
 
-Only the single-group form is ported: ``compressed_psum`` without an axis
-is the exact pass-through. The reduction over a named axis comes with the
-sharding slice (the reference runs it inside ``shard_map``).
+``compressed_psum(grads, ef, axis_name)`` reduces over the dim
+``axis_name`` of the ambient mesh (``sharding.use_mesh``), where the
+reference runs inside ``shard_map``: the int8 payloads are all-reduced as
+int32 and the scales summed over that dim's ranks. Without an axis it is
+the exact pass-through.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.sharding import current_mesh
 from repro_torch.utils.tree import tree_map
 
 
@@ -46,10 +50,37 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def compressed_psum(grads: Any, ef: EFState, axis_name: Optional[str], *,
                     denom: Optional[int] = None) -> tuple[Any, EFState]:
-    """Error-feedback int8 all-reduce over ``axis_name``. Without an axis (a
-    single group) it is the exact pass-through: the grads in fp32 and the
-    error-feedback state unchanged."""
+    """Error-feedback int8 all-reduce over the ambient mesh's dim
+    ``axis_name``. Returns (the mean-reduced fp32 grads, the new EF state):
+    each leaf plus its residual is quantized, the residual keeps what the
+    int8 payload failed to carry, the payloads are summed as int32 and the
+    scales summed, and the mean is ``q_sum * (scale_sum / n) / n`` with
+    ``n`` the dim's size (or ``denom``), as the reference approximates it.
+    Without an axis (a single group) it is the exact pass-through: the grads
+    in fp32 and the error-feedback state unchanged."""
     if axis_name is None:
         return tree_map(lambda g: g.to(torch.float32), grads), ef
-    raise NotImplementedError(
-        f"compressed_psum over axis {axis_name!r} needs a device mesh, which comes with the sharding slice")
+    mesh = current_mesh()
+    if mesh is None or axis_name not in (getattr(mesh, "mesh_dim_names", None) or ()):
+        raise ValueError(f"compressed_psum over {axis_name!r} needs a DeviceMesh with that dim under use_mesh()")
+    group = mesh.get_group(axis_name)
+    n = denom or mesh.shape[mesh.mesh_dim_names.index(axis_name)]
+
+    def one(g, r):
+        g32 = g.to(torch.float32) + r
+        q, scale = quantize_int8(g32)
+        q_sum, scale_sum = q.to(torch.int32), scale.clone()
+        dist.all_reduce(q_sum, group=group)
+        dist.all_reduce(scale_sum, group=group)
+        # the mean, and the residual: what this step failed to send
+        return q_sum.to(torch.float32) * (scale_sum / n) / n, g32 - dequantize_int8(q, scale)
+
+    out = _zip_map(one, grads, ef.residual)
+    return tree_map(lambda o: o[0], out), EFState(tree_map(lambda o: o[1], out))
+
+
+def _zip_map(fn, a: Any, b: Any) -> Any:
+    """``fn(leaf_a, leaf_b)`` over two trees of the same nested dicts."""
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in a}
+    return fn(a, b)

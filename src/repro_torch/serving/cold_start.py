@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import os
 import threading
 import time
@@ -87,6 +88,7 @@ from repro_torch.core.prefetch import Prefetcher, TransitionPredictor
 from repro_torch.core.retier_daemon import RetierDaemon
 from repro_torch.kernels import kernel_wrappers
 from repro_torch.models.zoo import Model
+from repro_torch.sharding.rules import gather_tree, param_shardings, place, place_zeros, spec_shard_divisor
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
 
 # prefill entries outside the warm set a server keeps (least recently used out)
@@ -235,7 +237,7 @@ class ColdStartServer:
                  prefetcher: Optional[Prefetcher] = None, retier_daemon: Optional[RetierDaemon] = None,
                  artifact_dir: Optional[str] = None, device="cuda",
                  max_prefill_entries: int = MAX_PREFILL_ENTRIES, admission: Any = None,
-                 kv_page_size: Optional[int] = None, kv_pages: Optional[int] = None):
+                 kv_page_size: Optional[int] = None, kv_pages: Optional[int] = None, mesh=None):
         if max_prefill_entries < 1:
             raise ValueError(f"max_prefill_entries must be >= 1, got {max_prefill_entries}")
         self.model = model
@@ -251,6 +253,7 @@ class ColdStartServer:
         self.admission = admission
         self.kv_page_size = kv_page_size
         self.kv_pages = kv_pages
+        self.mesh = mesh  # the params are DTensors on it; each entry gathers them
         self.restore_report: Optional[dict] = None  # set by cold_start(restore_from=)
         # a fleet joiner's warm bootstrap, {"seconds", "bytes"}: set by cold_start(fleet=)
         self.fleet_bootstrap: Optional[dict] = None
@@ -286,6 +289,15 @@ class ColdStartServer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    @property
+    def entry_kind(self) -> str:
+        """"graph" (``GraphEntry``) on a CUDA device, "eager" (``EagerEntry``)
+        on the CPU and under a mesh with a dim above 1, whose gathers are
+        collectives that no capture holds."""
+        if self.device.type != "cuda":
+            return "eager"
+        return "graph" if self.mesh is None or all(n == 1 for n in self.mesh.shape) else "eager"
 
     def live_params(self) -> Any:
         return self.tiered.tree() if self.tiered is not None else self.params
@@ -334,10 +346,12 @@ class ColdStartServer:
                 if cache_shape is not None:
                     caches = self.model.init_cache(*cache_shape, multimodal=False, device=self.device)
             cls = EagerEntry
-            if self.device.type == "cuda":
+            if self.entry_kind == "graph":
                 cls = GraphEntry
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
+            if self.mesh is not None:
+                fn = _gathered(fn)
             gate = self.tiered.gate if self.tiered is not None else None
             self._compiled[key] = cls(fn, self.live_params(), batch, caches, gate=gate, pool=self._pool)
         return self._compiled[key]
@@ -360,6 +374,16 @@ class ColdStartServer:
         usage masks, so a free slot never faults a unit in."""
         return self._entry(("decode_masked", B, S_max), self.model.decode_step_masked,
                            self.model.decode_masked_batch_spec(B), (B, S_max))
+
+
+def _gathered(fn: Callable) -> Callable:
+    """``fn`` on the whole arrays of a DTensor param tree: each leaf is
+    gathered when the entry runs (``sharding.gather``: a view on a mesh of
+    1s, an all-gather otherwise), and the copies live for that run only."""
+    @functools.wraps(fn)
+    def run(params, *args):
+        return fn(gather_tree(params), *args)
+    return run
 
 
 def cold_start(
@@ -391,13 +415,27 @@ def cold_start(
     warm_shapes: tuple = ((1, 64),),  # (B, S) or (B, S, S_max): prefill (B, S), decode (B, S_max or S)
     compile_warm_set: bool = True,
     trace: bool = False,  # attach an AccessTrace to the tiered params
+    mesh=None,  # DeviceMesh: shard the params over it (launch.mesh)
     device="cuda",
 ) -> ColdStartServer:
     """Run one timed cold start from ``artifact_dir``. ``result`` (the plan)
     is required for after2; before/after1 read ``<artifact_dir>/<mode>``, as
     ``core.analyzer.write_monolithic`` writes it. The arbiter, re-tiering and
     fleet arguments are after2-only and ignored by the monolithic modes;
-    ``restore_from`` outside after2 raises."""
+    ``restore_from`` outside after2 raises.
+
+    ``mesh=`` places every leaf as a ``DTensor`` on the mesh, resolved by the
+    param rules (``sharding.param_shardings``): each rank keeps its own block
+    of each tier-0 leaf (cut from the bundle every rank reads, no collective)
+    and of each tier-1 placeholder. The residency budget and the arbiter
+    charge each unit its bytes per shard (``TieredParams(shard_divisors=)``),
+    and a preset's budget is its fraction of the charged tier-1 bytes. The
+    kernels take plain tensors, so every entry gathers the leaves when it
+    runs and compute is replicated across ranks: resident bytes are per
+    shard, the gathered copies last one forward run. On a mesh of 1s the
+    gather is the local tensor itself, and the warm set is still captured
+    as CUDA graphs; on a larger mesh the entries run eagerly
+    (``ColdStartServer.entry_kind``)."""
     if residency is not None and residency not in RESIDENCY_PRESETS:
         raise ValueError(f"unknown residency policy {residency!r}; want one of {sorted(RESIDENCY_PRESETS)}")
     if restore_from is not None and mode != "after2":
@@ -406,6 +444,13 @@ def cold_start(
         raise ValueError("fleet= needs retier_online=True (the fleet federates RetierDaemons, not bare loaders)")
     device = torch.device(device)
     report = ColdStartReport(mode=mode)
+    shardings = None
+    if mesh is not None:
+        shardings = dict(flatten_with_paths(param_shardings(model.logical_axes(), model.abstract(), mesh,
+                                                            fsdp=bool(getattr(model.cfg, "fsdp", True)))))
+
+    def put(path: str, host: torch.Tensor):
+        return host.to(device) if shardings is None else place(host, mesh, shardings[path], device)
 
     if mode in ("before", "after1"):
         t0 = time.perf_counter()
@@ -417,13 +462,13 @@ def cold_start(
         pflat = {p[len("params."):]: t for p, t in flat.items() if p.startswith("params.")}
         del flat
         report.bytes_uploaded = sum(t.numel() * t.element_size() for t in pflat.values())
-        params = tree_from_flat({p: t.to(device) for p, t in pflat.items()})
+        params = tree_from_flat({p: put(p, t) for p, t in pflat.items()})
         del pflat
         _synchronize(device)
         t2 = time.perf_counter()
         report.read_s, report.upload_s = t1 - t0, t2 - t1
         server = ColdStartServer(model, params, report, artifact_dir=artifact_dir, device=device,
-                                 admission=admission, kv_page_size=kv_page_size, kv_pages=kv_pages)
+                                 admission=admission, kv_page_size=kv_page_size, kv_pages=kv_pages, mesh=mesh)
     elif mode == "after2":
         if result is None:
             raise ValueError("after2 cold start needs the AnalysisResult (plan)")
@@ -434,14 +479,20 @@ def cold_start(
         report.bytes_read = sum(t.numel() * t.element_size() for t in tier0.values())
         t1 = time.perf_counter()
         live_flat = {}
-        for path, leaf in flatten_with_paths(model.abstract()):
+        abstract = dict(flatten_with_paths(model.abstract()))
+        for path, leaf in abstract.items():
             if plan.decisions[path].tier == 0:
-                live_flat[path] = tier0.pop(path).to(device)
-            else:
+                live_flat[path] = put(path, tier0.pop(path))
+            elif shardings is None:
                 # the rewritten stub: zeros of the full shape, on the device
                 live_flat[path] = torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
+            else:
+                live_flat[path] = place_zeros(leaf.shape, leaf.dtype, mesh, shardings[path], device)
         tree = tree_from_flat(live_flat)
         _synchronize(device)
+        # a unit of a leaf split D ways costs its bytes / D on each device
+        divisors = None if shardings is None else {p: spec_shard_divisor(sh.spec, mesh)
+                                                    for p, sh in shardings.items()}
 
         budget, want_prefetch, share = device_budget_bytes, prefetch, tenant_share
         if residency is not None:
@@ -450,13 +501,18 @@ def cold_start(
                 if share is None:
                     share = frac if frac is not None else 1.0
             elif budget is None and frac is not None:
-                budget = int(frac * plan.tier1_bytes)
+                # a fraction of the tier-1 bytes each device is charged
+                tier1 = plan.tier1_bytes
+                if divisors is not None:
+                    tier1 = sum(-(-math.prod(leaf.shape) * leaf.element_size() // divisors[p])
+                                for p, leaf in abstract.items() if plan.decisions[p].tier != 0)
+                budget = int(frac * tier1)
                 # never below two of the largest units (one incoming + one pinned)
                 max_unit = max((e.rsize for e in store.entries.values()), default=0)
                 budget = max(budget, 2 * max_unit)
             if want_prefetch is None:
                 want_prefetch = preset_prefetch
-        tiered = TieredParams(tree, plan, store, device_budget_bytes=budget)
+        tiered = TieredParams(tree, plan, store, device_budget_bytes=budget, shard_divisors=divisors)
         if host_arbiter is not None:
             # join the host pool before the hot-set preload
             name = tenant_name or model.cfg.name or f"tenant-{id(tiered):x}"
@@ -489,7 +545,7 @@ def cold_start(
                              "bytes": sum(e.nbytes for e in tiered.stats.events[n_events:])}
         server = ColdStartServer(model, tree, report, tiered=tiered, store=store, prefetcher=prefetcher,
                                  retier_daemon=daemon, artifact_dir=artifact_dir, device=device,
-                                 admission=admission, kv_page_size=kv_page_size, kv_pages=kv_pages)
+                                 admission=admission, kv_page_size=kv_page_size, kv_pages=kv_pages, mesh=mesh)
         server.fleet_bootstrap = bootstrap
         if restore_from is not None:
             # warm restore: the donor's resident set faulted in again (LRU

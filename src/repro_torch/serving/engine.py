@@ -208,7 +208,7 @@ class GenerationEngine:
             logits, caches = fn(tiered.tree(), *args)
             _synchronize(logits.device)
             used = self._expert_keys_from_usage(_usage_masks(caches))
-            newly = [k for k in used if not tiered.is_resident(k)]
+            newly = tiered.missing(used)
         return logits, caches, newly, used
 
     def _fault_experts(self, newly: list[str], used: list[str], stats: RequestStats, pins: list) -> None:

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels (flash attention, RG-LRU scan, dense and
 paged decode attention, tiered gather and gather-matmul) against their
 plain PyTorch versions, on the card, at every served model's attention
-widths; and a reduced modal config's multimodal prefill launching the flash
-kernel for its decoder self layers only. Needs an NVIDIA GPU and nvcc (the
+widths; a reduced modal config's multimodal prefill launching the flash
+kernel for its decoder self layers only; and the mesh on a one-rank NCCL
+world (a 1×1 cold start equal to none, ``compressed_psum`` over one rank).
+Needs an NVIDIA GPU and nvcc (the
 kernel has no CPU mode); skips elsewhere. Imports no JAX (and
 ``--noconftest`` skips the JAX fixtures of tests/conftest.py), so it runs
 where only torch is installed:
@@ -1399,3 +1401,63 @@ def test_training_on_card_launches_no_kernel_and_resumes(card, tmp_path):
     assert {name: fn.launches for name, fn in kernel_wrappers().items()} == launches
     for (p, a), (_, b) in zip(flatten_with_paths(straight.params), flatten_with_paths(resumed.params)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=p)
+
+
+@pytest.fixture
+def world_of_one(card):
+    """A one-rank NCCL world on an in-memory store, torn down after the test."""
+    import torch.distributed as dist
+
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_one_rank_mesh_cold_start_on_card(card, tmp_path, world_of_one):
+    """Reduced Mixtral (strict, bf16) cold-started with a 1×1 mesh and with
+    none: the same tokens, charged and loaded bytes, budget and flash
+    launches; every divisor 1, and the warm set still captured as CUDA
+    graphs (the gather of a mesh of 1s is the local tensor itself)."""
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serving import GenerationEngine, GraphEntry, cold_start
+
+    model, result = _reduced_bf16(card, str(tmp_path), policy="strict")
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(8)).to(card)
+    flash = kernel_wrappers()["flash_attention"]
+    runs = {}
+    for label, mesh in (("plain", None), ("mesh", make_debug_mesh(1, 1, device="cuda"))):
+        before = flash.launches
+        with cold_start(model, str(tmp_path), result, residency="strict", warm_shapes=((2, 16, 28),), mesh=mesh,
+                        device=card) as server:
+            out, _ = GenerationEngine(server, max_seq=28).generate(prompt, 4)
+            t = server.tiered
+            runs[label] = dict(out=out.tolist(), charged=t.residency.charged_bytes(),
+                               loaded=t.stats.total_loaded_bytes, budget=t.residency.budget_bytes,
+                               divs=set(t._shard_div.values()), kind=server.entry_kind,
+                               graphs=all(isinstance(e, GraphEntry) for e in server._compiled.values()),
+                               flash=flash.launches - before)
+    assert runs["mesh"]["divs"] == {1} and runs["mesh"]["kind"] == "graph" and runs["mesh"]["graphs"]
+    for k in ("out", "charged", "loaded", "budget", "flash", "kind"):
+        assert runs["plain"][k] == runs["mesh"][k], k
+    assert runs["mesh"]["flash"] > 0
+
+
+@pytest.mark.gpu
+def test_compressed_psum_over_a_one_rank_axis_on_card(card, world_of_one):
+    """Over a 1-rank ``pod`` dim of a one-rank NCCL world: the mean is
+    ``dequantize_int8(quantize_int8(g))`` and the residual ``g`` minus it,
+    bit for bit."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import world_size
+    from repro_torch.optim import EFState, compressed_psum, dequantize_int8, quantize_int8
+    from repro_torch.sharding import use_mesh
+
+    assert world_size("cuda", 1) == 1
+    g = torch.randn(257, 129, generator=torch.Generator(card).manual_seed(2), device=card)
+    with use_mesh(init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))):
+        avg, ef = compressed_psum({"g": g}, EFState({"g": torch.zeros_like(g)}), "pod")
+    want = dequantize_int8(*quantize_int8(g))
+    assert torch.equal(avg["g"], want) and torch.equal(ef.residual["g"], g - want)

@@ -3,9 +3,10 @@ CPU. One-shot, under each policy and each cold-start mode: it exits 0, prints
 the reference's ``[serve]`` lines and the same greedy tokens in every run
 (same seeded weights and prompt). Traffic mode (``--concurrency``): every
 request finishes with the tokens of its own ``generate()`` on the artifact
-the launcher wrote. argparse refuses a bogus policy, bad traffic flags and
-the unported ``--mesh``, and refuses the host-arbiter, online re-tiering,
-snapshot and fleet flags where the reference refuses them. With
+the launcher wrote. argparse refuses a bogus policy and bad traffic flags,
+refuses the host-arbiter, online re-tiering, snapshot, fleet and mesh flags
+where the reference refuses them (a mesh of more than one rank in one
+process, a malformed geometry), and ``--mesh 1x1`` serves as no mesh does. With
 ``--retier-online --host-budget-bytes`` both launchers print the reference's
 ``[serve] host arbiter:`` and ``[serve] online retier:`` lines, with the same
 tick counts. Its stats profile reads the synthetic token pipeline, which
@@ -270,12 +271,44 @@ def test_launcher_traffic_mode_matches_solo_runs(tmp_path, extra):
     ["--concurrency", "2", "--requests", "0"],
     ["--concurrency", "2", "--retier-online", "--retier-interval", "0"],
     ["--concurrency", "2", "--fleet", "2"],  # the fleet drives the one-shot path
-    ["--mesh", "1x1"],  # nor meshes
+    ["--mesh", "2x4"],  # one process holds only a 1x1 mesh
+    ["--mesh", "2by4"],
 ])
 def test_launcher_refuses_bad_traffic_and_unported_flags(argv):
     res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
     assert res.returncode == 2
     assert "error:" in res.stderr
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--mesh", "2x4"], "needs 8"),
+    (["--mesh", "2by4"], "--mesh wants DATAxMODEL (e.g. 2x4), got '2by4'"),
+])
+def test_launcher_refuses_mesh_geometries_as_the_reference_does(argv, want):
+    ref = _ref_serve("--arch", "mixtral-8x22b", "--reduced", *argv)
+    res = _serve("--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", *argv)
+    assert ref.returncode == res.returncode == 2
+    assert want in ref.stderr and want in res.stderr
+
+
+def test_launcher_serves_a_one_rank_mesh_as_no_mesh(tmp_path):
+    """``--mesh 1x1`` in one process (a world of one on an in-memory store):
+    the tokens, faulted units and request line of the run with no mesh,
+    every leaf's divisor 1 on the ``[serve] mesh:`` line."""
+    args = [*ARGS, "--policy", "strict", "--no-prefetch"]
+    plain = _serve(*args, "--artifact-dir", str(tmp_path / "plain"))
+    res = _serve(*args, "--artifact-dir", str(tmp_path / "mesh"), "--mesh", "1x1")
+    assert plain.returncode == res.returncode == 0, res.stderr
+    assert _tokens(res.stdout) == _tokens(plain.stdout)
+    for prefix in ("[serve] faulted units: ", "[serve] request: "):
+        got, want = (json.loads(re.search(rf"^{re.escape(prefix)}(.*)$", r.stdout, re.M).group(1))
+                     for r in (res, plain))
+        if prefix == "[serve] request: ":
+            got.pop("fault_s"), want.pop("fault_s")
+        assert got == want, prefix
+    mesh = json.loads(re.search(r"^\[serve\] mesh: (.*)$", res.stdout, re.M).group(1))
+    assert mesh == {"geometry": "1x1", "ranks": 1, "divisors": {"1": mesh["divisors"]["1"]}, "entries": "eager"}
+    assert "[serve] mesh:" not in plain.stdout
 
 
 @pytest.mark.parametrize("argv,want", [

@@ -33,11 +33,16 @@ import shutil
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from jax.experimental.shard_map import shard_map
+from jax.sharding import Mesh
+from jax.sharding import PartitionSpec as P
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro.checkpoint import CheckpointManager as RefManager
 from repro.configs import ARCH_IDS
@@ -50,8 +55,10 @@ from repro.data import SyntheticTokenPipeline as RefPipeline
 from repro.models.zoo import build_model as ref_build_model
 from repro.optim import AdamWConfig as RefAdamWConfig
 from repro.optim import AdamWState as RefAdamWState
+from repro.optim import EFState as RefEFState
 from repro.optim import adamw_update as ref_adamw_update
 from repro.optim import clip_by_global_norm as ref_clip
+from repro.optim import compressed_psum as ref_compressed_psum
 from repro.optim import dequantize_int8 as ref_dequantize
 from repro.optim import global_norm as ref_global_norm
 from repro.optim import quantize_int8 as ref_quantize
@@ -73,9 +80,11 @@ from repro_torch.core import (
 )
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
 from repro_torch.models import build_model
+from repro_torch.launch.mesh import world_size
 from repro_torch.optim import (
     AdamWConfig,
     AdamWState,
+    EFState,
     abstract_adamw,
     adamw_update,
     clip_by_global_norm,
@@ -88,6 +97,7 @@ from repro_torch.optim import (
     warmup_cosine,
 )
 from repro_torch.serving import ColdStartReport, ColdStartServer, GenerationEngine, cold_start
+from repro_torch.sharding import use_mesh
 from repro_torch.training import StragglerWatchdog, TrainConfig, Trainer, make_train_step, value_and_grad
 from repro_torch.utils.tree import flatten_with_paths, tree_map
 
@@ -179,7 +189,9 @@ def test_norm_clip_schedule_and_abstract_state_match_reference():
 def test_int8_quantizer_matches_reference_exactly():
     """Payload and scale bit for bit (ties round to even in both), the
     dequantized values too; ``compressed_psum`` without an axis is the exact
-    pass-through, and over an axis it waits for the sharding slice."""
+    pass-through, and over a one-rank ``pod`` dim (a world of one) its mean
+    and residual equal the reference's under ``shard_map`` on one device, bit
+    for bit (tests/test_torch_pipeline.py holds four ranks)."""
     rs = np.random.default_rng(6)
     for g in (rs.standard_normal((7, 9)).astype(np.float32), np.array([0.5, -1.5, 2.5, 127.0], np.float32),
               np.zeros(4, np.float32)):
@@ -194,8 +206,23 @@ def test_int8_quantizer_matches_reference_exactly():
     out, ef2 = compressed_psum(grads, ef, None)
     assert ef2 is ef and all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten_with_paths(out),
                                                                         flatten_with_paths(grads)))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        compressed_psum(grads, ef, "pod")
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        compressed_psum(grads, ef, "pod")  # an axis needs a mesh
+    residual = tree_map(lambda a: (0.01 * a).astype(np.float32), _tree(8))
+    ref_fn = shard_map(lambda g, r: ref_compressed_psum(g, RefEFState(r), "pod"),
+                       mesh=Mesh(np.array(jax.devices()[:1]), ("pod",)), in_specs=(P(), P()),
+                       out_specs=(P(), RefEFState(P())), check_rep=False)
+    ref_avg, ref_ef = ref_fn(_to_jax(_tree(7)), _to_jax(residual))
+    try:
+        assert world_size("cpu", 1) == 1
+        with use_mesh(init_device_mesh("cpu", (1,), mesh_dim_names=("pod",))):
+            avg, ef2 = compressed_psum(grads, EFState(_to_torch(residual)), "pod")
+    finally:
+        torch.distributed.destroy_process_group()
+    for got, want in ((avg, ref_avg), (ef2.residual, ref_ef.residual)):
+        want = dict(ref_flatten(want))
+        for p, t in flatten_with_paths(got):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(want[p]), err_msg=p)
 
 
 def test_watchdog_flags_the_reference_steps_and_aborts():
