@@ -225,17 +225,44 @@ Phases (any failure exits non-zero before the result line):
    ``gpipe_forward`` over a 1-stage mesh equals ``stage_fn`` on each
    microbatch and ``compressed_psum`` over a 1-rank ``pod`` dim equals
    ``dequantize_int8(quantize_int8(g))``, bit for bit.
+12. dryrun — the production-mesh dry run (``launch.dryrun``), no kernel
+   launched (its cells run the plain versions, as the reference lowers with
+   ``use_pallas=False``). (b) In the serial section after [deepseek], with
+   nothing else on the card: the 1×1 anchor, Mixtral-8x22B's decode_32k
+   cell (B=128 against a 32768-token cache) cut to 1 layer, traced on a
+   one-rank fake world with fake tensors on the card, then the same step
+   run for real on seeded bf16 weights and caches: the measured arguments
+   (``memory_allocated`` before the step) equal the traced ones up to the
+   allocator's rounding (under ALLOC_ROUND bytes a tensor); the measured peak
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``, over a
+   warmed step) is within DRYRUN_PEAK_REL_TOL of the traced peak plus
+   DRYRUN_PEAK_ABS_TOL; the logits are finite of the cell's shape; the
+   median of DRYRUN_STEP_REPS steps (CUDA events) is not below the cell's
+   roofline bound (``utils.hlo.Roofline`` at the H100's datasheet peaks: a
+   step that beats it means the counter missed work); its traced peak stays
+   under 30 GB and its wall under 30 s; no kernel launched. Its fake world
+   is destroyed before the thread's [mesh] starts one. (a) Beside the modes
+   block, in its own process (the fake world of 256 ranks and [mesh]'s
+   one-rank NCCL world are both a process's default group): ``python -m
+   repro_torch.launch.dryrun --arch mixtral-8x22b --shape all`` on the
+   16×16 fake world (DRYRUN_JOBS cells at once, each in its own process),
+   host only, within DRYRUN_TIMEOUT_S: exit 0, every
+   record ``ok`` or ``skipped``, each cell's line printed, and each
+   ``argument_size_in_bytes`` equal to the closed form from
+   ``param_shardings`` and the activation rules over
+   ``production_mesh_shape()``.
 Each phase's wall time is printed on the ``[time]`` line.
 
 The last lines: ``nvidia-smi`` name and power limit, a JSON line with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --modal-alone
+    python3 chip_smoke.py --modal-alone | --dryrun-alone
 
 builds the kernels, then runs only [whisper] and [llama-vision], one after
 the other with nothing beside them (their host times without the modes
 phase's contention), and prints their lines and the ``[time]`` line but no
-kernels or result line.
+kernels or result line; ``--dryrun-alone`` does the same for [dryrun] (b),
+then (a).
 """
 
 from __future__ import annotations
@@ -362,6 +389,26 @@ GATE_CHECK = 0.5
 # reference's test_vlm_text_only_matches_zero_image limit (an image adds
 # tanh(0) · y = 0 to the residual, so they should be bit-equal)
 ZERO_GATE_TOL = 1e-4
+# [dryrun] (a): the dry run of Mixtral's four shapes on the 16×16 fake world,
+# a host-only subprocess beside the modes block, killed after this many seconds
+DRYRUN_TIMEOUT_S = 300
+# its cells traced two at a time, each in a process of its own: on the H100
+# machine's host prefill_32k took 92.7 s of the four cells' 189.4 s in one
+DRYRUN_JOBS = 2
+# [dryrun] (b): the 1×1 anchor, Mixtral-8x22B's decode_32k cell (B=128
+# against a 32768-token cache, the 4096-row SWA window) cut to 1 layer: traced
+# with fake tensors on the card, then run for real with seeded bf16 weights
+DRYRUN_ANCHOR = ("mixtral-8x22b", "decode_32k", 1)
+# the caching allocator rounds each block up to a multiple of 512 B, so the
+# measured arguments may exceed their bytes by under 512 B a tensor
+ALLOC_ROUND = 512
+# measured peak (arguments + the step's temporaries) against the traced peak:
+# within 2% of the traced peak plus 64 MiB (a cached block reused for a
+# smaller request keeps up to 1 MiB unsplit, and library workspaces)
+DRYRUN_PEAK_REL_TOL, DRYRUN_PEAK_ABS_TOL = 0.02, 64 * 2**20
+# the anchor's limits: its traced peak, and its whole wall time
+DRYRUN_ANCHOR_MAX_BYTES, DRYRUN_ANCHOR_MAX_S = 30e9, 30.0
+DRYRUN_STEP_REPS = 7  # timed steps (the median is kept)
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
     ((H, HKV, HD), [(BATCH, PROMPT, 4096, True, None),
@@ -2170,6 +2217,144 @@ def _host_resources(path: Path) -> str:
             f"{mem['MemAvailable'] / 1e9:.1f} of {mem['MemTotal'] / 1e9:.1f} GB")
 
 
+def dryrun_grid_phase(workdir: Path) -> dict:
+    """[dryrun] (a) The production geometry, host only: ``python -m
+    repro_torch.launch.dryrun --arch mixtral-8x22b --shape all --jobs
+    DRYRUN_JOBS`` on the 16×16 fake world (no card memory: fake tensors). It must exit 0 within
+    DRYRUN_TIMEOUT_S; every record is ``ok`` or ``skipped``, and each ok
+    record's argument bytes (its placed fake blocks) equal the closed form of
+    its shardings over ``production_mesh_shape()``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.utils import hlo
+
+    out = workdir / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "mixtral-8x22b",
+                          "--shape", "all", "--jobs", str(DRYRUN_JOBS), "--out", str(out)], capture_output=True, text=True,
+                         timeout=DRYRUN_TIMEOUT_S, env=env, cwd=str(REPO))
+    wall = time.perf_counter() - t0
+    for ln in res.stdout.splitlines():
+        print(f"[dryrun] (a) {ln.removeprefix('[dryrun] ')}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"[dryrun] (a) the dry run exited {res.returncode}: {res.stderr[-3000:]}")
+    records = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+    if len(records) != 4 or any(r["status"] not in ("ok", "skipped") for r in records):
+        raise AssertionError(f"[dryrun] (a) records: {[(r['shape'], r['status']) for r in records]}")
+    for r in records:
+        if r["status"] != "ok":
+            continue
+        mesh = production_mesh_shape()  # the rules' arithmetic, with no rank behind it
+        closed = dryrun.closed_form_argument_bytes(dryrun.build_cell(r["arch"], r["shape"], mesh), mesh)
+        args = r["memory"]["argument_size_in_bytes"]
+        roof = hlo.roofline_of(r)
+        print(f"[dryrun] (a) {r['shape']}: arguments {args} B per device = closed form {closed}; peak "
+              f"{r['memory']['peak_size_in_bytes']} B; fits {r['fits']}; flops/dev {r['hlo_flops'] / r['num_chips']:.6e}; "
+              f"coll/dev {r['collective_bytes']:.6e} B; roofline {roof.dominant} (compute {roof.compute_s:.6e}, "
+              f"memory {roof.memory_s:.6e}, collective {roof.collective_s:.6e} s); traced in {r['lower_s']:.1f} s",
+              flush=True)
+        if args != closed:
+            raise AssertionError(f"[dryrun] (a) {r['shape']}: arguments {args} B against the closed form {closed}")
+    print(f"[dryrun] (a) wall {wall:.1f} s", flush=True)
+    return {"records": records, "wall_s": wall}
+
+
+def dryrun_anchor_phase(wrappers: dict) -> dict:
+    """[dryrun] (b) The 1×1 anchor on the card (module docstring)."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import plain_versions
+    from repro_torch.utils import hlo
+
+    arch, shape, layers = DRYRUN_ANCHOR
+    t0 = time.perf_counter()
+    dryrun.fake_world(1)
+    try:
+        mesh = dryrun.make_mesh((1, 1), ("data", "model"), "cuda")
+        cell = dryrun.build_cell(arch, shape, mesh, extra_cfg={"num_layers": layers})
+        traced = dryrun.trace_cell(cell, mesh, "cuda")
+        mem, cost = traced["memory"], traced["cost"]
+        print(f"[dryrun] (b) {arch} × {shape} × 1x1 at {layers} layer traced in {traced['trace_s']:.1f} s: "
+              f"arguments {mem['argument_size_in_bytes']} B, peak {mem['peak_size_in_bytes']} B, "
+              f"flops {cost.flops:.6e}, bytes {cost.bytes:.6e}", flush=True)
+        if mem["peak_size_in_bytes"] > DRYRUN_ANCHOR_MAX_BYTES:
+            raise AssertionError(f"[dryrun] (b) traced peak {mem['peak_size_in_bytes']} B is over its limit")
+        cfg = cell.model.cfg
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = dryrun.place_args(cell, mesh, "cuda")  # zeros, then seeded values in place
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for t in dryrun.local_tensors(args[:2]):  # the bf16 weights and the caches
+            t.normal_(0.0, 0.02, generator=gen)
+        batch = {k: dryrun.local_part(v) for k, v in args[2].items()}
+        batch["tokens"].random_(0, cfg.vocab_size, generator=gen)
+        batch["pos"].fill_(dryrun.SHAPES[shape].seq_len - 1)  # the cache's last position
+        torch.cuda.synchronize()
+        measured_args = torch.cuda.memory_allocated() - base
+        n_tensors = len(dryrun.local_tensors(args))
+        over = measured_args - mem["argument_size_in_bytes"]
+        print(f"[dryrun] (b) arguments traced {mem['argument_size_in_bytes']} B, measured {measured_args} B "
+              f"({n_tensors} tensors, {over} B of rounding, limit {ALLOC_ROUND} B a tensor)", flush=True)
+        if not 0 <= over < ALLOC_ROUND * n_tensors:
+            raise AssertionError("[dryrun] (b) measured arguments differ from the traced ones by more than rounding")
+        for fn in wrappers.values():
+            fn.launches = 0  # the anchor's path starts here
+        with torch.no_grad(), plain_versions():
+            out = cell.fn(*args)  # warm: library workspaces are made here
+            logits = out[0].float()
+            if tuple(logits.shape) != (dryrun.SHAPES[shape].global_batch, cfg.vocab_size) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"[dryrun] (b) logits {tuple(logits.shape)} are not finite of the cell's shape")
+            del out, logits
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            measured_peak = torch.cuda.max_memory_allocated() - held + measured_args
+            del out
+            times = []
+            for _ in range(DRYRUN_STEP_REPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = cell.fn(*args)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                del out
+        counts = {name: fn.launches for name, fn in wrappers.items()}  # the anchor's path ends here
+        del args, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    traced_peak = mem["peak_size_in_bytes"]
+    tol = DRYRUN_PEAK_REL_TOL * traced_peak + DRYRUN_PEAK_ABS_TOL
+    print(f"[dryrun] (b) peak traced {traced_peak} B, measured {measured_peak} B (|Δ| {abs(measured_peak - traced_peak)} B,"
+          f" limit {tol:.0f} B)", flush=True)
+    if abs(measured_peak - traced_peak) > tol:
+        raise AssertionError("[dryrun] (b) measured peak is outside its limit of the traced one")
+    roof = hlo.Roofline(arch, shape, "1x1", 1, cost.flops, cost.bytes, cost.collective_bytes,
+                        dryrun.model_flops(cell.model, dryrun.SHAPES[shape]))
+    step_ms = statistics.median(times)
+    print(f"[dryrun] (b) step {step_ms:.4f} ms (median of {len(times)}: {[round(t, 4) for t in times]}), roofline "
+          f"bound {roof.bound_s * 1e3:.4f} ms ({roof.dominant}: compute {roof.compute_s * 1e3:.4f}, memory "
+          f"{roof.memory_s * 1e3:.4f} ms), {roof.bound_s * 1e3 / step_ms:.1%} of the bound; launches {counts}", flush=True)
+    if step_ms < roof.bound_s * 1e3:
+        raise AssertionError("[dryrun] (b) the step beat its roofline bound: the counter misses work")
+    wall = time.perf_counter() - t0
+    print(f"[dryrun] (b) wall {wall:.1f} s", flush=True)
+    if wall > DRYRUN_ANCHOR_MAX_S:
+        raise AssertionError(f"[dryrun] (b) took {wall:.1f} s, over its {DRYRUN_ANCHOR_MAX_S} s")
+    return {"launches": counts, "wall_s": wall, "step_ms": step_ms, "bound_ms": roof.bound_s * 1e3}
+
+
 def modes_phase(workdir: Path, trace: Path, on_profile=None) -> dict:
     """The paper's Table 2 on the card through the launcher, as a user runs
     it: ``python -m repro_torch.launch.serve`` in each of after2, before and
@@ -2836,6 +3021,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--modal-alone", action="store_true",
                     help="build the kernels, run only [whisper], [llama-vision], [xlstm] and [train], one after "
                          "the other with no other phase beside them, and stop without the result line")
+    ap.add_argument("--dryrun-alone", action="store_true",
+                    help="build the kernels, run only [dryrun] (b) and then (a), and stop without the result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2895,6 +3082,13 @@ def main(argv: list[str] | None = None) -> int:
         phase_s[f"whisper + llama-vision + xlstm + train{label}"] = time.perf_counter() - t_thread
         return out  # each phase holds its own path's launches
 
+    if args.dryrun_alone:
+        dryrun_anchor_phase(wrappers)
+        dryrun_grid_phase(workdir)
+        phase_s["total"] = time.perf_counter() - t_start
+        print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
+        print(_gpu_line())
+        return 0
     if args.modal_alone:
         modal(" (alone)")
         phase_s["total"] = time.perf_counter() - t_start
@@ -2938,6 +3132,9 @@ def main(argv: list[str] | None = None) -> int:
         t_phase = time.perf_counter()
         paths[arch] = zoo_phase(arch, layers, fa_ops, wrappers, workdir)["launches"]
         phase_s[f"serve {arch}"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    paths["dryrun-1x1-anchor"] = dryrun_anchor_phase(wrappers)["launches"]  # its fake world ends here
+    phase_s["dryrun (b) 1x1 anchor"] = time.perf_counter() - t_phase
 
     t_phase = time.perf_counter()
     trace = workdir / "retier_trace.json"  # the modes phase's after2 run profiles for [retier]
@@ -2969,8 +3166,15 @@ def main(argv: list[str] | None = None) -> int:
     def after_profile(run: dict) -> None:
         after2_runs.update(retier=ex.submit(retier, run), mesh=ex.submit(mesh_launch))
 
-    with ThreadPoolExecutor(3) as ex:
+    def dryrun_grid() -> dict:
+        t0 = time.perf_counter()
+        out = dryrun_grid_phase(workdir)
+        phase_s["dryrun (a) 16x16, host only (beside modes)"] = time.perf_counter() - t0
+        return out
+
+    with ThreadPoolExecutor(4) as ex:
         modal_run = ex.submit(modal, " (beside modes)")
+        grid_run = ex.submit(dryrun_grid)
         modes = modes_phase(workdir, trace, on_profile=after_profile)
         phase_s["modes (launcher)"] = time.perf_counter() - t_phase
         paths["modes-after2 (retier profile)"] = modes["after2"]["launches"]
@@ -2986,6 +3190,7 @@ def main(argv: list[str] | None = None) -> int:
         paths["retier-serve"] = after2_runs["retier"].result()["retier"]["launches"]
         paths["mesh-1x1-launcher"] = check_mesh_launch(after2_runs["mesh"].result(), modes["after2"])["launches"]
         paths.update(modal_run.result())
+        grid_run.result()
         phase_s["modes + traffic + reduced, the in-process thread beside them"] = time.perf_counter() - t_modes
     phase_s["total"] = time.perf_counter() - t_start
     print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
@@ -3002,7 +3207,7 @@ def main(argv: list[str] | None = None) -> int:
                          ("xlstm-125m", set()), ("xlstm-125m-train", set()), ("reduced-train", set()),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"}), ("mesh-1x1-launcher", {"flash_attention"}),
-                         ("xlstm-125m-train-mesh", set())):
+                         ("xlstm-125m-train-mesh", set()), ("dryrun-1x1-anchor", set())):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
         if stray:
             raise AssertionError(f"the {path} serve path launched {stray}")

@@ -30,17 +30,31 @@ caches, and there every block names the plain versions itself:
 ``rglru_block_forward(scan=rglru_scan_plain)``, on every device. No kernel
 has a backward, and the reference trains with ``use_pallas=False``, so its
 training runs these same plain forms. (A kernel wrapper refuses a CUDA
-launch whose inputs require grad.) ``cfg.remat`` is not consulted:
-activations are kept, which the sizes trained here allow.
+launch whose inputs require grad.) Under ``plain_versions()`` every
+forward run names them too (the dry run: the reference lowers its cells with
+``use_pallas=False``).
+
+Rematerialization (``cfg.remat``) at the reference's two sites, the
+encoder's blocks and each scanned group's body: ``"none"`` keeps every
+activation; ``"full"`` wraps the body in ``torch.utils.checkpoint`` (its
+backward recomputes the body from its inputs); ``"dots_saveable"`` saves the
+outputs of the matmuls (``mm`` / ``bmm`` / ``addmm`` / ``baddbmm``) and
+recomputes the rest, as ``jax.checkpoint_policies.dots_saveable`` does;
+``"inner"`` is ``"full"`` plus a checkpoint per block inside a multi-block
+group. It acts only when autograd records the body (grad enabled and an
+input that requires grad), so serving and tracing run the body as it is.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass, replace
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention_plain
@@ -177,6 +191,29 @@ def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool
     return swiglu(params["dense"], x), None
 
 
+class _PlainVersions(threading.local):
+    on = False
+
+
+_PLAIN_VERSIONS = _PlainVersions()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every block of this thread names the plain attention and scan, on
+    every device, as the loss does: the counterpart of the reference's
+    ``use_pallas=False`` (the dry run's cells run under it)."""
+    outer, _PLAIN_VERSIONS.on = _PLAIN_VERSIONS.on, True
+    try:
+        yield
+    finally:
+        _PLAIN_VERSIONS.on = outer
+
+
+def _plain(collect_cache: bool) -> bool:
+    return not collect_cache or _PLAIN_VERSIONS.on
+
+
 def _block_forward(cfg, kind, params, x, positions, memory, collect_cache):
     """``_block_body`` with its output constrained to the activation rules
     (the layer boundary)."""
@@ -211,14 +248,14 @@ def _block_body(cfg, kind, params, x, positions, memory, collect_cache):
         h = rmsnorm(x, params["norm1"], eps)
         if kind == "rec":
             o, c = rec_mod.rglru_block_forward(params["rglru"], h, cfg,
-                                               scan=None if collect_cache else rglru_scan_plain)
+                                               scan=rglru_scan_plain if _plain(collect_cache) else None)
         elif cfg.mla is not None:
             o, (ckv, kr) = attn.mla_forward(params["attn"], h, positions, cfg)
             c = {"ckv": ckv, "kr": kr}
         else:
             o, (k, v) = attn.gqa_forward(params["attn"], h, positions, cfg, causal=True,
                                          window=_kind_window(cfg, kind),
-                                         attend=None if collect_cache else flash_attention_plain)
+                                         attend=flash_attention_plain if _plain(collect_cache) else None)
             c = {"k": k, "v": v}
         x = x + o
         if cfg.encdec is not None and memory.get("enc") is not None:
@@ -302,6 +339,37 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default}
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _records_grad(tree: Any) -> bool:
+    if isinstance(tree, dict):
+        return any(_records_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def _remat(mode: str, fn: Callable) -> Callable:
+    """``fn`` under the remat policy ``mode`` (module docstring); the
+    policy applies only to a call that autograd records."""
+    if mode == "none":
+        return fn
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and any(_records_grad(a) for a in args)):
+            return fn(*args)
+        if mode == "dots_saveable":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda: create_selective_checkpoint_contexts(_dots_saveable))
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
 def _model_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -320,11 +388,15 @@ def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tenso
     ang = pos[:, None].to(torch.float32) * freqs[None, :]
     x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(frames.dtype)[None]
     positions = pos[None].expand(B, T)
+
+    def body(x, p):
+        x = x + attn.encoder_attn_forward(p["attn"], rmsnorm(x, p["norm1"], eps), positions, cfg)
+        return x + swiglu(p["dense"], rmsnorm(x, p["norm2"], eps))
+
+    body = _remat(cfg.remat, body)
     blocks = params["encoder"]["blocks"]
     for i in range(cfg.encdec.num_encoder_layers):
-        p = _select(blocks, i)
-        x = x + attn.encoder_attn_forward(p["attn"], rmsnorm(x, p["norm1"], eps), positions, cfg)
-        x = x + swiglu(p["dense"], rmsnorm(x, p["norm2"], eps))
+        x = body(x, _select(blocks, i))
     return rmsnorm(x, params["encoder"]["final_norm"], eps)
 
 
@@ -361,12 +433,23 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, memo
     if lay.lead_kinds:
         unscanned("lead", lay.lead_kinds)
     if lay.n_groups:
-        group_caches = []
-        for gi in range(lay.n_groups):
-            gp = _select(params["groups"], gi)
+        def block_step(kind, bp, x):
+            return _block_forward(cfg, kind, bp, x, positions, memory, collect_cache)
+
+        if cfg.remat == "inner" and len(lay.unit_kinds) > 1:
+            # nested: the group saves its boundary, each block its own
+            block_step = _remat("full", block_step)
+
+        def group_body(x, gp):
             cs = {}
             for j, kind in enumerate(lay.unit_kinds):
-                x, cs[f"u{j}"] = _block_forward(cfg, kind, gp[f"u{j}"], x, positions, memory, collect_cache)
+                x, cs[f"u{j}"] = block_step(kind, gp[f"u{j}"], x)
+            return x, cs
+
+        group_body = _remat(cfg.remat, group_body)
+        group_caches = []
+        for gi in range(lay.n_groups):
+            x, cs = group_body(x, _select(params["groups"], gi))
             group_caches.append(cs)
         caches["groups"] = _stack(group_caches)
     if lay.tail_kinds:

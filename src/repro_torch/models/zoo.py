@@ -17,7 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xlstm_mod
@@ -26,11 +26,27 @@ from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
 
 WHISPER_DECODE_ENC_LEN = 1500  # 30 s of audio: the encoder memory an audio decode attends to
 
+# logical axes of the batch entries, as the reference's batch specs give them
+_BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"), "frames": ("batch", "seq", "embed"),
+               "image_embeds": ("batch", None, None), "pos": ("batch",), "active": ("batch",)}
+
+
+# logical axes of each cache leaf, by name (the reference's CacheLeaf.axes)
+_CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", None), "v": ("batch", "kv_seq", "kv_heads", None),
+    "ckv": ("batch", "kv_seq", None), "kr": ("batch", "kv_seq", None),
+    "xk": ("batch", None, "kv_heads", None), "xv": ("batch", None, "kv_heads", None),
+    "lru": ("batch", "ffn"), "conv": ("batch", None, "ffn"),
+    "C": ("batch", "heads", None, None), "n": ("batch", "heads", None), "m": ("batch", "heads"),
+}
+_S_CACHE_AXES = ("batch", "heads", None)  # every leaf of an sLSTM block
+
 
 @dataclass(frozen=True)
 class CacheLeaf:
     shape: tuple
     dtype: torch.dtype
+    axes: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -41,6 +57,7 @@ class EntryPoint:
     fn: Callable  # fn(params, *args)
     args: tuple  # example argument trees on the meta device
     kind: str  # train | prefill | decode
+    arg_axes: tuple = ()  # matching logical-axes trees (``Model.input_specs``)
 
 
 class Model:
@@ -110,6 +127,12 @@ class Model:
 
     # -- caches --------------------------------------------------------------
     def _block_cache_template(self, kind: str, B: int, S_max: int, multimodal: bool) -> dict:
+        """One block's cache leaves, each with the reference's logical axes."""
+        leaves = self._block_cache_leaves(kind, B, S_max, multimodal)
+        return {name: CacheLeaf(c.shape, c.dtype, _S_CACHE_AXES if kind == "s" else _CACHE_AXES[name])
+                for name, c in leaves.items()}
+
+    def _block_cache_leaves(self, kind: str, B: int, S_max: int, multimodal: bool) -> dict:
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         Hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -153,7 +176,7 @@ class Model:
         if lay.lead_kinds:
             tpl["lead"] = section(lay.lead_kinds)
         if lay.n_groups:
-            tpl["groups"] = tree_map(lambda c: CacheLeaf((lay.n_groups,) + c.shape, c.dtype),
+            tpl["groups"] = tree_map(lambda c: CacheLeaf((lay.n_groups,) + c.shape, c.dtype, ("layers",) + c.axes),
                                      section(lay.unit_kinds, "u"))
         if lay.tail_kinds:
             tpl["tail"] = section(lay.tail_kinds)
@@ -162,6 +185,10 @@ class Model:
     def abstract_cache(self, B: int, S_max: int, *, multimodal: bool) -> dict:
         return tree_map(lambda c: torch.empty(c.shape, dtype=c.dtype, device="meta"),
                         self.cache_template(B, S_max, multimodal=multimodal))
+
+    def cache_axes(self, B: int, S_max: int, *, multimodal: bool) -> dict:
+        """The cache tree's shape with each leaf's logical axes tuple."""
+        return tree_map(lambda c: c.axes, self.cache_template(B, S_max, multimodal=multimodal))
 
     def init_cache(self, B: int, S_max: int, *, multimodal: bool, device="cuda") -> dict:
         return tree_map(lambda c: torch.zeros(c.shape, dtype=c.dtype, device=device),
@@ -197,6 +224,38 @@ class Model:
     def decode_masked_batch_spec(self, B: int) -> dict:
         """``decode_batch_spec`` plus the scheduler's per-slot active mask."""
         return {**self.decode_batch_spec(B), "active": torch.empty((B,), dtype=torch.bool, device="meta")}
+
+    @staticmethod
+    def batch_axes(batch_spec: dict, kind: str) -> dict:
+        """The logical axes of each entry of a ``kind`` batch spec (the second
+        half of the reference's ``*_batch_spec`` pairs)."""
+        axes = dict(_BATCH_AXES, tokens=("batch", None)) if kind == "decode" else _BATCH_AXES
+        return {k: axes[k] for k in batch_spec}
+
+    def input_specs(self, shape: ShapeSpec, *, multimodal: bool = True) -> EntryPoint:
+        """The single (arch × shape) dry-run cell entry, with its arguments'
+        logical axes. Token ids and positions are int32 as in the
+        reference's cell, and an encoder-decoder's train and prefill batches
+        carry ``frames`` as the reference's do."""
+        B, S = shape.global_batch, shape.seq_len
+
+        def ids32(spec: dict) -> dict:
+            return {k: torch.empty(v.shape, dtype=torch.int32, device="meta") if v.dtype == torch.int64 else v
+                    for k, v in spec.items()}
+
+        if shape.kind == "decode":
+            cache = self.abstract_cache(B, S, multimodal=multimodal)
+            batch = ids32(self.decode_batch_spec(B))
+            return EntryPoint("decode_step", self.decode_step, (cache, batch), "decode",
+                              (self.cache_axes(B, S, multimodal=multimodal), self.batch_axes(batch, "decode")))
+        mm = multimodal or self.cfg.encdec is not None
+        spec = self.train_batch_spec(B, S, multimodal=mm) if shape.kind == "train" else \
+            self.prefill_batch_spec(B, S, multimodal=mm)
+        if not multimodal:
+            spec.pop("image_embeds", None)
+        batch = ids32(spec)
+        name, fn = ("train_step", self.loss_fn) if shape.kind == "train" else ("prefill", self.prefill)
+        return EntryPoint(name, fn, (batch,), shape.kind, (self.batch_axes(batch, shape.kind),))
 
     # -- entry registry (Application Entry Recognition) ----------------------
     def entries(self, B: int = 1, S: int = 128) -> list[EntryPoint]:

@@ -76,6 +76,30 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: dict) -> tuple[torch.T
                                           for (path, _), t, g in zip(flat, leaves, grads)})
 
 
+def accumulated_grads(loss_fn: Callable, params: Any, batch: dict, n_micro: int, *,
+                      repeats: Optional[Callable] = None) -> tuple[torch.Tensor, Any]:
+    """(loss, grads) over ``n_micro`` row slices of ``batch`` run one after
+    another: fp32 grad accumulators and an fp32 loss sum, both divided by
+    the slice count (module docstring); one slice is ``value_and_grad``.
+    ``repeats`` (a cost counter's ``repeats``, for a traced step) runs the
+    first slice only and has it counted as all ``n_micro``: the slices are
+    alike in every shape."""
+    if n_micro == 1:
+        return value_and_grad(loss_fn, params, batch)
+    first = flatten_with_paths(params)[0][1]
+    loss = torch.zeros((), dtype=torch.float32, device=first.device)
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    rows = next(iter(batch.values())).shape[0] // n_micro
+    for i in range(n_micro if repeats is None else 1):
+        with contextlib.nullcontext() if repeats is None else repeats(n_micro):
+            mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            l, g = value_and_grad(loss_fn, params, mb)
+            flat_g = dict(flatten_with_paths(g))
+            grads = tree_from_flat({p: a + flat_g[p].to(torch.float32) for p, a in flatten_with_paths(grads)})
+            loss = loss + l
+    return loss / n_micro, tree_map(lambda g: g / n_micro, grads)
+
+
 def make_train_step(model: Model, tcfg: TrainConfig, *, reduce: Optional[Callable] = None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics); metrics
     are fp32 scalars ``loss``, ``grad_norm`` (before clipping) and ``lr``.
@@ -85,20 +109,7 @@ def make_train_step(model: Model, tcfg: TrainConfig, *, reduce: Optional[Callabl
     n_micro = tcfg.micro_batches
 
     def step_fn(params: Any, opt_state: AdamWState, batch: dict):
-        if n_micro == 1:
-            loss, grads = value_and_grad(model.loss_fn, params, batch)
-        else:
-            loss = torch.zeros((), dtype=torch.float32, device=opt_state.step.device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-            rows = next(iter(batch.values())).shape[0] // n_micro
-            for i in range(n_micro):
-                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-                l, g = value_and_grad(model.loss_fn, params, mb)
-                flat_g = dict(flatten_with_paths(g))
-                grads = tree_from_flat({p: a + flat_g[p].to(torch.float32) for p, a in flatten_with_paths(grads)})
-                loss = loss + l
-            loss = loss / n_micro
-            grads = tree_map(lambda g: g / n_micro, grads)
+        loss, grads = accumulated_grads(model.loss_fn, params, batch, n_micro)
         if reduce is not None:
             tree_map(reduce, grads)
             reduce(loss)
@@ -130,6 +141,29 @@ def reshard_for_mesh(host_collections: dict, mesh, model: Model, *, fsdp: bool =
             placed[path] = place(leaf, mesh, sh, mesh.device_type)
         out[cname] = tree_from_flat(placed)
     return out
+
+
+def data_parallel(mesh, rows: int) -> tuple[slice, Optional[Callable]]:
+    """This rank's block of a batch of ``rows`` rows on ``mesh``, and the
+    in-place mean over the ranks that split it (None when nothing splits)."""
+    spec = resolve_pspec(("batch",), (rows,), mesh, ACT_RULES)
+    dims = () if not spec else spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+    sizes, coord = mesh_sizes(mesh), mesh.get_coordinate()
+    names = list(sizes)
+    n, index = 1, 0
+    for dim in dims:  # mesh-dim order, the first outermost
+        n, index = n * sizes[dim], index * sizes[dim] + coord[names.index(dim)]
+    if n == 1:
+        return slice(None), None
+    groups = [mesh.get_group(dim) for dim in dims]
+
+    def mean(t: torch.Tensor) -> None:
+        for g in groups:
+            dist.all_reduce(t, group=g)
+        t.div_(n)
+
+    block = rows // n
+    return slice(index * block, (index + 1) * block), mean
 
 
 @dataclass
@@ -171,28 +205,6 @@ class Trainer:
         params = self.model.init(gen, device=dev, dtype=torch.float32)
         return 0, params, init_adamw(params)
 
-    def _data_parallel(self, rows: int) -> tuple[slice, Optional[Callable]]:
-        """This rank's block of a batch of ``rows`` rows, and the in-place
-        mean over the ranks that split it (None when nothing splits)."""
-        spec = resolve_pspec(("batch",), (rows,), self.mesh, ACT_RULES)
-        dims = () if not spec else spec[0] if isinstance(spec[0], tuple) else (spec[0],)
-        sizes, coord = mesh_sizes(self.mesh), self.mesh.get_coordinate()
-        names = list(sizes)
-        n, index = 1, 0
-        for dim in dims:  # mesh-dim order, the first outermost
-            n, index = n * sizes[dim], index * sizes[dim] + coord[names.index(dim)]
-        if n == 1:
-            return slice(None), None
-        groups = [self.mesh.get_group(dim) for dim in dims]
-
-        def mean(t: torch.Tensor) -> None:
-            for g in groups:
-                dist.all_reduce(t, group=g)
-            t.div_(n)
-
-        block = rows // n
-        return slice(index * block, (index + 1) * block), mean
-
     def run(self, num_steps: Optional[int] = None) -> TrainResult:
         tcfg = self.tcfg
         num_steps = num_steps or tcfg.num_steps
@@ -200,7 +212,7 @@ class Trainer:
         restored_from = start if start > 0 else None
         rank = dist.get_rank() if self.mesh is not None else 0
         losses = []
-        mine, reduce = (slice(None), None) if self.mesh is None else self._data_parallel(self.data.local_batch)
+        mine, reduce = (slice(None), None) if self.mesh is None else data_parallel(self.mesh, self.data.local_batch)
         step_fn = make_train_step(self.model, tcfg, reduce=reduce)
         with use_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext():
             for step, batch in zip(range(start, num_steps), self.data.iterate_from(start)):

@@ -3,7 +3,9 @@ paged decode attention, tiered gather and gather-matmul) against their
 plain PyTorch versions, on the card, at every served model's attention
 widths; a reduced modal config's multimodal prefill launching the flash
 kernel for its decoder self layers only; and the mesh on a one-rank NCCL
-world (a 1×1 cold start equal to none, ``compressed_psum`` over one rank).
+world (a 1×1 cold start equal to none, ``compressed_psum`` over one rank);
+the cost counter on a card matmul and dry-run cells with fake tensors on
+the card.
 Needs an NVIDIA GPU and nvcc (the
 kernel has no CPU mode); skips elsewhere. Imports no JAX (and
 ``--noconftest`` skips the JAX fixtures of tests/conftest.py), so it runs
@@ -1461,3 +1463,48 @@ def test_compressed_psum_over_a_one_rank_axis_on_card(card, world_of_one):
         avg, ef = compressed_psum({"g": g}, EFState({"g": torch.zeros_like(g)}), "pod")
     want = dequantize_int8(*quantize_int8(g))
     assert torch.equal(avg["g"], want) and torch.equal(ef.residual["g"], g - want)
+
+
+@pytest.mark.gpu
+def test_cost_counter_on_a_cuda_matmul(card):
+    """``utils.hlocost.analyze`` on the card: a bf16 (256×512)·(512×128)
+    matmul counts 2·256·512·128 dot FLOPs and its operands and result in
+    bytes."""
+    from repro_torch.utils.hlocost import analyze
+
+    gen = torch.Generator(card).manual_seed(0)
+    a = torch.randn(256, 512, generator=gen, device=card).to(torch.bfloat16)
+    b = torch.randn(512, 128, generator=gen, device=card).to(torch.bfloat16)
+    cost = analyze(torch.matmul, a, b)
+    assert cost.dot_flops == cost.flops == 2 * 256 * 512 * 128
+    assert cost.bytes == 2 * (256 * 512 + 512 * 128 + 256 * 128)
+    assert cost.collective_bytes == 0
+
+
+@pytest.mark.gpu
+def test_dryrun_cells_on_card_allocate_nothing(card):
+    """``launch.dryrun.run_cell`` with fake tensors on ``cuda``: reduced
+    Mixtral at B=4, S=64 on a 2×2 fake world, each kind ``ok`` with its
+    argument bytes equal to the closed form of its shardings, no card
+    memory allocated and no kernel launched."""
+    from dataclasses import fields
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.launch import dryrun
+
+    cfg = get_reduced("mixtral-8x22b")
+    extra = {f.name: getattr(cfg, f.name) for f in fields(cfg)}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    for kind in ("prefill", "decode", "train"):
+        rec = dryrun.run_cell("mixtral-8x22b", ShapeSpec(f"{kind}_b4s64", 64, 4, kind), mesh_shape=(2, 2),
+                              device="cuda", out_dir=None, verbose=False, extra_cfg=extra)
+        assert rec["status"] == "ok" and rec["num_chips"] == 4 and rec["collective_bytes"] > 0, kind
+        assert rec["memory"]["argument_size_in_bytes"] == rec["closed_form_argument_bytes"], kind
+        assert rec["memory"]["peak_size_in_bytes"] >= rec["memory"]["argument_size_in_bytes"], kind
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(card) == before
+    assert {name: fn.launches for name, fn in kernel_wrappers().items()} == launches

@@ -1,0 +1,318 @@
+"""The port's cost counter, roofline terms, ``cfg.remat`` and dry run
+(``repro_torch.utils.hlocost`` / ``hlo``, ``models.transformer._remat``,
+``repro_torch.launch.dryrun``) against the reference's.
+
+The reference's dry run forces 512 host devices when its module is
+imported, so its side runs in a subprocess with four forced devices and a
+hand-built ``Mesh``; cells are the reduced configs at B=4, S=64.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+from dataclasses import fields, replace
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_reduced
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import production_mesh_shape
+from repro_torch.models.zoo import build_model
+from repro_torch.sharding import param_shardings, resolve_pspec
+from repro_torch.sharding.rules import ACT_RULES, spec_shard_divisor
+from repro_torch.training.train_loop import value_and_grad
+from repro_torch.utils import hlo
+from repro_torch.utils.hlocost import analyze
+from repro_torch.utils.tree import flatten_with_paths
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KINDS = ("prefill", "decode", "train")
+MESHES = ((1, 1), (2, 2))
+PARITY_ARCHS = ("mixtral-8x22b", "yi-34b")
+TRAIN_REMATS = ("none", "full")
+
+
+def _shape(kind: str) -> ShapeSpec:
+    return ShapeSpec(f"{kind}_b4s64", 64, 4, kind)
+
+
+def _reduced_fields(arch: str) -> dict:
+    cfg = get_reduced(arch)
+    return {f.name: getattr(cfg, f.name) for f in fields(cfg)}
+
+
+# ---------------------------------------------------------------------------
+# hlocost: loop-aware by construction
+# ---------------------------------------------------------------------------
+
+
+def test_hlocost_counts_loop_trips():
+    """``test_substrates.py::test_hlocost_counts_loop_trips`` for the port:
+    10 × tanh(c @ w) at 128 is 10·2·128³ dot FLOPs, exactly."""
+    def f(x, w):
+        c = x
+        for _ in range(10):
+            c = torch.tanh(c @ w)
+        return c
+
+    cost = analyze(f, torch.ones(128, 128), torch.ones(128, 128))
+    assert cost.dot_flops == 10 * 2 * 128**3
+    assert cost.flops == cost.dot_flops + 10 * 128 * 128  # one per tanh output element
+
+
+def test_hlocost_nested_loops():
+    def f(x, w):
+        c = x
+        for _ in range(4):
+            for _ in range(5):
+                c = c @ w
+        return c
+
+    assert analyze(f, torch.ones(64, 64), torch.ones(64, 64)).dot_flops == 20 * 2 * 64**3
+
+
+def test_hlocost_counts_an_all_gather_on_a_fake_world():
+    """One all-gather of a known block on a 4-rank fake world counts its
+    result bytes under the reference's kind name."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.sharding.rules import _from_local
+
+    dryrun.fake_world(4)
+    try:
+        mesh = dryrun.make_mesh((4,), ("data",), "cpu")
+        with FakeTensorMode():
+            d = _from_local(torch.empty(8, 32), (32, 32), mesh, (Shard(0),))
+            cost = analyze(lambda x: x.full_tensor(), d)
+    finally:
+        dist.destroy_process_group()
+    assert cost.collective_by_kind == {"all-gather": 32 * 32 * 4}
+    assert cost.collective_count == {"all-gather": 1.0}
+    assert cost.collective_bytes == 32 * 32 * 4
+
+
+def test_hlocost_kernelized_drops_only_the_score_matmuls():
+    """``kernelized=True`` leaves out the batched matmuls of two activations
+    (scores and probabilities × V), and keeps a matmul that reads a weight,
+    also after the weight is cast and viewed."""
+    def attend(w, x):
+        q = (x @ w.to(torch.float32).t()).view(2, 8, 16)
+        s = torch.bmm(q, q.transpose(1, 2))  # (2, 8, 8) scores
+        return torch.bmm(torch.softmax(s, -1), q)
+
+    w, x = torch.ones(16, 16, dtype=torch.bfloat16), torch.ones(16, 16)
+    full, kern = analyze(attend, w, x), analyze(attend, w, x, kernelized=True)
+    scores = 4 * (2 * (2 * 8 * 16) + 2 * 8 * 8) + 4 * (2 * 8 * 8 + 2 * (2 * 8 * 16))
+    assert full.bytes - kern.bytes == scores
+    assert full.dot_flops == kern.dot_flops
+
+
+def test_roofline_terms_use_the_h100_datasheet():
+    r = hlo.Roofline("a", "s", "1x1", 1, hlo_flops=989e12, hlo_bytes=3.35e12 * 2, collective_bytes=0.0,
+                     model_flops=494.5e12)
+    assert (r.compute_s, r.memory_s, r.dominant, r.bound_s) == (1.0, 2.0, "memory", 2.0)
+    assert r.useful_flops_ratio == 0.5 and r.roofline_fraction == 0.5
+    assert hlo.Roofline("a", "s", "2", 2, 0.0, 0.0, 450e9, 0.0).collective_s == 1.0
+    assert hlo.dense_model_flops(10, 3) == 180.0
+
+
+# ---------------------------------------------------------------------------
+# cfg.remat
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "recurrentgemma-9b"])
+def test_remat_policies_keep_the_gradients(arch):
+    """Under "full" and "dots_saveable" the loss's gradients equal those
+    under "none" within 1e-6 (fp32), and the recompute really runs: "full"
+    counts more dot FLOPs than "none"."""
+    cfg = replace(get_reduced(arch), dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    rs = np.random.RandomState(0)
+    batch = {k: torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 16))) for k in ("tokens", "labels")}
+    grads, dots = {}, {}
+    for mode in ("none", "full", "dots_saveable"):
+        model = build_model(replace(cfg, remat=mode))
+        loss, g = value_and_grad(model.loss_fn, params, batch)
+        grads[mode] = dict(flatten_with_paths(g))
+        dots[mode] = analyze(lambda p, b: value_and_grad(model.loss_fn, p, b), params, batch).dot_flops
+    for mode in ("full", "dots_saveable"):
+        for path, g in grads["none"].items():
+            torch.testing.assert_close(grads[mode][path], g, rtol=0, atol=1e-6, msg=f"{mode} {path}")
+    assert dots["full"] > dots["none"] == dots["dots_saveable"]
+
+
+def test_remat_leaves_serving_untouched():
+    """Without autograd recording, "full" runs the body as it is: prefill
+    dispatches the same operators as under "none"."""
+    cfg = replace(get_reduced("mixtral-8x22b"), dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    batch = {"tokens": torch.zeros(1, 8, dtype=torch.int64)}
+    costs = [analyze(build_model(replace(cfg, remat=m)).prefill, params, batch) for m in ("none", "full")]
+    assert costs[0] == costs[1]
+
+
+# ---------------------------------------------------------------------------
+# dry run against the reference's
+# ---------------------------------------------------------------------------
+
+_REFERENCE = r"""
+import json, os, sys
+import numpy as np
+import jax
+from dataclasses import fields
+from jax.sharding import Mesh
+import repro.launch.dryrun as rd
+from repro.configs import SHAPES, get_reduced
+from repro.configs.base import ShapeSpec
+from repro.sharding import use_mesh
+from repro.utils import hlocost
+
+archs, meshes, kinds, remats = json.loads(sys.argv[1])
+out = []
+for arch in archs:
+    cfg = get_reduced(arch)
+    extra = {f.name: getattr(cfg, f.name) for f in fields(cfg)}
+    for dm in meshes:
+        mesh = Mesh(np.array(jax.devices()[:dm[0] * dm[1]]).reshape(*dm), ("data", "model"))
+        for kind in kinds:
+            shape = ShapeSpec(f"{kind}_b4s64", 64, 4, kind)
+            rd.SHAPES[shape.name] = shape
+            for remat in (remats if kind == "train" and dm == [1, 1] else ["full"]):
+                model, fn, args, in_sh, out_sh = rd.build_cell(arch, shape.name, mesh, extra_cfg=dict(extra, remat=remat))
+                with use_mesh(mesh):
+                    c = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh).lower(*args).compile()
+                out.append({"arch": arch, "mesh": dm, "kind": kind, "remat": remat, "params": model.num_params(),
+                            "active_params": model.active_params(), "model_flops": rd._model_flops(model, shape),
+                            "argument_size_in_bytes": c.memory_analysis().argument_size_in_bytes,
+                            "dot_flops": hlocost.analyze(c.as_text()).dot_flops})
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_cells():
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _REFERENCE, json.dumps([[arch], MESHES, KINDS, TRAIN_REMATS])],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+             for arch in PARITY_ARCHS]  # one process per arch, side by side
+    cells = {}
+    for p in procs:
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-4000:]
+        cells.update({(r["arch"], tuple(r["mesh"]), r["kind"], r["remat"]): r for r in json.loads(out.splitlines()[-1])})
+    return cells
+
+
+def _port_cell(arch, mesh, kind, remat="full"):
+    return dryrun.run_cell(arch, _shape(kind), mesh_shape=mesh, device="cpu", out_dir=None, verbose=False,
+                           extra_cfg=dict(_reduced_fields(arch), remat=remat))
+
+
+@pytest.mark.parametrize("arch", PARITY_ARCHS)
+def test_dryrun_cells_match_the_reference(arch, reference_cells):
+    """At 1×1 and 2×2: params, active params and model FLOPs equal; the
+    arguments' bytes per device equal (prefill, decode, train); global dot
+    FLOPs equal at 1×1 for prefill and decode; and every record's argument
+    bytes equal the closed form of its shardings."""
+    for mesh in MESHES:
+        for kind in KINDS:
+            ref = reference_cells[(arch, mesh, kind, "full")]
+            rec = _port_cell(arch, mesh, kind)
+            assert rec["status"] == "ok" and rec["mesh"] == "x".join(map(str, mesh))
+            for key in ("params", "active_params", "model_flops"):
+                assert rec[key] == ref[key], (mesh, kind, key)
+            args = rec["memory"]["argument_size_in_bytes"]
+            assert args == ref["argument_size_in_bytes"] == rec["closed_form_argument_bytes"], (mesh, kind)
+            if mesh == (1, 1) and kind != "train":
+                assert rec["hlo_dot_flops"] == ref["dot_flops"], kind
+            assert rec["collective_bytes"] == 0.0 if mesh == (1, 1) else rec["collective_bytes"] > 0
+
+
+def _score_recompute_flops(arch: str) -> int:
+    """One QK^T matmul per layer and micro-batch (1 row of 64 tokens each)."""
+    cfg = get_reduced(arch)
+    return 2 * 1 * cfg.num_heads * 64 * 64 * cfg.resolved_head_dim * cfg.num_layers * 4
+
+
+@pytest.mark.parametrize("remat", TRAIN_REMATS)
+def test_dryrun_train_flops_match_the_reference(remat, reference_cells):
+    """Train at 1×1: the port's global dot FLOPs against the reference's.
+
+    The only gap is the reference's attention backward. Its plain attention
+    checkpoints each k-block body (``src/repro/models/attention.py:263-264``,
+    ``jax.checkpoint(k_body)``), so under ``remat="none"`` its backward
+    recomputes the QK^T scores: one 2·B·H·Sq·Sk·hd matmul per layer and
+    micro-batch, 524,288 FLOPs × 2 layers × 4 micro-batches = 4,194,304 on
+    reduced Mixtral (1.4% of its count, inside 2%) and on reduced Yi (2.2%).
+    The port keeps the probabilities for its backward. Under "full" both
+    recompute the whole group body and the counts are equal."""
+    for arch in PARITY_ARCHS:
+        ref = reference_cells[(arch, (1, 1), "train", remat)]
+        rec = _port_cell(arch, (1, 1), "train", remat)
+        gap = ref["dot_flops"] - rec["hlo_dot_flops"]
+        assert gap == (_score_recompute_flops(arch) if remat == "none" else 0), arch
+        if arch == "mixtral-8x22b":
+            assert abs(gap) <= 0.02 * ref["dot_flops"]
+
+
+def _implied_gather_bytes(leaf_bytes: int, spec, sizes: dict) -> int:
+    """Result bytes of the all-gathers that bring one block to the whole
+    leaf, one mesh dim at a time (every dim of the production mesh is 16)."""
+    dims = [ax for e in spec for ax in ((e,) if isinstance(e, str) else e or ())]
+    block = leaf_bytes // math.prod(sizes[d] for d in dims)
+    total = 0
+    for d in dims:
+        block *= sizes[d]
+        total += block
+    return total
+
+
+def test_reduced_cell_on_the_production_mesh():
+    """Reduced Mixtral's prefill (B=16, S=64) on a fake 16×16 world: its
+    arguments' bytes equal the closed form from the shardings over
+    ``production_mesh_shape()``, and its collective bytes are exactly the
+    all-gathers that ``gather_tree`` implies for its sharded leaves."""
+    shape = ShapeSpec("prefill_b16s64", 64, 16, "prefill")
+    rec = dryrun.run_cell("mixtral-8x22b", shape, device="cpu", out_dir=None, verbose=False,
+                          extra_cfg=_reduced_fields("mixtral-8x22b"))
+    assert rec["mesh"] == "16x16" and rec["num_chips"] == 256
+    mesh = production_mesh_shape()
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    model = build_model(replace(get_reduced("mixtral-8x22b"), use_pallas=False))
+    abstract = model.abstract(dtype=torch.bfloat16)
+    sh = dict(flatten_with_paths(param_shardings(model.logical_axes(), abstract, mesh)))
+    leaves = [(leaf, sh[p].spec) for p, leaf in flatten_with_paths(abstract)]
+    entry = model.input_specs(shape)
+    (batch,), (axes,) = entry.args, entry.arg_axes
+    leaves += [(leaf, resolve_pspec(axes[k], leaf.shape, mesh, ACT_RULES)) for k, leaf in batch.items()]
+    nbytes = [(leaf.numel() * leaf.element_size(), spec) for leaf, spec in leaves]
+    closed = sum(b // spec_shard_divisor(spec, mesh) for b, spec in nbytes)
+    assert rec["memory"]["argument_size_in_bytes"] == closed == rec["closed_form_argument_bytes"]
+    assert rec["collective_bytes"] == sum(_implied_gather_bytes(b, spec, sizes) for b, spec in nbytes)
+    assert set(rec["collectives"]["bytes"]) == {"all-gather"}
+    assert rec["fits"] and rec["memory"]["temp_size_in_bytes"] > 0
+
+
+def test_dryrun_cli_writes_its_records(tmp_path, capsys):
+    """The CLI on the CPU at a forced 2×2 mesh, widths cut by
+    ``--override``: a decode_32k record with the reference's line, and
+    long_500k skipped for a full-attention arch."""
+    over = "num_layers=2,d_model=64,num_heads=4,num_kv_heads=2,d_ff=128,vocab_size=512,head_dim=16"
+    common = ["--device", "cpu", "--mesh", "2x2", "--out", str(tmp_path), "--override", over]
+    assert dryrun.main(["--arch", "yi-34b", "--shape", "decode_32k", *common]) == 0
+    assert dryrun.main(["--arch", "yi-34b", "--shape", "long_500k", *common]) == 0
+    ok = json.load(open(tmp_path / "yi-34b_decode_32k_2x2.json"))
+    assert ok["status"] == "ok" and ok["num_chips"] == 4 and ok["micro_batches"] == 1
+    assert ok["memory"]["argument_size_in_bytes"] == ok["closed_form_argument_bytes"]
+    assert json.load(open(tmp_path / "yi-34b_long_500k_2x2.json"))["status"] == "skipped"
+    out = capsys.readouterr().out
+    assert "[dryrun] yi-34b × decode_32k × 2x2: OK flops/dev=" in out and "fits=yes" in out
