@@ -20,7 +20,9 @@ Phases (any failure exits non-zero before the result line):
    Hkv=16, hd=128: B=2 × 1024 with window 1024 and with none, B=1 × 4096
    with window 1024), at Whisper's decoder widths (H=Hkv=8, hd 64: G = 1,
    B=2 × 448), at Llama-3.2-Vision's self layers' (H=64, Hkv=8, hd 128,
-   B=2 × 1024), and at the reduced configs' head dims, which the wrapper
+   B=2 × 1024), at one of 16 ``model`` ranks of Mixtral's sharded prefill
+   (H=3, Hkv=1, hd 128, B=2 × 1024, window 4096: [mesh] (d)'s launches),
+   and at the reduced configs' head dims, which the wrapper
    zero-pads to 64 (reduced Mixtral H=4, Hkv=2,
    hd 16, window 32; reduced Yi H=8, Hkv=2, hd 8); error ≤ 1e-2 per unit of
    max(1, |output|) (bf16 output rounding); each row prints its TFLOP/s and
@@ -224,7 +226,14 @@ Phases (any failure exits non-zero before the result line):
    no mesh, loss and params bit-equal, no kernel launched. (c) Then
    ``gpipe_forward`` over a 1-stage mesh equals ``stage_fn`` on each
    microbatch and ``compressed_psum`` over a 1-rank ``pod`` dim equals
-   ``dequantize_int8(quantize_int8(g))``, bit for bit.
+   ``dequantize_int8(quantize_int8(g))``, bit for bit. (d) In the serial
+   section before [dryrun] (b), compute on shards at full width:
+   Mixtral-8x22B cut to its first layer, B=2 × 1024, as the 16 ``model``
+   ranks of the production mesh run one after another in this process
+   (``sharding.comm.run_ranks``), each from its own copies of its blocks:
+   logits within MESH_LOGITS_REL_TOL of max |logit| of the unsharded
+   layer, greedy ids across ranks equal where no near-tie, 16 flash
+   launches (H=3, Hkv=1).
 12. dryrun — the production-mesh dry run (``launch.dryrun``), no kernel
    launched (its cells run the plain versions, as the reference lowers with
    ``use_pallas=False``). (b) In the serial section after [deepseek], with
@@ -245,7 +254,8 @@ Phases (any failure exits non-zero before the result line):
    block, in its own process (the fake world of 256 ranks and [mesh]'s
    one-rank NCCL world are both a process's default group): ``python -m
    repro_torch.launch.dryrun --arch mixtral-8x22b --shape all`` on the
-   16×16 fake world (DRYRUN_JOBS cells at once, each in its own process),
+   16×16 fake world (DRYRUN_JOBS cells at once, each in its own process;
+   the serving cells trace the sharded step, train still gathers at use),
    host only, within DRYRUN_TIMEOUT_S: exit 0, every
    record ``ok`` or ``skipped``, each cell's line printed, and each
    ``argument_size_in_bytes`` equal to the closed form from
@@ -409,6 +419,16 @@ DRYRUN_PEAK_REL_TOL, DRYRUN_PEAK_ABS_TOL = 0.02, 64 * 2**20
 # the anchor's limits: its traced peak, and its whole wall time
 DRYRUN_ANCHOR_MAX_BYTES, DRYRUN_ANCHOR_MAX_S = 30e9, 30.0
 DRYRUN_STEP_REPS = 7  # timed steps (the median is kept)
+# [mesh] (d): Mixtral-8x22B's first layer at full width as the 16 "model"
+# ranks of the production mesh, run one after another in this process
+# (``sharding.comm.run_ranks``), held to the unsharded layer. Each rank's
+# attention output and expert output are partial sums rounded to bf16 and
+# added over 16 ranks; a CPU rehearsal in bf16 (d_model 1024, 48 / 8 heads of
+# 128, 8 experts of d_ff 2048, B=1 ... 2 × 256) moved the logits by 1.06% of
+# their max |logit|, so 5% leaves a 5x margin and still catches a missing or
+# doubled reduction (a whole rank's share, ~1/16 of the output or more)
+MESH_SHARD_RANKS = 16
+MESH_LOGITS_REL_TOL = 0.05
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
     ((H, HKV, HD), [(BATCH, PROMPT, 4096, True, None),
@@ -432,6 +452,9 @@ FLASH_ROWS = (
     # Llama-3.2-Vision's self layers (G = 8)
     ((WHISPER_H, WHISPER_HKV, WHISPER_HD), [(BATCH, WHISPER_PROMPT, None, True, None)]),
     ((LLAMA_H, LLAMA_HKV, LLAMA_HD), [(BATCH, PROMPT, None, True, None)]),
+    # one of the 16 "model" ranks of Mixtral's sharded prefill ([mesh] (d)):
+    # its 3 local q heads read one kv head (G = 6 does not divide 16 ranks)
+    ((H // MESH_SHARD_RANKS, 1, HD), [(BATCH, PROMPT, 4096, True, None)]),
 )
 
 
@@ -2112,6 +2135,89 @@ def check_mesh_launch(run: dict, after2: dict) -> dict:
     return summary
 
 
+def mesh_shard_phase(wrappers: dict) -> dict:
+    """[mesh] (d) Compute on shards at full width: Mixtral-8x22B cut to its
+    first layer (embed, one attention + 8-expert MoE layer, head; seeded
+    bf16 weights), one prefill of B=2 × 1024, as the 16 ``model`` ranks of
+    the production mesh (data 1 × model 16). The ranks run one after another
+    on the card (``sharding.comm.run_ranks``), each from its own copies of
+    its blocks (``cut_tree`` by the param rules), with every reduction done
+    in this process. The ranks' logits blocks, put together, are held to the
+    unsharded prefill's within MESH_LOGITS_REL_TOL of its max |logit|, and
+    their greedy ids (``greedy_sharded``, the same on every rank) to its
+    argmax on every row whose top-2 margin is over twice the measured error. Each rank launches the flash kernel once, at its 3
+    local q heads against 1 kv head: 16 launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import greedy_sharded
+    from repro_torch.models.zoo import build_model
+    from repro_torch.sharding.comm import run_ranks
+    from repro_torch.sharding.rules import MeshShape, Shard, act_specs, cut_tree, param_shardings
+    from repro_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config("mixtral-8x22b").replace(num_layers=1)
+    model = build_model(cfg, param_dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"tokens": tokens}
+    sizes = {"data": 1, "model": MESH_SHARD_RANKS}
+    specs = tree_map(lambda sh: sh.spec, param_shardings(model.logical_axes(), model.abstract(),
+                                                         MeshShape(tuple(sizes), tuple(sizes.values()))))
+    flash = wrappers["flash_attention"]
+    with torch.inference_mode():
+        whole = model.prefill(params, batch)[0].float()
+        torch.cuda.synchronize()
+        shards = {}
+
+        def cut(comm):  # each rank's own copies of its blocks
+            shards[comm.coord["model"]] = tree_map(lambda sh: Shard(sh.local.clone(), sh.shape, sh.spec),
+                                                   cut_tree(params, specs, comm))
+
+        run_ranks(sizes, cut)
+        del params
+        torch.cuda.empty_cache()
+        launches0 = {name: f.launches for name, f in wrappers.items()}
+        t1 = time.perf_counter()
+
+        def rank(comm):
+            rows = cut_tree(batch, act_specs({"tokens": ("batch", "seq")}, batch, comm), comm)
+            p = shards[comm.coord["model"]]
+            logits = model.prefill_sharded(p, rows, comm)[0]
+            ids = greedy_sharded(logits, p["head"].start(0, comm), p["head"].split(0), (), comm)
+            return logits, ids, comm.moved_bytes
+
+        out = run_ranks(sizes, rank)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+        launches = {name: f.launches - launches0[name] for name, f in wrappers.items()}
+        got = torch.cat([o[0] for o in out], dim=1).float()
+    err = (got - whole).abs().max().item()
+    scale = whole.abs().max().item()
+    top2 = whole.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err  # no error this size can move such a row's argmax
+    ids_equal = bool(torch.equal(out[0][1][clear], whole.argmax(-1)[clear]))
+    same_ids = all(torch.equal(o[1], out[0][1]) for o in out)
+    summary = dict(ranks=MESH_SHARD_RANKS, max_abs_err=err, max_abs_logit=scale, rel_err=err / scale,
+                   ids_equal_where_clear=ids_equal, rows_clear=int(clear.sum()), ids_same_on_every_rank=same_ids,
+                   sharded_s=sharded_s, collective_bytes_per_rank=out[0][2], launches=launches,
+                   wall_s=time.perf_counter() - t0)
+    print("[mesh] (d) " + json.dumps(summary), flush=True)
+    print(f"[mesh] (d) Mixtral-8x22B layer 1 of 56 at full width, B={BATCH} × {PROMPT}, as {MESH_SHARD_RANKS} "
+          f"model ranks one after another: logits max |Δ| {err:.4g} against the unsharded layer ({err / scale:.2%} of "
+          f"max |logit| {scale:.4g}; limit {MESH_LOGITS_REL_TOL:.0%}), greedy ids "
+          f"{'equal' if ids_equal else 'DIFFER'} on {int(clear.sum())} of {BATCH} rows clear of a near-tie; "
+          f"{out[0][2]} B of collectives a rank; flash launches {launches['flash_attention']}", flush=True)
+    del shards, out, got, whole
+    torch.cuda.empty_cache()
+    if not err <= MESH_LOGITS_REL_TOL * scale or not ids_equal or not same_ids:
+        raise AssertionError(f"[mesh] (d) the sharded layer differs from the unsharded one: {summary}")
+    if launches["flash_attention"] != MESH_SHARD_RANKS:
+        raise AssertionError(f"[mesh] (d) flash launches {launches}: want one a rank")
+    return summary
+
+
 def mesh_train_phase(model, tc, data, ckpt: Path, workdir: Path, wrappers: dict) -> dict:
     """[mesh] (b) and (c), on the in-process thread after [train], on a world
     of one (NCCL on an in-memory store). (b) ``reshard_for_mesh`` of
@@ -3096,7 +3202,7 @@ def main(argv: list[str] | None = None) -> int:
         print(_gpu_line())
         return 0
     t_phase = time.perf_counter()
-    rows, rows_256, rows_gemma, rows_16, rows_8, rows_whisper, rows_llama = [
+    rows, rows_256, rows_gemma, rows_16, rows_8, rows_whisper, rows_llama, rows_local = [
         flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)
     decode_rows = decode_phase(da_ops)
@@ -3132,6 +3238,9 @@ def main(argv: list[str] | None = None) -> int:
         t_phase = time.perf_counter()
         paths[arch] = zoo_phase(arch, layers, fa_ops, wrappers, workdir)["launches"]
         phase_s[f"serve {arch}"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    paths["mesh-16-ranks-layer"] = mesh_shard_phase(wrappers)["launches"]
+    phase_s["mesh (d) 16 model ranks, one layer"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     paths["dryrun-1x1-anchor"] = dryrun_anchor_phase(wrappers)["launches"]  # its fake world ends here
     phase_s["dryrun (b) 1x1 anchor"] = time.perf_counter() - t_phase
@@ -3207,7 +3316,8 @@ def main(argv: list[str] | None = None) -> int:
                          ("xlstm-125m", set()), ("xlstm-125m-train", set()), ("reduced-train", set()),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"}), ("mesh-1x1-launcher", {"flash_attention"}),
-                         ("xlstm-125m-train-mesh", set()), ("dryrun-1x1-anchor", set())):
+                         ("xlstm-125m-train-mesh", set()), ("dryrun-1x1-anchor", set()),
+                         ("mesh-16-ranks-layer", {"flash_attention"})):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
         if stray:
             raise AssertionError(f"the {path} serve path launched {stray}")
@@ -3221,7 +3331,7 @@ def main(argv: list[str] | None = None) -> int:
 
     kernels = [
         entry("flash_attention", "flash_attention/csrc/flash_attention.cu", "flash_attention/kernel.py:103",
-              rows + rows_256 + rows_gemma + rows_16 + rows_8 + rows_whisper + rows_llama, rows[0]),
+              rows + rows_256 + rows_gemma + rows_16 + rows_8 + rows_whisper + rows_llama + rows_local, rows[0]),
         entry("rglru_scan", "rglru_scan/csrc/rglru_scan.cu", "rglru_scan/kernel.py:50", scan_rows, scan_rows[0]),
         entry("decode_attention", "decode_attention/csrc/decode_attention.cu", "decode_attention/kernel.py:201",
               decode_rows, decode_rows[0]),

@@ -13,9 +13,16 @@ model is placed and stepped with no memory allocated:
   * parameters, optimizer state, caches and the batch are DTensors placed
     by the port's own rules (``param_shardings``; the activation rules for
     caches and batches), so each rank holds its local block;
-  * the step runs as the port runs it under a mesh: a serving entry
-    gathers its params, caches and batch at use (``sharding.gather_tree``,
-    the gather of ``cold_start(mesh=)``) and computes replicated; a train
+  * the step runs as the port runs it under a mesh: a serving cell of a
+    family with a sharded forward (``zoo.sharded_forward``: the uniform GQA
+    stacks) on a ("data", "model") mesh with a dim above 1 traces the
+    sharded step on rank 0's blocks (``Model.prefill_sharded`` /
+    ``decode_step_sharded``: DP rows, per-weight FSDP gathers over
+    ``data``, TP / EP over ``model``, vocab-parallel embedding and head, the
+    decode caches' slots split over ``model``; see
+    ``models.transformer.prefill_sharded``), as ``cold_start(mesh=)``
+    serves them; the other serving cells gather their params, caches and
+    batch at use (``sharding.gather_tree``) and compute replicated; a train
     step is the Trainer's data parallelism (each rank its block of the
     batch rows, gradients averaged over the batch's mesh dims), on params
     cast to bf16 at their shards and gathered at use, with fp32 masters
@@ -60,10 +67,11 @@ import torch.distributed as dist
 from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, get_config, shape_applicable
 from repro_torch.launch.mesh import PRODUCTION
 from repro_torch.models.transformer import plain_versions
-from repro_torch.models.zoo import Model, build_model
+from repro_torch.models.zoo import Model, build_model, sharded_forward
 from repro_torch.optim import AdamWConfig, AdamWState, abstract_adamw, adamw_update
 from repro_torch.optim.adamw import clip_by_global_norm
 from repro_torch.sharding import param_shardings, resolve_pspec, use_mesh
+from repro_torch.sharding.comm import DistComm, mesh_dims_supported
 from repro_torch.sharding.rules import (
     ACT_RULES,
     NamedSharding,
@@ -73,6 +81,7 @@ from repro_torch.sharding.rules import (
     is_dtensor,
     local_box,
     mesh_sizes,
+    shard_tree,
     spec_shard_divisor,
 )
 from repro_torch.training.train_loop import accumulated_grads, data_parallel
@@ -202,10 +211,29 @@ def build_cell(arch: str, shape_name, mesh, *, logits_chunk: int = 512, remat: s
     p_sh = param_shardings(log_axes, abstract, mesh, fsdp=cfg.fsdp)
     arg_sh = tuple(_tree_shardings(ax, a, mesh) for ax, a in zip(entry.arg_axes, entry.args))
 
-    def serve_step(params, *args):
-        return entry.fn(gather_tree(params), *(gather_tree(a) for a in args))
+    if sharded_cell(cfg, mesh):
+        cache_specs = tree_map(lambda sh: sh.spec, arg_sh[0]) if shape.kind == "decode" else None
+
+        def serve_step(params, *args):
+            *caches, batch = args
+            comm = DistComm(mesh)  # at the trace: a cell may be built on a shape-only mesh
+            if cache_specs is None:
+                return model.prefill_sharded(shard_tree(params), shard_tree(batch), comm)
+            return model.decode_step_sharded(shard_tree(params), _local_tree(caches[0]), shard_tree(batch), comm,
+                                             cache_specs)
+    else:
+        def serve_step(params, *args):
+            return entry.fn(gather_tree(params), *(gather_tree(a) for a in args))
 
     return Cell(model, serve_step, (abstract, *entry.args), (p_sh, *arg_sh), 1, {})
+
+
+def sharded_cell(cfg, mesh) -> bool:
+    """True when a serving cell traces the sharded step (``zoo.
+    sharded_forward``: the uniform GQA stacks, on a ("data", "model") mesh
+    with a dim above 1); the other cells gather at use."""
+    sizes = mesh_sizes(mesh)
+    return sharded_forward(cfg) and mesh_dims_supported(tuple(sizes)) and any(n > 1 for n in sizes.values())
 
 
 def _local_tree(tree):

@@ -85,9 +85,15 @@ ranks, the leaves' shard divisors, the entries' kind). One process serves
 1x1; a larger mesh needs one process per rank,
 ``torchrun --nproc-per-node N -m repro_torch.launch.serve ... --mesh DxM``,
 and a geometry the world does not hold is a usage error. Every rank runs the
-same request on its own device and gathers the leaves at each forward run
-(compute is replicated, resident bytes are per shard); rank 0 writes the
-artifact and every file and prints every line. A multi-rank mesh serves the
+same request on its own device. The uniform GQA stacks (Mixtral, Yi, Phi-3,
+Mistral-Large; ``zoo.sharded_forward``) compute on each rank's shards: the
+batch rows split over ``data``, each weight's ``embed`` dim gathered over
+``data`` at its use, heads, ``ffn``, experts and vocab over ``model``, the
+decode caches' slots over ``model`` (``models.transformer.prefill_sharded``).
+Every other family gathers the leaves at each forward run and computes
+replicated. Resident bytes are per shard either way; rank 0 writes the
+artifact and every file and prints every line, the mesh line after the
+request (with the bytes each run's collectives moved). A multi-rank mesh serves the
 one-shot path only (the scheduler admits on each rank's own clock), and the
 fleet's replicas, as in the reference, serve without it.
 """
@@ -355,8 +361,6 @@ def _serve(args, mesh, rank: int) -> int:
                     admission=admission, restore_from=args.restore_from or None, mesh=mesh,
                     device=args.device) as server:
         print(f"[serve] cold start ({args.mode}):", json.dumps(server.report.to_dict(), default=float), flush=True)
-        if mesh is not None:
-            print("[serve] mesh: " + json.dumps(_mesh_summary(server, mesh)), flush=True)
         if server.restore_report is not None:
             rr = server.restore_report
             print(f"[serve] warm restore: {rr['restored']}/{rr['requested']} units resident "
@@ -367,6 +371,8 @@ def _serve(args, mesh, rank: int) -> int:
             failed = _serve_traffic(engine, args, cfg)
         else:
             _serve_one_shot(engine, args, cfg)
+        if mesh is not None:
+            print("[serve] mesh: " + json.dumps(_mesh_summary(server, mesh)), flush=True)
         # every kernel launch of this process (the warm set's and the request's)
         print("[serve] kernel launches: " + json.dumps({name: f.launches for name, f in kernel_wrappers().items()}))
         if server.tiered is not None:
@@ -415,17 +421,22 @@ def _serve(args, mesh, rank: int) -> int:
 
 
 def _mesh_summary(server, mesh) -> dict:
-    """The ``[serve] mesh:`` line: geometry, ranks, how many leaves have
-    each shard divisor, and the server's entries' kind (CUDA graphs need a
-    mesh of 1s on the card)."""
+    """The ``[serve] mesh:`` line, printed after the request: geometry,
+    ranks, how many leaves have each shard divisor, the server's entries'
+    kind (CUDA graphs need a mesh of 1s on the card), whether they compute
+    on shards (``compute``: "sharded", or "gathered" at use), and the bytes
+    this rank's collectives moved in the request's last prefill and decode
+    run (0 where no sharded run was made)."""
     model = server.model
     shardings = param_shardings(model.logical_axes(), model.abstract(), mesh, fsdp=bool(model.cfg.fsdp))
     divisors: dict = {}
     for _, sh in flatten_with_paths(shardings):
         d = str(spec_shard_divisor(sh.spec, mesh))
         divisors[d] = divisors.get(d, 0) + 1
+    per_step = {kind: runs[-1] if runs else 0 for kind, runs in server.collective_bytes.items()}
     return dict(geometry=mesh_label(mesh), ranks=mesh.size(), divisors=dict(sorted(divisors.items())),
-                entries=server.entry_kind)
+                entries=server.entry_kind, compute="sharded" if server.sharded else "gathered",
+                collective_bytes_per_step=per_step)
 
 
 def _serve_one_shot(engine: GenerationEngine, args, cfg, label: str = ""):

@@ -24,6 +24,7 @@ has a backward, and the reference trains with ``use_pallas=False``.
 
 from __future__ import annotations
 
+import math
 from dataclasses import replace
 from typing import Callable, Optional
 
@@ -305,3 +306,153 @@ def cross_attn_memory(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> t
     k = _split_heads(memory @ params["wk"].to(memory.dtype), Hkv)
     v = _split_heads(memory @ params["wv"].to(memory.dtype), Hkv)
     return k, v
+
+
+# -- sharded forms (a rank's local blocks; ``sharding.comm``) ------------------
+
+
+def _head_split(params: dict, cfg: ModelConfig, comm) -> tuple[bool, bool]:
+    """(q heads split, kv heads split) over ``model``: a projection keeps its
+    ``model`` split only where it falls between whole heads; otherwise it is
+    all-gathered over ``model`` and every rank computes all those heads."""
+    M = comm.size("model")
+    tp = "model" in params["wq"].split(1) and cfg.num_heads % M == 0
+    tp_kv = tp and "model" in params["wk"].split(1) and cfg.num_kv_heads % M == 0
+    return tp, tp_kv
+
+
+def _proj(w, x: torch.Tensor, comm, keep_model: bool) -> torch.Tensor:
+    return x @ w.gathered(comm, ("data",) if keep_model else ("data", "model")).to(x.dtype)
+
+
+def _local_kv(k: torch.Tensor, v: torch.Tensor, h0: int, n_heads: int, G: int):
+    """The kv heads the q heads [h0, h0 + n_heads) read, from all of them:
+    a contiguous run when the local q heads cover whole groups or sit in one
+    group, else one kv head per q head. Contiguous copies (the kernel reads
+    dense inputs)."""
+    if n_heads % G == 0:
+        sel = slice(h0 // G, h0 // G + n_heads // G)
+    elif G % n_heads == 0:
+        sel = slice(h0 // G, h0 // G + 1)
+    else:
+        sel = torch.tensor([(h0 + j) // G for j in range(n_heads)], device=k.device)
+    return k[:, :, sel].contiguous(), v[:, :, sel].contiguous()
+
+
+def gqa_forward_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, comm, *,
+                        causal: bool = True, window: Optional[int] = None, attend: Optional[Callable] = None):
+    """``gqa_forward`` on a rank's rows and heads: q (and k, v where the kv
+    heads divide ``model``) column-parallel, attention over the local q
+    heads with their own kv heads (the kernel takes ``H`` and ``Hkv`` at run
+    time), ``wo`` row-parallel with its partial sums all-reduced over
+    ``model``. Returns ``(out, (k, v))`` with the keys and values of every
+    kv head (gathered over ``model`` where split), for the cache."""
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    tp, tp_kv = _head_split(params, cfg, comm)
+    M = comm.size("model") if tp else 1
+    h_loc = H // M
+    q = _split_heads(_proj(params["wq"], x, comm, tp), h_loc)
+    k = _split_heads(_proj(params["wk"], x, comm, tp_kv), Hkv // M if tp_kv else Hkv)
+    v = _split_heads(_proj(params["wv"], x, comm, tp_kv), Hkv // M if tp_kv else Hkv)
+    q, k = apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+    if tp_kv or not tp:
+        ka, va = k, v
+    else:
+        ka, va = _local_kv(k, v, comm.index("model") * h_loc, h_loc, H // Hkv)
+    o = (attend or flash_attention)(q.contiguous(), ka, va, causal=causal, window=window,
+                                    softcap=cfg.attn_logit_softcap)
+    out = o.reshape(*o.shape[:2], h_loc * hd) @ params["wo"].gathered(
+        comm, ("data",) if tp else ("data", "model")).to(x.dtype)
+    if tp:
+        out = comm.all_reduce(out, "model")
+    if tp_kv:
+        k, v = comm.all_gather(k, "model", 2), comm.all_gather(v, "model", 2)
+    return out, (k, v)
+
+
+def _write_owned(cache: torch.Tensor, local: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """``_scatter_rows`` for a block of the cache's slots: each row lands at
+    its block-local slot ``local`` where the block owns it, and the other
+    rows leave the block as it was (in place; no host sync)."""
+    n = cache.shape[1]
+    owned = (local >= 0) & (local < n)
+    at = local.clamp(0, n - 1).long()
+    b = torch.arange(cache.shape[0], device=cache.device)
+    keep = cache[b, at]
+    shape = (-1,) + (1,) * (row.dim() - 1)
+    return cache.index_put_((b, at), torch.where(owned.view(shape), row.to(cache.dtype), keep))
+
+
+def gqa_decode_sharded(params: dict, x: torch.Tensor, pos: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, cfg: ModelConfig, comm, *, seq_dims: tuple = (),
+                       rolling_window: Optional[int] = None):
+    """``gqa_decode`` on a rank's rows and its block of the caches' slots
+    (``seq_dims``: the mesh dims the slot axis is split over, ``kv_seq`` →
+    ``model``). The new token's q and K/V come out for every head (all-
+    gathered over ``model`` where column-parallel), the K/V row is written
+    by the rank whose block holds its slot, and each rank takes the
+    attention over its own slots: its max, sum and weighted values are
+    combined over ``seq_dims`` (max, then sums), as split-KV decoding does.
+    ``wo`` is row-parallel over the local q heads. Returns ``(out, k_cache,
+    v_cache)``, the caches written in place."""
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B = x.shape[0]
+    tp, tp_kv = _head_split(params, cfg, comm)
+    M = comm.size("model") if tp else 1
+    q = _split_heads(_proj(params["wq"], x, comm, tp), H // M)
+    k = _split_heads(_proj(params["wk"], x, comm, tp_kv), Hkv // M if tp_kv else Hkv)
+    v = _split_heads(_proj(params["wv"], x, comm, tp_kv), Hkv // M if tp_kv else Hkv)
+    q, k = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0], apply_rope(k, pos[:, None], cfg.rope_theta)[:, 0]
+    v = v[:, 0]
+    if tp:
+        q = comm.all_gather(q, "model", 1)
+    if tp_kv:
+        k, v = comm.all_gather(k, "model", 1), comm.all_gather(v, "model", 1)
+    slot = pos % rolling_window if rolling_window else pos
+    n_loc = k_cache.shape[1]
+    start = 0
+    for ax in seq_dims:
+        start = start * comm.size(ax) + comm.index(ax)
+    start *= n_loc
+    k_cache = _write_owned(k_cache, slot - start, k)
+    v_cache = _write_owned(v_cache, slot - start, v)
+    if not seq_dims:
+        o = decode_attention_plain(q, k_cache, v_cache, pos + 1, rolling=rolling_window is not None,
+                                   softcap=cfg.attn_logit_softcap)
+    else:
+        o = _decode_partial(q, k_cache, v_cache, pos + 1, start, n_loc * math.prod(comm.size(a) for a in seq_dims),
+                            comm, seq_dims, rolling=rolling_window is not None, softcap=cfg.attn_logit_softcap)
+    if tp:
+        h0 = comm.index("model") * (H // M)
+        o = o[:, h0:h0 + H // M]
+    out = o.reshape(B, (H // M) * hd) @ params["wo"].gathered(comm, ("data",) if tp else ("data", "model")).to(x.dtype)
+    if tp:
+        out = comm.all_reduce(out, "model")
+    return out[:, None, :], k_cache, v_cache
+
+
+def _decode_partial(q, k_cache, v_cache, kv_len, start: int, total: int, comm, seq_dims: tuple, *,
+                    rolling: bool, softcap: Optional[float]) -> torch.Tensor:
+    """``decode_attention_plain`` over the slots [start, start + n) of a
+    cache of ``total`` slots, combined across ``seq_dims``: the scores' max
+    is all-reduced (max), then the exp-sums and the weighted values (sum);
+    a block with no valid slot contributes zeros."""
+    B, H, hd = q.shape
+    _, n, Hkv, _ = k_cache.shape
+    qg = q.reshape(B, Hkv, H // Hkv, hd).to(torch.float32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32)) * hd**-0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    idx = torch.arange(start, start + n, device=q.device)
+    limit = torch.clamp(kv_len, max=total) if rolling else kv_len
+    valid = (idx[None, :] < limit[:, None])[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    for ax in seq_dims:
+        m = comm.all_reduce(m, ax, "max")
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    for ax in seq_dims:
+        l, o = comm.all_reduce(l, ax), comm.all_reduce(o, ax)
+    return (o / l).reshape(B, H, hd).to(q.dtype)

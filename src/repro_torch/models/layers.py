@@ -97,3 +97,67 @@ def chunked_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor, chu
     for c in range(0, S, chunk):
         total = total + torch.sum(_xent(logits_from_embedding(x[:, c:c + chunk], table), labels[:, c:c + chunk]))
     return total / (B * S)
+
+
+# -- sharded forms (a rank's local blocks; ``sharding.comm``) ------------------
+#
+# Each takes ``Shard`` leaves (``sharding.rules.Shard``: the rank's block, the
+# leaf's whole shape and spec) and a ``Comm``. FSDP: a weight's ``embed`` dim
+# is all-gathered over ``data`` at its use and dropped after it. TP: a dim the
+# rules split over ``model`` stays split, and the partial sums it leaves are
+# all-reduced over ``model``.
+
+
+def swiglu_sharded(params: dict, x: torch.Tensor, comm) -> torch.Tensor:
+    """``swiglu`` with ``ffn`` column-parallel (gate, up) and row-parallel
+    (down) over ``model`` where the rules split it: the down projection's
+    partial sums are all-reduced over ``model``."""
+    g = x @ params["w_gate"].gathered(comm, ("data",)).to(x.dtype)
+    u = x @ params["w_up"].gathered(comm, ("data",)).to(x.dtype)
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    y = h @ params["w_down"].gathered(comm, ("data",)).to(x.dtype)
+    for ax in params["w_down"].split(0):
+        y = comm.all_reduce(y, ax)
+    return y
+
+
+def embed_sharded(table, tokens: torch.Tensor, dtype: torch.dtype, d_model: int, comm) -> torch.Tensor:
+    """Vocab-parallel ``embed``: each ``model`` rank looks up the ids inside
+    its vocab rows (zeros for the others) and the rows are summed over
+    ``model``; exactly one rank holds each id, so the sum is the row itself."""
+    t = table.gathered(comm, ("data",))
+    if not table.split(0):
+        x = t[tokens].to(dtype)
+    else:
+        local = tokens - table.start(0, comm)
+        inside = (local >= 0) & (local < t.shape[0])
+        x = torch.where(inside[..., None], t[local.clamp(0, t.shape[0] - 1)].to(dtype), 0)
+        for ax in table.split(0):
+            x = comm.all_reduce(x, ax)
+    return x * torch.tensor(math.sqrt(d_model), dtype=torch.float32).to(dtype)
+
+
+def logits_sharded(x: torch.Tensor, table) -> torch.Tensor:
+    """Vocab-parallel ``logits_from_embedding``: the logits of this rank's
+    vocab rows only (``table`` already gathered over ``data``)."""
+    return x @ table.to(x.dtype).T
+
+
+def greedy_sharded(logits: torch.Tensor, vocab_start: int, vocab_dims: tuple, batch_dims: tuple,
+                   comm) -> torch.Tensor:
+    """Greedy ids (int64) of every row of the batch, the same on every
+    rank, from each rank's (rows, vocab) block of the logits: each block's
+    max and its first index, all-gathered over the vocab's mesh dims, the
+    largest taken with ties to the lowest rank (so to the lowest id, as
+    ``torch.argmax``), then the rows all-gathered over the batch's."""
+    best, idx = logits.max(dim=-1)
+    idx = idx + vocab_start
+    if vocab_dims:
+        vals = torch.stack([best.to(torch.float32), idx.to(torch.float32)], dim=-1)[..., None, :]
+        for ax in reversed(vocab_dims):
+            vals = comm.all_gather(vals, ax, vals.dim() - 2)
+        pick = vals[..., 0].argmax(dim=-1, keepdim=True)
+        idx = vals[..., 1].gather(-1, pick)[..., 0].to(torch.int64)
+    for ax in reversed(batch_dims):
+        idx = comm.all_gather(idx, ax, 0)
+    return idx

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import swiglu, swiglu_spec
+from repro_torch.models.layers import swiglu, swiglu_sharded, swiglu_spec
 from repro_torch.models.spec import ParamSpec
 
 
@@ -107,5 +107,102 @@ def moe_forward(
     usage_ids = ids
     if usage_rows is not None:
         usage_ids = torch.where(usage_rows.reshape(T, 1), ids, E)
+    usage = torch.zeros(E + 1, dtype=torch.bool, device=x.device).scatter(0, usage_ids.reshape(-1), True)
+    return y, usage[:E]
+
+
+def moe_forward_sharded(
+    params: dict,  # Shard leaves (``sharding.rules.Shard``)
+    x: torch.Tensor,  # (B_loc, S, d): this rank's rows
+    cfg: ModelConfig,
+    comm,
+    *,
+    batch_dims: tuple = (),  # the mesh dims the batch rows are split over
+    serving: bool = False,
+    return_usage: bool = False,
+    usage_rows: torch.Tensor | None = None,  # (B, S) bool over the whole batch
+):
+    """``moe_forward`` on a rank's rows, with the routing kept global.
+
+    The router's contraction is split over ``model`` (its partial logits
+    all-reduced), then each rank takes the top-k of its own tokens. The
+    (token, choice) expert ids are all-gathered over ``batch_dims`` (T·k
+    ints), so the capacity ``C`` comes from the global T and every
+    position in an expert is the global cumsum's, in global token order:
+    the tokens kept and dropped are the unsharded layer's. A rank then runs
+    its own tokens through its own experts (EP where ``experts`` divides
+    ``model``, else every expert with ``ffn`` split over ``model``), the
+    expert weights all-gathered over ``data`` at use. Its tokens are a
+    contiguous run of the global order, so each expert's kept ones are a
+    prefix of them and fit a local capacity of ``min(C, T_loc)``. The
+    gate-weighted outputs are summed over ``model`` (the other experts'
+    choices, or the ``ffn`` partial sums). The usage mask is the global
+    one, the same on every rank."""
+    m: MoEConfig = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.top_k
+    T_loc = B * S
+    xf = x.reshape(T_loc, d)
+
+    router = params["router"].gathered(comm, ("data",)).to(torch.float32)
+    M = comm.size("model")
+    if M > 1 and d % M == 0:
+        c, j = d // M, comm.index("model")
+        logits = comm.all_reduce(xf.to(torch.float32)[:, j * c:(j + 1) * c] @ router[j * c:(j + 1) * c], "model")
+    else:
+        logits = xf.to(torch.float32) @ router
+    gate_w, ids = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+
+    all_ids, rank = ids.reshape(B, S * k), 0
+    for ax in reversed(batch_dims):
+        all_ids = comm.all_gather(all_ids, ax, 0)
+    for ax in batch_dims:
+        rank = rank * comm.size(ax) + comm.index(ax)
+    all_ids = all_ids.reshape(-1)
+    T = all_ids.numel() // k
+    C = capacity(m, T, serving=serving)
+    onehot = F.one_hot(all_ids, E)
+    first = rank * T_loc * k  # this rank's first (token, choice) in the global order
+    flat_ids = ids.reshape(-1)
+    pos = (torch.cumsum(onehot, dim=0) - onehot)[first:first + T_loc * k].gather(1, flat_ids[:, None])[:, 0]
+    keep = pos < C
+    pos_loc = pos - onehot[:first].sum(dim=0)[flat_ids]  # position among this rank's tokens
+
+    w = params["w_gate"]
+    e0, E_loc = (w.start(0, comm), w.local.shape[0]) if w.split(0) else (0, E)
+    C_loc = min(C, T_loc)
+    e_loc = flat_ids - e0
+    mine = keep & (e_loc >= 0) & (e_loc < E_loc)
+    slot = torch.where(mine, e_loc * C_loc + pos_loc, E_loc * C_loc)
+    token_idx = torch.arange(T_loc * k, device=x.device) // k
+    table = torch.full((E_loc * C_loc + 1,), T_loc, dtype=torch.int64, device=x.device)
+    table = table.scatter(0, slot, token_idx)[: E_loc * C_loc]
+
+    xg = torch.cat([xf, xf.new_zeros(1, d)], dim=0)[table].reshape(E_loc, C_loc, d)
+    g = torch.bmm(xg, w.gathered(comm, ("data",)).to(x.dtype))
+    u = torch.bmm(xg, params["w_up"].gathered(comm, ("data",)).to(x.dtype))
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    del g, u, xg
+    yg = torch.bmm(h, params["w_down"].gathered(comm, ("data",)).to(x.dtype))
+    del h
+
+    # each (token, choice) row's output (the clamped index of a row not kept
+    # here reads some slot, zeroed by ``mine``: no copy of ``yg`` with a zero row)
+    per_slot = yg.reshape(E_loc * C_loc, d)[torch.clamp(slot, max=E_loc * C_loc - 1)]
+    del yg
+    per_slot = torch.where(mine[:, None], per_slot, torch.zeros_like(per_slot))
+    y = (per_slot.reshape(T_loc, k, d) * gate_w[..., None].to(x.dtype)).sum(dim=1)
+    for ax in dict.fromkeys(w.split(0) + w.split(2)):
+        y = comm.all_reduce(y, ax)
+
+    if m.num_shared_experts:
+        y = y + swiglu_sharded(params["shared"], xf, comm)
+    y = y.reshape(B, S, d)
+    if not return_usage:
+        return y
+    usage_ids = all_ids.reshape(T, k)
+    if usage_rows is not None:
+        usage_ids = torch.where(usage_rows.reshape(T, 1), usage_ids, E)
     usage = torch.zeros(E + 1, dtype=torch.bool, device=x.device).scatter(0, usage_ids.reshape(-1), True)
     return y, usage[:E]

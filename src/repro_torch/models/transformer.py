@@ -66,16 +66,19 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     chunked_xent,
     embed,
+    embed_sharded,
     embedding_spec,
     logits_from_embedding,
+    logits_sharded,
     rmsnorm,
     rmsnorm_spec,
     softmax_xent,
     swiglu,
+    swiglu_sharded,
     swiglu_spec,
 )
 from repro_torch.models.spec import ParamSpec, stack_specs
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import PartitionSpec, constrain, spec_dims
 from repro_torch.utils.tree import tree_map
 
 
@@ -533,3 +536,137 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
     logits = logits_from_embedding(x[:, 0, :], _logits_table(cfg, params))
     return logits, new_caches
 
+
+
+# -- the sharded step (uniform GQA stacks under a mesh; ``zoo.SHARDED``) -----
+#
+# Each rank computes on its own blocks: ``params`` are ``Shard`` leaves
+# (``sharding.rules.Shard``), the batch entries too (the rank's rows), the
+# decode caches its local blocks in their ``cache_axes`` layout. Collectives
+# go through ``comm`` (``sharding.comm``). See ``prefill_sharded``.
+
+
+def _rows(batch: dict) -> tuple:
+    """The mesh dims the batch rows are split over, and their layout spec."""
+    dims = batch["tokens"].split(0)
+    return dims, PartitionSpec(dims or None)
+
+
+def _sharded_mlp(cfg, p, h, comm, dims, cache: dict, usage_rows=None):
+    """The block's MLP on a rank's rows (``moe_forward_sharded`` or
+    ``swiglu_sharded``); a MoE block's usage mask goes into ``cache``."""
+    if "moe" not in p:
+        return swiglu_sharded(p["dense"], h, comm)
+    out = moe_mod.moe_forward_sharded(p["moe"], h, cfg, comm, batch_dims=dims, serving=True,
+                                      return_usage=cfg.collect_moe_usage, usage_rows=usage_rows)
+    if not cfg.collect_moe_usage:
+        return out
+    cache["moe_usage"] = out[1]
+    return out[0]
+
+
+def _sharded_block(cfg, kind, p, x, positions, comm, rows):
+    eps = cfg.norm_eps
+    dims, layout = rows
+    h = rmsnorm(x, p["norm1"].gathered(comm), eps)
+    o, (k, v) = attn.gqa_forward_sharded(p["attn"], h, positions, cfg, comm, causal=True,
+                                         window=_kind_window(cfg, kind),
+                                         attend=flash_attention_plain if _PLAIN_VERSIONS.on else None)
+    x = x + o
+    cache = {"k": constrain(k, _CACHE_KV_AXES, comm=comm, layout=layout),
+             "v": constrain(v, _CACHE_KV_AXES, comm=comm, layout=layout)}
+    y = _sharded_mlp(cfg, p, rmsnorm(x, p["norm2"].gathered(comm), eps), comm, dims, cache)
+    return constrain(x + y, ("batch", "seq", "embed"), comm=comm, layout=layout), cache
+
+
+_CACHE_KV_AXES = ("batch", "kv_seq", "kv_heads", None)
+
+
+def _sharded_sections(cfg: ModelConfig):
+    """(section, key, kind, group) of every block in stack order; ``group``
+    is the scanned group's index (None for lead / tail blocks)."""
+    lay = stack_layout(cfg)
+    out = [("lead", f"b{i}", kind, None) for i, kind in enumerate(lay.lead_kinds)]
+    for gi in range(lay.n_groups):
+        out += [("groups", f"u{j}", kind, gi) for j, kind in enumerate(lay.unit_kinds)]
+    return out + [("tail", f"b{i}", kind, None) for i, kind in enumerate(lay.tail_kinds)]
+
+
+def prefill_sharded(cfg: ModelConfig, params: dict, batch: dict, comm):
+    """``prefill`` on a rank's blocks. Returns (this rank's (rows, vocab
+    rows) block of the last-token logits, caches): DP splits the rows over
+    ``batch``'s mesh dims; FSDP gathers each weight's ``embed`` dim over
+    ``data`` at its use; TP keeps heads and ``ffn`` column-parallel and the
+    output projections row-parallel (all-reduced over ``model``); EP or
+    TP-within-expert as the rules resolve ``experts``; the embedding and the
+    head are vocab-parallel. Each K/V cache comes out as its block of the
+    ``cache_axes`` layout (``kv_seq`` over ``model``), the usage masks whole.
+    On a mesh of 1s the collectives are no-ops and the math is ``prefill``'s."""
+    rows = _rows(batch)
+    tokens = batch["tokens"].local
+    B, S = tokens.shape
+    x = embed_sharded(params["embed"], tokens, _model_dtype(cfg), cfg.d_model, comm)
+    x = constrain(x, ("batch", "seq", "embed"), comm=comm, layout=rows[1])
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    caches: dict = {}
+    groups: dict = {}
+    for section, key, kind, gi in _sharded_sections(cfg):
+        p = params[section][key] if gi is None else _select(params[section], gi)[key]
+        x, c = _sharded_block(cfg, kind, p, x, positions, comm, rows)
+        if gi is None:
+            caches.setdefault(section, {})[key] = c
+        else:
+            groups.setdefault(key, []).append(c)
+    if groups:
+        caches["groups"] = {key: _stack(cs) for key, cs in groups.items()}
+    x = rmsnorm(x[:, -1, :], params["final_norm"].gathered(comm), cfg.norm_eps)
+    table = _logits_table(cfg, params)
+    return logits_sharded(x, table.gathered(comm, ("data",))), caches
+
+
+def decode_step_sharded(cfg: ModelConfig, params: dict, caches: dict, batch: dict, comm, cache_specs: dict):
+    """``decode_step`` on a rank's blocks (see ``prefill_sharded``):
+    ``caches`` are this rank's blocks in the ``cache_specs`` layout, K/V
+    written in place by the rank that holds the new slot; the attention is
+    combined over the slot axis's mesh dims (split-KV). ``active`` (whole
+    batch, gathered from the rows) gates the usage masks as in
+    ``decode_step``. Returns (the logits block, new caches)."""
+    rows = _rows(batch)
+    dims, layout = rows
+    tokens, pos = batch["tokens"].local, batch["pos"].local
+    usage_rows = None
+    if "active" in batch:
+        usage_rows = batch["active"].local.to(torch.int32)
+        for ax in reversed(dims):
+            usage_rows = comm.all_gather(usage_rows, ax, 0)
+        usage_rows = usage_rows.to(torch.bool)[:, None]
+    x = embed_sharded(params["embed"], tokens, _model_dtype(cfg), cfg.d_model, comm)
+    new_caches: dict = {}
+    for section, key, kind, gi in _sharded_sections(cfg):
+        p = params[section][key] if gi is None else _select(params[section], gi)[key]
+        cache = caches[section][key] if gi is None else _select(caches[section], gi)[key]
+        seq_dims = spec_dims(cache_specs[section][key]["k"], 1 if gi is None else 2)  # the slot axis
+        window = _kind_window(cfg, kind)
+        n_slots = cache["k"].shape[1] * math.prod(comm.size(a) for a in seq_dims)
+        eps = cfg.norm_eps
+        h = rmsnorm(x, p["norm1"].gathered(comm), eps)
+        o, k, v = attn.gqa_decode_sharded(p["attn"], h, pos, cache["k"], cache["v"], cfg, comm, seq_dims=seq_dims,
+                                          rolling_window=window if window is not None and n_slots == window else None)
+        x = x + o
+        c = {"k": k, "v": v}
+        y = _sharded_mlp(cfg, p, rmsnorm(x, p["norm2"].gathered(comm), eps), comm, dims, c, usage_rows)
+        x = constrain(x + y, ("batch", "seq", "embed"), comm=comm, layout=layout)
+        if gi is None:
+            new_caches.setdefault(section, {})[key] = c
+            continue
+        out_c = new_caches.setdefault(section, {}).setdefault(key, {})
+        for name, t in c.items():
+            if t is cache.get(name):  # written in place through the group's view
+                out_c[name] = caches[section][key][name]
+            else:
+                if name not in out_c:
+                    out_c[name] = t.new_empty((stack_layout(cfg).n_groups, *t.shape))
+                out_c[name][gi] = t
+    x = rmsnorm(x[:, 0, :], params["final_norm"].gathered(comm), cfg.norm_eps)
+    table = _logits_table(cfg, params)
+    return logits_sharded(x, table.gathered(comm, ("data",))), new_caches

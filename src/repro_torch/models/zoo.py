@@ -7,6 +7,11 @@ Analyzer traces without allocating: ``train_step`` (the loss), ``prefill``
 and ``decode_step``. A modal family (Whisper, the VLM) registers each entry
 twice, a multimodal one and its ``_text_only`` twin, as the reference does;
 a text-only deployment recognizes only the twins.
+
+Under a mesh of more than one rank, ``sharded_forward(cfg)`` is the one rule
+of which families compute on shards (``Model.prefill_sharded`` /
+``decode_step_sharded``): the uniform GQA stacks, dense or MoE (Mixtral, Yi,
+Phi-3, Mistral-Large). Every other family gathers its params at use.
 """
 
 from __future__ import annotations
@@ -40,6 +45,16 @@ _CACHE_AXES = {
     "C": ("batch", "heads", None, None), "n": ("batch", "heads", None), "m": ("batch", "heads"),
 }
 _S_CACHE_AXES = ("batch", "heads", None)  # every leaf of an sLSTM block
+
+
+def sharded_forward(cfg: ModelConfig) -> bool:
+    """True for the families whose served entries and dry-run serving cells
+    compute on a rank's shards under a mesh: every layer a GQA self-attention
+    block (no MLA, recurrence, xLSTM, local/global pattern, cross-attention
+    or encoder) and an untied head. The others keep gather-at-use."""
+    return (cfg.mla is None and cfg.recurrent is None and cfg.xlstm is None and cfg.local_global_pattern is None
+            and cfg.vlm is None and cfg.encdec is None and not cfg.tie_embeddings
+            and set(cfg.attn_kinds) == {"self"})
 
 
 @dataclass(frozen=True)
@@ -124,6 +139,14 @@ class Model:
         if "active" not in batch:
             raise ValueError("decode_step_masked needs batch['active'] (B,) bool")
         return tf.decode_step(self.cfg, params, caches, batch)
+
+    def prefill_sharded(self, params, batch, comm):
+        """``prefill`` on a rank's shards (``transformer.prefill_sharded``)."""
+        return tf.prefill_sharded(self.cfg, params, batch, comm)
+
+    def decode_step_sharded(self, params, caches, batch, comm, cache_specs):
+        """``decode_step`` on a rank's shards (``transformer.decode_step_sharded``)."""
+        return tf.decode_step_sharded(self.cfg, params, caches, batch, comm, cache_specs)
 
     # -- caches --------------------------------------------------------------
     def _block_cache_template(self, kind: str, B: int, S_max: int, multimodal: bool) -> dict:

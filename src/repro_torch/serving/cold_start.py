@@ -87,8 +87,27 @@ from repro_torch.core.optional_store import OptionalStore
 from repro_torch.core.prefetch import Prefetcher, TransitionPredictor
 from repro_torch.core.retier_daemon import RetierDaemon
 from repro_torch.kernels import kernel_wrappers
-from repro_torch.models.zoo import Model
-from repro_torch.sharding.rules import gather_tree, param_shardings, place, place_zeros, spec_shard_divisor
+from repro_torch.models.layers import greedy_sharded
+from repro_torch.models.zoo import Model, sharded_forward
+from repro_torch.sharding.comm import DistComm, mesh_dims_supported
+from repro_torch.sharding.rules import (
+    ACT_RULES,
+    Shard,
+    act_specs,
+    block_of,
+    comm_mesh,
+    gather_axis,
+    gather_tree,
+    graft_block,
+    param_shardings,
+    place,
+    place_zeros,
+    resolve_pspec,
+    shard_tree,
+    spec_dims,
+    spec_of,
+    spec_shard_divisor,
+)
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
 
 # prefill entries outside the warm set a server keeps (least recently used out)
@@ -253,7 +272,15 @@ class ColdStartServer:
         self.admission = admission
         self.kv_page_size = kv_page_size
         self.kv_pages = kv_pages
-        self.mesh = mesh  # the params are DTensors on it; each entry gathers them
+        self.mesh = mesh  # the params are DTensors on it
+        # a multi-rank mesh: the families with a sharded forward compute on
+        # each rank's shards (``comm``), the others gather at use
+        self.comm = None
+        if mesh is not None and mesh.size() > 1 and sharded_forward(model.cfg) \
+                and mesh_dims_supported(mesh.mesh_dim_names):
+            self.comm = DistComm(mesh)
+        # collective bytes of each sharded forward run, per entry kind
+        self.collective_bytes: dict = {"prefill": [], "decode": []}
         self.restore_report: Optional[dict] = None  # set by cold_start(restore_from=)
         # a fleet joiner's warm bootstrap, {"seconds", "bytes"}: set by cold_start(fleet=)
         self.fleet_bootstrap: Optional[dict] = None
@@ -289,6 +316,11 @@ class ColdStartServer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    @property
+    def sharded(self) -> bool:
+        """True when the entries compute on this rank's shards."""
+        return self.comm is not None
 
     @property
     def entry_kind(self) -> str:
@@ -344,17 +376,96 @@ class ColdStartServer:
                          for k, v in batch_spec.items()}
                 caches = None
                 if cache_shape is not None:
-                    caches = self.model.init_cache(*cache_shape, multimodal=False, device=self.device)
+                    if self.sharded:  # this rank's blocks in the cache_axes layout
+                        caches = tree_map(lambda b: torch.zeros(b.shape, dtype=b.dtype, device=self.device),
+                                          self._cache_blocks(*cache_shape))
+                    else:
+                        caches = self.model.init_cache(*cache_shape, multimodal=False, device=self.device)
             cls = EagerEntry
             if self.entry_kind == "graph":
                 cls = GraphEntry
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
-            if self.mesh is not None:
+            if self.sharded:
+                fn = self._sharded(key[0], batch_spec, cache_shape)
+            elif self.mesh is not None:
                 fn = _gathered(fn)
             gate = self.tiered.gate if self.tiered is not None else None
             self._compiled[key] = cls(fn, self.live_params(), batch, caches, gate=gate, pool=self._pool)
         return self._compiled[key]
+
+    # -- the sharded entries ---------------------------------------------------
+    def _cache_specs(self, B: int, S: int) -> dict:
+        """The ``cache_axes`` spec of every cache leaf at (B, S) on the mesh."""
+        return act_specs(self.model.cache_axes(B, S, multimodal=False),
+                         self.model.abstract_cache(B, S, multimodal=False), self.comm)
+
+    def _cache_blocks(self, B: int, S: int) -> dict:
+        """Meta tensors of this rank's cache blocks at (B, S)."""
+        return _zip_map(lambda leaf, spec: block_of(leaf, spec, self.comm),
+                        self.model.abstract_cache(B, S, multimodal=False), self._cache_specs(B, S))
+
+    def _sharded(self, kind: str, batch_spec: dict, cache_shape: Optional[tuple]) -> Callable:
+        """The entry's function on this rank's shards: the whole batch (every
+        rank holds it) cut to the rank's rows by the activation rules, the
+        params' local blocks, the decode caches' blocks; it logs the bytes
+        its collectives moved."""
+        comm, model = self.comm, self.model
+        entry_kind = "prefill" if kind == "prefill" else "decode"
+        axes = model.batch_axes(batch_spec, entry_kind)
+        specs = act_specs(axes, batch_spec, comm)
+        cache_specs = self._cache_specs(*cache_shape) if cache_shape is not None else None
+
+        def run(params, *args):
+            *caches, batch = args
+            rows = {k: Shard(block_of(batch[k], specs[k], comm), tuple(batch[k].shape), specs[k]) for k in batch}
+            before = comm.moved_bytes
+            if cache_specs is None:
+                out = model.prefill_sharded(shard_tree(params), rows, comm)
+            else:
+                out = model.decode_step_sharded(shard_tree(params), caches[0], rows, comm, cache_specs)
+            self.collective_bytes[entry_kind].append(comm.moved_bytes - before)
+            return out
+        return run
+
+    def _rows_of(self, B: int) -> tuple:
+        """The mesh dims a batch of B rows is split over."""
+        return spec_dims(resolve_pspec(("batch",), (B,), comm_mesh(self.comm), ACT_RULES), 0)
+
+    def _head(self) -> Shard:
+        h = self.live_params()["head"]
+        return Shard(h.to_local(), tuple(h.shape), spec_of(h))
+
+    def next_tokens(self, logits: torch.Tensor, B: int) -> torch.Tensor:
+        """Greedy ids (B,) of an entry's logits: ``torch.argmax``, or on the
+        sharded server the argmax across the ranks' vocab blocks (every rank
+        gets every row's id)."""
+        if not self.sharded:
+            return torch.argmax(logits, dim=-1)
+        head = self._head()
+        return greedy_sharded(logits, head.start(0, self.comm), head.split(0), self._rows_of(B), self.comm)
+
+    def whole_logits(self, logits: torch.Tensor, B: int) -> torch.Tensor:
+        """An entry's logits as the whole (B, V) array (all-gathered over the
+        vocab's and the rows' mesh dims on the sharded server)."""
+        if not self.sharded:
+            return logits
+        logits = gather_axis(logits, 1, self._head().split(0), self.comm)
+        return gather_axis(logits, 0, self._rows_of(B), self.comm)
+
+    def graft_prefill(self, decode: EagerEntry, caches: Any, B: int, S: int, S_max: int) -> Any:
+        """``engine._graft_prefill_cache`` on the sharded server: a (B, S)
+        prefill's cache blocks written into the (B, S_max) decode entry's own
+        blocks as prefixes, each rank its block of the decode layout
+        (``sharding.rules.graft_block``). Returns the decode entry's caches."""
+        small_specs, big_specs = self._cache_specs(B, S), self._cache_specs(B, S_max)
+        small_abs = dict(flatten_with_paths(self.model.abstract_cache(B, S, multimodal=False)))
+        big_abs = dict(flatten_with_paths(self.model.abstract_cache(B, S_max, multimodal=False)))
+        fs, fb, big = dict(flatten_with_paths(small_specs)), dict(flatten_with_paths(big_specs)), \
+            dict(flatten_with_paths(decode.caches))
+        for path, small in flatten_with_paths(caches):
+            graft_block(big[path], fb[path], big_abs[path].shape, small, fs[path], small_abs[path].shape, self.comm)
+        return decode.caches
 
     def compiled_prefill(self, B: int, S: int) -> EagerEntry:
         """The prefill entry at (B, S): ``entry(params, batch)``. Serving is
@@ -374,6 +485,12 @@ class ColdStartServer:
         usage masks, so a free slot never faults a unit in."""
         return self._entry(("decode_masked", B, S_max), self.model.decode_step_masked,
                            self.model.decode_masked_batch_spec(B), (B, S_max))
+
+
+def _zip_map(fn: Callable, tree: Any, other: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
 
 
 def _gathered(fn: Callable) -> Callable:
@@ -429,12 +546,22 @@ def cold_start(
     of each tier-0 leaf (cut from the bundle every rank reads, no collective)
     and of each tier-1 placeholder. The residency budget and the arbiter
     charge each unit its bytes per shard (``TieredParams(shard_divisors=)``),
-    and a preset's budget is its fraction of the charged tier-1 bytes. The
-    kernels take plain tensors, so every entry gathers the leaves when it
-    runs and compute is replicated across ranks: resident bytes are per
-    shard, the gathered copies last one forward run. On a mesh of 1s the
-    gather is the local tensor itself, and the warm set is still captured
-    as CUDA graphs; on a larger mesh the entries run eagerly
+    and a preset's budget is its fraction of the charged tier-1 bytes. On a
+    mesh with a dim above 1, a family with a sharded forward
+    (``zoo.sharded_forward``: Mixtral, Yi, Phi-3, Mistral-Large) computes on
+    each rank's shards (``ColdStartServer.sharded``): each entry cuts the
+    batch to the rank's rows and runs ``Model.prefill_sharded`` /
+    ``decode_step_sharded`` on the params' local blocks, gathering one
+    weight's ``embed`` dim over ``data`` at its use, with TP / EP over
+    ``model``; a decode entry's caches are the rank's blocks in the
+    ``cache_axes`` layout (their slots over ``model``). Its logits are the
+    rank's (rows, vocab rows) block: ``next_tokens`` takes the argmax across
+    ranks, ``whole_logits`` gathers them, ``graft_prefill`` moves a
+    prefill's cache blocks into the decode layout. Every other family's
+    entries gather the leaves when they run and compute replicated; the
+    gathered copies last one forward run. On a mesh of 1s nothing is sharded
+    or gathered (the local tensor is the leaf), and the warm set is still
+    captured as CUDA graphs; on a larger mesh the entries run eagerly
     (``ColdStartServer.entry_kind``)."""
     if residency is not None and residency not in RESIDENCY_PRESETS:
         raise ValueError(f"unknown residency policy {residency!r}; want one of {sorted(RESIDENCY_PRESETS)}")

@@ -26,6 +26,14 @@ between makes a run computed on placeholder zeros look complete there.
 The monolithic servers (before/after1) have no tiered params: nothing
 faults and nothing is hinted.
 
+On a server that computes on shards (``ColdStartServer.sharded``: a
+multi-rank mesh, a family with a sharded forward) an entry's logits are the
+rank's (rows, vocab rows) block and its caches the rank's blocks: greedy ids
+come from ``server.next_tokens`` (the argmax across ranks), the prefill's
+caches reach the decode caches through ``server.graft_prefill``, and the
+usage masks are the global ones, the same on every rank, so every rank
+faults the same experts and ``TieredParams.missing`` sees the same keys.
+
 Every forward run goes through the server's compiled entries
 (``ColdStartServer.compiled_prefill`` / ``compiled_decode``): CUDA graphs
 replayed on the card, the plain model calls on the CPU. A decode step writes
@@ -238,15 +246,17 @@ class GenerationEngine:
         return [f"embed#rg{g}" for g in np.unique(top // self._row_group)]
 
     def _hint_next_step(self, logits, expert_keys: list[str], stats: RequestStats,
-                        accessed: list[str] = ()) -> None:
+                        accessed: list[str] = (), B: int = 0) -> None:
         """Warm the units the next step will likely touch: the learned
         successors of what this step accessed (with a predictor), then the
-        row groups of the top-k candidate tokens and this step's experts."""
+        row groups of the top-k candidate tokens and this step's experts.
+        On a sharded server the logits are a rank's block: the top-k reads
+        the whole (B, V), gathered first."""
         if self.prefetcher is None:
             return
         if accessed:
             stats.hinted_units += self.prefetcher.observe(accessed)
-        hints = list(expert_keys) + self.topk_row_hints(logits)
+        hints = list(expert_keys) + self.topk_row_hints(self.server.whole_logits(logits, B))
         if hints:
             stats.hinted_units += self.prefetcher.hint(hints)
 
@@ -286,7 +296,7 @@ class GenerationEngine:
                 tiered.release(step_pins)
         # hint after release: evicted or still-cold predictions are loadable now
         if hint:
-            self._hint_next_step(logits, expert_keys, stats, accessed=accessed + expert_keys)
+            self._hint_next_step(logits, expert_keys, stats, accessed=accessed + expert_keys, B=tokens.shape[0])
         return logits, _strip_usage(caches), expert_keys
 
     def decode_once(self, decode_fn, caches: Any, dbatch: dict, stats: RequestStats, *,
@@ -326,7 +336,8 @@ class GenerationEngine:
             if tiered is not None and step_pins:
                 tiered.release(step_pins)
         if hint:
-            self._hint_next_step(logits, expert_keys, stats, accessed=accessed + expert_keys)
+            self._hint_next_step(logits, expert_keys, stats, accessed=accessed + expert_keys,
+                                 B=dbatch["tokens"].shape[0])
         return logits, caches, expert_keys
 
     # -- request path -----------------------------------------------------------
@@ -345,8 +356,11 @@ class GenerationEngine:
         device = tokens.device
         decode = self.server.compiled_decode(B, self.max_seq)
         logits, caches, _ = self.prefill_step(tokens, stats)
-        caches = _graft_prefill_cache(decode.caches, caches)
-        out = [torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()]
+        if self.server.sharded:
+            caches = self.server.graft_prefill(decode, caches, B, S, self.max_seq)
+        else:
+            caches = _graft_prefill_cache(decode.caches, caches)
+        out = [self.server.next_tokens(logits, B).to(torch.int32).cpu().numpy()]
         self.tick_retier()  # between steps, after the prefill's outputs are read
         stats.steps = 1  # the prefill-produced token is step #1
         for step in range(n_steps - 1):
@@ -355,7 +369,7 @@ class GenerationEngine:
                 "pos": torch.full((B,), S + step, dtype=torch.int64, device=device),
             }
             logits, caches, _ = self.decode_once(decode, caches, dbatch, stats)
-            out.append(torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy())
+            out.append(self.server.next_tokens(logits, B).to(torch.int32).cpu().numpy())
             stats.steps += 1
             self.tick_retier()
         if tiered is not None:

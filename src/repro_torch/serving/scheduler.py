@@ -312,6 +312,10 @@ class ContinuousBatchingScheduler:
                  kv_page_size: Optional[int] = None, kv_pages: Optional[int] = None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if engine.server.sharded:
+            # its slot grafts and greedy ids read whole caches and logits, and
+            # each rank would admit on its own clock
+            raise ValueError("the scheduler serves no server that computes on shards (a multi-rank mesh)")
         self.engine = engine
         self.server = engine.server
         self.model = engine.model

@@ -25,6 +25,14 @@ resolves the production geometries without 256 ranks), or an object with
 ``DeviceMesh``. A spec entry naming several mesh dims is split in mesh-dim
 order (the first dim outermost), which is the only order DTensor knows;
 every candidate tuple of the rules lists its dims in that order.
+
+Local blocks, for a step that computes on shards (``sharding.comm``):
+``Shard`` holds a rank's block of a leaf with its whole shape and spec, and
+gathers it over chosen mesh dims (``Shard.gathered``: FSDP's gather of one
+weight at its use); ``shard_tree`` takes a ``DTensor`` tree's blocks,
+``cut_tree`` cuts whole arrays; ``constrain(comm=...)`` / ``relayout`` move
+a local block between two specs, and ``graft_block`` writes a prefix of one
+sharded array into another.
 """
 
 from __future__ import annotations
@@ -285,13 +293,178 @@ def gather_tree(tree):
     return tree_map(gather, tree)
 
 
-def constrain(x, axes: Sequence[Optional[str]]):
-    """The activation rules under the ambient mesh: a ``DTensor`` is
-    redistributed to the resolved placements; a plain tensor is returned as
-    it is (eager PyTorch has no layout to propagate), and so is anything
-    when no mesh is set."""
+def constrain(x, axes: Sequence[Optional[str]], *, comm=None, layout: Optional[PartitionSpec] = None):
+    """The activation rules. With ``comm`` (a sharded step, ``sharding.
+    comm``), ``x`` is a rank's local block laid out as ``layout`` and comes
+    back as its block of the resolved spec (``relayout``). Otherwise under
+    the ambient mesh a ``DTensor`` is redistributed to the resolved
+    placements; a plain tensor is returned as it is (eager PyTorch has no
+    layout to propagate), and so is anything when no mesh is set."""
+    if comm is not None:
+        layout = layout if layout is not None else PartitionSpec()
+        shape = global_shape(x.shape, layout, comm)
+        return relayout(x, layout, resolve_pspec(axes, shape, comm_mesh(comm), _STATE.act_rules), comm)
     mesh = _STATE.mesh
     if mesh is None or not is_dtensor(x):
         return x
     spec = resolve_pspec(axes, x.shape, mesh, _STATE.act_rules)
     return x.redistribute(mesh, NamedSharding(mesh, spec).placements())
+
+
+# -- local blocks (the sharded step's view of a leaf) ------------------------
+
+
+def comm_mesh(comm) -> MeshShape:
+    """The dim names and sizes of a ``Comm``'s mesh, for ``resolve_pspec``."""
+    return MeshShape(tuple(comm.sizes), tuple(comm.sizes.values()))
+
+
+def spec_dims(spec: PartitionSpec, axis: int) -> tuple:
+    """The mesh dims ``spec`` splits tensor ``axis`` over (``()``: whole)."""
+    return _entry_names(spec[axis]) if axis < len(spec) else ()
+
+
+def global_shape(local_shape: Sequence[int], spec: PartitionSpec, comm) -> tuple:
+    """The whole array's shape of a block laid out as ``spec``."""
+    return tuple(n * math.prod(comm.size(ax) for ax in spec_dims(spec, a)) for a, n in enumerate(local_shape))
+
+
+def block_of(whole, spec: PartitionSpec, comm):
+    """This rank's block of a whole array under ``spec`` (a view; a dim
+    split over several mesh dims is split in mesh-dim order)."""
+    index = []
+    for a, n in enumerate(whole.shape):
+        names = spec_dims(spec, a)
+        parts = math.prod(comm.size(ax) for ax in names)
+        if n % parts:
+            raise ValueError(f"dim of {n} split {parts} ways is uneven: shape {tuple(whole.shape)}, {spec}")
+        i = 0
+        for ax in names:
+            i = i * comm.size(ax) + comm.index(ax)
+        index.append(slice(i * (n // parts), (i + 1) * (n // parts)))
+    return whole[tuple(index)]
+
+
+def gather_axis(x, axis: int, names: Sequence[str], comm):
+    """The block ``x``, split on tensor ``axis`` over mesh dims ``names`` (in
+    mesh order), all-gathered over each of them: the innermost first."""
+    for ax in reversed(tuple(names)):
+        x = comm.all_gather(x, ax, axis)
+    return x
+
+
+def relayout(x, src: PartitionSpec, dst: PartitionSpec, comm):
+    """A local block laid out as ``src`` as its block under ``dst``: each
+    tensor dim is all-gathered over the mesh dims ``src`` splits it on and
+    ``dst`` does not, then cut for those ``dst`` adds (no collective)."""
+    if tuple(spec_dims(src, a) for a in range(x.dim())) == tuple(spec_dims(dst, a) for a in range(x.dim())):
+        return x
+    for a in range(x.dim()):
+        if spec_dims(src, a) != spec_dims(dst, a) and spec_dims(src, a):
+            x = gather_axis(x, a, spec_dims(src, a), comm)
+    cut = PartitionSpec(*(spec_dims(dst, a) if spec_dims(src, a) != spec_dims(dst, a) else None for a in range(x.dim())))
+    return block_of(x, cut, comm)
+
+
+@dataclass(frozen=True)
+class Shard:
+    """One leaf as a sharded step holds it: this rank's block (``local``), the
+    leaf's whole ``shape`` and its ``spec``."""
+    local: Any
+    shape: tuple
+    spec: PartitionSpec
+
+    def split(self, axis: int) -> tuple:
+        """The mesh dims tensor ``axis`` is split over (``()``: whole)."""
+        return spec_dims(self.spec, axis)
+
+    def gathered(self, comm, over: Sequence[str] = ("data", "model")):
+        """The block all-gathered over the mesh dims in ``over``, one tensor
+        dim at a time (the others stay split)."""
+        x = self.local
+        for a in range(x.dim()):
+            names = tuple(ax for ax in self.split(a) if ax in over)
+            if names:
+                x = gather_axis(x, a, names, comm)
+        return x
+
+    def start(self, axis: int, comm) -> int:
+        """Where this rank's block starts along tensor ``axis`` of the whole."""
+        i = 0
+        for ax in self.split(axis):
+            i = i * comm.size(ax) + comm.index(ax)
+        return i * self.local.shape[axis]
+
+    def __getitem__(self, i: int) -> "Shard":
+        """Group ``i`` of a stacked leaf (its leading dim is never split)."""
+        if self.split(0):
+            raise ValueError(f"the stacked dim of {self.shape} is split: {self.spec}")
+        return Shard(self.local[i], self.shape[1:], PartitionSpec(*self.spec[1:]))
+
+
+def spec_of(x) -> PartitionSpec:
+    """A ``DTensor``'s placements as a spec over its mesh's dim names."""
+    from torch.distributed.tensor import Shard as DShard
+
+    names = x.device_mesh.mesh_dim_names
+    entries: list = [()] * x.dim()
+    for name, p in zip(names, x.placements):
+        if isinstance(p, DShard):
+            entries[p.dim] = entries[p.dim] + (name,)
+    out = [None if not e else e[0] if len(e) == 1 else e for e in entries]
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
+def shard_tree(tree):
+    """``Shard`` leaves of a tree of ``DTensor``s (the local blocks, no copy)."""
+    return tree_map(lambda x: Shard(x.to_local(), tuple(x.shape), spec_of(x)), tree)
+
+
+def cut_tree(tree, specs, comm):
+    """``Shard`` leaves of this rank's blocks of a tree of whole arrays,
+    each cut by its spec in ``specs`` (a matching tree of ``PartitionSpec``)."""
+    if isinstance(tree, dict):
+        return {k: cut_tree(v, specs[k], comm) for k, v in tree.items()}
+    return Shard(block_of(tree, specs, comm), tuple(tree.shape), specs)
+
+
+def act_specs(axes_tree, shapes_tree, comm) -> Any:
+    """The activation rules' spec of every leaf of a tree (its logical axes in
+    ``axes_tree``, its whole shape from ``shapes_tree``'s leaves)."""
+    if isinstance(axes_tree, dict):
+        return {k: act_specs(v, shapes_tree[k], comm) for k, v in axes_tree.items()}
+    return resolve_pspec(axes_tree, tuple(shapes_tree.shape), comm_mesh(comm), _STATE.act_rules)
+
+
+def graft_block(big, big_spec: PartitionSpec, big_shape: Sequence[int], small, small_spec: PartitionSpec,
+                small_shape: Sequence[int], comm) -> None:
+    """``serving.engine.graft_prefix`` on blocks: write the whole array of
+    ``small`` (a block under ``small_spec``) into the whole array of ``big``
+    (a block under ``big_spec``) as a prefix, zeros after it, each rank into
+    its own block in place. A dim where the two agree in size and split is
+    copied block to block; any other is all-gathered whole over the dims
+    that split ``small`` and cut at ``big``'s block. A prefix longer than
+    ``big`` raises ValueError, as ``graft_prefix`` does."""
+    if any(s > b for s, b in zip(small_shape, big_shape)):
+        raise ValueError(f"a prefill cache of shape {tuple(small_shape)} does not fit the decode cache "
+                         f"{tuple(big_shape)}: the prompt is longer than a rolling window")
+    src, dst = [], []
+    for a in range(big.dim()):
+        if big_shape[a] == small_shape[a] and spec_dims(big_spec, a) == spec_dims(small_spec, a):
+            src.append(slice(None))
+            dst.append(slice(None))
+            continue
+        if spec_dims(small_spec, a):
+            small = gather_axis(small, a, spec_dims(small_spec, a), comm)
+        i = 0
+        for ax in spec_dims(big_spec, a):
+            i = i * comm.size(ax) + comm.index(ax)
+        lo, n = i * big.shape[a], big.shape[a]
+        hi = min(lo + n, small_shape[a])
+        src.append(slice(lo, max(lo, hi)))
+        dst.append(slice(0, max(0, hi - lo)))
+    if tuple(big.shape) != tuple(small.shape) or any(s != slice(None) for s in src):
+        big.zero_()
+    big[tuple(dst)] = small[tuple(src)]

@@ -26,9 +26,13 @@ as data parallelism over the mesh dims that ``ACT_RULES["batch"]``
 resolves the batch to: each rank takes its block of the batch rows (all
 rows when those dims do not divide the batch), the gradients and the loss
 are averaged over those dims before the AdamW update, so every rank keeps
-the same replicated params, and only rank 0 writes checkpoints. The
-kernels take plain tensors, so the params stay whole on every rank (the
-serving side's gather-at-use, with nothing to gather). On a mesh whose
+the same replicated params, and only rank 0 writes checkpoints. Training
+keeps the params whole on every rank and computes replicated but for its
+batch rows, as the serving side's gather-at-use does for the families
+without a sharded forward; the served entries of the uniform GQA stacks
+compute on shards (``models.transformer.prefill_sharded``), and a sharded
+training step (sharded gradients, the dry run's train cells) is not ported
+yet. On a mesh whose
 batch dims are all 1 nothing is split or reduced, and a step is bit-equal
 to the step with no mesh. The GPipe forward is ``training.pipeline``.
 """

@@ -217,12 +217,31 @@ def _port_cell(arch, mesh, kind, remat="full"):
                            extra_cfg=dict(_reduced_fields(arch), remat=remat))
 
 
+def _router_gap(arch: str, mesh: tuple, kind: str) -> int:
+    """Per-device dot FLOPs the reference counts and the port does not, at
+    2×2. One op: reduced Mixtral's prefill router. The reference's GSPMD
+    runs it on each data rank's 128 tokens whole over ``model`` (a
+    (128, 64) × (64, 4) dot per layer), the port splits its contraction
+    over ``model`` and all-reduces the partial logits (a (128, 32) × (32, 4)
+    dot), as both do in decode: 2 layers × 32,768 = 65,536 FLOPs, 0.21% of
+    the reference's 30,605,312. Every other dot of the four cells is the
+    reference's quarter."""
+    if arch != "mixtral-8x22b" or kind != "prefill" or mesh == (1, 1):
+        return 0
+    cfg = get_reduced(arch)
+    D, M = mesh
+    return cfg.num_layers * (4 * 64 // D) * cfg.d_model * cfg.moe.num_experts * 2 * (M - 1) // M
+
+
 @pytest.mark.parametrize("arch", PARITY_ARCHS)
 def test_dryrun_cells_match_the_reference(arch, reference_cells):
     """At 1×1 and 2×2: params, active params and model FLOPs equal; the
-    arguments' bytes per device equal (prefill, decode, train); global dot
-    FLOPs equal at 1×1 for prefill and decode; and every record's argument
-    bytes equal the closed form of its shardings."""
+    arguments' bytes per device equal (prefill, decode, train); dot FLOPs
+    per device equal for prefill and decode (the port's ``hlo_dot_flops /
+    num_chips`` against the reference's compiled per-device count; at 2×2
+    the serving cells compute on shards, up to the one op of
+    ``_router_gap``); and every record's argument bytes equal the closed
+    form of its shardings."""
     for mesh in MESHES:
         for kind in KINDS:
             ref = reference_cells[(arch, mesh, kind, "full")]
@@ -232,8 +251,9 @@ def test_dryrun_cells_match_the_reference(arch, reference_cells):
                 assert rec[key] == ref[key], (mesh, kind, key)
             args = rec["memory"]["argument_size_in_bytes"]
             assert args == ref["argument_size_in_bytes"] == rec["closed_form_argument_bytes"], (mesh, kind)
-            if mesh == (1, 1) and kind != "train":
-                assert rec["hlo_dot_flops"] == ref["dot_flops"], kind
+            if kind != "train":
+                per_device = rec["hlo_dot_flops"] / rec["num_chips"]
+                assert ref["dot_flops"] - per_device == _router_gap(arch, mesh, kind), (mesh, kind)
             assert rec["collective_bytes"] == 0.0 if mesh == (1, 1) else rec["collective_bytes"] > 0
 
 
@@ -264,23 +284,70 @@ def test_dryrun_train_flops_match_the_reference(remat, reference_cells):
             assert abs(gap) <= 0.02 * ref["dot_flops"]
 
 
-def _implied_gather_bytes(leaf_bytes: int, spec, sizes: dict) -> int:
-    """Result bytes of the all-gathers that bring one block to the whole
-    leaf, one mesh dim at a time (every dim of the production mesh is 16)."""
+def _implied_gather_bytes(leaf_bytes: int, spec, sizes: dict, over=("data", "model")) -> int:
+    """Result bytes of the all-gathers that grow one block over the mesh
+    dims in ``over``, one tensor dim at a time in dim order (the others stay
+    split)."""
     dims = [ax for e in spec for ax in ((e,) if isinstance(e, str) else e or ())]
     block = leaf_bytes // math.prod(sizes[d] for d in dims)
     total = 0
     for d in dims:
-        block *= sizes[d]
-        total += block
+        if d in over:
+            block *= sizes[d]
+            total += block
     return total
+
+
+def _sharded_prefill_collectives(cfg, B: int, S: int, sizes: dict, leaves: dict) -> int:
+    """Closed form of the collective bytes per device of the sharded prefill
+    (``models.transformer.prefill_sharded``), bf16 activations:
+
+      * FSDP: every param leaf's ``embed`` dim all-gathered over ``data``
+        once per layer (its stacked groups' once each). An attention
+        projection whose ``model`` split does not fall between whole heads
+        (q heads: H % model; kv heads: Hkv % model, and the q heads split)
+        is all-gathered over ``model`` too;
+      * the vocab-parallel embedding's rows all-reduced over ``model``;
+      * per layer: ``wo``'s partial sums all-reduced over ``model`` when the
+        q heads are split; the K/V of split kv heads all-gathered over
+        ``model`` for the cache; the MoE router's partial logits (fp32)
+        all-reduced over ``model``, the expert ids (int64, T·k) all-gathered
+        over ``data`` and the expert outputs all-reduced over ``model``; a
+        dense MLP's down projection all-reduced over ``model``."""
+    D, M = sizes["data"], sizes["model"]
+    H, Hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    B_loc = B // D if B % D == 0 else B
+    T_loc = B_loc * S
+    tp = H % M == 0 and (H * hd) % M == 0
+    tp_kv = tp and Hkv % M == 0
+    total = 0
+    for path, (nbytes, spec) in leaves.items():
+        name = path.rsplit(".", 1)[-1]
+        whole_heads = {"wq": tp, "wo": tp, "wk": tp_kv, "wv": tp_kv}.get(name, True) if ".attn." in path else True
+        total += _implied_gather_bytes(nbytes, spec, sizes, ("data",) if whole_heads else ("data", "model"))
+    act = 2 * T_loc * d if cfg.vocab_size % M == 0 and M > 1 else 0
+    per_layer = 0
+    if tp and M > 1:
+        per_layer += 2 * T_loc * d
+    if tp_kv and M > 1:
+        per_layer += 2 * 2 * B_loc * S * Hkv * hd
+    if cfg.moe is not None:
+        E, k, f = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.expert_d_ff
+        per_layer += 4 * T_loc * E if M > 1 and d % M == 0 else 0
+        per_layer += 8 * B * S * k if D > 1 and B % D == 0 else 0
+        per_layer += 2 * T_loc * d if M > 1 and (E % M == 0 or f % M == 0) else 0
+    elif cfg.d_ff % M == 0 and M > 1:
+        per_layer += 2 * T_loc * d
+    return total + act + cfg.num_layers * per_layer
 
 
 def test_reduced_cell_on_the_production_mesh():
     """Reduced Mixtral's prefill (B=16, S=64) on a fake 16×16 world: its
     arguments' bytes equal the closed form from the shardings over
-    ``production_mesh_shape()``, and its collective bytes are exactly the
-    all-gathers that ``gather_tree`` implies for its sharded leaves."""
+    ``production_mesh_shape()``, and its collective bytes equal the closed
+    form of the sharded step (``_sharded_prefill_collectives``: per-layer
+    FSDP gathers plus the activation reductions), far under the all-gather
+    of the whole tree that gather-at-use paid."""
     shape = ShapeSpec("prefill_b16s64", 64, 16, "prefill")
     rec = dryrun.run_cell("mixtral-8x22b", shape, device="cpu", out_dir=None, verbose=False,
                           extra_cfg=_reduced_fields("mixtral-8x22b"))
@@ -297,8 +364,11 @@ def test_reduced_cell_on_the_production_mesh():
     nbytes = [(leaf.numel() * leaf.element_size(), spec) for leaf, spec in leaves]
     closed = sum(b // spec_shard_divisor(spec, mesh) for b, spec in nbytes)
     assert rec["memory"]["argument_size_in_bytes"] == closed == rec["closed_form_argument_bytes"]
-    assert rec["collective_bytes"] == sum(_implied_gather_bytes(b, spec, sizes) for b, spec in nbytes)
-    assert set(rec["collectives"]["bytes"]) == {"all-gather"}
+    params = {p: (leaf.numel() * leaf.element_size(), sh[p].spec) for p, leaf in flatten_with_paths(abstract)}
+    want = _sharded_prefill_collectives(model.cfg, 16, 64, sizes, params)
+    assert rec["collective_bytes"] == want
+    assert want < sum(_implied_gather_bytes(b, spec, sizes) for b, spec in nbytes)  # the whole-tree gather
+    assert set(rec["collectives"]["bytes"]) == {"all-gather", "all-reduce"}
     assert rec["fits"] and rec["memory"]["temp_size_in_bytes"] > 0
 
 

@@ -307,7 +307,8 @@ def test_launcher_serves_a_one_rank_mesh_as_no_mesh(tmp_path):
             got.pop("fault_s"), want.pop("fault_s")
         assert got == want, prefix
     mesh = json.loads(re.search(r"^\[serve\] mesh: (.*)$", res.stdout, re.M).group(1))
-    assert mesh == {"geometry": "1x1", "ranks": 1, "divisors": {"1": mesh["divisors"]["1"]}, "entries": "eager"}
+    assert mesh == {"geometry": "1x1", "ranks": 1, "divisors": {"1": mesh["divisors"]["1"]}, "entries": "eager",
+                    "compute": "gathered", "collective_bytes_per_step": {"prefill": 0, "decode": 0}}
     assert "[serve] mesh:" not in plain.stdout
 
 
