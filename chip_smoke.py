@@ -20,14 +20,16 @@ Phases (any failure exits non-zero before the result line):
    Hkv=16, hd=128: B=2 × 1024 with window 1024 and with none, B=1 × 4096
    with window 1024), at Whisper's decoder widths (H=Hkv=8, hd 64: G = 1,
    B=2 × 448), at Llama-3.2-Vision's self layers' (H=64, Hkv=8, hd 128,
-   B=2 × 1024), at one of 16 ``model`` ranks of Mixtral's sharded prefill
-   (H=3, Hkv=1, hd 128, B=2 × 1024, window 4096: [mesh] (d)'s launches),
-   and at the reduced configs' head dims, which the wrapper
+   B=2 × 1024), at one of 16 ``model`` ranks of the sharded prefills of
+   [mesh] (d) (B=2 × 1024: Mixtral's H=3, Hkv=1, hd 128, window 4096;
+   Gemma-3's H=2, Hkv=1, hd 128, window 1024 and none; RecurrentGemma's
+   H=1, Hkv=1, hd 256, window 2048), and at the reduced configs' head dims, which the wrapper
    zero-pads to 64 (reduced Mixtral H=4, Hkv=2,
    hd 16, window 32; reduced Yi H=8, Hkv=2, hd 8); error ≤ 1e-2 per unit of
    max(1, |output|) (bf16 output rounding); each row prints its TFLOP/s and
    its share of the bound. The RG-LRU scan in fp32 at
-   (B, S, W) = (2, 1024, 4096) and (1, 8192, 4096): bit for bit (and so
+   (B, S, W) = (2, 1024, 4096), (1, 8192, 4096) and one of 16 ranks'
+   channels, (2, 1024, 256): bit for bit (and so
    within 1e-5 per unit of max(1, |s|)), with the lane plan's blocks.
    Times with CUDA events: kernel, plain version, and for attention
    ``F.scaled_dot_product_attention`` on the same function (``is_causal``,
@@ -227,13 +229,19 @@ Phases (any failure exits non-zero before the result line):
    ``gpipe_forward`` over a 1-stage mesh equals ``stage_fn`` on each
    microbatch and ``compressed_psum`` over a 1-rank ``pod`` dim equals
    ``dequantize_int8(quantize_int8(g))``, bit for bit. (d) In the serial
-   section before [dryrun] (b), compute on shards at full width:
-   Mixtral-8x22B cut to its first layer, B=2 × 1024, as the 16 ``model``
-   ranks of the production mesh run one after another in this process
+   section before [dryrun] (b), compute on shards at full width, B=2 ×
+   1024, each family of MESH_FAMILIES as the 16 ``model`` ranks of the
+   production mesh run one after another in this process
    (``sharding.comm.run_ranks``), each from its own copies of its blocks:
-   logits within MESH_LOGITS_REL_TOL of max |logit| of the unsharded
-   layer, greedy ids across ranks equal where no near-tie, 16 flash
-   launches (H=3, Hkv=1).
+   Mixtral-8x22B's first layer, Gemma-3-27B's first 5:1 unit (6 layers),
+   DeepSeek-V2-Lite's dense lead and one MoE layer, RecurrentGemma-9B's
+   rec, rec, attn. Each: logits within MESH_LOGITS_REL_TOL of max |logit|
+   of the unsharded layers, greedy ids across ranks equal where no
+   near-tie, its collective bytes a rank, and its launches: flash 16 / 96
+   / 0 / 16 (one a rank an attention layer, at its own heads), scan 0 / 0
+   / 0 / 32 (one a rank a rec layer, at its 256 channels). DeepSeek's bf16
+   run is printed and its fp32-compute run held, within MESH_FP32_REL_TOL
+   (its router flips experts at near-ties under bf16 rounding).
 12. dryrun — the production-mesh dry run (``launch.dryrun``), no kernel
    launched (its cells run the plain versions, as the reference lowers with
    ``use_pallas=False``). (b) In the serial section after [deepseek], with
@@ -429,6 +437,24 @@ DRYRUN_STEP_REPS = 7  # timed steps (the median is kept)
 # doubled reduction (a whole rank's share, ~1/16 of the output or more)
 MESH_SHARD_RANKS = 16
 MESH_LOGITS_REL_TOL = 0.05
+# DeepSeek-V2-Lite's top-6-of-64 router turns a bf16 rounding difference
+# into another expert wherever two choices nearly tie, and one such flip on
+# a compared row moves its logits by a share no tolerance separates from a
+# missing reduction (8.69% of max |logit| on the card, no row clear of a
+# near-tie). Its layers are held in fp32 compute instead (bf16 weights cast
+# at use; MLA and the MoE launch no kernel), where the ranks' partial sums
+# differ only by fp32 rounding (3e-6 of max |logit| on the card); the bf16
+# run is printed, not held
+MESH_FP32_REL_TOL = 1e-3
+# [mesh] (d)'s families: (arch, depth, compute dtype, limit as a share of
+# max |logit|, None for a run printed and not held). Mixtral's first layer,
+# one 5:1 unit of Gemma-3, DeepSeek's dense lead layer and one MoE layer,
+# RecurrentGemma's rec, rec, attn (every block kind of each stack once)
+MESH_FAMILIES = (("mixtral-8x22b", 1, "bfloat16", MESH_LOGITS_REL_TOL),
+                 ("gemma3-27b", 6, "bfloat16", MESH_LOGITS_REL_TOL),
+                 ("deepseek-v2-lite-16b", 2, "bfloat16", None),
+                 ("deepseek-v2-lite-16b", 2, "float32", MESH_FP32_REL_TOL),
+                 ("recurrentgemma-9b", 3, "bfloat16", MESH_LOGITS_REL_TOL))
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
     ((H, HKV, HD), [(BATCH, PROMPT, 4096, True, None),
@@ -455,6 +481,12 @@ FLASH_ROWS = (
     # one of the 16 "model" ranks of Mixtral's sharded prefill ([mesh] (d)):
     # its 3 local q heads read one kv head (G = 6 does not divide 16 ranks)
     ((H // MESH_SHARD_RANKS, 1, HD), [(BATCH, PROMPT, 4096, True, None)]),
+    # one of the 16 ranks of Gemma-3's sharded prefill: 2 q heads, 1 kv head,
+    # its local layers' window and its global layers' none
+    ((GEMMA_H // MESH_SHARD_RANKS, GEMMA_HKV // MESH_SHARD_RANKS, GEMMA_HD),
+     [(BATCH, PROMPT, GEMMA_WINDOW, True, None), (BATCH, PROMPT, None, True, None)]),
+    # one of the 16 ranks of RecurrentGemma's: 1 q head against the MQA head
+    ((RG_H // MESH_SHARD_RANKS, RG_HKV, RG_HD), [(BATCH, PROMPT, RG_WINDOW, True, None)]),
 )
 
 
@@ -614,7 +646,8 @@ def scan_phase(lru_ops, plans: bool = True) -> list[dict]:
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rows = []
-    for B, S, W in ((BATCH, PROMPT, RG_WIDTH), (1, 8192, RG_WIDTH)):
+    # the served prefill, a longer one, and one of 16 "model" ranks' channels ([mesh] (d))
+    for B, S, W in ((BATCH, PROMPT, RG_WIDTH), (1, 8192, RG_WIDTH), (BATCH, PROMPT, RG_WIDTH // MESH_SHARD_RANKS)):
         # decays in RecurrentGemma's band (a = sigmoid(Λ)^(c·r) ∈ (0, 1))
         a = torch.rand(B, S, W, generator=gen, device="cuda") * 0.5 + 0.499
         b = torch.randn(B, S, W, generator=gen, device="cuda")
@@ -2135,18 +2168,23 @@ def check_mesh_launch(run: dict, after2: dict) -> dict:
     return summary
 
 
-def mesh_shard_phase(wrappers: dict) -> dict:
-    """[mesh] (d) Compute on shards at full width: Mixtral-8x22B cut to its
-    first layer (embed, one attention + 8-expert MoE layer, head; seeded
-    bf16 weights), one prefill of B=2 × 1024, as the 16 ``model`` ranks of
-    the production mesh (data 1 × model 16). The ranks run one after another
-    on the card (``sharding.comm.run_ranks``), each from its own copies of
-    its blocks (``cut_tree`` by the param rules), with every reduction done
-    in this process. The ranks' logits blocks, put together, are held to the
-    unsharded prefill's within MESH_LOGITS_REL_TOL of its max |logit|, and
-    their greedy ids (``greedy_sharded``, the same on every rank) to its
-    argmax on every row whose top-2 margin is over twice the measured error. Each rank launches the flash kernel once, at its 3
-    local q heads against 1 kv head: 16 launches."""
+def _mesh_shard_family(arch: str, layers: int, dtype: str, tol, wrappers: dict) -> dict:
+    """One family of [mesh] (d): ``arch`` at full width cut to ``layers``
+    layers (seeded bf16 weights, ``dtype`` compute), one prefill of B=2 ×
+    1024, unsharded and
+    then as the 16 ``model`` ranks of the production mesh (data 1 × model
+    16) run one after another on the card (``sharding.comm.run_ranks``),
+    each from its own copies of its blocks (``cut_tree`` by the param
+    rules), with every reduction done in this process. The ranks' logits
+    blocks, put together, are held to the unsharded prefill's within
+    ``tol`` of its max |logit| (printed only where ``tol`` is None), and
+    their greedy ids
+    (``greedy_sharded`` over the head's table, a tied model's embedding; the
+    same on every rank) to its argmax on every row whose top-2 margin is
+    over twice the measured error. Each rank launches the flash kernel once
+    an attention layer at its own q heads (none for MLA, whose prefill is
+    plain as the reference's) and the scan once a rec layer at its own
+    channels."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2157,7 +2195,7 @@ def mesh_shard_phase(wrappers: dict) -> dict:
     from repro_torch.utils.tree import tree_map
 
     t0 = time.perf_counter()
-    cfg = get_config("mixtral-8x22b").replace(num_layers=1)
+    cfg = get_config(arch).replace(num_layers=layers, dtype=dtype)
     model = build_model(cfg, param_dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=torch.Generator().manual_seed(1)).cuda()
@@ -2165,7 +2203,10 @@ def mesh_shard_phase(wrappers: dict) -> dict:
     sizes = {"data": 1, "model": MESH_SHARD_RANKS}
     specs = tree_map(lambda sh: sh.spec, param_shardings(model.logical_axes(), model.abstract(),
                                                          MeshShape(tuple(sizes), tuple(sizes.values()))))
-    flash = wrappers["flash_attention"]
+    kinds = cfg.attn_kinds
+    n_rec = sum(k == "rec" for k in kinds)
+    want = {"flash_attention": 0 if cfg.mla is not None else (len(kinds) - n_rec) * MESH_SHARD_RANKS,
+            "rglru_scan": n_rec * MESH_SHARD_RANKS}
     with torch.inference_mode():
         whole = model.prefill(params, batch)[0].float()
         torch.cuda.synchronize()
@@ -2185,7 +2226,8 @@ def mesh_shard_phase(wrappers: dict) -> dict:
             rows = cut_tree(batch, act_specs({"tokens": ("batch", "seq")}, batch, comm), comm)
             p = shards[comm.coord["model"]]
             logits = model.prefill_sharded(p, rows, comm)[0]
-            ids = greedy_sharded(logits, p["head"].start(0, comm), p["head"].split(0), (), comm)
+            table = model.logits_table(p)
+            ids = greedy_sharded(logits, table.start(0, comm), table.split(0), (), comm)
             return logits, ids, comm.moved_bytes
 
         out = run_ranks(sizes, rank)
@@ -2199,23 +2241,41 @@ def mesh_shard_phase(wrappers: dict) -> dict:
     clear = (top2[:, 0] - top2[:, 1]) > 2 * err  # no error this size can move such a row's argmax
     ids_equal = bool(torch.equal(out[0][1][clear], whole.argmax(-1)[clear]))
     same_ids = all(torch.equal(o[1], out[0][1]) for o in out)
-    summary = dict(ranks=MESH_SHARD_RANKS, max_abs_err=err, max_abs_logit=scale, rel_err=err / scale,
-                   ids_equal_where_clear=ids_equal, rows_clear=int(clear.sum()), ids_same_on_every_rank=same_ids,
-                   sharded_s=sharded_s, collective_bytes_per_rank=out[0][2], launches=launches,
-                   wall_s=time.perf_counter() - t0)
+    summary = dict(arch=arch, layers=layers, dtype=dtype, limit=tol, kinds=list(kinds), ranks=MESH_SHARD_RANKS,
+                   max_abs_err=err,
+                   max_abs_logit=scale, rel_err=err / scale, ids_equal_where_clear=ids_equal,
+                   rows_clear=int(clear.sum()), ids_same_on_every_rank=same_ids, sharded_s=sharded_s,
+                   collective_bytes_per_rank=out[0][2], launches=launches, wall_s=time.perf_counter() - t0)
     print("[mesh] (d) " + json.dumps(summary), flush=True)
-    print(f"[mesh] (d) Mixtral-8x22B layer 1 of 56 at full width, B={BATCH} × {PROMPT}, as {MESH_SHARD_RANKS} "
-          f"model ranks one after another: logits max |Δ| {err:.4g} against the unsharded layer ({err / scale:.2%} of "
-          f"max |logit| {scale:.4g}; limit {MESH_LOGITS_REL_TOL:.0%}), greedy ids "
+    limit = "printed, not held" if tol is None else f"limit {tol:.1%}"
+    print(f"[mesh] (d) {arch} {layers} of {get_config(arch).num_layers} layers at full width, {dtype} compute, "
+          f"B={BATCH} × {PROMPT}, as {MESH_SHARD_RANKS} model ranks one after another: logits max |Δ| {err:.4g} "
+          f"against the unsharded layers ({err / scale:.4%} of max |logit| {scale:.4g}; {limit}), greedy ids "
           f"{'equal' if ids_equal else 'DIFFER'} on {int(clear.sum())} of {BATCH} rows clear of a near-tie; "
-          f"{out[0][2]} B of collectives a rank; flash launches {launches['flash_attention']}", flush=True)
+          f"{out[0][2]} B of collectives a rank; flash launches {launches['flash_attention']}, scan launches "
+          f"{launches['rglru_scan']}", flush=True)
     del shards, out, got, whole
     torch.cuda.empty_cache()
-    if not err <= MESH_LOGITS_REL_TOL * scale or not ids_equal or not same_ids:
-        raise AssertionError(f"[mesh] (d) the sharded layer differs from the unsharded one: {summary}")
-    if launches["flash_attention"] != MESH_SHARD_RANKS:
-        raise AssertionError(f"[mesh] (d) flash launches {launches}: want one a rank")
+    if tol is not None and not (err <= tol * scale and ids_equal) or not same_ids:
+        raise AssertionError(f"[mesh] (d) the sharded {arch} differs from the unsharded one: {summary}")
+    if {name: launches[name] for name in want} != want:
+        raise AssertionError(f"[mesh] (d) {arch} launches {launches}: want {want}")
     return summary
+
+
+def mesh_shard_phase(wrappers: dict) -> dict:
+    """[mesh] (d) Compute on shards at full width, each of MESH_FAMILIES as
+    16 ``model`` ranks against its unsharded layers (``_mesh_shard_family``):
+    Mixtral-8x22B's first layer (3 q heads a rank against one kv head: 16
+    flash launches), Gemma-3-27B's first 5:1 unit (2 q heads and 1 kv head a
+    rank, window 1024 and none: 96), DeepSeek-V2-Lite's dense lead layer and
+    one MoE layer (4 of 64 experts a rank, MLA plain: none) and
+    RecurrentGemma-9B's rec, rec, attn (256 of 4096 channels a rank through
+    the scan: 32; one q head against the MQA head: 16). DeepSeek runs twice:
+    in bf16, printed, and in fp32 compute, held (MESH_FP32_REL_TOL). Returns
+    each run's summary by "arch" (bf16) or "arch-fp32"."""
+    return {arch if dtype == "bfloat16" else f"{arch}-fp32": _mesh_shard_family(arch, layers, dtype, tol, wrappers)
+            for arch, layers, dtype, tol in MESH_FAMILIES}
 
 
 def mesh_train_phase(model, tc, data, ckpt: Path, workdir: Path, wrappers: dict) -> dict:
@@ -3202,7 +3262,8 @@ def main(argv: list[str] | None = None) -> int:
         print(_gpu_line())
         return 0
     t_phase = time.perf_counter()
-    rows, rows_256, rows_gemma, rows_16, rows_8, rows_whisper, rows_llama, rows_local = [
+    rows, rows_256, rows_gemma, rows_16, rows_8, rows_whisper, rows_llama, rows_local, rows_gemma_local, \
+        rows_rg_local = [
         flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)
     decode_rows = decode_phase(da_ops)
@@ -3239,8 +3300,9 @@ def main(argv: list[str] | None = None) -> int:
         paths[arch] = zoo_phase(arch, layers, fa_ops, wrappers, workdir)["launches"]
         phase_s[f"serve {arch}"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    paths["mesh-16-ranks-layer"] = mesh_shard_phase(wrappers)["launches"]
-    phase_s["mesh (d) 16 model ranks, one layer"] = time.perf_counter() - t_phase
+    for arch, summary in mesh_shard_phase(wrappers).items():
+        paths[f"mesh-16-ranks-{arch}"] = summary["launches"]
+    phase_s["mesh (d) 16 model ranks, four families"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     paths["dryrun-1x1-anchor"] = dryrun_anchor_phase(wrappers)["launches"]  # its fake world ends here
     phase_s["dryrun (b) 1x1 anchor"] = time.perf_counter() - t_phase
@@ -3317,7 +3379,10 @@ def main(argv: list[str] | None = None) -> int:
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"}), ("mesh-1x1-launcher", {"flash_attention"}),
                          ("xlstm-125m-train-mesh", set()), ("dryrun-1x1-anchor", set()),
-                         ("mesh-16-ranks-layer", {"flash_attention"})):
+                         ("mesh-16-ranks-mixtral-8x22b", {"flash_attention"}),
+                         ("mesh-16-ranks-gemma3-27b", {"flash_attention"}), ("mesh-16-ranks-deepseek-v2-lite-16b", set()),
+                         ("mesh-16-ranks-deepseek-v2-lite-16b-fp32", set()),
+                         ("mesh-16-ranks-recurrentgemma-9b", {"flash_attention", "rglru_scan"})):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
         if stray:
             raise AssertionError(f"the {path} serve path launched {stray}")
@@ -3331,7 +3396,8 @@ def main(argv: list[str] | None = None) -> int:
 
     kernels = [
         entry("flash_attention", "flash_attention/csrc/flash_attention.cu", "flash_attention/kernel.py:103",
-              rows + rows_256 + rows_gemma + rows_16 + rows_8 + rows_whisper + rows_llama + rows_local, rows[0]),
+              rows + rows_256 + rows_gemma + rows_16 + rows_8 + rows_whisper + rows_llama + rows_local
+              + rows_gemma_local + rows_rg_local, rows[0]),
         entry("rglru_scan", "rglru_scan/csrc/rglru_scan.cu", "rglru_scan/kernel.py:50", scan_rows, scan_rows[0]),
         entry("decode_attention", "decode_attention/csrc/decode_attention.cu", "decode_attention/kernel.py:201",
               decode_rows, decode_rows[0]),

@@ -14,12 +14,12 @@ model is placed and stepped with no memory allocated:
     by the port's own rules (``param_shardings``; the activation rules for
     caches and batches), so each rank holds its local block;
   * the step runs as the port runs it under a mesh: a serving cell of a
-    family with a sharded forward (``zoo.sharded_forward``: the uniform GQA
-    stacks) on a ("data", "model") mesh with a dim above 1 traces the
+    family with a sharded forward (``zoo.sharded_forward``: every family
+    but xLSTM, Whisper and the VLM) on a ("data", "model") mesh with a dim above 1 traces the
     sharded step on rank 0's blocks (``Model.prefill_sharded`` /
     ``decode_step_sharded``: DP rows, per-weight FSDP gathers over
     ``data``, TP / EP over ``model``, vocab-parallel embedding and head, the
-    decode caches' slots split over ``model``; see
+    decode caches' slots (and the RG-LRU's channels) split over ``model``; see
     ``models.transformer.prefill_sharded``), as ``cold_start(mesh=)``
     serves them; the other serving cells gather their params, caches and
     batch at use (``sharding.gather_tree``) and compute replicated; a train
@@ -230,8 +230,9 @@ def build_cell(arch: str, shape_name, mesh, *, logits_chunk: int = 512, remat: s
 
 def sharded_cell(cfg, mesh) -> bool:
     """True when a serving cell traces the sharded step (``zoo.
-    sharded_forward``: the uniform GQA stacks, on a ("data", "model") mesh
-    with a dim above 1); the other cells gather at use."""
+    sharded_forward``: every family but xLSTM, Whisper and the VLM, on a
+    ("data", "model") mesh with a dim above 1); the other cells gather at
+    use."""
     sizes = mesh_sizes(mesh)
     return sharded_forward(cfg) and mesh_dims_supported(tuple(sizes)) and any(n > 1 for n in sizes.values())
 

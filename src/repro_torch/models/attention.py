@@ -311,18 +311,37 @@ def cross_attn_memory(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> t
 # -- sharded forms (a rank's local blocks; ``sharding.comm``) ------------------
 
 
-def _head_split(params: dict, cfg: ModelConfig, comm) -> tuple[bool, bool]:
-    """(q heads split, kv heads split) over ``model``: a projection keeps its
-    ``model`` split only where it falls between whole heads; otherwise it is
-    all-gathered over ``model`` and every rank computes all those heads."""
-    M = comm.size("model")
-    tp = "model" in params["wq"].split(1) and cfg.num_heads % M == 0
-    tp_kv = tp and "model" in params["wk"].split(1) and cfg.num_kv_heads % M == 0
-    return tp, tp_kv
+def _heads_split(params: dict, cfg: ModelConfig, comm) -> bool:
+    """True where ``wq`` keeps its ``model`` split: the split falls between
+    whole heads, and each rank computes its own heads (with the other head-
+    split weights of the block). Otherwise those weights are all-gathered
+    over ``model`` and every rank computes every head."""
+    return "model" in params["wq"].split(1) and cfg.num_heads % comm.size("model") == 0
+
+
+def _kv_split(params: dict, tp: bool) -> bool:
+    """With the q heads split (``tp``), a kv projection whose columns the
+    rules split over ``model`` is computed on the rank's columns and its
+    output all-gathered (``_kv_proj``), whether or not the split falls
+    between whole kv heads, as GSPMD partitions it."""
+    return tp and "model" in params["wk"].split(1)
+
+
+def _proj_weight(w, comm, keep_model: bool, dtype) -> torch.Tensor:
+    """A weight's block gathered over ``data`` (FSDP), and over ``model``
+    too unless its ``model`` split is kept."""
+    return w.gathered(comm, ("data",) if keep_model else ("data", "model")).to(dtype)
 
 
 def _proj(w, x: torch.Tensor, comm, keep_model: bool) -> torch.Tensor:
-    return x @ w.gathered(comm, ("data",) if keep_model else ("data", "model")).to(x.dtype)
+    return x @ _proj_weight(w, comm, keep_model, x.dtype)
+
+
+def _kv_proj(w, x: torch.Tensor, comm, kv_split: bool) -> torch.Tensor:
+    """k or v of every kv head, (..., Hkv·hd): the rank's columns all-gathered
+    over ``model`` where they are split, else the whole projection."""
+    out = _proj(w, x, comm, kv_split)
+    return comm.all_gather(out, "model", out.dim() - 1) if kv_split else out
 
 
 def _local_kv(k: torch.Tensor, v: torch.Tensor, h0: int, n_heads: int, G: int):
@@ -339,35 +358,34 @@ def _local_kv(k: torch.Tensor, v: torch.Tensor, h0: int, n_heads: int, G: int):
     return k[:, :, sel].contiguous(), v[:, :, sel].contiguous()
 
 
+def _row_parallel(w, o: torch.Tensor, comm, tp: bool) -> torch.Tensor:
+    """``o @ w`` for an output projection: over the rank's heads with the
+    partial sums all-reduced over ``model`` (``tp``), else whole."""
+    out = o @ _proj_weight(w, comm, tp, o.dtype)
+    return comm.all_reduce(out, "model") if tp else out
+
+
 def gqa_forward_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, comm, *,
                         causal: bool = True, window: Optional[int] = None, attend: Optional[Callable] = None):
-    """``gqa_forward`` on a rank's rows and heads: q (and k, v where the kv
-    heads divide ``model``) column-parallel, attention over the local q
-    heads with their own kv heads (the kernel takes ``H`` and ``Hkv`` at run
-    time), ``wo`` row-parallel with its partial sums all-reduced over
-    ``model``. Returns ``(out, (k, v))`` with the keys and values of every
-    kv head (gathered over ``model`` where split), for the cache."""
+    """``gqa_forward`` on a rank's rows and heads: q column-parallel, k and
+    v of every kv head (``_kv_proj``), attention over the local q heads with
+    the kv heads they read (the kernel takes ``H`` and ``Hkv`` at run time),
+    ``wo`` row-parallel with its partial sums all-reduced over ``model``.
+    Returns ``(out, (k, v))`` with the keys and values of every kv head, for
+    the cache."""
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    tp, tp_kv = _head_split(params, cfg, comm)
+    tp = _heads_split(params, cfg, comm)
+    kv_split = _kv_split(params, tp)
     M = comm.size("model") if tp else 1
     h_loc = H // M
     q = _split_heads(_proj(params["wq"], x, comm, tp), h_loc)
-    k = _split_heads(_proj(params["wk"], x, comm, tp_kv), Hkv // M if tp_kv else Hkv)
-    v = _split_heads(_proj(params["wv"], x, comm, tp_kv), Hkv // M if tp_kv else Hkv)
+    k = _split_heads(_kv_proj(params["wk"], x, comm, kv_split), Hkv)
+    v = _split_heads(_kv_proj(params["wv"], x, comm, kv_split), Hkv)
     q, k = apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
-    if tp_kv or not tp:
-        ka, va = k, v
-    else:
-        ka, va = _local_kv(k, v, comm.index("model") * h_loc, h_loc, H // Hkv)
+    ka, va = _local_kv(k, v, comm.index("model") * h_loc, h_loc, H // Hkv) if tp else (k, v)
     o = (attend or flash_attention)(q.contiguous(), ka, va, causal=causal, window=window,
                                     softcap=cfg.attn_logit_softcap)
-    out = o.reshape(*o.shape[:2], h_loc * hd) @ params["wo"].gathered(
-        comm, ("data",) if tp else ("data", "model")).to(x.dtype)
-    if tp:
-        out = comm.all_reduce(out, "model")
-    if tp_kv:
-        k, v = comm.all_gather(k, "model", 2), comm.all_gather(v, "model", 2)
-    return out, (k, v)
+    return _row_parallel(params["wo"], o.reshape(*o.shape[:2], h_loc * hd), comm, tp), (k, v)
 
 
 def _write_owned(cache: torch.Tensor, local: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
@@ -381,6 +399,16 @@ def _write_owned(cache: torch.Tensor, local: torch.Tensor, row: torch.Tensor) ->
     keep = cache[b, at]
     shape = (-1,) + (1,) * (row.dim() - 1)
     return cache.index_put_((b, at), torch.where(owned.view(shape), row.to(cache.dtype), keep))
+
+
+def _slot_block(cache: torch.Tensor, comm, seq_dims: tuple) -> tuple[int, int]:
+    """(first slot, total slots) of this rank's block of a cache's slot axis
+    (axis 1), split over ``seq_dims``."""
+    start = 0
+    for ax in seq_dims:
+        start = start * comm.size(ax) + comm.index(ax)
+    n_loc = cache.shape[1]
+    return start * n_loc, n_loc * math.prod(comm.size(a) for a in seq_dims)
 
 
 def gqa_decode_sharded(params: dict, x: torch.Tensor, pos: torch.Tensor, k_cache: torch.Tensor,
@@ -397,38 +425,123 @@ def gqa_decode_sharded(params: dict, x: torch.Tensor, pos: torch.Tensor, k_cache
     v_cache)``, the caches written in place."""
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B = x.shape[0]
-    tp, tp_kv = _head_split(params, cfg, comm)
+    tp = _heads_split(params, cfg, comm)
+    kv_split = _kv_split(params, tp)
     M = comm.size("model") if tp else 1
     q = _split_heads(_proj(params["wq"], x, comm, tp), H // M)
-    k = _split_heads(_proj(params["wk"], x, comm, tp_kv), Hkv // M if tp_kv else Hkv)
-    v = _split_heads(_proj(params["wv"], x, comm, tp_kv), Hkv // M if tp_kv else Hkv)
+    k = _split_heads(_kv_proj(params["wk"], x, comm, kv_split), Hkv)
+    v = _split_heads(_kv_proj(params["wv"], x, comm, kv_split), Hkv)[:, 0]
     q, k = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0], apply_rope(k, pos[:, None], cfg.rope_theta)[:, 0]
-    v = v[:, 0]
     if tp:
         q = comm.all_gather(q, "model", 1)
-    if tp_kv:
-        k, v = comm.all_gather(k, "model", 1), comm.all_gather(v, "model", 1)
     slot = pos % rolling_window if rolling_window else pos
-    n_loc = k_cache.shape[1]
-    start = 0
-    for ax in seq_dims:
-        start = start * comm.size(ax) + comm.index(ax)
-    start *= n_loc
+    start, total = _slot_block(k_cache, comm, seq_dims)
     k_cache = _write_owned(k_cache, slot - start, k)
     v_cache = _write_owned(v_cache, slot - start, v)
     if not seq_dims:
         o = decode_attention_plain(q, k_cache, v_cache, pos + 1, rolling=rolling_window is not None,
                                    softcap=cfg.attn_logit_softcap)
     else:
-        o = _decode_partial(q, k_cache, v_cache, pos + 1, start, n_loc * math.prod(comm.size(a) for a in seq_dims),
-                            comm, seq_dims, rolling=rolling_window is not None, softcap=cfg.attn_logit_softcap)
+        o = _decode_partial(q, k_cache, v_cache, pos + 1, start, total, comm, seq_dims,
+                            rolling=rolling_window is not None, softcap=cfg.attn_logit_softcap)
     if tp:
         h0 = comm.index("model") * (H // M)
         o = o[:, h0:h0 + H // M]
-    out = o.reshape(B, (H // M) * hd) @ params["wo"].gathered(comm, ("data",) if tp else ("data", "model")).to(x.dtype)
+    return _row_parallel(params["wo"], o.reshape(B, (H // M) * hd), comm, tp)[:, None, :], k_cache, v_cache
+
+
+def _mla_latent_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, comm):
+    """``_mla_latent`` on a rank's rows: ``w_dkv`` and ``w_kr`` gathered
+    over ``data``, their contraction split over ``model`` where ``model``
+    divides d_model (the rank's slice of x times its rows of the weights,
+    the partial sums all-reduced before the norm and the rope), as GSPMD
+    partitions them; whole on every rank otherwise."""
+    w_dkv, w_kr = params["w_dkv"].gathered(comm, ("data",)), params["w_kr"].gathered(comm, ("data",))
+    M, d = comm.size("model"), x.shape[-1]
+    if M > 1 and d % M == 0:
+        c, j = d // M, comm.index("model")
+        xs = x[..., j * c:(j + 1) * c]
+        c_kv = comm.all_reduce(xs @ w_dkv[j * c:(j + 1) * c].to(x.dtype), "model")
+        k_r = comm.all_reduce(xs @ w_kr[j * c:(j + 1) * c].to(x.dtype), "model")
+    else:
+        c_kv, k_r = x @ w_dkv.to(x.dtype), x @ w_kr.to(x.dtype)
+    c_kv = rmsnorm(c_kv, params["kv_norm"].gathered(comm), cfg.norm_eps)
+    k_r = apply_rope(k_r[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_r
+
+
+def mla_forward_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, comm):
+    """``mla_forward`` on a rank's rows and heads: ``wq``, ``w_uk`` and
+    ``w_uv`` column-parallel, the latent and rope key of every row
+    (``_mla_latent_sharded``), the expanded heads through
+    ``flash_attention_plain`` (the reference's MLA prefill reaches no
+    kernel), ``wo`` row-parallel. Returns ``(out, (c_kv, k_r))``, the rank's
+    rows of the latent cache, whole on the slot axis."""
+    m = cfg.mla
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    tp = _heads_split(params, cfg, comm)
+    h_loc = cfg.num_heads // comm.size("model") if tp else cfg.num_heads
+    B, S, _ = x.shape
+    q = _split_heads(_proj(params["wq"], x, comm, tp), h_loc)
+    q_nope, q_rope = q[..., : m.qk_nope_head_dim], apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    c_kv, k_r = _mla_latent_sharded(params, x, positions, cfg, comm)
+    k_nope = _split_heads(_proj(params["w_uk"], c_kv, comm, tp), h_loc)
+    value = _split_heads(_proj(params["w_uv"], c_kv, comm, tp), h_loc)
+    k_full = torch.cat([k_nope, k_r[:, :, None, :].expand(B, S, h_loc, m.qk_rope_head_dim)], dim=-1)
+    v_pad = torch.nn.functional.pad(value, (0, qd - m.v_head_dim))
+    o = flash_attention_plain(torch.cat([q_nope, q_rope], dim=-1), k_full, v_pad, causal=True)[..., : m.v_head_dim]
+    return _row_parallel(params["wo"], o.reshape(B, S, h_loc * m.v_head_dim), comm, tp), (c_kv, k_r)
+
+
+def mla_decode_sharded(params: dict, x: torch.Tensor, pos: torch.Tensor, ckv_cache: torch.Tensor,
+                       kr_cache: torch.Tensor, cfg: ModelConfig, comm, *, seq_dims: tuple = ()):
+    """``mla_decode`` on a rank's rows, heads and block of the latent
+    cache's slots (``seq_dims``, ``kv_seq`` → ``model``): the rank's heads
+    of ``q_lat = q_nope · W_uk`` and of the roped ``q_rope``, all-gathered
+    over ``model`` to every head; the new latent row written by the rank
+    whose block holds ``pos``; the scores of every head against the rank's
+    slots, combined over ``seq_dims`` (max, then the exp-sums and the latent
+    context (B, H, r); a block with no valid slot adds zeros); then the
+    rank's heads of the context through ``w_uv`` and row-parallel ``wo``.
+    Returns (out, ckv_cache, kr_cache), the caches written in place."""
+    m = cfg.mla
+    B = x.shape[0]
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    tp = _heads_split(params, cfg, comm)
+    h_loc = cfg.num_heads // comm.size("model") if tp else cfg.num_heads
+    q = _split_heads(_proj(params["wq"], x, comm, tp), h_loc)
+    q_nope = q[:, 0, :, : m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], pos[:, None], cfg.rope_theta)[:, 0]
+    w_uk = _proj_weight(params["w_uk"], comm, tp, x.dtype).reshape(m.kv_lora_rank, h_loc, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)
     if tp:
-        out = comm.all_reduce(out, "model")
-    return out[:, None, :], k_cache, v_cache
+        q_lat, q_rope = comm.all_gather(q_lat, "model", 1), comm.all_gather(q_rope, "model", 1)
+    c_new, kr_new = _mla_latent_sharded(params, x, pos[:, None], cfg, comm)
+    start, _ = _slot_block(ckv_cache, comm, seq_dims)
+    ckv_cache = _write_owned(ckv_cache, pos - start, c_new[:, 0])
+    kr_cache = _write_owned(kr_cache, pos - start, kr_new[:, 0])
+
+    ckv = ckv_cache.to(torch.float32)
+    s = torch.einsum("bhr,bsr->bhs", q_lat.to(torch.float32), ckv)
+    s = (s + torch.einsum("bhr,bsr->bhs", q_rope.to(torch.float32), kr_cache.to(torch.float32))) * scale
+    idx = torch.arange(start, start + ckv_cache.shape[1], device=x.device)
+    valid = (idx[None, :] < (pos + 1)[:, None])[:, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    mx = s.amax(dim=-1, keepdim=True)
+    for ax in seq_dims:
+        mx = comm.all_reduce(mx, ax, "max")
+    p = torch.where(valid, torch.exp(s - mx), 0.0)
+    l, ctx = p.sum(dim=-1, keepdim=True), torch.einsum("bhs,bsr->bhr", p, ckv)
+    for ax in seq_dims:
+        l, ctx = comm.all_reduce(l, ax), comm.all_reduce(ctx, ax)
+    ctx = (ctx / l).to(x.dtype)
+    if tp:
+        h0 = comm.index("model") * h_loc
+        ctx = ctx[:, h0:h0 + h_loc]
+    w_uv = _proj_weight(params["w_uv"], comm, tp, x.dtype).reshape(m.kv_lora_rank, h_loc, m.v_head_dim)
+    o = torch.einsum("bhr,rhv->bhv", ctx, w_uv)
+    out = _row_parallel(params["wo"], o.reshape(B, h_loc * m.v_head_dim), comm, tp)
+    return out[:, None, :], ckv_cache, kr_cache
 
 
 def _decode_partial(q, k_cache, v_cache, kv_len, start: int, total: int, comm, seq_dims: tuple, *,

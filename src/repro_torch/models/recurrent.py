@@ -73,9 +73,16 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _gates(params: dict, h: torch.Tensor):
     """fp32 decay ``a`` and input ``b`` of the recurrence for h (..., W)."""
-    r = torch.sigmoid((h @ params["w_r"].to(h.dtype)).float() + params["b_r"].float())
-    i = torch.sigmoid((h @ params["w_i"].to(h.dtype)).float() + params["b_i"].float())
-    a = torch.exp(-LRU_C * F.softplus(params["lam"].float()) * r)
+    return _gate_math(h @ params["w_r"].to(h.dtype), h @ params["w_i"].to(h.dtype), params["b_r"], params["b_i"],
+                      params["lam"], h)
+
+
+def _gate_math(r_pre, i_pre, b_r, b_i, lam, h: torch.Tensor):
+    """``_gates`` from the gates' pre-activations (the products with
+    ``w_r`` and ``w_i``), each channel on its own."""
+    r = torch.sigmoid(r_pre.float() + b_r.float())
+    i = torch.sigmoid(i_pre.float() + b_i.float())
+    a = torch.exp(-LRU_C * F.softplus(lam.float()) * r)
     gated_x = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * h.float())
     return a, gated_x
 
@@ -119,3 +126,78 @@ def rglru_block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelCon
     s, lru_state = rglru_step(params, h[:, 0], cache["lru"])
     y = (gate * s[:, None]) @ params["w_out"].to(x.dtype)
     return y, {"conv": conv_state, "lru": lru_state.to(x.dtype)}
+
+
+# -- sharded forms (a rank's local blocks; ``sharding.comm``) ------------------
+#
+# The block's channels (``lru_width``, the ``ffn`` axis) are split over
+# ``model`` where the rules split them: ``w_in`` and ``w_gate_branch``
+# column-parallel, the depthwise conv and the scan on the rank's channels,
+# ``w_out`` row-parallel. ``w_r`` and ``w_i`` split their contraction, so
+# their partial pre-activations are all-reduced over ``model`` before the
+# sigmoid and cut to the rank's channels, as GSPMD partitions them (a
+# quarter of the dot FLOPs a device on a 2×2 mesh, as the reference's).
+
+
+def _channels(params: dict, comm) -> tuple[tuple, int, int]:
+    """(mesh dims the channels are split over, first channel, count) of
+    this rank's block."""
+    w_in = params["w_in"]
+    return w_in.split(1), w_in.start(1, comm), w_in.local.shape[1]
+
+
+def _gates_sharded(params: dict, h: torch.Tensor, comm):
+    """``_gates`` for the rank's channels of h (..., W_loc)."""
+    dims, c0, n = _channels(params, comm)
+
+    def pre(w) -> torch.Tensor:
+        out = h @ w.gathered(comm, ("data",)).to(h.dtype)
+        for ax in dims:
+            out = comm.all_reduce(out, ax)
+        return out[..., c0:c0 + n]
+
+    def mine(t) -> torch.Tensor:  # a whole per-channel vector cut to the rank's channels
+        return t.gathered(comm)[c0:c0 + n]
+
+    return _gate_math(pre(params["w_r"]), pre(params["w_i"]), mine(params["b_r"]), mine(params["b_i"]),
+                      mine(params["lam"]), h)
+
+
+def _temporal_sharded(params: dict, x: torch.Tensor, comm, state: Optional[torch.Tensor]):
+    """The gate branch and the conv on the rank's channels: (gate, h, conv state)."""
+    g = x @ params["w_gate_branch"].gathered(comm, ("data",)).to(x.dtype)
+    gate = F.gelu(g.float(), approximate="tanh").to(x.dtype)
+    h = x @ params["w_in"].gathered(comm, ("data",)).to(x.dtype)
+    h, conv_state = causal_conv1d(h, params["conv_w"].gathered(comm, ("data",)),
+                                  params["conv_b"].gathered(comm, ("data",)), state=state)
+    return gate, h, conv_state
+
+
+def _out_sharded(params: dict, y: torch.Tensor, comm) -> torch.Tensor:
+    out = y @ params["w_out"].gathered(comm, ("data",)).to(y.dtype)
+    for ax in params["w_out"].split(0):
+        out = comm.all_reduce(out, ax)
+    return out
+
+
+def rglru_block_forward_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, comm, *,
+                                scan: Optional[Callable] = None):
+    """``rglru_block_forward`` on a rank's rows and channels: the scan runs
+    on the rank's (B, S, W_loc) block (the recurrence is elementwise per
+    channel, so its channels equal the unsharded scan's). Returns (y, cache)
+    with the cache's conv and LRU state of the rank's channels."""
+    gate, h, conv_state = _temporal_sharded(params, x, comm, None)
+    a, b = _gates_sharded(params, h, comm)
+    s = (scan or rglru_scan)(a, b)
+    y = _out_sharded(params, gate * s.to(h.dtype), comm)
+    return y, {"conv": conv_state, "lru": s[:, -1].to(x.dtype)}
+
+
+def rglru_block_decode_sharded(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, comm):
+    """``rglru_block_decode`` on a rank's rows and channels (``cache`` holds
+    the rank's channels); the new state comes back as new tensors."""
+    gate, h, conv_state = _temporal_sharded(params, x, comm, cache["conv"])
+    a, b = _gates_sharded(params, h[:, 0], comm)
+    s = a * cache["lru"].float() + b
+    y = _out_sharded(params, gate * s.to(h.dtype)[:, None], comm)
+    return y, {"conv": conv_state, "lru": s.to(x.dtype)}

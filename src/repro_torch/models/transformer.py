@@ -461,7 +461,8 @@ def forward_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, memo
     return x, (caches if collect_cache else None)
 
 
-def _logits_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
+def logits_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    """The head's table: the embedding itself where the config ties them."""
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
@@ -471,7 +472,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     ``cfg.logits_chunk`` when it is set, so the (B, S, V) logits never exist
     whole. Attention and the RG-LRU scan run plain (module docstring)."""
     hidden, _ = forward_hidden(cfg, params, batch["tokens"], memory=_memory_from_batch(cfg, params, batch))
-    table = _logits_table(cfg, params)
+    table = logits_table(cfg, params)
     if cfg.logits_chunk:
         return chunked_xent(hidden, table, batch["labels"], cfg.logits_chunk)
     return softmax_xent(constrain(logits_from_embedding(hidden, table), ("batch", "seq", "vocab")), batch["labels"])
@@ -482,7 +483,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict):
     ``frames`` or ``image_embeds``) also fills the cross caches ``xk`` / ``xv``."""
     hidden, caches = forward_hidden(cfg, params, batch["tokens"], memory=_memory_from_batch(cfg, params, batch),
                                     collect_cache=True)
-    return logits_from_embedding(hidden[:, -1, :], _logits_table(cfg, params)), caches
+    return logits_from_embedding(hidden[:, -1, :], logits_table(cfg, params)), caches
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
@@ -533,12 +534,12 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
     if lay.tail_kinds:
         unscanned("tail", lay.tail_kinds)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_from_embedding(x[:, 0, :], _logits_table(cfg, params))
+    logits = logits_from_embedding(x[:, 0, :], logits_table(cfg, params))
     return logits, new_caches
 
 
 
-# -- the sharded step (uniform GQA stacks under a mesh; ``zoo.SHARDED``) -----
+# -- the sharded step (every family but xLSTM and the modal ones; ``zoo.sharded_forward``)
 #
 # Each rank computes on its own blocks: ``params`` are ``Shard`` leaves
 # (``sharding.rules.Shard``), the batch entries too (the rank's rows), the
@@ -565,16 +566,35 @@ def _sharded_mlp(cfg, p, h, comm, dims, cache: dict, usage_rows=None):
     return out[0]
 
 
+def _sharded_mixer(cfg, kind, p, h, positions, comm, rows):
+    """The block's sequence mixer on a rank's blocks, by kind: the RG-LRU
+    (``rec``), MLA, or GQA self-attention with the kind's window. Returns
+    (out, cache) with the cache leaves in the ``cache_axes`` layout."""
+    dims, layout = rows
+    plain = _PLAIN_VERSIONS.on
+    if kind == "rec":
+        o, c = rec_mod.rglru_block_forward_sharded(p["rglru"], h, cfg, comm,
+                                                   scan=rglru_scan_plain if plain else None)
+        chans = p["rglru"]["w_in"].split(1) or None
+        return o, {"conv": constrain(c["conv"], ("batch", None, "ffn"), comm=comm,
+                                     layout=PartitionSpec(dims or None, None, chans)),
+                   "lru": constrain(c["lru"], ("batch", "ffn"), comm=comm, layout=PartitionSpec(dims or None, chans))}
+    if cfg.mla is not None:
+        o, (ckv, kr) = attn.mla_forward_sharded(p["attn"], h, positions, cfg, comm)
+        return o, {"ckv": constrain(ckv, ("batch", "kv_seq", None), comm=comm, layout=layout),
+                   "kr": constrain(kr, ("batch", "kv_seq", None), comm=comm, layout=layout)}
+    o, (k, v) = attn.gqa_forward_sharded(p["attn"], h, positions, cfg, comm, causal=True,
+                                         window=_kind_window(cfg, kind),
+                                         attend=flash_attention_plain if plain else None)
+    return o, {"k": constrain(k, _CACHE_KV_AXES, comm=comm, layout=layout),
+               "v": constrain(v, _CACHE_KV_AXES, comm=comm, layout=layout)}
+
+
 def _sharded_block(cfg, kind, p, x, positions, comm, rows):
     eps = cfg.norm_eps
     dims, layout = rows
-    h = rmsnorm(x, p["norm1"].gathered(comm), eps)
-    o, (k, v) = attn.gqa_forward_sharded(p["attn"], h, positions, cfg, comm, causal=True,
-                                         window=_kind_window(cfg, kind),
-                                         attend=flash_attention_plain if _PLAIN_VERSIONS.on else None)
+    o, cache = _sharded_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), positions, comm, rows)
     x = x + o
-    cache = {"k": constrain(k, _CACHE_KV_AXES, comm=comm, layout=layout),
-             "v": constrain(v, _CACHE_KV_AXES, comm=comm, layout=layout)}
     y = _sharded_mlp(cfg, p, rmsnorm(x, p["norm2"].gathered(comm), eps), comm, dims, cache)
     return constrain(x + y, ("batch", "seq", "embed"), comm=comm, layout=layout), cache
 
@@ -599,9 +619,13 @@ def prefill_sharded(cfg: ModelConfig, params: dict, batch: dict, comm):
     ``data`` at its use; TP keeps heads and ``ffn`` column-parallel and the
     output projections row-parallel (all-reduced over ``model``); EP or
     TP-within-expert as the rules resolve ``experts``; the embedding and the
-    head are vocab-parallel. Each K/V cache comes out as its block of the
-    ``cache_axes`` layout (``kv_seq`` over ``model``), the usage masks whole.
-    On a mesh of 1s the collectives are no-ops and the math is ``prefill``'s."""
+    head (a tied model's one table) are vocab-parallel. Blocks dispatch by
+    kind (``_sharded_mixer``): GQA with the kind's window, MLA, or the
+    RG-LRU on the rank's channels. Each cache comes out as its block of the
+    ``cache_axes`` layout (K/V and MLA's latent rows with ``kv_seq`` over
+    ``model``, the RG-LRU's state with its channels over ``model``), the
+    usage masks whole. On a mesh of 1s the collectives are no-ops and the
+    math is ``prefill``'s."""
     rows = _rows(batch)
     tokens = batch["tokens"].local
     B, S = tokens.shape
@@ -620,15 +644,39 @@ def prefill_sharded(cfg: ModelConfig, params: dict, batch: dict, comm):
     if groups:
         caches["groups"] = {key: _stack(cs) for key, cs in groups.items()}
     x = rmsnorm(x[:, -1, :], params["final_norm"].gathered(comm), cfg.norm_eps)
-    table = _logits_table(cfg, params)
+    table = logits_table(cfg, params)
     return logits_sharded(x, table.gathered(comm, ("data",))), caches
+
+
+def _sharded_decode_mixer(cfg, kind, p, h, pos, cache: dict, specs: dict, lead: int, comm):
+    """``_sharded_mixer`` for one decode step: the rank's blocks of the
+    caches (their specs in ``specs``; ``lead`` axes before the batch axis)
+    read, K/V or the latent rows written in place, or the RG-LRU's new
+    state of the rank's channels. Returns (out, cache)."""
+    if kind == "rec":  # no slot axis: the state of the rank's channels, split as its params'
+        if spec_dims(specs["lru"], lead + 1) != p["rglru"]["w_in"].split(1):
+            raise ValueError(f"an LRU state split as {specs['lru']} against weights whose channels are split "
+                             f"over {p['rglru']['w_in'].split(1)}")
+        return rec_mod.rglru_block_decode_sharded(p["rglru"], h, cache, cfg, comm)
+    if cfg.mla is not None:
+        o, ckv, kr = attn.mla_decode_sharded(p["attn"], h, pos, cache["ckv"], cache["kr"], cfg, comm,
+                                             seq_dims=spec_dims(specs["ckv"], lead + 1))
+        return o, {"ckv": ckv, "kr": kr}
+    seq_dims = spec_dims(specs["k"], lead + 1)  # the slot axis
+    window = _kind_window(cfg, kind)
+    n_slots = cache["k"].shape[1] * math.prod(comm.size(a) for a in seq_dims)
+    o, k, v = attn.gqa_decode_sharded(p["attn"], h, pos, cache["k"], cache["v"], cfg, comm, seq_dims=seq_dims,
+                                      rolling_window=window if window is not None and n_slots == window else None)
+    return o, {"k": k, "v": v}
 
 
 def decode_step_sharded(cfg: ModelConfig, params: dict, caches: dict, batch: dict, comm, cache_specs: dict):
     """``decode_step`` on a rank's blocks (see ``prefill_sharded``):
     ``caches`` are this rank's blocks in the ``cache_specs`` layout, K/V
-    written in place by the rank that holds the new slot; the attention is
-    combined over the slot axis's mesh dims (split-KV). ``active`` (whole
+    (MLA's latent rows) written in place by the rank that holds the new
+    slot; the attention is combined over the slot axis's mesh dims
+    (split-KV); a rec block's conv and LRU state come back as new tensors,
+    committed once as ``decode_step``'s are. ``active`` (whole
     batch, gathered from the rows) gates the usage masks as in
     ``decode_step``. Returns (the logits block, new caches)."""
     rows = _rows(batch)
@@ -642,18 +690,15 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, caches: dict, batch: dic
         usage_rows = usage_rows.to(torch.bool)[:, None]
     x = embed_sharded(params["embed"], tokens, _model_dtype(cfg), cfg.d_model, comm)
     new_caches: dict = {}
+    eps = cfg.norm_eps
     for section, key, kind, gi in _sharded_sections(cfg):
         p = params[section][key] if gi is None else _select(params[section], gi)[key]
         cache = caches[section][key] if gi is None else _select(caches[section], gi)[key]
-        seq_dims = spec_dims(cache_specs[section][key]["k"], 1 if gi is None else 2)  # the slot axis
-        window = _kind_window(cfg, kind)
-        n_slots = cache["k"].shape[1] * math.prod(comm.size(a) for a in seq_dims)
-        eps = cfg.norm_eps
         h = rmsnorm(x, p["norm1"].gathered(comm), eps)
-        o, k, v = attn.gqa_decode_sharded(p["attn"], h, pos, cache["k"], cache["v"], cfg, comm, seq_dims=seq_dims,
-                                          rolling_window=window if window is not None and n_slots == window else None)
+        # a scanned group's cache leaves lead with the stacked axis
+        o, c = _sharded_decode_mixer(cfg, kind, p, h, pos, cache, cache_specs[section][key], 0 if gi is None else 1,
+                                     comm)
         x = x + o
-        c = {"k": k, "v": v}
         y = _sharded_mlp(cfg, p, rmsnorm(x, p["norm2"].gathered(comm), eps), comm, dims, c, usage_rows)
         x = constrain(x + y, ("batch", "seq", "embed"), comm=comm, layout=layout)
         if gi is None:
@@ -668,5 +713,5 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, caches: dict, batch: dic
                     out_c[name] = t.new_empty((stack_layout(cfg).n_groups, *t.shape))
                 out_c[name][gi] = t
     x = rmsnorm(x[:, 0, :], params["final_norm"].gathered(comm), cfg.norm_eps)
-    table = _logits_table(cfg, params)
+    table = logits_table(cfg, params)
     return logits_sharded(x, table.gathered(comm, ("data",))), new_caches

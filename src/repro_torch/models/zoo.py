@@ -11,7 +11,9 @@ a text-only deployment recognizes only the twins.
 Under a mesh of more than one rank, ``sharded_forward(cfg)`` is the one rule
 of which families compute on shards (``Model.prefill_sharded`` /
 ``decode_step_sharded``): the uniform GQA stacks, dense or MoE (Mixtral, Yi,
-Phi-3, Mistral-Large). Every other family gathers its params at use.
+Phi-3, Mistral-Large), Gemma-3's 5:1 local/global stack, DeepSeek-V2-Lite's
+MLA and RecurrentGemma's RG-LRU hybrid. xLSTM, Whisper and the VLM gather
+their params at use.
 """
 
 from __future__ import annotations
@@ -49,12 +51,11 @@ _S_CACHE_AXES = ("batch", "heads", None)  # every leaf of an sLSTM block
 
 def sharded_forward(cfg: ModelConfig) -> bool:
     """True for the families whose served entries and dry-run serving cells
-    compute on a rank's shards under a mesh: every layer a GQA self-attention
-    block (no MLA, recurrence, xLSTM, local/global pattern, cross-attention
-    or encoder) and an untied head. The others keep gather-at-use."""
-    return (cfg.mla is None and cfg.recurrent is None and cfg.xlstm is None and cfg.local_global_pattern is None
-            and cfg.vlm is None and cfg.encdec is None and not cfg.tie_embeddings
-            and set(cfg.attn_kinds) == {"self"})
+    compute on a rank's shards under a mesh: every decoder-only stack of
+    GQA (with or without a local/global pattern), MLA or RG-LRU blocks, tied
+    head or not. xLSTM and the modal families (an encoder, cross-attention)
+    keep gather-at-use."""
+    return cfg.xlstm is None and cfg.vlm is None and cfg.encdec is None
 
 
 @dataclass(frozen=True)
@@ -143,6 +144,10 @@ class Model:
     def prefill_sharded(self, params, batch, comm):
         """``prefill`` on a rank's shards (``transformer.prefill_sharded``)."""
         return tf.prefill_sharded(self.cfg, params, batch, comm)
+
+    def logits_table(self, params):
+        """The head's table (the embedding, where the config ties them)."""
+        return tf.logits_table(self.cfg, params)
 
     def decode_step_sharded(self, params, caches, batch, comm, cache_specs):
         """``decode_step`` on a rank's shards (``transformer.decode_step_sharded``)."""

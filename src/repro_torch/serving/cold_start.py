@@ -433,7 +433,8 @@ class ColdStartServer:
         return spec_dims(resolve_pspec(("batch",), (B,), comm_mesh(self.comm), ACT_RULES), 0)
 
     def _head(self) -> Shard:
-        h = self.live_params()["head"]
+        """The head's table (a tied model's embedding) as this rank's block."""
+        h = self.model.logits_table(self.live_params())
         return Shard(h.to_local(), tuple(h.shape), spec_of(h))
 
     def next_tokens(self, logits: torch.Tensor, B: int) -> torch.Tensor:
@@ -548,16 +549,18 @@ def cold_start(
     charge each unit its bytes per shard (``TieredParams(shard_divisors=)``),
     and a preset's budget is its fraction of the charged tier-1 bytes. On a
     mesh with a dim above 1, a family with a sharded forward
-    (``zoo.sharded_forward``: Mixtral, Yi, Phi-3, Mistral-Large) computes on
-    each rank's shards (``ColdStartServer.sharded``): each entry cuts the
+    (``zoo.sharded_forward``: the GQA stacks, Gemma-3, DeepSeek-V2-Lite,
+    RecurrentGemma) computes on each rank's shards (``ColdStartServer.sharded``): each entry cuts the
     batch to the rank's rows and runs ``Model.prefill_sharded`` /
     ``decode_step_sharded`` on the params' local blocks, gathering one
     weight's ``embed`` dim over ``data`` at its use, with TP / EP over
     ``model``; a decode entry's caches are the rank's blocks in the
-    ``cache_axes`` layout (their slots over ``model``). Its logits are the
+    ``cache_axes`` layout (K/V and latent slots over ``model``, the RG-LRU's
+    state with its channels over ``model``). Its logits are the
     rank's (rows, vocab rows) block: ``next_tokens`` takes the argmax across
     ranks, ``whole_logits`` gathers them, ``graft_prefill`` moves a
-    prefill's cache blocks into the decode layout. Every other family's
+    prefill's cache blocks into the decode layout. xLSTM's, Whisper's and
+    the VLM's
     entries gather the leaves when they run and compute replicated; the
     gathered copies last one forward run. On a mesh of 1s nothing is sharded
     or gathered (the local tensor is the leaf), and the warm set is still

@@ -29,8 +29,8 @@ are averaged over those dims before the AdamW update, so every rank keeps
 the same replicated params, and only rank 0 writes checkpoints. Training
 keeps the params whole on every rank and computes replicated but for its
 batch rows, as the serving side's gather-at-use does for the families
-without a sharded forward; the served entries of the uniform GQA stacks
-compute on shards (``models.transformer.prefill_sharded``), and a sharded
+without a sharded forward; the served entries of every family but xLSTM,
+Whisper and the VLM compute on shards (``models.transformer.prefill_sharded``), and a sharded
 training step (sharded gradients, the dry run's train cells) is not ported
 yet. On a mesh whose
 batch dims are all 1 nothing is split or reduced, and a step is bit-equal

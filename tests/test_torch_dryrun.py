@@ -34,12 +34,19 @@ from repro_torch.utils.tree import flatten_with_paths
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("prefill", "decode", "train")
 MESHES = ((1, 1), (2, 2))
-PARITY_ARCHS = ("mixtral-8x22b", "yi-34b")
+TRAIN_ARCHS = ("mixtral-8x22b", "yi-34b")  # every cell, train included
+# their prefill and decode cells only (each compiles in a few seconds)
+SERVE_ARCHS = ("gemma3-27b", "deepseek-v2-lite-16b", "recurrentgemma-9b")
+PARITY_ARCHS = TRAIN_ARCHS + SERVE_ARCHS
 TRAIN_REMATS = ("none", "full")
 
 
 def _shape(kind: str) -> ShapeSpec:
     return ShapeSpec(f"{kind}_b4s64", 64, 4, kind)
+
+
+def _kinds(arch: str) -> tuple:
+    return KINDS if arch in TRAIN_ARCHS else ("prefill", "decode")
 
 
 def _reduced_fields(arch: str) -> dict:
@@ -201,7 +208,8 @@ print(json.dumps(out))
 def reference_cells():
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(REPO, "src"))
-    procs = [subprocess.Popen([sys.executable, "-c", _REFERENCE, json.dumps([[arch], MESHES, KINDS, TRAIN_REMATS])],
+    procs = [subprocess.Popen([sys.executable, "-c", _REFERENCE,
+                               json.dumps([[arch], MESHES, _kinds(arch), TRAIN_REMATS])],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
              for arch in PARITY_ARCHS]  # one process per arch, side by side
     cells = {}
@@ -219,31 +227,34 @@ def _port_cell(arch, mesh, kind, remat="full"):
 
 def _router_gap(arch: str, mesh: tuple, kind: str) -> int:
     """Per-device dot FLOPs the reference counts and the port does not, at
-    2×2. One op: reduced Mixtral's prefill router. The reference's GSPMD
-    runs it on each data rank's 128 tokens whole over ``model`` (a
-    (128, 64) × (64, 4) dot per layer), the port splits its contraction
-    over ``model`` and all-reduces the partial logits (a (128, 32) × (32, 4)
-    dot), as both do in decode: 2 layers × 32,768 = 65,536 FLOPs, 0.21% of
-    the reference's 30,605,312. Every other dot of the four cells is the
-    reference's quarter."""
-    if arch != "mixtral-8x22b" or kind != "prefill" or mesh == (1, 1):
-        return 0
+    2×2. One op: a MoE layer's prefill router. The reference's GSPMD runs it
+    on each data rank's 128 tokens whole over ``model`` (a (128, 64) × (64,
+    E) dot per MoE layer), the port splits its contraction over ``model``
+    and all-reduces the partial logits (a (128, 32) × (32, E) dot), as both
+    do in decode: reduced Mixtral's 2 layers × 32,768 = 65,536 FLOPs, 0.21%
+    of the reference's 30,605,312; reduced DeepSeek-V2-Lite's 2 MoE layers
+    (its dense lead layer has no router) × 65,536 = 131,072, 0.45% of its
+    28,835,840. Every other dot of the cells is the reference's quarter."""
     cfg = get_reduced(arch)
+    if cfg.moe is None or kind != "prefill" or mesh == (1, 1):
+        return 0
     D, M = mesh
-    return cfg.num_layers * (4 * 64 // D) * cfg.d_model * cfg.moe.num_experts * 2 * (M - 1) // M
+    moe_layers = cfg.num_layers - cfg.moe.first_dense_layers
+    return moe_layers * (4 * 64 // D) * cfg.d_model * cfg.moe.num_experts * 2 * (M - 1) // M
 
 
 @pytest.mark.parametrize("arch", PARITY_ARCHS)
 def test_dryrun_cells_match_the_reference(arch, reference_cells):
     """At 1×1 and 2×2: params, active params and model FLOPs equal; the
-    arguments' bytes per device equal (prefill, decode, train); dot FLOPs
+    arguments' bytes per device equal (prefill, decode, and train for
+    ``TRAIN_ARCHS``); dot FLOPs
     per device equal for prefill and decode (the port's ``hlo_dot_flops /
     num_chips`` against the reference's compiled per-device count; at 2×2
     the serving cells compute on shards, up to the one op of
     ``_router_gap``); and every record's argument bytes equal the closed
     form of its shardings."""
     for mesh in MESHES:
-        for kind in KINDS:
+        for kind in _kinds(arch):
             ref = reference_cells[(arch, mesh, kind, "full")]
             rec = _port_cell(arch, mesh, kind)
             assert rec["status"] == "ok" and rec["mesh"] == "x".join(map(str, mesh))
@@ -275,7 +286,7 @@ def test_dryrun_train_flops_match_the_reference(remat, reference_cells):
     reduced Mixtral (1.4% of its count, inside 2%) and on reduced Yi (2.2%).
     The port keeps the probabilities for its backward. Under "full" both
     recompute the whole group body and the counts are equal."""
-    for arch in PARITY_ARCHS:
+    for arch in TRAIN_ARCHS:
         ref = reference_cells[(arch, (1, 1), "train", remat)]
         rec = _port_cell(arch, (1, 1), "train", remat)
         gap = ref["dot_flops"] - rec["hlo_dot_flops"]
@@ -303,14 +314,13 @@ def _sharded_prefill_collectives(cfg, B: int, S: int, sizes: dict, leaves: dict)
     (``models.transformer.prefill_sharded``), bf16 activations:
 
       * FSDP: every param leaf's ``embed`` dim all-gathered over ``data``
-        once per layer (its stacked groups' once each). An attention
-        projection whose ``model`` split does not fall between whole heads
-        (q heads: H % model; kv heads: Hkv % model, and the q heads split)
-        is all-gathered over ``model`` too;
+        once per layer (its stacked groups' once each). Where the q heads
+        do not divide ``model`` (H % model), the attention projections are
+        all-gathered over ``model`` too;
       * the vocab-parallel embedding's rows all-reduced over ``model``;
       * per layer: ``wo``'s partial sums all-reduced over ``model`` when the
-        q heads are split; the K/V of split kv heads all-gathered over
-        ``model`` for the cache; the MoE router's partial logits (fp32)
+        q heads are split; with them, K/V computed on the rank's columns
+        (Hkv·hd % model) all-gathered over ``model``; the MoE router's partial logits (fp32)
         all-reduced over ``model``, the expert ids (int64, T·k) all-gathered
         over ``data`` and the expert outputs all-reduced over ``model``; a
         dense MLP's down projection all-reduced over ``model``."""
@@ -319,17 +329,16 @@ def _sharded_prefill_collectives(cfg, B: int, S: int, sizes: dict, leaves: dict)
     B_loc = B // D if B % D == 0 else B
     T_loc = B_loc * S
     tp = H % M == 0 and (H * hd) % M == 0
-    tp_kv = tp and Hkv % M == 0
+    kv_split = tp and (Hkv * hd) % M == 0
     total = 0
     for path, (nbytes, spec) in leaves.items():
-        name = path.rsplit(".", 1)[-1]
-        whole_heads = {"wq": tp, "wo": tp, "wk": tp_kv, "wv": tp_kv}.get(name, True) if ".attn." in path else True
+        whole_heads = tp if ".attn." in path else True
         total += _implied_gather_bytes(nbytes, spec, sizes, ("data",) if whole_heads else ("data", "model"))
     act = 2 * T_loc * d if cfg.vocab_size % M == 0 and M > 1 else 0
     per_layer = 0
     if tp and M > 1:
         per_layer += 2 * T_loc * d
-    if tp_kv and M > 1:
+    if kv_split and M > 1:
         per_layer += 2 * 2 * B_loc * S * Hkv * hd
     if cfg.moe is not None:
         E, k, f = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.expert_d_ff
