@@ -23,7 +23,9 @@ Phases (any failure exits non-zero before the result line):
    B=2 × 1024), at one of 16 ``model`` ranks of the sharded prefills of
    [mesh] (d) (B=2 × 1024: Mixtral's H=3, Hkv=1, hd 128, window 4096;
    Gemma-3's H=2, Hkv=1, hd 128, window 1024 and none; RecurrentGemma's
-   H=1, Hkv=1, hd 256, window 2048), and at the reduced configs' head dims, which the wrapper
+   H=1, Hkv=1, hd 256, window 2048; Llama-3.2-Vision's H=4, Hkv=1, hd 128,
+   no window; Whisper's ranks run all 8 heads, its row above), and at the
+   reduced configs' head dims, which the wrapper
    zero-pads to 64 (reduced Mixtral H=4, Hkv=2,
    hd 16, window 32; reduced Yi H=8, Hkv=2, hd 8); error ≤ 1e-2 per unit of
    max(1, |output|) (bf16 output rounding); each row prints its TFLOP/s and
@@ -235,11 +237,17 @@ Phases (any failure exits non-zero before the result line):
    (``sharding.comm.run_ranks``), each from its own copies of its blocks:
    Mixtral-8x22B's first layer, Gemma-3-27B's first 5:1 unit (6 layers),
    DeepSeek-V2-Lite's dense lead and one MoE layer, RecurrentGemma-9B's
-   rec, rec, attn. Each: logits within MESH_LOGITS_REL_TOL of max |logit|
-   of the unsharded layers, greedy ids across ranks equal where no
-   near-tie, its collective bytes a rank, and its launches: flash 16 / 96
-   / 0 / 16 (one a rank an attention layer, at its own heads), scan 0 / 0
-   / 0 / 32 (one a rank a rec layer, at its 256 channels). DeepSeek's bf16
+   rec, rec, attn, whisper-base at full depth over (2, 1500, 512) audio
+   frames (B=2 × 448), Llama-3.2-Vision's four self and one gated cross
+   layer over (2, 1601, 7680) image embeddings (both gates set to
+   GATE_CHECK) and xlstm-125m's m and s blocks. Each: logits within
+   MESH_LOGITS_REL_TOL of max |logit| of the unsharded layers, greedy ids
+   across ranks equal where no near-tie, its collective bytes a rank, and
+   its launches: flash 16 / 96 / 0 / 16 / 96 / 64 / 0 (one a rank a
+   decoder self-attention layer, at its own heads or, where 16 does not
+   divide them, at all of them; the encoder and cross-attention are plain),
+   scan 32 for RecurrentGemma only (one a rank a rec layer, at its 256
+   channels). DeepSeek's bf16
    run is printed and its fp32-compute run held, within MESH_FP32_REL_TOL
    (its router flips experts at near-ties under bf16 rounding).
 12. dryrun — the production-mesh dry run (``launch.dryrun``), no kernel
@@ -449,12 +457,24 @@ MESH_FP32_REL_TOL = 1e-3
 # [mesh] (d)'s families: (arch, depth, compute dtype, limit as a share of
 # max |logit|, None for a run printed and not held). Mixtral's first layer,
 # one 5:1 unit of Gemma-3, DeepSeek's dense lead layer and one MoE layer,
-# RecurrentGemma's rec, rec, attn (every block kind of each stack once)
+# RecurrentGemma's rec, rec, attn, Whisper at full depth (6 encoder and 6
+# decoder layers), one 4-self:1-cross unit of the VLM and xLSTM's m, s
+# (every block kind of each stack once); the modal two with their
+# multimodal batch (MESH_MODAL_INPUTS)
 MESH_FAMILIES = (("mixtral-8x22b", 1, "bfloat16", MESH_LOGITS_REL_TOL),
                  ("gemma3-27b", 6, "bfloat16", MESH_LOGITS_REL_TOL),
                  ("deepseek-v2-lite-16b", 2, "bfloat16", None),
                  ("deepseek-v2-lite-16b", 2, "float32", MESH_FP32_REL_TOL),
-                 ("recurrentgemma-9b", 3, "bfloat16", MESH_LOGITS_REL_TOL))
+                 ("recurrentgemma-9b", 3, "bfloat16", MESH_LOGITS_REL_TOL),
+                 ("whisper-base", WHISPER_LAYERS, "bfloat16", MESH_LOGITS_REL_TOL),
+                 ("llama-3.2-vision-90b", LLAMA_VISION_LAYERS, "bfloat16", MESH_LOGITS_REL_TOL),
+                 ("xlstm-125m", 2, "bfloat16", MESH_LOGITS_REL_TOL))
+# the modal families' [mesh] (d) prefill: Whisper's B=2 × 448 tokens over 30 s
+# of audio frames (the 1500 its decode caches hold), the VLM's B=2 × 1024
+# over its 1601 image tokens; both gates of the VLM's cross block set to
+# GATE_CHECK after init, so the image path moves the logits
+MESH_MODAL_INPUTS = {"whisper-base": (WHISPER_PROMPT, "frames", (1500, 512)),
+                     "llama-3.2-vision-90b": (PROMPT, "image_embeds", (1601, 7680))}
 # flash attention: (H, Hkv, hd) and its (B, S, window, causal, softcap) rows, the served prefill first
 FLASH_ROWS = (
     ((H, HKV, HD), [(BATCH, PROMPT, 4096, True, None),
@@ -487,6 +507,10 @@ FLASH_ROWS = (
      [(BATCH, PROMPT, GEMMA_WINDOW, True, None), (BATCH, PROMPT, None, True, None)]),
     # one of the 16 ranks of RecurrentGemma's: 1 q head against the MQA head
     ((RG_H // MESH_SHARD_RANKS, RG_HKV, RG_HD), [(BATCH, PROMPT, RG_WINDOW, True, None)]),
+    # one of the 16 ranks of Llama-3.2-Vision's self layers: 4 q heads in one
+    # GQA group read one kv head (8 kv heads do not divide 16 ranks).
+    # Whisper's ranks run all 8 of its heads (8 do not divide 16): its row above
+    ((LLAMA_H // MESH_SHARD_RANKS, 1, LLAMA_HD), [(BATCH, PROMPT, None, True, None)]),
 )
 
 
@@ -2171,7 +2195,7 @@ def check_mesh_launch(run: dict, after2: dict) -> dict:
 def _mesh_shard_family(arch: str, layers: int, dtype: str, tol, wrappers: dict) -> dict:
     """One family of [mesh] (d): ``arch`` at full width cut to ``layers``
     layers (seeded bf16 weights, ``dtype`` compute), one prefill of B=2 ×
-    1024, unsharded and
+    1024 (a modal family's batch of MESH_MODAL_INPUTS), unsharded and
     then as the 16 ``model`` ranks of the production mesh (data 1 × model
     16) run one after another on the card (``sharding.comm.run_ranks``),
     each from its own copies of its blocks (``cut_tree`` by the param
@@ -2182,9 +2206,10 @@ def _mesh_shard_family(arch: str, layers: int, dtype: str, tol, wrappers: dict) 
     (``greedy_sharded`` over the head's table, a tied model's embedding; the
     same on every rank) to its argmax on every row whose top-2 margin is
     over twice the measured error. Each rank launches the flash kernel once
-    an attention layer at its own q heads (none for MLA, whose prefill is
-    plain as the reference's) and the scan once a rec layer at its own
-    channels."""
+    a decoder self-attention layer at its own q heads (every head where
+    ``model`` does not divide them; none for MLA, whose prefill is plain as
+    the reference's, nor for the Whisper encoder, a cross-attention or an
+    xLSTM block) and the scan once a rec layer at its own channels."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2192,20 +2217,26 @@ def _mesh_shard_family(arch: str, layers: int, dtype: str, tol, wrappers: dict) 
     from repro_torch.models.zoo import build_model
     from repro_torch.sharding.comm import run_ranks
     from repro_torch.sharding.rules import MeshShape, Shard, act_specs, cut_tree, param_shardings
-    from repro_torch.utils.tree import tree_map
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
 
     t0 = time.perf_counter()
     cfg = get_config(arch).replace(num_layers=layers, dtype=dtype)
     model = build_model(cfg, param_dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=torch.Generator().manual_seed(1)).cuda()
-    batch = {"tokens": tokens}
+    for path, leaf in flatten_with_paths(params):
+        if path.endswith((".cross.gate", ".gate_ffn")):
+            leaf.fill_(GATE_CHECK)
+    prompt, modal_key, modal_shape = MESH_MODAL_INPUTS.get(arch, (PROMPT, None, None))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, prompt), generator=gen).cuda()}
+    if modal_key is not None:
+        batch[modal_key] = torch.randn((BATCH, *modal_shape), generator=gen).to("cuda", getattr(torch, dtype))
     sizes = {"data": 1, "model": MESH_SHARD_RANKS}
     specs = tree_map(lambda sh: sh.spec, param_shardings(model.logical_axes(), model.abstract(),
                                                          MeshShape(tuple(sizes), tuple(sizes.values()))))
     kinds = cfg.attn_kinds
-    n_rec = sum(k == "rec" for k in kinds)
-    want = {"flash_attention": 0 if cfg.mla is not None else (len(kinds) - n_rec) * MESH_SHARD_RANKS,
+    n_rec, n_self = sum(k == "rec" for k in kinds), sum(k in ("self", "local", "global", "attn") for k in kinds)
+    want = {"flash_attention": 0 if cfg.mla is not None else n_self * MESH_SHARD_RANKS,
             "rglru_scan": n_rec * MESH_SHARD_RANKS}
     with torch.inference_mode():
         whole = model.prefill(params, batch)[0].float()
@@ -2223,7 +2254,7 @@ def _mesh_shard_family(arch: str, layers: int, dtype: str, tol, wrappers: dict) 
         t1 = time.perf_counter()
 
         def rank(comm):
-            rows = cut_tree(batch, act_specs({"tokens": ("batch", "seq")}, batch, comm), comm)
+            rows = cut_tree(batch, act_specs(model.batch_axes(batch, "prefill"), batch, comm), comm)
             p = shards[comm.coord["model"]]
             logits = model.prefill_sharded(p, rows, comm)[0]
             table = model.logits_table(p)
@@ -2234,7 +2265,8 @@ def _mesh_shard_family(arch: str, layers: int, dtype: str, tol, wrappers: dict) 
         torch.cuda.synchronize()
         sharded_s = time.perf_counter() - t1
         launches = {name: f.launches - launches0[name] for name, f in wrappers.items()}
-        got = torch.cat([o[0] for o in out], dim=1).float()
+        # each rank's vocab rows, or the whole table's where 16 does not divide it (Whisper's 51865)
+        got = (torch.cat([o[0] for o in out], dim=1) if out[0][0].shape[1] < cfg.vocab_size else out[0][0]).float()
     err = (got - whole).abs().max().item()
     scale = whole.abs().max().item()
     top2 = whole.topk(2, dim=-1).values
@@ -2242,14 +2274,15 @@ def _mesh_shard_family(arch: str, layers: int, dtype: str, tol, wrappers: dict) 
     ids_equal = bool(torch.equal(out[0][1][clear], whole.argmax(-1)[clear]))
     same_ids = all(torch.equal(o[1], out[0][1]) for o in out)
     summary = dict(arch=arch, layers=layers, dtype=dtype, limit=tol, kinds=list(kinds), ranks=MESH_SHARD_RANKS,
-                   max_abs_err=err,
+                   batch={k: list(v.shape) for k, v in batch.items()}, max_abs_err=err,
                    max_abs_logit=scale, rel_err=err / scale, ids_equal_where_clear=ids_equal,
                    rows_clear=int(clear.sum()), ids_same_on_every_rank=same_ids, sharded_s=sharded_s,
                    collective_bytes_per_rank=out[0][2], launches=launches, wall_s=time.perf_counter() - t0)
     print("[mesh] (d) " + json.dumps(summary), flush=True)
     limit = "printed, not held" if tol is None else f"limit {tol:.1%}"
     print(f"[mesh] (d) {arch} {layers} of {get_config(arch).num_layers} layers at full width, {dtype} compute, "
-          f"B={BATCH} × {PROMPT}, as {MESH_SHARD_RANKS} model ranks one after another: logits max |Δ| {err:.4g} "
+          f"B={BATCH} × {prompt}{f' with {modal_key} {tuple(batch[modal_key].shape)}' if modal_key else ''}, as "
+          f"{MESH_SHARD_RANKS} model ranks one after another: logits max |Δ| {err:.4g} "
           f"against the unsharded layers ({err / scale:.4%} of max |logit| {scale:.4g}; {limit}), greedy ids "
           f"{'equal' if ids_equal else 'DIFFER'} on {int(clear.sum())} of {BATCH} rows clear of a near-tie; "
           f"{out[0][2]} B of collectives a rank; flash launches {launches['flash_attention']}, scan launches "
@@ -2269,9 +2302,15 @@ def mesh_shard_phase(wrappers: dict) -> dict:
     Mixtral-8x22B's first layer (3 q heads a rank against one kv head: 16
     flash launches), Gemma-3-27B's first 5:1 unit (2 q heads and 1 kv head a
     rank, window 1024 and none: 96), DeepSeek-V2-Lite's dense lead layer and
-    one MoE layer (4 of 64 experts a rank, MLA plain: none) and
+    one MoE layer (4 of 64 experts a rank, MLA plain: none),
     RecurrentGemma-9B's rec, rec, attn (256 of 4096 channels a rank through
-    the scan: 32; one q head against the MQA head: 16). DeepSeek runs twice:
+    the scan: 32; one q head against the MQA head: 16), whisper-base at full
+    depth over 1500 audio frames (8 heads on 16 ranks: every rank runs all
+    of them, flash in the 6 decoder self layers: 96; encoder and cross-
+    attention plain), Llama-3.2-Vision's 4 self + 1 gated cross layers over
+    1601 image tokens (4 q heads a rank against one kv head: 64) and
+    xlstm-125m's m and s blocks (4 heads on 16 ranks: every rank runs the
+    recurrences, its 96 of 1536 channels of the projections: none). DeepSeek runs twice:
     in bf16, printed, and in fp32 compute, held (MESH_FP32_REL_TOL). Returns
     each run's summary by "arch" (bf16) or "arch-fp32"."""
     return {arch if dtype == "bfloat16" else f"{arch}-fp32": _mesh_shard_family(arch, layers, dtype, tol, wrappers)
@@ -3263,7 +3302,7 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     t_phase = time.perf_counter()
     rows, rows_256, rows_gemma, rows_16, rows_8, rows_whisper, rows_llama, rows_local, rows_gemma_local, \
-        rows_rg_local = [
+        rows_rg_local, rows_llama_local = [
         flash_phase(fa_ops, widths, shapes) for widths, shapes in FLASH_ROWS]
     scan_rows = scan_phase(lru_ops)
     decode_rows = decode_phase(da_ops)
@@ -3302,7 +3341,7 @@ def main(argv: list[str] | None = None) -> int:
     t_phase = time.perf_counter()
     for arch, summary in mesh_shard_phase(wrappers).items():
         paths[f"mesh-16-ranks-{arch}"] = summary["launches"]
-    phase_s["mesh (d) 16 model ranks, four families"] = time.perf_counter() - t_phase
+    phase_s["mesh (d) 16 model ranks, seven families"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     paths["dryrun-1x1-anchor"] = dryrun_anchor_phase(wrappers)["launches"]  # its fake world ends here
     phase_s["dryrun (b) 1x1 anchor"] = time.perf_counter() - t_phase
@@ -3382,7 +3421,10 @@ def main(argv: list[str] | None = None) -> int:
                          ("mesh-16-ranks-mixtral-8x22b", {"flash_attention"}),
                          ("mesh-16-ranks-gemma3-27b", {"flash_attention"}), ("mesh-16-ranks-deepseek-v2-lite-16b", set()),
                          ("mesh-16-ranks-deepseek-v2-lite-16b-fp32", set()),
-                         ("mesh-16-ranks-recurrentgemma-9b", {"flash_attention", "rglru_scan"})):
+                         ("mesh-16-ranks-recurrentgemma-9b", {"flash_attention", "rglru_scan"}),
+                         ("mesh-16-ranks-whisper-base", {"flash_attention"}),
+                         ("mesh-16-ranks-llama-3.2-vision-90b", {"flash_attention"}),
+                         ("mesh-16-ranks-xlstm-125m", set())):
         stray = {name: n for name, n in paths[path].items() if n and name not in served}
         if stray:
             raise AssertionError(f"the {path} serve path launched {stray}")
@@ -3397,7 +3439,7 @@ def main(argv: list[str] | None = None) -> int:
     kernels = [
         entry("flash_attention", "flash_attention/csrc/flash_attention.cu", "flash_attention/kernel.py:103",
               rows + rows_256 + rows_gemma + rows_16 + rows_8 + rows_whisper + rows_llama + rows_local
-              + rows_gemma_local + rows_rg_local, rows[0]),
+              + rows_gemma_local + rows_rg_local + rows_llama_local, rows[0]),
         entry("rglru_scan", "rglru_scan/csrc/rglru_scan.cu", "rglru_scan/kernel.py:50", scan_rows, scan_rows[0]),
         entry("decode_attention", "decode_attention/csrc/decode_attention.cu", "decode_attention/kernel.py:201",
               decode_rows, decode_rows[0]),

@@ -13,16 +13,17 @@ model is placed and stepped with no memory allocated:
   * parameters, optimizer state, caches and the batch are DTensors placed
     by the port's own rules (``param_shardings``; the activation rules for
     caches and batches), so each rank holds its local block;
-  * the step runs as the port runs it under a mesh: a serving cell of a
-    family with a sharded forward (``zoo.sharded_forward``: every family
-    but xLSTM, Whisper and the VLM) on a ("data", "model") mesh with a dim above 1 traces the
-    sharded step on rank 0's blocks (``Model.prefill_sharded`` /
-    ``decode_step_sharded``: DP rows, per-weight FSDP gathers over
-    ``data``, TP / EP over ``model``, vocab-parallel embedding and head, the
-    decode caches' slots (and the RG-LRU's channels) split over ``model``; see
+  * the step runs as the port runs it under a mesh: a serving cell on a
+    ("data", "model") mesh with a dim above 1 traces the sharded step on
+    rank 0's blocks, for every family and with the cell's multimodal batch
+    (``Model.prefill_sharded`` / ``decode_step_sharded``: DP rows,
+    per-weight FSDP gathers over ``data``, TP / EP over ``model``,
+    vocab-parallel embedding and head, the decode caches' slots, the
+    RG-LRU's channels and the xLSTM's heads split over ``model``; see
     ``models.transformer.prefill_sharded``), as ``cold_start(mesh=)``
-    serves them; the other serving cells gather their params, caches and
-    batch at use (``sharding.gather_tree``) and compute replicated; a train
+    serves them; a serving cell on a mesh with a ``pod`` dim gathers its
+    params, caches and batch at use (``sharding.gather_tree``) and computes
+    replicated; a train
     step is the Trainer's data parallelism (each rank its block of the
     batch rows, gradients averaged over the batch's mesh dims), on params
     cast to bf16 at their shards and gathered at use, with fp32 masters
@@ -32,9 +33,11 @@ model is placed and stepped with no memory allocated:
     ``MemTracker`` (the per-device peak).
 
 Each cell's record has the reference's keys; memory is per device
-(``argument_size_in_bytes``: the local blocks of the arguments;
-``temp_size_in_bytes``: the tracked peak less the arguments). ``fits``
-compares arguments plus temporaries with the card's 80 GB.
+(``argument_size_in_bytes``: the local blocks of the arguments the step
+reads, as the reference's compiled program drops an unused one, such as
+the encoder's weights in an encoder-decoder's decode step;
+``temp_size_in_bytes``: the tracked peak less every placed argument).
+``fits`` compares arguments plus temporaries with the card's 80 GB.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mixtral-8x22b --shape train_4k
@@ -67,7 +70,7 @@ import torch.distributed as dist
 from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, get_config, shape_applicable
 from repro_torch.launch.mesh import PRODUCTION
 from repro_torch.models.transformer import plain_versions
-from repro_torch.models.zoo import Model, build_model, sharded_forward
+from repro_torch.models.zoo import Model, build_model
 from repro_torch.optim import AdamWConfig, AdamWState, abstract_adamw, adamw_update
 from repro_torch.optim.adamw import clip_by_global_norm
 from repro_torch.sharding import param_shardings, resolve_pspec, use_mesh
@@ -211,7 +214,7 @@ def build_cell(arch: str, shape_name, mesh, *, logits_chunk: int = 512, remat: s
     p_sh = param_shardings(log_axes, abstract, mesh, fsdp=cfg.fsdp)
     arg_sh = tuple(_tree_shardings(ax, a, mesh) for ax, a in zip(entry.arg_axes, entry.args))
 
-    if sharded_cell(cfg, mesh):
+    if sharded_cell(mesh):
         cache_specs = tree_map(lambda sh: sh.spec, arg_sh[0]) if shape.kind == "decode" else None
 
         def serve_step(params, *args):
@@ -228,13 +231,11 @@ def build_cell(arch: str, shape_name, mesh, *, logits_chunk: int = 512, remat: s
     return Cell(model, serve_step, (abstract, *entry.args), (p_sh, *arg_sh), 1, {})
 
 
-def sharded_cell(cfg, mesh) -> bool:
-    """True when a serving cell traces the sharded step (``zoo.
-    sharded_forward``: every family but xLSTM, Whisper and the VLM, on a
-    ("data", "model") mesh with a dim above 1); the other cells gather at
-    use."""
+def sharded_cell(mesh) -> bool:
+    """True when a serving cell traces the sharded step: a ("data",
+    "model") mesh with a dim above 1; the other cells gather at use."""
     sizes = mesh_sizes(mesh)
-    return sharded_forward(cfg) and mesh_dims_supported(tuple(sizes)) and any(n > 1 for n in sizes.values())
+    return mesh_dims_supported(tuple(sizes)) and any(n > 1 for n in sizes.values())
 
 
 def _local_tree(tree):
@@ -283,15 +284,20 @@ def local_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in local_tensors(tree))
 
 
-def closed_form_argument_bytes(cell: Cell, mesh) -> int:
+def closed_form_argument_bytes(cell: Cell, mesh, read: Optional[list] = None) -> int:
     """The arguments' bytes per device from the shardings alone: each leaf's
     bytes over its spec's shard divisor on ``mesh`` (a ``DeviceMesh`` or the
-    shape-only ``MeshShape``)."""
+    shape-only ``MeshShape``), over the leaves ``read`` marks (a flag per
+    leaf in ``local_tensors`` order, ``trace_cell``'s; default every leaf)."""
+    flags = iter(read) if read is not None else None
+
     def one(tree, sh) -> int:
         if isinstance(tree, dict):
             return sum(one(v, sh[k]) for k, v in tree.items())
         if isinstance(tree, tuple):
             return sum(one(t, s) for t, s in zip(tree, sh))
+        if flags is not None and not next(flags):
+            return 0
         return tree.numel() * tree.element_size() // spec_shard_divisor(sh.spec, mesh)
 
     return one(cell.args, cell.in_sh)
@@ -314,14 +320,18 @@ def make_mesh(shape: tuple, names: tuple, device: str):
 
 def trace_cell(cell: Cell, mesh, device: str, *, kernelized: bool = False) -> dict:
     """Place the cell's arguments as fake DTensors and run its step once
-    under the cost counter, ``FlopCounterMode`` and ``MemTracker``."""
+    under the cost counter, ``FlopCounterMode`` and ``MemTracker``. The
+    arguments' bytes are those of the leaves the step reads (``read``, a
+    flag per leaf): a leaf it never reads, as the encoder's weights in an
+    encoder-decoder's decode step, is dropped from the reference's compiled
+    program (``jax.jit`` keeps no unused argument) and counted here as
+    temporaries' room only."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
     with FakeTensorMode(allow_non_fake_inputs=True), use_mesh(mesh):
         args = place_args(cell, mesh, device)
-        arg_bytes = local_bytes(args)
         tracker = MemTracker()
         tracker.track_external(*local_tensors(args))
         counter = hlocost.CostCounter(kernelized=kernelized, weights=args[0])
@@ -333,8 +343,13 @@ def trace_cell(cell: Cell, mesh, device: str, *, kernelized: bool = False) -> di
         finally:
             cell.hooks.pop("repeats")
         trace_s = time.perf_counter() - t0
-        mem = hlo_util.extract_memory(tracker, argument_bytes=arg_bytes, output_bytes=local_bytes(out))
-    return {"cost": counter.cost, "raw_flops": float(flops.get_total_flops()), "memory": mem, "trace_s": trace_s}
+        leaves = local_tensors(args)
+        read = [counter.was_read(t) for t in leaves]
+        mem = hlo_util.extract_memory(tracker, argument_bytes=sum(t.numel() * t.element_size()
+                                                                  for t, r in zip(leaves, read) if r),
+                                      placed_bytes=local_bytes(args), output_bytes=local_bytes(out))
+    return {"cost": counter.cost, "raw_flops": float(flops.get_total_flops()), "memory": mem, "trace_s": trace_s,
+            "read": read}
 
 
 def model_flops(model: Model, shape) -> float:
@@ -364,8 +379,8 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False, mesh_shape: Opti
         mesh = make_mesh(shape_, names, device)
         t0 = time.perf_counter()
         cell = build_cell(arch, shape, mesh, extra_cfg=extra_cfg)
-        closed = closed_form_argument_bytes(cell, mesh)
         res = trace_cell(cell, mesh, device, kernelized=kernelized)
+        closed = closed_form_argument_bytes(cell, mesh, res["read"])
         lower_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()

@@ -85,13 +85,12 @@ ranks, the leaves' shard divisors, the entries' kind). One process serves
 1x1; a larger mesh needs one process per rank,
 ``torchrun --nproc-per-node N -m repro_torch.launch.serve ... --mesh DxM``,
 and a geometry the world does not hold is a usage error. Every rank runs the
-same request on its own device. Every family but xLSTM, Whisper and the VLM
-(``zoo.sharded_forward``) computes on each rank's shards: the batch rows
-split over ``data``, each weight's ``embed`` dim gathered over ``data`` at
-its use, heads, ``ffn`` (the RG-LRU's channels), experts and vocab over
-``model``, the decode caches' slots over ``model``
-(``models.transformer.prefill_sharded``). xLSTM, Whisper and the VLM gather
-the leaves at each forward run and compute replicated. Resident bytes are per shard either way; rank 0 writes the
+same request on its own device. Every family computes on each rank's
+shards: the batch rows split over ``data``, each weight's ``embed`` dim
+gathered over ``data`` at its use, heads, ``ffn`` (the RG-LRU's channels),
+experts and vocab over ``model``, the decode caches' slots (the recurrent
+states' channels or heads) over ``model``
+(``models.transformer.prefill_sharded``). Resident bytes are per shard; rank 0 writes the
 artifact and every file and prints every line, the mesh line after the
 request (with the bytes each run's collectives moved). A multi-rank mesh serves the
 one-shot path only (the scheduler admits on each rank's own clock), and the

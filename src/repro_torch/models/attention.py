@@ -388,6 +388,40 @@ def gqa_forward_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, 
     return _row_parallel(params["wo"], o.reshape(*o.shape[:2], h_loc * hd), comm, tp), (k, v)
 
 
+def cross_attn_memory_sharded(params: dict, memory: torch.Tensor, cfg: ModelConfig, comm) -> tuple:
+    """``cross_attn_memory`` on a rank's rows of the memory: ``wk`` / ``wv``
+    gathered over ``data`` (their ``embed`` dim is the memory's width), k
+    and v of every kv head (``_kv_proj``), (B_loc, T, Hkv, hd)."""
+    kv_split = _kv_split(params, _heads_split(params, cfg, comm))
+    Hkv = cfg.num_kv_heads
+    return (_split_heads(_kv_proj(params["wk"], memory, comm, kv_split), Hkv),
+            _split_heads(_kv_proj(params["wv"], memory, comm, kv_split), Hkv))
+
+
+def cross_attn_forward_sharded(params: dict, x: torch.Tensor, memory_kv: tuple, cfg: ModelConfig, comm, *,
+                               gated: bool = False) -> torch.Tensor:
+    """``cross_attn_forward`` on a rank's rows and heads: ``wq`` column-
+    parallel, the attention over the rank's q heads plain (not causal, as the
+    reference's cross-attention, which reaches no kernel), ``wo`` row-
+    parallel. ``memory_kv`` holds every kv head (a prefill's memory, or a
+    cache whose kv heads are not split), from which the rank's q heads take
+    theirs, or the rank's own block of them (a cache split over ``model``)."""
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    tp = _heads_split(params, cfg, comm)
+    h_loc = H // comm.size("model") if tp else H
+    k, v = memory_kv
+    if k.shape[2] != Hkv and not tp:
+        raise ValueError(f"a cross cache split to {k.shape[2]} of {Hkv} kv heads against q heads that are not")
+    if tp and k.shape[2] == Hkv:
+        k, v = _local_kv(k, v, comm.index("model") * h_loc, h_loc, H // Hkv)
+    q = _split_heads(_proj(params["wq"], x, comm, tp), h_loc)
+    o = flash_attention_plain(q, k, v, causal=False)
+    out = _row_parallel(params["wo"], o.reshape(*o.shape[:2], h_loc * hd), comm, tp)
+    if gated:
+        out = out * torch.tanh(params["gate"].gathered(comm).to(x.dtype))
+    return out
+
+
 def _write_owned(cache: torch.Tensor, local: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     """``_scatter_rows`` for a block of the cache's slots: each row lands at
     its block-local slot ``local`` where the block owns it, and the other

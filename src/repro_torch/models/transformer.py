@@ -182,6 +182,22 @@ def _kind_window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.sliding_window  # "self": SWA if the config sets it (Mixtral)
 
 
+# logical axes of each cache leaf, by name (the reference's CacheLeaf.axes)
+_CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", None), "v": ("batch", "kv_seq", "kv_heads", None),
+    "ckv": ("batch", "kv_seq", None), "kr": ("batch", "kv_seq", None),
+    "xk": ("batch", None, "kv_heads", None), "xv": ("batch", None, "kv_heads", None),  # the memory's rows whole
+    "lru": ("batch", "ffn"), "conv": ("batch", None, "ffn"),
+    "C": ("batch", "heads", None, None), "n": ("batch", "heads", None), "m": ("batch", "heads"),
+}
+
+
+def cache_leaf_axes(kind: str, name: str) -> tuple:
+    """The logical axes of cache leaf ``name`` of a ``kind`` block (every
+    leaf of an sLSTM block is ("batch", "heads", None))."""
+    return ("batch", "heads", None) if kind == "s" else _CACHE_AXES[name]
+
+
 def _mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor, *, serving: bool, usage_rows=None):
     """Returns (y, usage): usage is the (E,) expert-routed mask when the
     config collects router stats (the engine's fault signal), else None;
@@ -377,20 +393,26 @@ def _model_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _encoder_input(frames: torch.Tensor) -> tuple:
+    """The encoder's input (frames plus sinusoidal positions built in fp32)
+    and its RoPE positions 0..T-1, (B, T)."""
+    B, T, D = frames.shape
+    pos = torch.arange(T, device=frames.device)
+    half = D // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=frames.device) / half)
+    ang = pos[:, None].to(torch.float32) * freqs[None, :]
+    x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(frames.dtype)[None]
+    return x, pos[None].expand(B, T)
+
+
 def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder: frames (B, T, d_model), precomputed embeddings (the
     conv/mel frontend is a stub, as in the reference), plus sinusoidal
     positions built in fp32, then non-causal self-attention with RoPE on
     positions 0..T-1 and SwiGLU per layer, with plain attention on every
     device (``attention.encoder_attn_forward``)."""
-    B, T, D = frames.shape
     eps = cfg.norm_eps
-    pos = torch.arange(T, device=frames.device)
-    half = D // 2
-    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=frames.device) / half)
-    ang = pos[:, None].to(torch.float32) * freqs[None, :]
-    x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(frames.dtype)[None]
-    positions = pos[None].expand(B, T)
+    x, positions = _encoder_input(frames)
 
     def body(x, p):
         x = x + attn.encoder_attn_forward(p["attn"], rmsnorm(x, p["norm1"], eps), positions, cfg)
@@ -539,7 +561,7 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, batch: dict):
 
 
 
-# -- the sharded step (every family but xLSTM and the modal ones; ``zoo.sharded_forward``)
+# -- the sharded step (every family; ``prefill_sharded``)
 #
 # Each rank computes on its own blocks: ``params`` are ``Shard`` leaves
 # (``sharding.rules.Shard``), the batch entries too (the rank's rows), the
@@ -576,30 +598,106 @@ def _sharded_mixer(cfg, kind, p, h, positions, comm, rows):
         o, c = rec_mod.rglru_block_forward_sharded(p["rglru"], h, cfg, comm,
                                                    scan=rglru_scan_plain if plain else None)
         chans = p["rglru"]["w_in"].split(1) or None
-        return o, {"conv": constrain(c["conv"], ("batch", None, "ffn"), comm=comm,
+        return o, {"conv": constrain(c["conv"], _CACHE_AXES["conv"], comm=comm,
                                      layout=PartitionSpec(dims or None, None, chans)),
-                   "lru": constrain(c["lru"], ("batch", "ffn"), comm=comm, layout=PartitionSpec(dims or None, chans))}
+                   "lru": constrain(c["lru"], _CACHE_AXES["lru"], comm=comm, layout=PartitionSpec(dims or None, chans))}
     if cfg.mla is not None:
         o, (ckv, kr) = attn.mla_forward_sharded(p["attn"], h, positions, cfg, comm)
-        return o, {"ckv": constrain(ckv, ("batch", "kv_seq", None), comm=comm, layout=layout),
-                   "kr": constrain(kr, ("batch", "kv_seq", None), comm=comm, layout=layout)}
+        return o, {"ckv": constrain(ckv, _CACHE_AXES["ckv"], comm=comm, layout=layout),
+                   "kr": constrain(kr, _CACHE_AXES["kr"], comm=comm, layout=layout)}
     o, (k, v) = attn.gqa_forward_sharded(p["attn"], h, positions, cfg, comm, causal=True,
                                          window=_kind_window(cfg, kind),
                                          attend=flash_attention_plain if plain else None)
-    return o, {"k": constrain(k, _CACHE_KV_AXES, comm=comm, layout=layout),
-               "v": constrain(v, _CACHE_KV_AXES, comm=comm, layout=layout)}
+    return o, {"k": constrain(k, _CACHE_AXES["k"], comm=comm, layout=layout),
+               "v": constrain(v, _CACHE_AXES["v"], comm=comm, layout=layout)}
 
 
-def _sharded_block(cfg, kind, p, x, positions, comm, rows):
+def _cross_cache(mem_kv: tuple, comm, layout) -> dict:
+    """A prefill's cross K/V (every kv head, the rank's rows) as its blocks
+    of the cross caches' layout."""
+    return {name: constrain(t, _CACHE_AXES[name], comm=comm, layout=layout) for name, t in zip(("xk", "xv"), mem_kv)}
+
+
+def _xlstm_cache(cfg, kind, p, c: dict, comm, dims) -> dict:
+    """An xLSTM block's new state as its blocks of the ``cache_axes``
+    layout: computed on the rank's rows, its heads (``xlstm.rank_heads``)
+    and, for the mLSTM's conv inputs, its channels (``conv_w``'s block)."""
+    heads = "model" if xlstm_mod.rank_heads(cfg, comm)[1] < cfg.num_heads else None
+    rows = dims or None
+    chans = (p["mlstm"]["conv_w"].split(1) or None) if kind == "m" else None
+    return {name: constrain(t, cache_leaf_axes(kind, name), comm=comm,
+                            layout=PartitionSpec(rows, None, chans) if name == "conv" else PartitionSpec(rows, heads))
+            for name, t in c.items()}
+
+
+def _xlstm_sharded(kind: str):
+    """(params key, prefill form, decode form) of an xLSTM block kind."""
+    if kind == "m":
+        return "mlstm", xlstm_mod.mlstm_block_forward_sharded, xlstm_mod.mlstm_block_decode_sharded
+    return "slstm", xlstm_mod.slstm_block_forward_sharded, xlstm_mod.slstm_block_decode_sharded
+
+
+def _sharded_block(cfg, kind, p, x, positions, memory, comm, rows):
+    """``_block_body`` on a rank's blocks, by kind: an xLSTM block (its own
+    projections, no MLP), the VLM's gated ``cross`` block (skipped whole
+    without an image, as unsharded), or a mixer (``_sharded_mixer``), then
+    Whisper's cross-attention over the encoder output where the batch has
+    one, then the MLP. ``memory`` holds the rank's rows of the encoder output
+    (``enc``) or of the image embeddings (``image``). Returns (x, cache)."""
     eps = cfg.norm_eps
     dims, layout = rows
-    o, cache = _sharded_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), positions, comm, rows)
-    x = x + o
+    if kind in ("m", "s"):
+        key, forward, _ = _xlstm_sharded(kind)
+        o, c = forward(p[key], rmsnorm(x, p["norm"].gathered(comm), eps), cfg, comm)
+        return constrain(x + o, ("batch", "seq", "embed"), comm=comm, layout=layout), \
+            _xlstm_cache(cfg, kind, p, c, comm, dims)
+    if kind == "cross":
+        if memory.get("image") is None:
+            return x, {}
+        mem_kv = attn.cross_attn_memory_sharded(p["cross"], memory["image"], cfg, comm)
+        x = x + attn.cross_attn_forward_sharded(p["cross"], rmsnorm(x, p["norm1"].gathered(comm), eps), mem_kv, cfg,
+                                                comm, gated=True)
+        cache, gate = _cross_cache(mem_kv, comm, layout), torch.tanh(p["gate_ffn"].gathered(comm).to(x.dtype))
+    else:
+        o, cache = _sharded_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), positions, comm, rows)
+        x = x + o
+        if cfg.encdec is not None and memory.get("enc") is not None:
+            mem_kv = attn.cross_attn_memory_sharded(p["cross"], memory["enc"], cfg, comm)
+            x = x + attn.cross_attn_forward_sharded(p["cross"], rmsnorm(x, p["norm_x"].gathered(comm), eps), mem_kv,
+                                                    cfg, comm)
+            cache.update(_cross_cache(mem_kv, comm, layout))
+        gate = None
     y = _sharded_mlp(cfg, p, rmsnorm(x, p["norm2"].gathered(comm), eps), comm, dims, cache)
-    return constrain(x + y, ("batch", "seq", "embed"), comm=comm, layout=layout), cache
+    x = x + (y if gate is None else gate * y)
+    return constrain(x, ("batch", "seq", "embed"), comm=comm, layout=layout), cache
 
 
-_CACHE_KV_AXES = ("batch", "kv_seq", "kv_heads", None)
+def _encode_sharded(cfg: ModelConfig, params: dict, frames: torch.Tensor, comm) -> torch.Tensor:
+    """``_encode`` on a rank's rows of ``frames``: each layer's
+    self-attention through ``gqa_forward_sharded`` (not causal, plain on
+    every device, as the reference's encoder), its SwiGLU through
+    ``swiglu_sharded``."""
+    eps = cfg.norm_eps
+    x, positions = _encoder_input(frames)
+    blocks = params["encoder"]["blocks"]
+    for i in range(cfg.encdec.num_encoder_layers):
+        p = _select(blocks, i)
+        x = x + attn.gqa_forward_sharded(p["attn"], rmsnorm(x, p["norm1"].gathered(comm), eps), positions, cfg, comm,
+                                         causal=False, attend=flash_attention_plain)[0]
+        x = x + swiglu_sharded(p["dense"], rmsnorm(x, p["norm2"].gathered(comm), eps), comm)
+    return rmsnorm(x, params["encoder"]["final_norm"].gathered(comm), eps)
+
+
+def _memory_sharded(cfg: ModelConfig, params: dict, batch: dict, comm) -> dict:
+    """``_memory_from_batch`` on a rank's rows: the encoder's output for
+    ``frames`` (``_encode_sharded``), the rank's rows of ``image_embeds``;
+    empty for a text-only batch."""
+    memory = {}
+    if cfg.encdec is not None and "frames" in batch:
+        memory["enc"] = _encode_sharded(cfg, params, batch["frames"].local, comm)
+    if cfg.vlm is not None and "image_embeds" in batch:
+        memory["image"] = batch["image_embeds"].local
+    return memory
 
 
 def _sharded_sections(cfg: ModelConfig):
@@ -613,22 +711,28 @@ def _sharded_sections(cfg: ModelConfig):
 
 
 def prefill_sharded(cfg: ModelConfig, params: dict, batch: dict, comm):
-    """``prefill`` on a rank's blocks. Returns (this rank's (rows, vocab
-    rows) block of the last-token logits, caches): DP splits the rows over
-    ``batch``'s mesh dims; FSDP gathers each weight's ``embed`` dim over
-    ``data`` at its use; TP keeps heads and ``ffn`` column-parallel and the
-    output projections row-parallel (all-reduced over ``model``); EP or
-    TP-within-expert as the rules resolve ``experts``; the embedding and the
-    head (a tied model's one table) are vocab-parallel. Blocks dispatch by
-    kind (``_sharded_mixer``): GQA with the kind's window, MLA, or the
-    RG-LRU on the rank's channels. Each cache comes out as its block of the
+    """``prefill`` on a rank's blocks, for every family. Returns (this
+    rank's (rows, vocab rows) block of the last-token logits, caches): DP
+    splits the rows over ``batch``'s mesh dims; FSDP gathers each weight's
+    ``embed`` dim over ``data`` at its use; TP keeps heads and ``ffn``
+    column-parallel and the output projections row-parallel (all-reduced
+    over ``model``); EP or TP-within-expert as the rules resolve
+    ``experts``; the embedding and the head (a tied model's one table) are
+    vocab-parallel. Blocks dispatch by kind (``_sharded_block``): GQA with
+    the kind's window, MLA, the RG-LRU on the rank's channels, the mLSTM /
+    sLSTM on the rank's heads (``xlstm.rank_heads``), the VLM's gated cross
+    block and Whisper's cross-attention over a multimodal batch's memory
+    (``frames`` through the encoder on the rank's rows, or
+    ``image_embeds``). Each cache comes out as its block of the
     ``cache_axes`` layout (K/V and MLA's latent rows with ``kv_seq`` over
-    ``model``, the RG-LRU's state with its channels over ``model``), the
+    ``model``, cross K/V and the recurrent states with ``kv_heads`` /
+    ``heads`` / channels over ``model`` where the rules split them), the
     usage masks whole. On a mesh of 1s the collectives are no-ops and the
     math is ``prefill``'s."""
     rows = _rows(batch)
     tokens = batch["tokens"].local
     B, S = tokens.shape
+    memory = _memory_sharded(cfg, params, batch, comm)
     x = embed_sharded(params["embed"], tokens, _model_dtype(cfg), cfg.d_model, comm)
     x = constrain(x, ("batch", "seq", "embed"), comm=comm, layout=rows[1])
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -636,7 +740,7 @@ def prefill_sharded(cfg: ModelConfig, params: dict, batch: dict, comm):
     groups: dict = {}
     for section, key, kind, gi in _sharded_sections(cfg):
         p = params[section][key] if gi is None else _select(params[section], gi)[key]
-        x, c = _sharded_block(cfg, kind, p, x, positions, comm, rows)
+        x, c = _sharded_block(cfg, kind, p, x, positions, memory, comm, rows)
         if gi is None:
             caches.setdefault(section, {})[key] = c
         else:
@@ -670,15 +774,61 @@ def _sharded_decode_mixer(cfg, kind, p, h, pos, cache: dict, specs: dict, lead: 
     return o, {"k": k, "v": v}
 
 
+def _check_xlstm_state(cfg, kind, p, specs: dict, lead: int, comm) -> None:
+    """An xLSTM decode state must be split as the sharded step computes it:
+    its ``heads`` axis over ``model`` exactly where the rank runs its own
+    heads, the mLSTM's conv channels as ``conv_w``'s."""
+    def split(dims: tuple) -> tuple:  # a mesh dim of size 1 splits nothing
+        return tuple(d for d in dims if comm.size(d) > 1)
+
+    heads = ("model",) if xlstm_mod.rank_heads(cfg, comm)[1] < cfg.num_heads else ()
+    leaf = "C" if kind == "m" else "c"
+    if split(spec_dims(specs[leaf], lead + 1)) != heads:
+        raise ValueError(f"an xLSTM state split as {specs[leaf]} against a step that runs heads split over {heads}")
+    if kind == "m" and split(spec_dims(specs["conv"], lead + 2)) != split(p["mlstm"]["conv_w"].split(1)):
+        raise ValueError(f"an mLSTM conv state split as {specs['conv']} against weights whose channels are split "
+                         f"over {p['mlstm']['conv_w'].split(1)}")
+
+
+def _sharded_decode_block(cfg, kind, p, x, pos, cache: dict, specs: dict, lead: int, comm, dims, usage_rows):
+    """``_block_decode`` on a rank's blocks, by kind (see ``_sharded_block``):
+    cross K/V (``xk`` / ``xv``, a multimodal cache's) are read as the rank's
+    blocks and come back as the same tensors; an xLSTM block's state of the
+    rank's heads comes back as new tensors. Returns (x, cache)."""
+    eps = cfg.norm_eps
+    if kind in ("m", "s"):
+        _check_xlstm_state(cfg, kind, p, specs, lead, comm)
+        key, _, decode = _xlstm_sharded(kind)
+        o, c = decode(p[key], rmsnorm(x, p["norm"].gathered(comm), eps), cache, cfg, comm)
+        return x + o, c
+    if kind == "cross":
+        if "xk" not in cache:
+            return x, {}
+        x = x + attn.cross_attn_forward_sharded(p["cross"], rmsnorm(x, p["norm1"].gathered(comm), eps),
+                                                (cache["xk"], cache["xv"]), cfg, comm, gated=True)
+        c, gate = {"xk": cache["xk"], "xv": cache["xv"]}, torch.tanh(p["gate_ffn"].gathered(comm).to(x.dtype))
+    else:
+        o, c = _sharded_decode_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), pos, cache, specs,
+                                     lead, comm)
+        x = x + o
+        if cfg.encdec is not None and "xk" in cache:
+            x = x + attn.cross_attn_forward_sharded(p["cross"], rmsnorm(x, p["norm_x"].gathered(comm), eps),
+                                                    (cache["xk"], cache["xv"]), cfg, comm)
+            c.update(xk=cache["xk"], xv=cache["xv"])
+        gate = None
+    y = _sharded_mlp(cfg, p, rmsnorm(x, p["norm2"].gathered(comm), eps), comm, dims, c, usage_rows)
+    return x + (y if gate is None else gate * y), c
+
+
 def decode_step_sharded(cfg: ModelConfig, params: dict, caches: dict, batch: dict, comm, cache_specs: dict):
     """``decode_step`` on a rank's blocks (see ``prefill_sharded``):
     ``caches`` are this rank's blocks in the ``cache_specs`` layout, K/V
     (MLA's latent rows) written in place by the rank that holds the new
     slot; the attention is combined over the slot axis's mesh dims
-    (split-KV); a rec block's conv and LRU state come back as new tensors,
-    committed once as ``decode_step``'s are. ``active`` (whole
-    batch, gathered from the rows) gates the usage masks as in
-    ``decode_step``. Returns (the logits block, new caches)."""
+    (split-KV); cross K/V are only read; a rec or xLSTM block's state comes
+    back as new tensors, committed once as ``decode_step``'s are.
+    ``active`` (whole batch, gathered from the rows) gates the usage masks
+    as in ``decode_step``. Returns (the logits block, new caches)."""
     rows = _rows(batch)
     dims, layout = rows
     tokens, pos = batch["tokens"].local, batch["pos"].local
@@ -690,23 +840,19 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, caches: dict, batch: dic
         usage_rows = usage_rows.to(torch.bool)[:, None]
     x = embed_sharded(params["embed"], tokens, _model_dtype(cfg), cfg.d_model, comm)
     new_caches: dict = {}
-    eps = cfg.norm_eps
     for section, key, kind, gi in _sharded_sections(cfg):
         p = params[section][key] if gi is None else _select(params[section], gi)[key]
         cache = caches[section][key] if gi is None else _select(caches[section], gi)[key]
-        h = rmsnorm(x, p["norm1"].gathered(comm), eps)
         # a scanned group's cache leaves lead with the stacked axis
-        o, c = _sharded_decode_mixer(cfg, kind, p, h, pos, cache, cache_specs[section][key], 0 if gi is None else 1,
-                                     comm)
-        x = x + o
-        y = _sharded_mlp(cfg, p, rmsnorm(x, p["norm2"].gathered(comm), eps), comm, dims, c, usage_rows)
-        x = constrain(x + y, ("batch", "seq", "embed"), comm=comm, layout=layout)
+        x, c = _sharded_decode_block(cfg, kind, p, x, pos, cache, cache_specs[section][key], 0 if gi is None else 1,
+                                     comm, dims, usage_rows)
+        x = constrain(x, ("batch", "seq", "embed"), comm=comm, layout=layout)
         if gi is None:
             new_caches.setdefault(section, {})[key] = c
             continue
         out_c = new_caches.setdefault(section, {}).setdefault(key, {})
         for name, t in c.items():
-            if t is cache.get(name):  # written in place through the group's view
+            if t is cache.get(name):  # written in place (or only read) through the group's view
                 out_c[name] = caches[section][key][name]
             else:
                 if name not in out_c:

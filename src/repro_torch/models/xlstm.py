@@ -239,11 +239,11 @@ def slstm_cache_shapes(cfg: ModelConfig, batch: int) -> dict[str, tuple]:
     return {"c": shape, "n": shape, "h": shape, "m": shape}
 
 
-def _slstm_cell_step(params: dict, xt: torch.Tensor, carry: tuple, H: int, hd: int):
-    """xt (B, 4d) pre-activation from the input; carry (c, n, h, m), each
-    (B, H, hd) (the stabilizer is per channel)."""
+def _slstm_cell_step(r_zifo: torch.Tensor, xt: torch.Tensor, carry: tuple, H: int, hd: int):
+    """xt (B, 4·H·hd) pre-activation from the input; carry (c, n, h, m), each
+    (B, H, hd) (the stabilizer is per channel); ``r_zifo`` (H, hd, 4hd)."""
     c, n, h, m = carry
-    rec = torch.einsum("bhd,hdk->bhk", h, params["r_zifo"].to(h.dtype))  # (B, H, 4hd)
+    rec = torch.einsum("bhd,hdk->bhk", h, r_zifo.to(h.dtype))  # (B, H, 4hd)
     pre = xt.reshape(xt.shape[0], H, 4 * hd).to(torch.float32) + rec.to(torch.float32)
     z, i_raw, f_raw, o_raw = torch.chunk(pre, 4, dim=-1)
     z = torch.tanh(z)
@@ -260,15 +260,20 @@ def _slstm_cell_step(params: dict, xt: torch.Tensor, carry: tuple, H: int, hd: i
 
 def slstm_cell(params: dict, x_pre: torch.Tensor, cfg: ModelConfig, state=None):
     """x_pre (B, S, 4d). Returns (h (B, S, H, hd) fp32, state)."""
-    B, S, _ = x_pre.shape
     H = cfg.num_heads
-    hd = cfg.d_model // H
+    return _slstm_steps(params["r_zifo"], x_pre, H, cfg.d_model // H, state)
+
+
+def _slstm_steps(r_zifo: torch.Tensor, x_pre: torch.Tensor, H: int, hd: int, state=None):
+    """The cell over time for H heads of hd channels: x_pre (B, S, 4·H·hd),
+    r_zifo (H, hd, 4hd). Returns (h (B, S, H, hd) fp32, state)."""
+    B, S, _ = x_pre.shape
     if state is None:
         zeros = torch.zeros(B, H, hd, dtype=torch.float32, device=x_pre.device)
         state = (zeros, zeros, zeros, torch.full((B, H, hd), M_INIT, dtype=torch.float32, device=x_pre.device))
     hs = []
     for t in range(S):
-        state, h = _slstm_cell_step(params, x_pre[:, t], state, H, hd)
+        state, h = _slstm_cell_step(r_zifo, x_pre[:, t], state, H, hd)
         hs.append(h)
     return torch.stack(hs, dim=1), state
 
@@ -297,3 +302,163 @@ def slstm_block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelCon
     state = tuple(cache[k] for k in "cnhm")
     h, state = slstm_cell(params, _slstm_pre(params, x), cfg, state=state)
     return _slstm_tail(params, h, x, cfg), dict(zip("cnhm", state))
+
+
+# ---------------------------------------------------------------------------
+# sharded forms (a rank's local blocks; ``sharding.comm``)
+# ---------------------------------------------------------------------------
+#
+# Laid out as GSPMD partitions the reference's blocks (its compiled 2×2 HLO):
+# a weight whose columns the rules split over ``model`` is applied to the
+# rank's columns and the output all-gathered (``_cols_whole``: the fused
+# ``w_up`` / ``ffn_up`` are chunked afterwards, since a rank's block of their
+# columns is not its channels of both halves); one whose rows (the
+# contraction) are split takes the rank's block of its input, the partial
+# sums all-reduced over ``model`` before anything nonlinear (``_contract``).
+# The recurrence runs on the rank's heads where ``model`` divides them, else
+# on every head on every rank (``rank_heads``).
+
+
+def rank_heads(cfg: ModelConfig, comm) -> tuple[int, int]:
+    """(first head, heads) of the recurrence on this rank: its own block
+    where ``model`` divides the heads (the state's ``heads`` axis is split
+    then), else every head."""
+    H, M = cfg.num_heads, comm.size("model")
+    if M > 1 and H % M == 0:
+        return comm.index("model") * (H // M), H // M
+    return 0, H
+
+
+def _cols_whole(w, x: torch.Tensor, comm) -> torch.Tensor:
+    """``x @ w`` whole on every rank: the rank's columns of ``w`` (gathered
+    over ``data``), all-gathered over ``model`` where the rules split them."""
+    out = x @ w.gathered(comm, ("data",)).to(x.dtype)
+    return comm.all_gather(out, "model", out.dim() - 1) if "model" in w.split(1) else out
+
+
+def _contract(w, h: torch.Tensor, comm) -> torch.Tensor:
+    """``h @ w`` with the contraction (``w``'s rows) split over ``model``:
+    the rank's block of the rows where the rules split them, else rows
+    [j·c, (j+1)·c) with c = ceil(rows / model) (the last block shorter), as
+    GSPMD splits a dim that ``model`` does not divide, by padding it. ``h``
+    is whole (cut here) or already that block. The partial sums are
+    all-reduced over ``model``."""
+    wl = w.gathered(comm, ("data",))
+    M, n = comm.size("model"), w.shape[0]
+    if M == 1:
+        return h @ wl.to(h.dtype)
+    if "model" in w.split(0):
+        lo = w.start(0, comm)
+        hi = lo + wl.shape[0]
+    else:
+        c = -(-n // M)
+        lo = min(comm.index("model") * c, n)
+        hi = min(lo + c, n)
+        wl = wl[lo:hi]
+    if h.shape[-1] == n:
+        h = h[..., lo:hi]
+    return comm.all_reduce(h @ wl.to(h.dtype), "model")
+
+
+def _mlstm_qkv_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, comm, conv_state=None):
+    """``_mlstm_qkv`` on a rank's rows: ``up`` whole (``_cols_whole``), the
+    conv on the rank's channels of ``z`` (``conv_w``'s block), q / k / v and
+    the gates with their contraction over those channels (``_contract``),
+    then the rank's heads (``rank_heads``)."""
+    H = cfg.num_heads
+    z, o_gate = torch.chunk(_cols_whole(params["w_up"], x, comm), 2, dim=-1)
+    conv_w = params["conv_w"]
+    lo = conv_w.start(1, comm)
+    z_c = z[..., lo:lo + conv_w.local.shape[1]]
+    zc, conv_state = causal_conv1d(z_c, conv_w.gathered(comm, ("data",)), params["conv_b"].gathered(comm, ("data",)),
+                                   state=conv_state)
+    zc = F.silu(zc.to(torch.float32)).to(x.dtype)
+    h0, nh = rank_heads(cfg, comm)
+
+    def heads(t: torch.Tensor) -> torch.Tensor:
+        return _mlstm_heads(t, H)[:, :, h0:h0 + nh].to(torch.float32)
+
+    q, k, v = heads(_contract(params["w_q"], zc, comm)), heads(_contract(params["w_k"], zc, comm)), \
+        heads(_contract(params["w_v"], z_c, comm))
+    k = k / math.sqrt(k.shape[-1])
+    gates = _contract(params["w_if"], zc, comm).to(torch.float32) + params["b_if"].gathered(comm).to(torch.float32)
+    log_i, f_raw = torch.chunk(gates, 2, dim=-1)
+    log_f = -F.softplus(-f_raw[..., h0:h0 + nh])
+    return q, k, v, log_i[..., h0:h0 + nh], log_f, o_gate, conv_state
+
+
+def _mlstm_out_sharded(params: dict, h: torch.Tensor, o_gate: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+                       comm) -> torch.Tensor:
+    """``_mlstm_out`` for the rank's heads h (B, S, nh, hd): the group norm
+    on whole heads, the output gate on their channels, row-parallel
+    ``w_down`` (its rows cut where h holds every head)."""
+    H = cfg.num_heads
+    h0, nh = rank_heads(cfg, comm)
+    hd = h.shape[-1]
+    gn = params["gn_scale"].gathered(comm).reshape(H, hd)[h0:h0 + nh]
+    h = _groupnorm(h.to(x.dtype), gn).reshape(x.shape[0], x.shape[1], nh * hd)
+    h = h * F.silu(o_gate[..., h0 * hd:(h0 + nh) * hd].to(torch.float32)).to(x.dtype)
+    return _contract(params["w_down"], h, comm)
+
+
+def mlstm_block_forward_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, comm):
+    """``mlstm_block_forward`` on a rank's rows (``Shard`` params). Returns
+    (y, cache): C / n / m of the rank's heads, conv of its channels."""
+    q, k, v, log_i, log_f, o_gate, conv_state = _mlstm_qkv_sharded(params, x, cfg, comm)
+    S, chunk = x.shape[1], cfg.xlstm.chunk_size
+    if S > chunk and S % chunk == 0:
+        h, state = mlstm_chunkwise(q, k, v, log_i, log_f, chunk)
+    else:
+        h, state = mlstm_scan(q, k, v, log_i, log_f)
+    y = _mlstm_out_sharded(params, h, o_gate, x, cfg, comm)
+    return y, {"C": state[0], "n": state[1], "m": state[2], "conv": conv_state}
+
+
+def mlstm_block_decode_sharded(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, comm):
+    """``mlstm_block_decode`` on a rank's rows: ``cache`` holds the state of
+    the rank's heads and the conv inputs of its channels, only read; the new
+    state comes back as new tensors."""
+    q, k, v, log_i, log_f, o_gate, conv_state = _mlstm_qkv_sharded(params, x, cfg, comm, conv_state=cache["conv"])
+    h, state = mlstm_scan(q, k, v, log_i, log_f, state=(cache["C"], cache["n"], cache["m"]))
+    y = _mlstm_out_sharded(params, h, o_gate, x, cfg, comm)
+    return y, {"C": state[0], "n": state[1], "m": state[2], "conv": conv_state}
+
+
+def _slstm_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, comm, state=None):
+    """The sLSTM block on a rank's rows. Where ``model`` divides the heads a
+    rank's block of ``w_zifo``'s columns is its heads' four gates, and the
+    cell runs on them; otherwise the pre-activation is all-gathered and every
+    rank runs every head. The group norm runs on whole heads, whose outputs
+    are all-gathered over ``model`` for ``ffn_up`` (whole, ``_cols_whole``);
+    ``ffn_down`` is row-parallel (``_contract``). Returns (y, state)."""
+    H = cfg.num_heads
+    hd = cfg.d_model // H
+    h0, nh = rank_heads(cfg, comm)
+    w, b = params["w_zifo"], params["b_zifo"]
+    if nh < H:
+        pre = x @ w.gathered(comm, ("data",)).to(x.dtype) + b.local.to(x.dtype)
+    else:
+        pre = _cols_whole(w, x, comm) + b.gathered(comm).to(x.dtype)
+    h, state = _slstm_steps(params["r_zifo"].gathered(comm)[h0:h0 + nh], pre, nh, hd, state)
+    B, S = x.shape[0], x.shape[1]
+    gn = params["gn_scale"].gathered(comm).reshape(H, hd)[h0:h0 + nh]
+    h = _groupnorm(h.to(x.dtype), gn).reshape(B, S, nh * hd)
+    if nh < H:
+        h = comm.all_gather(h, "model", 2)
+    a, b_ = torch.chunk(_cols_whole(params["ffn_up"], h, comm), 2, dim=-1)
+    hf = F.gelu(a.to(torch.float32), approximate="tanh").to(x.dtype) * b_
+    return _contract(params["ffn_down"], hf, comm), state
+
+
+def slstm_block_forward_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, comm):
+    """``slstm_block_forward`` on a rank's rows (``_slstm_sharded``); the
+    cache holds the rank's heads (every head where ``model`` does not
+    divide them)."""
+    y, state = _slstm_sharded(params, x, cfg, comm)
+    return y, dict(zip("cnhm", state))
+
+
+def slstm_block_decode_sharded(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, comm):
+    """``slstm_block_decode`` on a rank's rows; ``cache`` is only read."""
+    y, state = _slstm_sharded(params, x, cfg, comm, state=tuple(cache[k] for k in "cnhm"))
+    return y, dict(zip("cnhm", state))

@@ -8,12 +8,12 @@ and ``decode_step``. A modal family (Whisper, the VLM) registers each entry
 twice, a multimodal one and its ``_text_only`` twin, as the reference does;
 a text-only deployment recognizes only the twins.
 
-Under a mesh of more than one rank, ``sharded_forward(cfg)`` is the one rule
-of which families compute on shards (``Model.prefill_sharded`` /
-``decode_step_sharded``): the uniform GQA stacks, dense or MoE (Mixtral, Yi,
-Phi-3, Mistral-Large), Gemma-3's 5:1 local/global stack, DeepSeek-V2-Lite's
-MLA and RecurrentGemma's RG-LRU hybrid. xLSTM, Whisper and the VLM gather
-their params at use.
+Under a mesh of more than one rank every family computes on shards
+(``Model.prefill_sharded`` / ``decode_step_sharded``): the uniform GQA
+stacks, dense or MoE (Mixtral, Yi, Phi-3, Mistral-Large), Gemma-3's 5:1
+local/global stack, DeepSeek-V2-Lite's MLA, RecurrentGemma's RG-LRU hybrid,
+xLSTM's mLSTM / sLSTM stack, Whisper's encoder-decoder and the VLM's gated
+cross blocks, multimodal batches too.
 """
 
 from __future__ import annotations
@@ -36,26 +36,6 @@ WHISPER_DECODE_ENC_LEN = 1500  # 30 s of audio: the encoder memory an audio deco
 # logical axes of the batch entries, as the reference's batch specs give them
 _BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"), "frames": ("batch", "seq", "embed"),
                "image_embeds": ("batch", None, None), "pos": ("batch",), "active": ("batch",)}
-
-
-# logical axes of each cache leaf, by name (the reference's CacheLeaf.axes)
-_CACHE_AXES = {
-    "k": ("batch", "kv_seq", "kv_heads", None), "v": ("batch", "kv_seq", "kv_heads", None),
-    "ckv": ("batch", "kv_seq", None), "kr": ("batch", "kv_seq", None),
-    "xk": ("batch", None, "kv_heads", None), "xv": ("batch", None, "kv_heads", None),
-    "lru": ("batch", "ffn"), "conv": ("batch", None, "ffn"),
-    "C": ("batch", "heads", None, None), "n": ("batch", "heads", None), "m": ("batch", "heads"),
-}
-_S_CACHE_AXES = ("batch", "heads", None)  # every leaf of an sLSTM block
-
-
-def sharded_forward(cfg: ModelConfig) -> bool:
-    """True for the families whose served entries and dry-run serving cells
-    compute on a rank's shards under a mesh: every decoder-only stack of
-    GQA (with or without a local/global pattern), MLA or RG-LRU blocks, tied
-    head or not. xLSTM and the modal families (an encoder, cross-attention)
-    keep gather-at-use."""
-    return cfg.xlstm is None and cfg.vlm is None and cfg.encdec is None
 
 
 @dataclass(frozen=True)
@@ -157,7 +137,7 @@ class Model:
     def _block_cache_template(self, kind: str, B: int, S_max: int, multimodal: bool) -> dict:
         """One block's cache leaves, each with the reference's logical axes."""
         leaves = self._block_cache_leaves(kind, B, S_max, multimodal)
-        return {name: CacheLeaf(c.shape, c.dtype, _S_CACHE_AXES if kind == "s" else _CACHE_AXES[name])
+        return {name: CacheLeaf(c.shape, c.dtype, tf.cache_leaf_axes(kind, name))
                 for name, c in leaves.items()}
 
     def _block_cache_leaves(self, kind: str, B: int, S_max: int, multimodal: bool) -> dict:

@@ -88,7 +88,7 @@ from repro_torch.core.prefetch import Prefetcher, TransitionPredictor
 from repro_torch.core.retier_daemon import RetierDaemon
 from repro_torch.kernels import kernel_wrappers
 from repro_torch.models.layers import greedy_sharded
-from repro_torch.models.zoo import Model, sharded_forward
+from repro_torch.models.zoo import Model
 from repro_torch.sharding.comm import DistComm, mesh_dims_supported
 from repro_torch.sharding.rules import (
     ACT_RULES,
@@ -273,11 +273,10 @@ class ColdStartServer:
         self.kv_page_size = kv_page_size
         self.kv_pages = kv_pages
         self.mesh = mesh  # the params are DTensors on it
-        # a multi-rank mesh: the families with a sharded forward compute on
-        # each rank's shards (``comm``), the others gather at use
+        # a multi-rank ("data", "model") mesh: the entries compute on each
+        # rank's shards (``comm``); a mesh with another dim gathers at use
         self.comm = None
-        if mesh is not None and mesh.size() > 1 and sharded_forward(model.cfg) \
-                and mesh_dims_supported(mesh.mesh_dim_names):
+        if mesh is not None and mesh.size() > 1 and mesh_dims_supported(mesh.mesh_dim_names):
             self.comm = DistComm(mesh)
         # collective bytes of each sharded forward run, per entry kind
         self.collective_bytes: dict = {"prefill": [], "decode": []}
@@ -548,20 +547,19 @@ def cold_start(
     and of each tier-1 placeholder. The residency budget and the arbiter
     charge each unit its bytes per shard (``TieredParams(shard_divisors=)``),
     and a preset's budget is its fraction of the charged tier-1 bytes. On a
-    mesh with a dim above 1, a family with a sharded forward
-    (``zoo.sharded_forward``: the GQA stacks, Gemma-3, DeepSeek-V2-Lite,
-    RecurrentGemma) computes on each rank's shards (``ColdStartServer.sharded``): each entry cuts the
+    ("data", "model") mesh with a dim above 1, every family computes on
+    each rank's shards (``ColdStartServer.sharded``): each entry cuts the
     batch to the rank's rows and runs ``Model.prefill_sharded`` /
     ``decode_step_sharded`` on the params' local blocks, gathering one
     weight's ``embed`` dim over ``data`` at its use, with TP / EP over
     ``model``; a decode entry's caches are the rank's blocks in the
     ``cache_axes`` layout (K/V and latent slots over ``model``, the RG-LRU's
-    state with its channels over ``model``). Its logits are the
+    state with its channels and the xLSTM's with its heads over ``model``).
+    Its logits are the
     rank's (rows, vocab rows) block: ``next_tokens`` takes the argmax across
     ranks, ``whole_logits`` gathers them, ``graft_prefill`` moves a
-    prefill's cache blocks into the decode layout. xLSTM's, Whisper's and
-    the VLM's
-    entries gather the leaves when they run and compute replicated; the
+    prefill's cache blocks into the decode layout. A mesh with a ``pod`` dim
+    gathers the leaves when the entries run and computes replicated; the
     gathered copies last one forward run. On a mesh of 1s nothing is sharded
     or gathered (the local tensor is the leaf), and the warm set is still
     captured as CUDA graphs; on a larger mesh the entries run eagerly

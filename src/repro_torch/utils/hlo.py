@@ -18,6 +18,7 @@ no sparsity):
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field
+from typing import Optional
 
 PEAK_FLOPS = 989e12  # bf16 FLOP/s per card
 HBM_BW = 3.35e12  # bytes/s per card
@@ -122,14 +123,16 @@ def extract_cost(cost) -> tuple[float, float]:
     return float(cost.flops), float(cost.bytes)
 
 
-def extract_memory(tracker, *, argument_bytes: int, output_bytes: int) -> dict:
+def extract_memory(tracker, *, argument_bytes: int, output_bytes: int, placed_bytes: Optional[int] = None) -> dict:
     """Bytes-per-device figures in ``memory_analysis()``'s names, from a
     ``MemTracker`` that tracked the step (its arguments registered with
-    ``track_external``): the arguments' local bytes, the outputs' local
-    bytes, and the tracked peak less the arguments as temporaries."""
+    ``track_external``): the local bytes of the arguments the step reads,
+    the outputs' local bytes, and the tracked peak less every placed
+    argument (``placed_bytes``, default ``argument_bytes``) as temporaries."""
     peak = max((snap["Total"] for snap in tracker.get_tracker_snapshot("peak").values()), default=0)
+    placed = argument_bytes if placed_bytes is None else placed_bytes
     return {"argument_size_in_bytes": int(argument_bytes), "output_size_in_bytes": int(output_bytes),
-            "temp_size_in_bytes": max(0, int(peak) - int(argument_bytes)), "peak_size_in_bytes": int(peak)}
+            "temp_size_in_bytes": max(0, int(peak) - int(placed)), "peak_size_in_bytes": int(peak)}
 
 
 def dense_model_flops(num_params: int, tokens: int) -> float:

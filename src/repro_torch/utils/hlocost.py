@@ -35,6 +35,11 @@ mirror the reference's choices; it is not XLA's cost model):
 operands are both activations, that is, derived from no tensor of
 ``weights`` (default: the leaves of the first argument) through views,
 casts and collectives. A flash kernel keeps those scores on chip.
+
+``CostCounter.was_read`` tells whether any operator but a view read a
+tensor's storage: an argument that nothing reads is one a compiled program
+drops (``jax.jit``'s ``keep_unused=False``), and the dry run leaves it out of
+the arguments' bytes, as the reference's compiled cells do.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -103,6 +109,16 @@ def _tensors(tree: Any) -> list:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
+def _storage(t: torch.Tensor):
+    """A weak key of ``t``'s storage, shared by its views (a wrapper
+    tensor's, as a ``DTensor``'s local block's); None for a tensor with none."""
+    local = getattr(t, "_local_tensor", None)
+    try:
+        return StorageWeakRef((local if local is not None else t).untyped_storage())
+    except (RuntimeError, NotImplementedError):
+        return None
+
+
 def _nbytes(tree: Any) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
@@ -141,6 +157,7 @@ class CostCounter(TorchDispatchMode):
         self._weights = WeakIdKeyDictionary()
         for t in _tensors(weights):
             self._weights[t] = True
+        self._read: set = set()  # storages an operator read (``was_read``)
 
     def _is_weight(self, t) -> bool:
         return isinstance(t, torch.Tensor) and t in self._weights
@@ -156,8 +173,15 @@ class CostCounter(TorchDispatchMode):
         finally:
             self.repeat = outer
 
+    def was_read(self, t: torch.Tensor) -> bool:
+        """True when an operator other than a view (or a ``prim`` query of
+        its metadata) read ``t``'s storage while the counter was on."""
+        return _storage(t) in self._read
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace != "prim" and not getattr(func, "is_view", False):
+            self._read.update(_storage(t) for t in _tensors((args, kwargs)))
         out = func(*args, **kwargs)
         if func is not _PRIM_DEVICE:
             self._count(func, args, kwargs, out)

@@ -30,6 +30,7 @@ A unit test holds ``mla_decode_sharded``'s split-slot combine to
 """
 
 import json
+import math
 from dataclasses import replace
 
 import jax
@@ -47,13 +48,13 @@ from repro.core import build_artifact as ref_build_artifact
 from repro.models.zoo import build_model as ref_build_model
 from repro.serving import GenerationEngine as RefEngine
 from repro.serving import cold_start as ref_cold_start
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core import DeploymentProfile, analyze
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import attention as attn
-from repro_torch.models import build_model
-from repro_torch.models.zoo import sharded_forward
-from repro_torch.serving import GenerationEngine, cold_start
+from repro_torch.models import build_model, zoo
+from repro_torch.serving import ColdStartReport, ColdStartServer, GenerationEngine, cold_start
 from repro_torch.sharding.comm import DistComm, run_ranks
 from repro_torch.sharding.rules import MeshShape, PartitionSpec, act_specs, block_of, cut_tree, param_shardings
 from repro_torch.utils.tree import tree_map
@@ -216,14 +217,22 @@ def _first_tie(margins: np.ndarray) -> int:
     return int(ties[0]) if len(ties) else margins.shape[1]
 
 
-def test_the_three_families_compute_on_shards():
-    """``sharded_forward`` holds for Gemma-3, DeepSeek-V2-Lite and
-    RecurrentGemma at full width and reduced, and not for xLSTM, Whisper
-    and the VLM."""
-    for arch in ARCHS:
-        assert sharded_forward(get_config(arch)) and sharded_forward(get_reduced(arch)), arch
-    for arch in ("whisper-base", "llama-3.2-vision-90b", "xlstm-125m"):
-        assert not sharded_forward(get_config(arch)) and not sharded_forward(get_reduced(arch)), arch
+def test_every_family_computes_on_shards():
+    """On a fake world, every family of the zoo computes on shards on a 2×2
+    ("data", "model") mesh (``ColdStartServer.sharded``, and the dry run's
+    serving cells trace the sharded step), and gathers at use on a 2×2×2
+    mesh with a ``pod`` dim; no per-family rule is left."""
+    assert not hasattr(zoo, "sharded_forward")
+    for shape, names, sharded in (((2, 2), ("data", "model"), True), ((2, 2, 2), ("pod", "data", "model"), False)):
+        dryrun.fake_world(math.prod(shape))
+        try:
+            mesh = dryrun.make_mesh(shape, names, "cpu")
+            for arch in ARCH_IDS:
+                server = ColdStartServer(build_model(get_reduced(arch)), {}, ColdStartReport(mode="after2"), mesh=mesh,
+                                         device="cpu")
+                assert server.sharded is sharded and dryrun.sharded_cell(mesh) is sharded, (arch, names)
+        finally:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
