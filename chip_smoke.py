@@ -271,12 +271,25 @@ Phases (any failure exits non-zero before the result line):
    one-rank NCCL world are both a process's default group): ``python -m
    repro_torch.launch.dryrun --arch mixtral-8x22b --shape all`` on the
    16×16 fake world (DRYRUN_JOBS cells at once, each in its own process;
-   the serving cells trace the sharded step, train still gathers at use),
-   host only, within DRYRUN_TIMEOUT_S: exit 0, every
+   the serving cells trace the sharded step, and so does train_4k, B=256
+   × 4096: ``Trainer(mesh=)``'s step on shards, each weight gathered over
+   ``data`` at its use and its gradient reduce-scattered into the rank's
+   fp32 block), host only, within DRYRUN_TIMEOUT_S: exit 0, every
    record ``ok`` or ``skipped``, each cell's line printed, and each
    ``argument_size_in_bytes`` equal to the closed form from
    ``param_shardings`` and the activation rules over
-   ``production_mesh_shape()``.
+   ``production_mesh_shape()``; each cell's arguments, peak, ``fits``, dot
+   FLOPs and collective bytes by kind printed, and the train cell on shards
+   (``train_on_shards``), with a reduce-scatter among its collectives and
+   ``fits`` true. (c) In the serial section after (b): the 1×1 train anchor,
+   Mixtral-8x22B at full width cut to DRYRUN_TRAIN_ANCHOR's 1 layer, B=1 ×
+   1024, fp32 masters and AdamW moments: the train cell traced on a
+   one-rank fake world, then run on a one-rank NCCL world on seeded
+   weights: arguments and peak traced against measured as in (b); the loss
+   and every gradient leaf of the step on shards (``sharded_grads``) bit-equal
+   to the unsharded ``accumulated_grads`` of ``Model.loss_fn``, which
+   ``make_train_step`` runs; the median step beside its roofline bound; no
+   kernel launched.
 Each phase's wall time is printed on the ``[time]`` line.
 
 The last lines: ``nvidia-smi`` name and power limit, a JSON line with the
@@ -288,7 +301,7 @@ builds the kernels, then runs only [whisper] and [llama-vision], one after
 the other with nothing beside them (their host times without the modes
 phase's contention), and prints their lines and the ``[time]`` line but no
 kernels or result line; ``--dryrun-alone`` does the same for [dryrun] (b),
-then (a).
+(c), then (a).
 """
 
 from __future__ import annotations
@@ -435,6 +448,13 @@ DRYRUN_PEAK_REL_TOL, DRYRUN_PEAK_ABS_TOL = 0.02, 64 * 2**20
 # the anchor's limits: its traced peak, and its whole wall time
 DRYRUN_ANCHOR_MAX_BYTES, DRYRUN_ANCHOR_MAX_S = 30e9, 30.0
 DRYRUN_STEP_REPS = 7  # timed steps (the median is kept)
+# [dryrun] (c): the 1×1 train anchor, (arch, B, S, layers): Mixtral-8x22B at
+# full width cut to 1 layer (2.91e9 params: 34.9 GB of fp32 masters and
+# moments, 11.6 GB of fp32 gradients beside them), B=1 × 1024
+DRYRUN_TRAIN_ANCHOR = ("mixtral-8x22b", 1, 1024, 1)
+# its traced peak, and its whole wall time (trace, placement, both
+# gradients' comparison, the timed steps)
+DRYRUN_TRAIN_MAX_BYTES, DRYRUN_TRAIN_MAX_S = 78e9, 90.0
 # [mesh] (d): Mixtral-8x22B's first layer at full width as the 16 "model"
 # ranks of the production mesh, run one after another in this process
 # (``sharding.comm.run_ranks``), held to the unsharded layer. Each rank's
@@ -2457,25 +2477,28 @@ def dryrun_grid_phase(workdir: Path) -> dict:
         roof = hlo.roofline_of(r)
         print(f"[dryrun] (a) {r['shape']}: arguments {args} B per device = closed form {closed}; peak "
               f"{r['memory']['peak_size_in_bytes']} B; fits {r['fits']}; flops/dev {r['hlo_flops'] / r['num_chips']:.6e}; "
-              f"coll/dev {r['collective_bytes']:.6e} B; roofline {roof.dominant} (compute {roof.compute_s:.6e}, "
+              f"dot flops/dev {r['hlo_dot_flops'] / r['num_chips']:.6e}; "
+              f"coll/dev {r['collective_bytes']:.6e} B {json.dumps(r['collectives']['bytes'])}; "
+              f"train_on_shards {r['train_on_shards']}; roofline {roof.dominant} (compute {roof.compute_s:.6e}, "
               f"memory {roof.memory_s:.6e}, collective {roof.collective_s:.6e} s); traced in {r['lower_s']:.1f} s",
               flush=True)
         if args != closed:
             raise AssertionError(f"[dryrun] (a) {r['shape']}: arguments {args} B against the closed form {closed}")
+        if r["shape"] == "train_4k" and not (r["train_on_shards"] and r["fits"]
+                                             and "reduce-scatter" in r["collectives"]["bytes"]):
+            raise AssertionError(f"[dryrun] (a) train_4k: on shards {r['train_on_shards']}, fits {r['fits']}, "
+                                 f"collectives {r['collectives']['bytes']}")
     print(f"[dryrun] (a) wall {wall:.1f} s", flush=True)
     return {"records": records, "wall_s": wall}
 
 
 def dryrun_anchor_phase(wrappers: dict) -> dict:
     """[dryrun] (b) The 1×1 anchor on the card (module docstring)."""
-    import statistics
-
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun
     from repro_torch.models.transformer import plain_versions
-    from repro_torch.utils import hlo
 
     arch, shape, layers = DRYRUN_ANCHOR
     t0 = time.perf_counter()
@@ -2518,46 +2541,157 @@ def dryrun_anchor_phase(wrappers: dict) -> dict:
                     not bool(torch.isfinite(logits).all()):
                 raise AssertionError(f"[dryrun] (b) logits {tuple(logits.shape)} are not finite of the cell's shape")
             del out, logits
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            out = cell.fn(*args)
-            torch.cuda.synchronize()
-            measured_peak = torch.cuda.max_memory_allocated() - held + measured_args
-            del out
-            times = []
-            for _ in range(DRYRUN_STEP_REPS):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = cell.fn(*args)
-                end.record()
-                torch.cuda.synchronize()
-                times.append(start.elapsed_time(end))
-                del out
+            peak, times = _peak_and_times(lambda: cell.fn(*args))
+        measured_peak = peak + measured_args
         counts = {name: fn.launches for name, fn in wrappers.items()}  # the anchor's path ends here
         del args, batch
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+    return _anchor_verdict("[dryrun] (b)", cell, dryrun.SHAPES[shape], mem, cost, measured_peak, times, counts, t0,
+                           DRYRUN_ANCHOR_MAX_S)
+
+
+def _peak_and_times(step) -> tuple:
+    """After a warm call of ``step``: the card's peak over one more call
+    above what was allocated before it, and DRYRUN_STEP_REPS calls' times
+    in ms (CUDA events around each)."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    del out
+    times = []
+    for _ in range(DRYRUN_STEP_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        del out
+    return peak, times
+
+
+def _anchor_verdict(tag: str, cell, shape, mem: dict, cost, measured_peak: int, times: list, counts: dict,
+                    t0: float, max_s: float) -> dict:
+    """A 1×1 anchor's checks after its run: the measured peak within
+    DRYRUN_PEAK_REL_TOL of the traced one plus DRYRUN_PEAK_ABS_TOL, the
+    median step not below the cell's roofline bound, the wall under
+    ``max_s``; each printed."""
+    import statistics
+
+    from repro_torch.launch import dryrun
+    from repro_torch.utils import hlo
+
     traced_peak = mem["peak_size_in_bytes"]
     tol = DRYRUN_PEAK_REL_TOL * traced_peak + DRYRUN_PEAK_ABS_TOL
-    print(f"[dryrun] (b) peak traced {traced_peak} B, measured {measured_peak} B (|Δ| {abs(measured_peak - traced_peak)} B,"
+    print(f"{tag} peak traced {traced_peak} B, measured {measured_peak} B (|Δ| {abs(measured_peak - traced_peak)} B,"
           f" limit {tol:.0f} B)", flush=True)
     if abs(measured_peak - traced_peak) > tol:
-        raise AssertionError("[dryrun] (b) measured peak is outside its limit of the traced one")
-    roof = hlo.Roofline(arch, shape, "1x1", 1, cost.flops, cost.bytes, cost.collective_bytes,
-                        dryrun.model_flops(cell.model, dryrun.SHAPES[shape]))
+        raise AssertionError(f"{tag} measured peak is outside its limit of the traced one")
+    roof = hlo.Roofline(cell.model.cfg.name, shape.name, "1x1", 1, cost.flops, cost.bytes, cost.collective_bytes,
+                        dryrun.model_flops(cell.model, shape))
     step_ms = statistics.median(times)
-    print(f"[dryrun] (b) step {step_ms:.4f} ms (median of {len(times)}: {[round(t, 4) for t in times]}), roofline "
+    print(f"{tag} step {step_ms:.4f} ms (median of {len(times)}: {[round(t, 4) for t in times]}), roofline "
           f"bound {roof.bound_s * 1e3:.4f} ms ({roof.dominant}: compute {roof.compute_s * 1e3:.4f}, memory "
-          f"{roof.memory_s * 1e3:.4f} ms), {roof.bound_s * 1e3 / step_ms:.1%} of the bound; launches {counts}", flush=True)
+          f"{roof.memory_s * 1e3:.4f} ms), {roof.bound_s * 1e3 / step_ms:.1%} of the bound; launches {counts}",
+          flush=True)
     if step_ms < roof.bound_s * 1e3:
-        raise AssertionError("[dryrun] (b) the step beat its roofline bound: the counter misses work")
+        raise AssertionError(f"{tag} the step beat its roofline bound: the counter misses work")
     wall = time.perf_counter() - t0
-    print(f"[dryrun] (b) wall {wall:.1f} s", flush=True)
-    if wall > DRYRUN_ANCHOR_MAX_S:
-        raise AssertionError(f"[dryrun] (b) took {wall:.1f} s, over its {DRYRUN_ANCHOR_MAX_S} s")
+    print(f"{tag} wall {wall:.1f} s", flush=True)
+    if wall > max_s:
+        raise AssertionError(f"{tag} took {wall:.1f} s, over its {max_s} s")
     return {"launches": counts, "wall_s": wall, "step_ms": step_ms, "bound_ms": roof.bound_s * 1e3}
+
+
+def dryrun_train_anchor_phase(wrappers: dict) -> dict:
+    """[dryrun] (c) The 1×1 train anchor on the card (module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.comm import DistComm
+    from repro_torch.sharding.rules import shard_tree
+    from repro_torch.training.train_loop import accumulated_grads, sharded_grads
+    from repro_torch.utils.tree import flatten_with_paths
+
+    arch, B, S, layers = DRYRUN_TRAIN_ANCHOR
+    shape = ShapeSpec(f"train_b{B}s{S}", S, B, "train")
+    tag = "[dryrun] (c)"
+    t0 = time.perf_counter()
+    dryrun.fake_world(1)
+    try:
+        mesh = dryrun.make_mesh((1, 1), ("data", "model"), "cuda")
+        cell = dryrun.build_cell(arch, shape, mesh, extra_cfg={"num_layers": layers})
+        traced = dryrun.trace_cell(cell, mesh, "cuda")
+    finally:
+        dist.destroy_process_group()
+    mem, cost = traced["memory"], traced["cost"]
+    print(f"{tag} {arch} × {shape.name} × 1x1 at {layers} layer, on shards {cell.train_on_shards}, "
+          f"{cell.micro_batches} micro-batch, traced in {traced['trace_s']:.1f} s: arguments "
+          f"{mem['argument_size_in_bytes']} B, peak {mem['peak_size_in_bytes']} B, flops {cost.flops:.6e} "
+          f"(dot {cost.dot_flops:.6e}), bytes {cost.bytes:.6e}, collectives {cost.collective_bytes}", flush=True)
+    if not cell.train_on_shards or mem["peak_size_in_bytes"] > DRYRUN_TRAIN_MAX_BYTES:
+        raise AssertionError(f"{tag} on shards {cell.train_on_shards}, traced peak {mem['peak_size_in_bytes']} B")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = dryrun.make_mesh((1, 1), ("data", "model"), "cuda")
+        cfg, model = cell.model.cfg, cell.model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = dryrun.place_args(cell, mesh, "cuda")  # masters and moments zero, step 0
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for t in dryrun.local_tensors(args[0]):
+            t.normal_(0.0, 0.02, generator=gen)
+        batch = {k: dryrun.local_part(v) for k, v in args[2].items()}
+        for t in batch.values():
+            t.random_(0, cfg.vocab_size, generator=gen)
+        torch.cuda.synchronize()
+        measured_args = torch.cuda.memory_allocated() - base
+        n_tensors = len(dryrun.local_tensors(args))
+        over = measured_args - mem["argument_size_in_bytes"]
+        print(f"{tag} arguments traced {mem['argument_size_in_bytes']} B, measured {measured_args} B "
+              f"({n_tensors} tensors, {over} B of rounding, limit {ALLOC_ROUND} B a tensor)", flush=True)
+        if not 0 <= over < ALLOC_ROUND * n_tensors:
+            raise AssertionError(f"{tag} measured arguments differ from the traced ones by more than rounding")
+        for fn in wrappers.values():
+            fn.launches = 0  # the anchor's path starts here
+        # the step on shards' gradients against the unsharded step's, bit for bit
+        comm, params = DistComm(mesh), shard_tree(args[0])
+        rows = {k: v.long() for k, v in batch.items()}
+        loss, grads = sharded_grads(model, params, shard_tree(args[2]), cell.micro_batches, comm)
+        whole = {p: x.local for p, x in flatten_with_paths(params)}
+        ref_loss, ref_grads = accumulated_grads(model.loss_fn, whole, rows, cell.micro_batches)
+        ref_flat = dict(flatten_with_paths(ref_grads))
+        differ = [p for p, g in grads.items() if not torch.equal(g, ref_flat[p])]
+        loss_equal = torch.equal(loss, ref_loss)
+        finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads.values())
+        print(f"{tag} loss {float(loss):.6f} on shards, {float(ref_loss):.6f} unsharded "
+              f"({'bit-equal' if loss_equal else 'DIFFER'}); {len(grads) - len(differ)} of {len(grads)} gradient "
+              f"leaves bit-equal{'' if not differ else f', differ: {differ}'}", flush=True)
+        if not (loss_equal and finite and not differ):
+            raise AssertionError(f"{tag} the step on shards differs from the unsharded step")
+        del grads, ref_grads, ref_flat, whole, params, loss, ref_loss
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out = cell.fn(*args)  # warm: library workspaces are made here
+        del out
+        peak, times = _peak_and_times(lambda: cell.fn(*args))
+        measured_peak = peak + measured_args
+        counts = {name: fn.launches for name, fn in wrappers.items()}  # the anchor's path ends here
+        del args, batch, rows
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return _anchor_verdict(tag, cell, shape, mem, cost, measured_peak, times, counts, t0, DRYRUN_TRAIN_MAX_S)
 
 
 def modes_phase(workdir: Path, trace: Path, on_profile=None) -> dict:
@@ -3227,7 +3361,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="build the kernels, run only [whisper], [llama-vision], [xlstm] and [train], one after "
                          "the other with no other phase beside them, and stop without the result line")
     ap.add_argument("--dryrun-alone", action="store_true",
-                    help="build the kernels, run only [dryrun] (b) and then (a), and stop without the result line")
+                    help="build the kernels, run only [dryrun] (b), (c) and then (a), and stop without the result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3289,6 +3423,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.dryrun_alone:
         dryrun_anchor_phase(wrappers)
+        dryrun_train_anchor_phase(wrappers)
         dryrun_grid_phase(workdir)
         phase_s["total"] = time.perf_counter() - t_start
         print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
@@ -3345,6 +3480,9 @@ def main(argv: list[str] | None = None) -> int:
     t_phase = time.perf_counter()
     paths["dryrun-1x1-anchor"] = dryrun_anchor_phase(wrappers)["launches"]  # its fake world ends here
     phase_s["dryrun (b) 1x1 anchor"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    paths["dryrun-1x1-train"] = dryrun_train_anchor_phase(wrappers)["launches"]  # its worlds end here
+    phase_s["dryrun (c) 1x1 train anchor"] = time.perf_counter() - t_phase
 
     t_phase = time.perf_counter()
     trace = workdir / "retier_trace.json"  # the modes phase's after2 run profiles for [retier]
@@ -3417,7 +3555,7 @@ def main(argv: list[str] | None = None) -> int:
                          ("xlstm-125m", set()), ("xlstm-125m-train", set()), ("reduced-train", set()),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"}), ("mesh-1x1-launcher", {"flash_attention"}),
-                         ("xlstm-125m-train-mesh", set()), ("dryrun-1x1-anchor", set()),
+                         ("xlstm-125m-train-mesh", set()), ("dryrun-1x1-anchor", set()), ("dryrun-1x1-train", set()),
                          ("mesh-16-ranks-mixtral-8x22b", {"flash_attention"}),
                          ("mesh-16-ranks-gemma3-27b", {"flash_attention"}), ("mesh-16-ranks-deepseek-v2-lite-16b", set()),
                          ("mesh-16-ranks-deepseek-v2-lite-16b-fp32", set()),

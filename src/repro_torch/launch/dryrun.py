@@ -23,11 +23,20 @@ model is placed and stepped with no memory allocated:
     ``models.transformer.prefill_sharded``), as ``cold_start(mesh=)``
     serves them; a serving cell on a mesh with a ``pod`` dim gathers its
     params, caches and batch at use (``sharding.gather_tree``) and computes
-    replicated; a train
-    step is the Trainer's data parallelism (each rank its block of the
-    batch rows, gradients averaged over the batch's mesh dims), on params
-    cast to bf16 at their shards and gathered at use, with fp32 masters
-    and the AdamW update applied to each rank's local blocks;
+    replicated;
+  * a train cell runs the step as ``Trainer(mesh=)`` does, by family
+    (``training.train_loop.on_shards``, the record's
+    ``train_on_shards``): for the uniform GQA stacks on a ("data",
+    "model") mesh, 1×1 included, the step on shards on rank 0's fp32
+    master and moment blocks (``sharded_grads``: each block cast once,
+    ``Model.loss_fn_sharded`` per micro-batch with each weight gathered
+    over ``data`` at its use and its gradient reduce-scattered into the
+    block, then the norm over blocks and AdamW in place on the blocks);
+    for the other families, and on a mesh with a ``pod`` dim, the
+    Trainer's data parallelism (each rank its block of the batch rows,
+    gradients averaged over the batch's mesh dims) on params cast to bf16
+    at their shards and gathered at use, with the AdamW update applied to
+    each rank's local blocks;
   * everything runs under ``utils.hlocost``'s counter (FLOPs, bytes and
     collectives per device), ``FlopCounterMode`` (the raw total) and
     ``MemTracker`` (the per-device peak).
@@ -71,7 +80,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, get_config, shape_a
 from repro_torch.launch.mesh import PRODUCTION
 from repro_torch.models.transformer import plain_versions
 from repro_torch.models.zoo import Model, build_model
-from repro_torch.optim import AdamWConfig, AdamWState, abstract_adamw, adamw_update
+from repro_torch.optim import AdamWConfig, AdamWState, abstract_adamw, adamw_update, adamw_update_
 from repro_torch.optim.adamw import clip_by_global_norm
 from repro_torch.sharding import param_shardings, resolve_pspec, use_mesh
 from repro_torch.sharding.comm import DistComm, mesh_dims_supported
@@ -87,7 +96,12 @@ from repro_torch.sharding.rules import (
     shard_tree,
     spec_shard_divisor,
 )
-from repro_torch.training.train_loop import accumulated_grads, data_parallel
+from repro_torch.training.train_loop import (
+    accumulated_grads,
+    data_parallel,
+    on_shards,
+    sharded_grads,
+)
 from repro_torch.utils import hlo as hlo_util
 from repro_torch.utils import hlocost
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
@@ -106,6 +120,7 @@ class Cell:
     in_sh: tuple
     micro_batches: int
     hooks: dict  # set while traced: ``repeats``, the counter's (``trace_cell``)
+    train_on_shards: Optional[bool] = None  # a train cell's step: on shards, or gathered at use
 
 
 def _tree_shardings(axes_tree, spec_tree, mesh) -> dict:
@@ -189,6 +204,22 @@ def build_cell(arch: str, shape_name, mesh, *, logits_chunk: int = 512, remat: s
 
         hooks: dict = {}  # "repeats": the tracing counter's, so one micro-batch stands for all
 
+        if on_shards(model, mesh):
+            def train_step(params, opt_state, batch):
+                comm = DistComm(mesh)  # at the trace: a cell may be built on a shape-only mesh
+                shards = shard_tree(params)
+                # the placed rows are the batch as ``cut_batch`` orders it:
+                # each rank's micro-batch i is its block of global micro-batch i
+                loss, grads = sharded_grads(model, shards, shard_tree(batch), n_micro, comm,
+                                            repeats=hooks.get("repeats"))
+                with torch.no_grad():
+                    specs = {path: x.spec for path, x in flatten_with_paths(shards)}
+                    state = adamw_update_(acfg, tree_from_flat(grads), AdamWState(*(_local_tree(t) for t in opt_state)),
+                                          _local_tree(params), specs=specs, comm=comm)
+                return params, opt_state._replace(step=_placed_like(state.step, opt_state.step)), loss
+
+            return Cell(model, train_step, (abstract, opt_abs, batch), (p_sh, opt_sh, b_sh), n_micro, hooks, True)
+
         def train_step(params, opt_state, batch):
             _, mean = data_parallel(mesh, shape.global_batch)
             pb = gather_tree(_cast_shards(params, compute))  # bf16 compute copies, gathered at use
@@ -208,7 +239,7 @@ def build_cell(arch: str, shape_name, mesh, *, logits_chunk: int = 512, remat: s
                                             AdamWState(*(_local_tree(t) for t in opt_state)), _local_tree(params))
             return _placed_like(new_p, params), _placed_like(new_s, opt_state), loss
 
-        return Cell(model, train_step, (abstract, opt_abs, batch), (p_sh, opt_sh, b_sh), n_micro, hooks)
+        return Cell(model, train_step, (abstract, opt_abs, batch), (p_sh, opt_sh, b_sh), n_micro, hooks, False)
 
     abstract = model.abstract(dtype=torch.bfloat16)
     p_sh = param_shardings(log_axes, abstract, mesh, fsdp=cfg.fsdp)
@@ -406,6 +437,7 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False, mesh_shape: Opti
         "fits": per_dev <= hlo_util.HBM_BYTES,
         "model_flops": model_flops(cell.model, shape),
         "micro_batches": cell.micro_batches,
+        "train_on_shards": cell.train_on_shards,
         "lower_s": lower_s,
         "compile_s": 0.0,
         "params": cell.model.num_params(),
@@ -414,9 +446,10 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False, mesh_shape: Opti
         "tag": tag,
     }
     if verbose:
+        on_shards = "" if cell.train_on_shards is None else f" train_on_shards={cell.train_on_shards}"
         print(f"[dryrun] {arch} × {shape.name} × {label}: OK flops/dev={cost.flops:.3e} bytes/dev={cost.bytes:.3e} "
               f"coll/dev={cost.collective_bytes:.3e} mem/dev={per_dev / 2**30:.2f}GiB "
-              f"fits={'yes' if rec['fits'] else 'no'} lower={lower_s:.1f}s compile=0s")
+              f"fits={'yes' if rec['fits'] else 'no'} lower={lower_s:.1f}s compile=0s{on_shards}")
         print("  memory:", {k: f"{v / 2**30:.3f}GiB" for k, v in mem.items()})
         print("  collectives:", {k: f"{v:.2e}B" for k, v in cost.collective_by_kind.items()})
     _save(rec, out_dir, tag)

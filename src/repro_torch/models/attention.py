@@ -372,15 +372,25 @@ def gqa_forward_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, 
     the kv heads they read (the kernel takes ``H`` and ``Hkv`` at run time),
     ``wo`` row-parallel with its partial sums all-reduced over ``model``.
     Returns ``(out, (k, v))`` with the keys and values of every kv head, for
-    the cache."""
+    the cache. Under autograd (``sharding.comm``): with the heads split, ``x``
+    enters the ``model`` region before the rank's q (and k, v) columns, and
+    whole k and v enter it before each rank takes the kv heads of its own
+    q heads."""
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     tp = _heads_split(params, cfg, comm)
     kv_split = _kv_split(params, tp)
     M = comm.size("model") if tp else 1
     h_loc = H // M
-    q = _split_heads(_proj(params["wq"], x, comm, tp), h_loc)
-    k = _split_heads(_kv_proj(params["wk"], x, comm, kv_split), Hkv)
-    v = _split_heads(_kv_proj(params["wv"], x, comm, kv_split), Hkv)
+    xq = comm.enter(x, "model") if tp else x
+    q = _split_heads(_proj(params["wq"], xq, comm, tp), h_loc)
+    if kv_split:
+        k = _split_heads(_kv_proj(params["wk"], xq, comm, kv_split), Hkv)
+        v = _split_heads(_kv_proj(params["wv"], xq, comm, kv_split), Hkv)
+    else:
+        k = _split_heads(_kv_proj(params["wk"], x, comm, kv_split), Hkv)
+        v = _split_heads(_kv_proj(params["wv"], x, comm, kv_split), Hkv)
+        if tp:
+            k, v = comm.enter(k, "model"), comm.enter(v, "model")
     q, k = apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
     ka, va = _local_kv(k, v, comm.index("model") * h_loc, h_loc, H // Hkv) if tp else (k, v)
     o = (attend or flash_attention)(q.contiguous(), ka, va, causal=causal, window=window,

@@ -105,13 +105,16 @@ def chunked_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor, chu
 # leaf's whole shape and spec) and a ``Comm``. FSDP: a weight's ``embed`` dim
 # is all-gathered over ``data`` at its use and dropped after it. TP: a dim the
 # rules split over ``model`` stays split, and the partial sums it leaves are
-# all-reduced over ``model``.
+# all-reduced over ``model``. Under autograd the replicated input of a
+# column-parallel weight goes through ``comm.enter`` (``sharding.comm``).
 
 
 def swiglu_sharded(params: dict, x: torch.Tensor, comm) -> torch.Tensor:
     """``swiglu`` with ``ffn`` column-parallel (gate, up) and row-parallel
     (down) over ``model`` where the rules split it: the down projection's
     partial sums are all-reduced over ``model``."""
+    for ax in params["w_gate"].split(1):
+        x = comm.enter(x, ax)
     g = x @ params["w_gate"].gathered(comm, ("data",)).to(x.dtype)
     u = x @ params["w_up"].gathered(comm, ("data",)).to(x.dtype)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
@@ -141,6 +144,73 @@ def logits_sharded(x: torch.Tensor, table) -> torch.Tensor:
     """Vocab-parallel ``logits_from_embedding``: the logits of this rank's
     vocab rows only (``table`` already gathered over ``data``)."""
     return x @ table.to(x.dtype).T
+
+
+class _VocabParallelLSE(torch.autograd.Function):
+    """logsumexp over a vocab split over mesh dims ``dims``, from each rank's
+    (..., V_loc) fp32 block of the logits: the block's max all-reduced (max)
+    and its sum of exponentials all-reduced (sum). The backward needs no
+    collective: each rank's block of the softmax is exp(z - lse)."""
+
+    @staticmethod
+    def forward(ctx, z, comm, dims):
+        m = torch.amax(z, dim=-1, keepdim=True)
+        for ax in dims:
+            m = comm.all_reduce(m, ax, "max")
+        s = torch.sum(torch.exp(z - m), dim=-1)
+        for ax in dims:
+            s = comm.all_reduce(s, ax)
+        lse = torch.log(s) + m[..., 0]
+        ctx.save_for_backward(z, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        z, lse = ctx.saved_tensors
+        return grad[..., None] * torch.exp(z - lse[..., None]), None, None
+
+
+def _xent_sharded(z: torch.Tensor, labels: torch.Tensor, start: int, dims: tuple, comm) -> torch.Tensor:
+    """``_xent`` on a rank's (..., V_loc) block of the logits, whose vocab
+    rows start at ``start``: the logsumexp over every rank's rows
+    (``_VocabParallelLSE``), and each label's logit read by the rank that
+    holds its row (zeros elsewhere) and summed over ``dims``."""
+    z = z.to(torch.float32)
+    local = labels.to(torch.int64) - start
+    inside = (local >= 0) & (local < z.shape[-1])
+    gold = torch.gather(z, -1, local.clamp(0, z.shape[-1] - 1)[..., None])[..., 0]
+    gold = torch.where(inside, gold, torch.zeros_like(gold))
+    for ax in dims:
+        gold = comm.all_reduce(gold, ax)
+    return _VocabParallelLSE.apply(z, comm, dims) - gold
+
+
+def xent_sharded(x: torch.Tensor, table, labels: torch.Tensor, chunk: int, comm) -> torch.Tensor:
+    """The mean cross-entropy of this rank's rows (``x`` the final hidden
+    states, ``table`` the head's ``Shard``, gathered over ``data`` here):
+    ``softmax_xent`` / ``chunked_xent`` as they are where no mesh dim above
+    1 splits the vocab, else vocab-parallel (``_xent_sharded`` on the rank's
+    logits block, the hidden states entering the ``model`` region first),
+    per sequence chunk of ``chunk`` when it is set."""
+    t = table.gathered(comm, ("data",))
+    dims = tuple(ax for ax in table.split(0) if comm.size(ax) > 1)
+    if not dims:
+        if chunk:
+            return chunked_xent(x, t, labels, chunk)
+        return softmax_xent(logits_from_embedding(x, t), labels)
+    for ax in dims:
+        x = comm.enter(x, ax)
+    start = table.start(0, comm)
+    B, S, _ = x.shape
+    if not chunk:
+        return torch.mean(_xent_sharded(logits_sharded(x, t), labels, start, dims, comm))
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the logits chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S, chunk):
+        z = logits_sharded(x[:, c:c + chunk], t)
+        total = total + torch.sum(_xent_sharded(z, labels[:, c:c + chunk], start, dims, comm))
+    return total / (B * S)
 
 
 def greedy_sharded(logits: torch.Tensor, vocab_start: int, vocab_dims: tuple, batch_dims: tuple,

@@ -137,22 +137,37 @@ def moe_forward_sharded(
     prefix of them and fit a local capacity of ``min(C, T_loc)``. The
     gate-weighted outputs are summed over ``model`` (the other experts'
     choices, or the ``ffn`` partial sums). The usage mask is the global
-    one, the same on every rank."""
+    one, the same on every rank.
+
+    Training (``serving=False``): the capacity is the config's factor of the
+    global T. Under autograd the rank's tokens, the router and the gate
+    weights enter the ``model`` region (``sharding.comm``) where a rank
+    uses them on its own share: the router's slice of the contraction, and
+    the tokens its experts (or its ``ffn`` columns) take."""
     m: MoEConfig = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
     T_loc = B * S
     xf = x.reshape(T_loc, d)
+    w = params["w_gate"]
+    expert_dims = tuple(dict.fromkeys(w.split(0) + w.split(2)))  # the dims the expert work is split over
+    xe = xf
+    for ax in expert_dims:
+        xe = comm.enter(xe, ax)
 
     router = params["router"].gathered(comm, ("data",)).to(torch.float32)
     M = comm.size("model")
     if M > 1 and d % M == 0:
         c, j = d // M, comm.index("model")
-        logits = comm.all_reduce(xf.to(torch.float32)[:, j * c:(j + 1) * c] @ router[j * c:(j + 1) * c], "model")
+        xr = xe if "model" in expert_dims else comm.enter(xf, "model")  # one enter for both shares
+        router = comm.enter(router, "model")
+        logits = comm.all_reduce(xr.to(torch.float32)[:, j * c:(j + 1) * c] @ router[j * c:(j + 1) * c], "model")
     else:
         logits = xf.to(torch.float32) @ router
     gate_w, ids = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    for ax in expert_dims:
+        gate_w = comm.enter(gate_w, ax)
 
     all_ids, rank = ids.reshape(B, S * k), 0
     for ax in reversed(batch_dims):
@@ -169,7 +184,6 @@ def moe_forward_sharded(
     keep = pos < C
     pos_loc = pos - onehot[:first].sum(dim=0)[flat_ids]  # position among this rank's tokens
 
-    w = params["w_gate"]
     e0, E_loc = (w.start(0, comm), w.local.shape[0]) if w.split(0) else (0, E)
     C_loc = min(C, T_loc)
     e_loc = flat_ids - e0
@@ -179,7 +193,7 @@ def moe_forward_sharded(
     table = torch.full((E_loc * C_loc + 1,), T_loc, dtype=torch.int64, device=x.device)
     table = table.scatter(0, slot, token_idx)[: E_loc * C_loc]
 
-    xg = torch.cat([xf, xf.new_zeros(1, d)], dim=0)[table].reshape(E_loc, C_loc, d)
+    xg = torch.cat([xe, xe.new_zeros(1, d)], dim=0)[table].reshape(E_loc, C_loc, d)
     g = torch.bmm(xg, w.gathered(comm, ("data",)).to(x.dtype))
     u = torch.bmm(xg, params["w_up"].gathered(comm, ("data",)).to(x.dtype))
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u

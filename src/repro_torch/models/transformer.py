@@ -22,7 +22,8 @@ weights, and the analyzer leaves them dead.
 
 Entry points: ``loss_fn`` (the training forward and its cross-entropy),
 ``prefill`` (last-token logits + caches) and ``decode_step`` (one token
-against the caches).
+against the caches); on a rank's shards ``prefill_sharded``,
+``decode_step_sharded`` and, for the uniform GQA stacks, ``loss_fn_sharded``.
 
 Kernels on the training path. The loss runs the stack without collecting
 caches, and there every block names the plain versions itself:
@@ -76,6 +77,7 @@ from repro_torch.models.layers import (
     swiglu,
     swiglu_sharded,
     swiglu_spec,
+    xent_sharded,
 )
 from repro_torch.models.spec import ParamSpec, stack_specs
 from repro_torch.sharding.rules import PartitionSpec, constrain, spec_dims
@@ -750,6 +752,89 @@ def prefill_sharded(cfg: ModelConfig, params: dict, batch: dict, comm):
     x = rmsnorm(x[:, -1, :], params["final_norm"].gathered(comm), cfg.norm_eps)
     table = logits_table(cfg, params)
     return logits_sharded(x, table.gathered(comm, ("data",))), caches
+
+
+def train_on_shards(cfg: ModelConfig) -> bool:
+    """True for the families whose train step computes on shards
+    (``loss_fn_sharded``): the uniform GQA stacks, dense or MoE (Mixtral,
+    Yi, Phi-3, Mistral-Large). The others train with every rank holding the
+    whole tree (``training.train_loop``)."""
+    return (cfg.mla is None and cfg.recurrent is None and cfg.xlstm is None and cfg.local_global_pattern is None
+            and cfg.vlm is None and cfg.encdec is None)
+
+
+def master_compute_dtype(cfg: ModelConfig, path: str) -> torch.dtype:
+    """The dtype the loss reads leaf ``path`` in, to which a sharded train
+    step casts its fp32 master block once a step: fp32 for a MoE router
+    (``moe.router_probs`` computes in fp32) and for the embedding table
+    (``embed`` looks its rows up in fp32 and casts them, so the gradients of
+    a repeated token add in fp32), ``cfg.dtype`` for every other leaf."""
+    return torch.float32 if path == "embed" or path.rsplit(".", 1)[-1] == "router" else _model_dtype(cfg)
+
+
+def _train_block_sharded(cfg, kind, p, x, positions, comm, dims):
+    """``_block_body`` of a GQA block for the loss, on a rank's blocks: no
+    cache, attention through the plain version, the MoE at training's
+    capacity over the global token count."""
+    eps = cfg.norm_eps
+    o, _ = attn.gqa_forward_sharded(p["attn"], rmsnorm(x, p["norm1"].gathered(comm), eps), positions, cfg, comm,
+                                    causal=True, window=_kind_window(cfg, kind), attend=flash_attention_plain)
+    x = x + o
+    h = rmsnorm(x, p["norm2"].gathered(comm), eps)
+    if "moe" in p:
+        return x + moe_mod.moe_forward_sharded(p["moe"], h, cfg, comm, batch_dims=dims, serving=False)
+    return x + swiglu_sharded(p["dense"], h, comm)
+
+
+def loss_fn_sharded(cfg: ModelConfig, params: dict, batch: dict, comm) -> torch.Tensor:
+    """``loss_fn`` on a rank's blocks, for the families of ``train_on_shards``:
+    this rank's share of the global mean next-token cross-entropy (its rows'
+    mean over the ``data`` size; the shares of the ``data`` ranks sum to the
+    loss, and the ``model`` ranks of one row block hold the same share).
+
+    ``params`` are ``Shard`` leaves whose ``master`` is the fp32 block the
+    gradient lands in. Each weight is all-gathered over ``data`` at its use
+    and its gradient reduce-scattered into the master block in the backward
+    (``Shard.gathered``). TP, EP and the vocab-parallel embedding are
+    ``prefill_sharded``'s, the routing global at training's capacity; the
+    cross-entropy is vocab-parallel (``layers.xent_sharded``), per
+    ``cfg.logits_chunk`` chunk when it is set. ``cfg.remat`` wraps each
+    scanned group (and, under "inner", each block of a multi-block group),
+    as ``forward_hidden`` does; its checkpoints are non-reentrant, so a
+    recomputed forward issues its collectives in the same order on every
+    rank. On a mesh of 1s every collective is skipped and the math is
+    ``loss_fn``'s."""
+    if not train_on_shards(cfg):
+        raise ValueError(f"{cfg.name} trains with the whole tree on every rank; loss_fn_sharded covers the "
+                         "uniform GQA stacks")
+    dims = batch["tokens"].split(0)
+    tokens, labels = batch["tokens"].local, batch["labels"].local
+    B, S = tokens.shape
+    x = embed_sharded(params["embed"], tokens, _model_dtype(cfg), cfg.d_model, comm)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    lay = stack_layout(cfg)
+
+    def block(kind, p, x):
+        return _train_block_sharded(cfg, kind, p, x, positions, comm, dims)
+
+    for i, kind in enumerate(lay.lead_kinds):
+        x = block(kind, params["lead"][f"b{i}"], x)
+    if lay.n_groups:
+        block_step = _remat("full", block) if cfg.remat == "inner" and len(lay.unit_kinds) > 1 else block
+
+        def group_body(x, gp):
+            for j, kind in enumerate(lay.unit_kinds):
+                x = block_step(kind, gp[f"u{j}"], x)
+            return x
+
+        group_body = _remat(cfg.remat, group_body)
+        for gi in range(lay.n_groups):
+            x = group_body(x, _select(params["groups"], gi))
+    for i, kind in enumerate(lay.tail_kinds):
+        x = block(kind, params["tail"][f"b{i}"], x)
+    x = rmsnorm(x, params["final_norm"].gathered(comm), cfg.norm_eps)
+    loss = xent_sharded(x, logits_table(cfg, params), labels, cfg.logits_chunk, comm)
+    return loss / comm.size("data")
 
 
 def _sharded_decode_mixer(cfg, kind, p, h, pos, cache: dict, specs: dict, lead: int, comm):

@@ -13,7 +13,10 @@ Under a mesh of more than one rank every family computes on shards
 stacks, dense or MoE (Mixtral, Yi, Phi-3, Mistral-Large), Gemma-3's 5:1
 local/global stack, DeepSeek-V2-Lite's MLA, RecurrentGemma's RG-LRU hybrid,
 xLSTM's mLSTM / sLSTM stack, Whisper's encoder-decoder and the VLM's gated
-cross blocks, multimodal batches too.
+cross blocks, multimodal batches too. The train step computes on shards
+for the uniform GQA stacks (``transformer.train_on_shards``,
+``loss_fn_sharded``); the other families train with the whole tree on every
+rank.
 """
 
 from __future__ import annotations
@@ -68,9 +71,12 @@ class Model:
         self.layout = tf.stack_layout(cfg)
 
     # -- params ------------------------------------------------------------
-    def init(self, gen: torch.Generator, *, device="cuda", dtype=None) -> dict:
+    def init(self, gen: torch.Generator, *, device="cuda", dtype=None, blocks: Optional[dict] = None) -> dict:
+        """The params drawn from ``gen``; with ``blocks`` (path -> one slice a
+        dim: a rank's block), only those blocks, holding the numbers the
+        whole tree would (``spec.init_params``)."""
         return init_params(self.spec, gen, device=device,
-                           dtype_override=dtype or self.param_dtype)
+                           dtype_override=dtype or self.param_dtype, blocks=blocks)
 
     def abstract(self, dtype=None) -> dict:
         return abstract_params(self.spec, dtype_override=dtype or self.param_dtype)
@@ -124,6 +130,11 @@ class Model:
     def prefill_sharded(self, params, batch, comm):
         """``prefill`` on a rank's shards (``transformer.prefill_sharded``)."""
         return tf.prefill_sharded(self.cfg, params, batch, comm)
+
+    def loss_fn_sharded(self, params, batch, comm):
+        """This rank's share of ``loss_fn`` on its shards
+        (``transformer.loss_fn_sharded``)."""
+        return tf.loss_fn_sharded(self.cfg, params, batch, comm)
 
     def logits_table(self, params):
         """The head's table (the embedding, where the config ties them)."""

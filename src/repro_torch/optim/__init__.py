@@ -6,6 +6,7 @@ from repro_torch.optim.adamw import (
     AdamWState,
     abstract_adamw,
     adamw_update,
+    adamw_update_,
     clip_by_global_norm,
     global_norm,
     init_adamw,
@@ -25,6 +26,7 @@ __all__ = [
     "AdamWState",
     "abstract_adamw",
     "adamw_update",
+    "adamw_update_",
     "clip_by_global_norm",
     "global_norm",
     "init_adamw",

@@ -1,9 +1,10 @@
-"""The collectives of a sharded forward run, behind one small interface.
+"""The collectives of a sharded step, behind one small interface.
 
 A sharded step (``models.transformer.prefill_sharded`` /
-``decode_step_sharded``) computes on its rank's local blocks and meets the
-other ranks only through a ``Comm``: ``all_gather``, ``all_reduce`` (sum or
-max) over one mesh dim, read by name. Two implementations:
+``decode_step_sharded`` / ``loss_fn_sharded``) computes on its rank's local
+blocks and meets the other ranks only through a ``Comm``: ``all_gather``,
+``all_reduce`` (sum or max), ``reduce_scatter`` and ``enter`` over one mesh
+dim, read by name. Two implementations:
 
   * ``DistComm`` — over a ``DeviceMesh``, with ``torch.distributed``'s
     functional collectives on each mesh dim's process group (gloo on the
@@ -16,6 +17,28 @@ max) over one mesh dim, read by name. Two implementations:
     ``model`` ranks of the production mesh one after another.
 
 Every rank calls the same collectives in the same order (the step is SPMD).
+
+Under autograd (the training loss, ``loss_fn_sharded``) the collectives are
+differentiable, with the tensor-parallel conventions: a tensor that is the
+same on every ``model`` rank (replicated) carries its whole gradient on each
+of them, and the loss is the same on every ``model`` rank.
+
+  * ``all_reduce`` (sum) of partial sums: the backward passes the gradient
+    through (each rank's partial sum has the whole sum's gradient);
+  * ``enter``: identity forward, all-reduce backward. A replicated tensor
+    that each rank uses with its own block of a weight (a column-parallel
+    input, the tokens a rank's experts take) gets only that rank's share of
+    its gradient; ``enter`` sums the shares;
+  * ``all_gather``: the backward is a reduce-scatter, for a gathered tensor
+    that each rank uses in its own way (its rows, its heads), so each rank
+    holds a partial gradient of the whole;
+  * ``reduce_scatter``: the backward is an all-gather;
+  * ``all_reduce(op="max")`` has no gradient (the softmax's max is a shift).
+
+``ThreadComm`` runs a backward only on the CPU: PyTorch's autograd engine
+runs every CUDA backward node of every thread on one device thread, so a
+rank blocked in a backward collective would block the ranks it waits for.
+A CUDA backward through ``ThreadComm`` raises instead of hanging.
 """
 
 from __future__ import annotations
@@ -28,10 +51,17 @@ import torch
 MESH_DIMS = ("data", "model")  # the mesh dims a sharded step reads
 
 
+def _records(x: torch.Tensor) -> bool:
+    """True when autograd records an op on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 class Comm:
     """A rank's place on a mesh: ``sizes`` (mesh dim -> size, in mesh
     order) and ``coord`` (mesh dim -> this rank's index). A dim the mesh
-    lacks has size 1."""
+    lacks has size 1. Subclasses implement the raw collectives
+    (``_all_gather``, ``_all_reduce``, ``_reduce_scatter``); the public ones
+    add their backward (module docstring)."""
 
     sizes: dict
     coord: dict
@@ -46,12 +76,133 @@ class Comm:
     def all_gather(self, x: torch.Tensor, dim: str, axis: int) -> torch.Tensor:
         """The blocks of every rank along mesh dim ``dim``, concatenated on
         tensor axis ``axis`` in that dim's rank order."""
-        raise NotImplementedError
+        if self.size(dim) == 1:
+            return x
+        return _AllGather.apply(x, self, dim, axis) if _records(x) else self._all_gather(x, dim, axis)
 
     def all_reduce(self, x: torch.Tensor, dim: str, op: str = "sum") -> torch.Tensor:
         """Elementwise ``op`` ("sum" or "max") of every rank's ``x`` along
         mesh dim ``dim``."""
+        if self.size(dim) == 1:
+            return x
+        if op == "sum" and _records(x):
+            return _AllReduce.apply(x, self, dim)
+        return self._all_reduce(x.detach() if op == "max" else x, dim, op)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: str, axis: int) -> torch.Tensor:
+        """This rank's block, along tensor ``axis``, of the sum of every
+        rank's ``x`` along mesh dim ``dim`` (the blocks in that dim's rank
+        order)."""
+        if self.size(dim) == 1:
+            return x
+        return _ReduceScatter.apply(x, self, dim, axis) if _records(x) else self._reduce_scatter(x, dim, axis)
+
+    def enter(self, x: torch.Tensor, dim: str = "model") -> torch.Tensor:
+        """``x`` itself; its gradient is all-reduced over ``dim`` (the
+        replicated input of work split over ``dim``)."""
+        if self.size(dim) == 1 or not _records(x):
+            return x
+        return _Enter.apply(x, self, dim)
+
+    def block(self, x: torch.Tensor, dim: str, axis: int) -> torch.Tensor:
+        """This rank's block of ``x`` along tensor ``axis``, split over mesh
+        dim ``dim`` (no collective)."""
+        n = x.shape[axis] // self.size(dim)
+        return x.narrow(axis, self.index(dim) * n, n)
+
+    def backward_guard(self, grad: torch.Tensor) -> None:
+        """Called by every collective's backward before it communicates."""
+
+    def _all_gather(self, x: torch.Tensor, dim: str, axis: int) -> torch.Tensor:
         raise NotImplementedError
+
+    def _all_reduce(self, x: torch.Tensor, dim: str, op: str = "sum") -> torch.Tensor:
+        raise NotImplementedError
+
+    def _reduce_scatter(self, x: torch.Tensor, dim: str, axis: int) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, axis):
+        ctx.comm, ctx.dim, ctx.axis = comm, dim, axis
+        return comm._all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.comm.backward_guard(grad)
+        return ctx.comm._reduce_scatter(grad, ctx.dim, ctx.axis), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, axis):
+        ctx.comm, ctx.dim, ctx.axis = comm, dim, axis
+        return comm._reduce_scatter(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.comm.backward_guard(grad)
+        return ctx.comm._all_gather(grad, ctx.dim, ctx.axis), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        return comm._all_reduce(x, dim, "sum")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.comm.backward_guard(grad)
+        return ctx.comm._all_reduce(grad, ctx.dim, "sum"), None, None
+
+
+class GatherAtUse(torch.autograd.Function):
+    """FSDP's gather of one weight at its use, with its gradient routed to
+    the weight's fp32 master block.
+
+    ``forward(master, local, comm, steps, reduce_dims)``: ``local`` (the
+    master's compute-dtype copy, cast once a step) all-gathered by
+    ``steps``, ``(tensor axis, mesh dim, backward)`` in order. In the
+    backward the gradient is cast to the master's dtype and each step undone
+    in reverse: ``"sum"`` reduce-scatters (``data``: each data rank used the
+    weight on its own rows), ``"slice"`` takes the rank's block (a ``model``
+    gather whose result every ``model`` rank uses alike); then it is
+    all-reduced over ``reduce_dims`` (a dim the leaf is not split over but
+    whose ranks use it on their own rows). So the gradient lands in the
+    rank's fp32 block."""
+
+    @staticmethod
+    def forward(ctx, master, local, comm, steps, reduce_dims):
+        ctx.comm, ctx.steps, ctx.reduce_dims, ctx.dtype = comm, steps, reduce_dims, master.dtype
+        x = local
+        for axis, dim, _ in steps:
+            x = comm._all_gather(x, dim, axis)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        comm = ctx.comm
+        g = grad.to(ctx.dtype)
+        if ctx.steps or ctx.reduce_dims:
+            comm.backward_guard(grad)
+        for axis, dim, kind in reversed(ctx.steps):
+            g = comm._reduce_scatter(g, dim, axis) if kind == "sum" else comm.block(g, dim, axis)
+        for dim in ctx.reduce_dims:
+            g = comm._all_reduce(g, dim, "sum")
+        return g, None, None, None, None
 
 
 class DistComm(Comm):
@@ -63,22 +214,26 @@ class DistComm(Comm):
         self.sizes = dict(zip(names, (int(s) for s in mesh.shape)))
         self.coord = dict(zip(names, mesh.get_coordinate()))
 
-    def all_gather(self, x, dim, axis):
+    def _all_gather(self, x, dim, axis):
         import torch.distributed._functional_collectives as fc
 
-        if self.size(dim) == 1:
-            return x
         gather = getattr(fc, "all_gather_single", None) or fc.all_gather_tensor
         out = fc.wait_tensor(gather(x.contiguous(), axis, self.mesh.get_group(dim)))
         self.moved_bytes += out.numel() * out.element_size()
         return out
 
-    def all_reduce(self, x, dim, op="sum"):
+    def _all_reduce(self, x, dim, op="sum"):
         import torch.distributed._functional_collectives as fc
 
-        if self.size(dim) == 1:
-            return x
         out = fc.wait_tensor(fc.all_reduce(x.contiguous(), op, self.mesh.get_group(dim)))
+        self.moved_bytes += out.numel() * out.element_size()
+        return out
+
+    def _reduce_scatter(self, x, dim, axis):
+        import torch.distributed._functional_collectives as fc
+
+        scatter = getattr(fc, "reduce_scatter_single", None) or fc.reduce_scatter_tensor
+        out = fc.wait_tensor(scatter(x.contiguous(), "sum", axis, self.mesh.get_group(dim)))
         self.moved_bytes += out.numel() * out.element_size()
         return out
 
@@ -129,22 +284,34 @@ class ThreadComm(Comm):
             b.baton.acquire()
         return b.slots[g]
 
-    def all_gather(self, x, dim, axis):
-        if self.size(dim) == 1:
-            return x
+    def backward_guard(self, grad):
+        if grad.is_cuda:
+            raise RuntimeError("ThreadComm cannot run a CUDA backward: the autograd engine runs every thread's CUDA "
+                               "backward on one device thread, where a rank waiting in a collective blocks the "
+                               "ranks it waits for. Train the ranks in processes of their own (DistComm) on the "
+                               "card, or run ThreadComm's backward on the CPU")
+
+    def _all_gather(self, x, dim, axis):
         got = self._exchange(x)
         out = torch.cat([got[r] for r in self._group(dim)], dim=axis)
         self.moved_bytes += out.numel() * out.element_size()
         return out
 
-    def all_reduce(self, x, dim, op="sum"):
-        if self.size(dim) == 1:
-            return x
+    def _all_reduce(self, x, dim, op="sum"):
         got = self._exchange(x)
         parts = [got[r] for r in self._group(dim)]
         out = parts[0]
         for p in parts[1:]:
             out = out + p if op == "sum" else torch.maximum(out, p)
+        self.moved_bytes += out.numel() * out.element_size()
+        return out
+
+    def _reduce_scatter(self, x, dim, axis):
+        got = self._exchange(x)
+        parts = [self.block(got[r], dim, axis) for r in self._group(dim)]
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
         self.moved_bytes += out.numel() * out.element_size()
         return out
 

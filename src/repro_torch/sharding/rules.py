@@ -29,7 +29,9 @@ every candidate tuple of the rules lists its dims in that order.
 Local blocks, for a step that computes on shards (``sharding.comm``):
 ``Shard`` holds a rank's block of a leaf with its whole shape and spec, and
 gathers it over chosen mesh dims (``Shard.gathered``: FSDP's gather of one
-weight at its use); ``shard_tree`` takes a ``DTensor`` tree's blocks,
+weight at its use; in a train step, with its gradient reduce-scattered into
+the block's fp32 master, ``Shard.master``); ``shard_tree`` takes a
+``DTensor`` tree's blocks,
 ``cut_tree`` cuts whole arrays; ``constrain(comm=...)`` / ``relayout`` move
 a local block between two specs, and ``graft_block`` writes a prefix of one
 sharded array into another.
@@ -329,20 +331,27 @@ def global_shape(local_shape: Sequence[int], spec: PartitionSpec, comm) -> tuple
     return tuple(n * math.prod(comm.size(ax) for ax in spec_dims(spec, a)) for a, n in enumerate(local_shape))
 
 
-def block_of(whole, spec: PartitionSpec, comm):
-    """This rank's block of a whole array under ``spec`` (a view; a dim
-    split over several mesh dims is split in mesh-dim order)."""
+def block_index(shape: Sequence[int], spec: PartitionSpec, comm) -> tuple:
+    """This rank's block of an array of ``shape`` under ``spec``, as one
+    slice a dim (a dim split over several mesh dims is split in mesh-dim
+    order)."""
     index = []
-    for a, n in enumerate(whole.shape):
+    for a, n in enumerate(shape):
         names = spec_dims(spec, a)
         parts = math.prod(comm.size(ax) for ax in names)
         if n % parts:
-            raise ValueError(f"dim of {n} split {parts} ways is uneven: shape {tuple(whole.shape)}, {spec}")
+            raise ValueError(f"dim of {n} split {parts} ways is uneven: shape {tuple(shape)}, {spec}")
         i = 0
         for ax in names:
             i = i * comm.size(ax) + comm.index(ax)
         index.append(slice(i * (n // parts), (i + 1) * (n // parts)))
-    return whole[tuple(index)]
+    return tuple(index)
+
+
+def block_of(whole, spec: PartitionSpec, comm):
+    """This rank's block of a whole array under ``spec`` (a view,
+    ``block_index``)."""
+    return whole[block_index(whole.shape, spec, comm)]
 
 
 def gather_axis(x, axis: int, names: Sequence[str], comm):
@@ -369,10 +378,13 @@ def relayout(x, src: PartitionSpec, dst: PartitionSpec, comm):
 @dataclass(frozen=True)
 class Shard:
     """One leaf as a sharded step holds it: this rank's block (``local``), the
-    leaf's whole ``shape`` and its ``spec``."""
+    leaf's whole ``shape`` and its ``spec``. In a train step ``local`` is the
+    block's compute-dtype copy and ``master`` the fp32 block the gradient
+    lands in (a tensor that requires grad); elsewhere ``master`` is None."""
     local: Any
     shape: tuple
     spec: PartitionSpec
+    master: Any = None
 
     def split(self, axis: int) -> tuple:
         """The mesh dims tensor ``axis`` is split over (``()``: whole)."""
@@ -380,13 +392,26 @@ class Shard:
 
     def gathered(self, comm, over: Sequence[str] = ("data", "model")):
         """The block all-gathered over the mesh dims in ``over``, one tensor
-        dim at a time (the others stay split)."""
+        dim at a time (the others stay split). With a ``master``, the
+        gradient of the result goes to it (``sharding.comm.GatherAtUse``):
+        reduce-scattered over ``data`` (the data ranks use the weight on
+        their own rows; a leaf ``data`` does not split is all-reduced over it
+        instead), and cut back to the rank's block over ``model`` (every
+        ``model`` rank uses a weight gathered over ``model`` alike)."""
         x = self.local
-        for a in range(x.dim()):
-            names = tuple(ax for ax in self.split(a) if ax in over)
-            if names:
-                x = gather_axis(x, a, names, comm)
-        return x
+        if self.master is None:
+            for a in range(x.dim()):
+                names = tuple(ax for ax in self.split(a) if ax in over)
+                if names:
+                    x = gather_axis(x, a, names, comm)
+            return x
+        from repro_torch.sharding.comm import GatherAtUse
+
+        steps = tuple((a, ax, "sum" if ax == "data" else "slice") for a in range(x.dim())
+                      for ax in reversed(self.split(a)) if ax in over and comm.size(ax) > 1)
+        split_data = any("data" in self.split(a) for a in range(x.dim()))
+        reduce_dims = ("data",) if "data" in over and not split_data and comm.size("data") > 1 else ()
+        return GatherAtUse.apply(self.master, x, comm, steps, reduce_dims)
 
     def start(self, axis: int, comm) -> int:
         """Where this rank's block starts along tensor ``axis`` of the whole."""
@@ -399,7 +424,8 @@ class Shard:
         """Group ``i`` of a stacked leaf (its leading dim is never split)."""
         if self.split(0):
             raise ValueError(f"the stacked dim of {self.shape} is split: {self.spec}")
-        return Shard(self.local[i], self.shape[1:], PartitionSpec(*self.spec[1:]))
+        return Shard(self.local[i], self.shape[1:], PartitionSpec(*self.spec[1:]),
+                     None if self.master is None else self.master[i])
 
 
 def spec_of(x) -> PartitionSpec:

@@ -21,25 +21,46 @@ Elastic restart: ``reshard_for_mesh`` places a restored host checkpoint
 on any ("data", "model") mesh as DTensors by the param rules; checkpoints
 are stored whole, so any mesh size restores them.
 
-Under a mesh (``Trainer(mesh=)``) the steps run under ``use_mesh(mesh)``
-as data parallelism over the mesh dims that ``ACT_RULES["batch"]``
-resolves the batch to: each rank takes its block of the batch rows (all
-rows when those dims do not divide the batch), the gradients and the loss
-are averaged over those dims before the AdamW update, so every rank keeps
-the same replicated params, and only rank 0 writes checkpoints. Training
-keeps the params whole on every rank and computes replicated but for its
-batch rows, as the serving side's gather-at-use does for the families
-without a sharded forward; the served entries of every family but xLSTM,
-Whisper and the VLM compute on shards (``models.transformer.prefill_sharded``), and a sharded
-training step (sharded gradients, the dry run's train cells) is not ported
-yet. On a mesh whose
-batch dims are all 1 nothing is split or reduced, and a step is bit-equal
-to the step with no mesh. The GPipe forward is ``training.pipeline``.
+Under a mesh (``Trainer(mesh=)``) the step depends on the family
+(``on_shards``), on a ("data", "model") mesh:
+
+  * the uniform GQA stacks (Mixtral, Yi, Phi-3, Mistral-Large) train on
+    shards (``make_train_step(comm=)``): each rank holds its fp32 blocks
+    of the params and of both AdamW moments under ``param_shardings(...,
+    fsdp=True)``, casts each block to its compute dtype once a step, and
+    runs ``Model.loss_fn_sharded`` on its rows of the batch: each weight is
+    all-gathered over ``data`` at its use and its gradient reduce-scattered
+    into the rank's fp32 block in the backward, every micro-batch (TP, EP
+    and the vocab-parallel head and loss over ``model``). The rows are cut
+    so that micro-batch i is the rank's block of the same global rows as
+    the unsharded step's micro-batch i (``cut_batch``): the MoE's capacity
+    sees the same tokens. ``global_norm`` and clipping see the whole
+    gradient, each leaf counted once, and AdamW runs in place on the local
+    blocks (``adamw_update_``). No rank holds a whole fp32 gradient tree or
+    a whole compute-dtype param tree: the params are initialised block by
+    block (``Model.init(blocks=)``), a restore reads each rank's blocks from
+    the mapped files, and the moments are zeros of the blocks' shapes. For a
+    checkpoint each leaf is gathered one stacked group at a time and rank 0
+    alone copies it to its host and writes the files, in the unsharded
+    format. On a mesh of 1s no collective runs and a step is bit-equal to
+    the step with no mesh;
+  * the other families (and a mesh with a ``pod`` dim) keep data
+    parallelism with the whole tree on every rank: the steps run under
+    ``use_mesh(mesh)``, each rank takes its block of the batch rows over the
+    mesh dims that ``ACT_RULES["batch"]`` resolves the batch to (all rows
+    when those dims do not divide the batch), the gradients and the loss are
+    averaged over those dims before the AdamW update, so every rank keeps
+    the same replicated params, and only rank 0 writes checkpoints. On a
+    mesh whose batch dims are all 1 a step is bit-equal to the step with no
+    mesh.
+
+The GPipe forward is ``training.pipeline``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -49,10 +70,33 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticTokenPipeline
+from repro_torch.models.transformer import master_compute_dtype, train_on_shards
 from repro_torch.models.zoo import Model
-from repro_torch.optim import AdamWConfig, AdamWState, adamw_update, global_norm, init_adamw, warmup_cosine
+from repro_torch.optim import (
+    AdamWConfig,
+    AdamWState,
+    adamw_update,
+    adamw_update_,
+    global_norm,
+    init_adamw,
+    warmup_cosine,
+)
 from repro_torch.sharding import param_shardings, use_mesh
-from repro_torch.sharding.rules import ACT_RULES, NamedSharding, PartitionSpec, mesh_sizes, place, resolve_pspec
+from repro_torch.sharding.comm import DistComm, mesh_dims_supported
+from repro_torch.sharding.rules import (
+    ACT_RULES,
+    NamedSharding,
+    PartitionSpec,
+    Shard,
+    act_specs,
+    block_index,
+    block_of,
+    cut_tree,
+    mesh_sizes,
+    place,
+    resolve_pspec,
+    spec_dims,
+)
 from repro_torch.training.watchdog import StragglerWatchdog
 from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
 
@@ -104,13 +148,103 @@ def accumulated_grads(loss_fn: Callable, params: Any, batch: dict, n_micro: int,
     return loss / n_micro, tree_map(lambda g: g / n_micro, grads)
 
 
-def make_train_step(model: Model, tcfg: TrainConfig, *, reduce: Optional[Callable] = None) -> Callable:
+def cut_batch(batch: dict, n_micro: int, comm) -> dict:
+    """This rank's rows of a global batch (whole tensors) as ``Shard``
+    leaves, ordered for ``sharded_grads``'s ``n_micro`` micro-batches: slice
+    i of the rank's rows is its block of micro-batch i of the unsharded step
+    (global rows [i·B/n, (i+1)·B/n), cut over the mesh dims that split the
+    batch), so each micro-batch holds the unsharded step's rows in their
+    order. Raises ValueError when a micro-batch's rows do not split evenly."""
+    specs = act_specs({k: ("batch", "seq") for k in batch}, batch, comm)
+    parts = math.prod(comm.size(ax) for ax in spec_dims(specs["tokens"], 0))
+    rows = batch["tokens"].shape[0]
+    if rows % (parts * n_micro):
+        raise ValueError(f"{rows} rows do not split into {n_micro} micro-batches over {parts} batch shards")
+    if n_micro > 1 and parts > 1:
+        order = torch.arange(rows, device=batch["tokens"].device).view(n_micro, parts, -1).transpose(0, 1).reshape(-1)
+        batch = {k: v[order] for k, v in batch.items()}
+    return cut_tree(batch, specs, comm)
+
+
+def _micro_rows(x: Shard, i: int, n: int) -> Shard:
+    """Micro-batch ``i`` of ``n`` of a rank's rows: slice ``i`` of its own
+    rows (``cut_batch`` orders them so)."""
+    rows = x.local.shape[0] // n
+    return Shard(x.local[i * rows:(i + 1) * rows], (x.shape[0] // n, *x.shape[1:]), x.spec)
+
+
+def sharded_grads(model: Model, params: Any, batch: dict, n_micro: int, comm, *,
+                  repeats: Optional[Callable] = None) -> tuple[torch.Tensor, dict]:
+    """(loss, grads) of the loss on shards (``Model.loss_fn_sharded``).
+
+    ``params``: ``Shard`` leaves whose ``local`` is the rank's fp32 master
+    block; ``batch``: ``Shard`` leaves of the rank's rows, as ``cut_batch``
+    orders them. Each master block is cast once to the dtype the loss reads
+    it in (``transformer.master_compute_dtype``); ``n_micro`` slices of the
+    rank's rows run one after another, each backward reduce-scattering its
+    gradients into the masters' fp32 ``.grad`` blocks, which sum the
+    micro-batches in place; loss and grads are then divided by the slice
+    count, as ``accumulated_grads`` does. ``grads`` maps each leaf's path to
+    its fp32 block; the loss is the global mean, the same on every rank (the
+    data ranks' shares summed). ``repeats``: ``accumulated_grads``'s. Raises
+    ValueError when the rank's rows do not split into ``n_micro``."""
+    rows = batch["tokens"].local.shape[0]
+    if rows % n_micro:
+        raise ValueError(f"a rank's {rows} rows do not split into {n_micro} micro-batches")
+    flat = flatten_with_paths(params)
+    masters = [x.local.detach().requires_grad_(True) for _, x in flat]
+    tree = tree_from_flat({path: Shard(m.detach().to(master_compute_dtype(model.cfg, path)), x.shape, x.spec, m)
+                           for (path, x), m in zip(flat, masters)})
+    losses = []
+    for i in range(n_micro if repeats is None else 1):
+        with contextlib.nullcontext() if repeats is None else repeats(n_micro):
+            mb = {k: _micro_rows(v, i, n_micro) for k, v in batch.items()} if n_micro > 1 else batch
+            with torch.enable_grad():
+                l = model.loss_fn_sharded(tree, mb, comm)
+                l.backward()
+            losses.append(l.detach())
+    del tree
+    grads = {path: torch.zeros_like(m) if m.grad is None else m.grad for (path, _), m in zip(flat, masters)}
+    loss = losses[0]
+    if n_micro > 1:
+        loss = torch.zeros((), dtype=torch.float32, device=loss.device)
+        for l in losses:
+            loss = loss + l
+        loss = loss / n_micro
+        grads = {path: g.div_(n_micro) for path, g in grads.items()}
+    return comm.all_reduce(loss, "data"), grads
+
+
+def make_train_step(model: Model, tcfg: TrainConfig, *, reduce: Optional[Callable] = None, comm=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics); metrics
     are fp32 scalars ``loss``, ``grad_norm`` (before clipping) and ``lr``.
     ``reduce(tensor)`` (data parallelism) averages the loss and every
-    gradient over the ranks in place before the update."""
+    gradient over the ranks in place before the update.
+
+    With ``comm`` (a ``sharding.comm.Comm``: the step on shards, for a
+    family of ``transformer.train_on_shards``): ``params`` are ``Shard``
+    leaves of the rank's fp32 master blocks, ``opt_state``'s moments trees
+    of the rank's blocks and ``batch`` ``Shard`` leaves of its rows
+    (``cut_batch``). The gradients come from ``sharded_grads``, the norm
+    over blocks (``global_norm(specs=)``),
+    and the update is written into the blocks in place (``adamw_update_``):
+    ``params`` come back as the same ``Shard`` leaves."""
     sched = warmup_cosine(tcfg.adamw.lr, tcfg.warmup_steps, tcfg.num_steps)
     n_micro = tcfg.micro_batches
+
+    if comm is not None:
+        def sharded_step(params: Any, opt_state: AdamWState, batch: dict):
+            loss, grads = sharded_grads(model, params, batch, n_micro, comm)
+            with torch.no_grad():
+                lr = sched(opt_state.step)
+                specs = {path: x.spec for path, x in flatten_with_paths(params)}
+                gnorm = global_norm(grads, specs=specs, comm=comm)
+                masters = tree_from_flat({path: x.local for path, x in flatten_with_paths(params)})
+                opt_state = adamw_update_(tcfg.adamw, tree_from_flat(grads), opt_state, masters, lr=lr,
+                                          specs=specs, comm=comm)
+            return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+        return sharded_step
 
     def step_fn(params: Any, opt_state: AdamWState, batch: dict):
         loss, grads = accumulated_grads(model.loss_fn, params, batch, n_micro)
@@ -178,10 +312,40 @@ class TrainResult:
     restored_from: Optional[int]
 
 
+def on_shards(model: Model, mesh) -> bool:
+    """True when ``Trainer(mesh=)`` (and the dry run's train cell) runs the
+    step on shards: a family of ``transformer.train_on_shards`` (the
+    uniform GQA stacks) on a mesh of no dims but ``data`` and ``model``. The
+    other families, and a mesh with a ``pod`` dim, keep data parallelism
+    with the whole tree on every rank."""
+    return train_on_shards(model.cfg) and mesh_dims_supported(tuple(mesh_sizes(mesh)))
+
+
+def _whole_on_host(tree: Any, shapes: dict, specs: dict, comm, keep: bool) -> Optional[dict]:
+    """Each leaf's blocks gathered to the whole leaf (every rank takes part),
+    a stacked leaf one group at a time, so a device holds at most one group
+    of one leaf whole; the rank that ``keep``s them copies them to its host
+    (the others get None)."""
+    out = {}
+    for path, x in flatten_with_paths(tree):
+        s = Shard(x, shapes[path], specs[path])
+        host = torch.empty(shapes[path], dtype=x.dtype) if keep else None
+        for i in range(x.shape[0]) if x.dim() > 1 and not s.split(0) else (None,):
+            whole = (s if i is None else s[i]).gathered(comm)
+            if keep:
+                (host if i is None else host[i]).copy_(whole)
+            del whole
+        out[path] = host
+    return tree_from_flat(out) if keep else None
+
+
 class Trainer:
     """Checkpointed, watchdogged training loop on one device, or one rank of
-    ``mesh`` (data parallel over its batch dims: module docstring). After
-    ``run`` the last params stay on the device as ``params``."""
+    ``mesh`` (module docstring): on shards for the uniform GQA stacks
+    (Mixtral, Yi, Phi-3, Mistral-Large; ``on_shards``), data parallel
+    with the whole tree on every rank for the other families. After ``run``
+    the last params stay on the device as ``params``: the whole tree, or
+    this rank's fp32 blocks when the step ran on shards."""
 
     def __init__(self, model: Model, tcfg: TrainConfig, data: SyntheticTokenPipeline, ckpt_dir: str, *,
                  mesh=None, keep_n: int = 3, device="cuda"):
@@ -194,24 +358,36 @@ class Trainer:
         self.watchdog = StragglerWatchdog()
         self.params: Optional[Any] = None
 
-    def _init_state(self) -> tuple[int, Any, AdamWState]:
+    def _init_state(self, specs: Optional[dict] = None, comm=None) -> tuple[int, Any, AdamWState]:
+        """(step, params, AdamW state), restored from the latest checkpoint
+        or initialised from the seed. With ``specs`` (path -> the leaf's
+        spec on ``comm``'s mesh) each leaf is only this rank's block: a
+        restore copies each block out of the mapped files, an init draws
+        the blocks alone (``Model.init(blocks=)``)."""
         restored = self.mgr.restore()
         dev = self.device
 
-        def load(t):  # a copy: the restored tensors may map the checkpoint's file
-            return t.to(dev, copy=True)
+        def load(path, t):  # a copy: the restored tensors may map the checkpoint's file
+            return (t if specs is None else block_of(t, specs[path], comm)).to(dev, copy=True)
+
+        def tree(t):
+            return tree_from_flat({path: load(path, x) for path, x in flatten_with_paths(t)})
 
         if restored is not None:
             o = restored.collections["opt_state"]
-            opt = AdamWState(step=load(o["step"]), m=tree_map(load, o["m"]), v=tree_map(load, o["v"]))
-            return restored.step, tree_map(load, restored.collections["params"]), opt
+            opt = AdamWState(step=o["step"].to(dev, copy=True), m=tree(o["m"]), v=tree(o["v"]))
+            return restored.step, tree(restored.collections["params"]), opt
         gen = torch.Generator(device=dev).manual_seed(self.tcfg.seed)
-        params = self.model.init(gen, device=dev, dtype=torch.float32)
+        blocks = None if specs is None else {path: block_index(x.shape, specs[path], comm)
+                                             for path, x in flatten_with_paths(self.model.abstract())}
+        params = self.model.init(gen, device=dev, dtype=torch.float32, blocks=blocks)
         return 0, params, init_adamw(params)
 
     def run(self, num_steps: Optional[int] = None) -> TrainResult:
         tcfg = self.tcfg
         num_steps = num_steps or tcfg.num_steps
+        if self.mesh is not None and on_shards(self.model, self.mesh):
+            return self._run_on_shards(num_steps)
         start, params, opt = self._init_state()
         restored_from = start if start > 0 else None
         rank = dist.get_rank() if self.mesh is not None else 0
@@ -226,12 +402,51 @@ class Trainer:
                 loss = float(metrics["loss"])
                 self.watchdog.record(step, time.perf_counter() - t0)
                 losses.append(loss)
-                if rank == 0 and ((step + 1) % tcfg.save_every == 0 or step + 1 == num_steps):
-                    self.mgr.save(step + 1, {
-                        "params": params,
-                        "opt_state": {"step": opt.step, "m": opt.m, "v": opt.v},
-                        "data_state": {"step": torch.tensor(step + 1, dtype=torch.int32)},
-                    }, meta={"arch": self.model.cfg.name})
+                if rank == 0 and self._saves(step, num_steps):
+                    self._save(step, params, opt)
+        return self._finish(num_steps, losses, params, restored_from)
+
+    def _saves(self, step: int, num_steps: int) -> bool:
+        return (step + 1) % self.tcfg.save_every == 0 or step + 1 == num_steps
+
+    def _save(self, step: int, params: Any, opt: AdamWState) -> None:
+        self.mgr.save(step + 1, {
+            "params": params,
+            "opt_state": {"step": opt.step, "m": opt.m, "v": opt.v},
+            "data_state": {"step": torch.tensor(step + 1, dtype=torch.int32)},
+        }, meta={"arch": self.model.cfg.name})
+
+    def _run_on_shards(self, num_steps: int) -> TrainResult:
+        """``run`` with the step on shards (module docstring): this rank's
+        blocks are restored or initialised, and no whole tree is placed."""
+        comm = DistComm(self.mesh)
+        abstract = flatten_with_paths(self.model.abstract())
+        shapes = {path: tuple(x.shape) for path, x in abstract}
+        specs = {path: sh.spec for path, sh in flatten_with_paths(
+            param_shardings(self.model.logical_axes(), self.model.abstract(), self.mesh, fsdp=self.model.cfg.fsdp))}
+        start, blocks, opt = self._init_state(specs, comm)
+        shards = tree_from_flat({path: Shard(x, shapes[path], specs[path]) for path, x in flatten_with_paths(blocks)})
+        del blocks
+        step_fn = make_train_step(self.model, self.tcfg, comm=comm)
+        rank, losses = dist.get_rank(), []
+        for step, batch in zip(range(start, num_steps), self.data.iterate_from(start)):
+            t0 = time.perf_counter()
+            batch = cut_batch({k: torch.from_numpy(v).to(self.device, torch.int64) for k, v in batch.items()},
+                              self.tcfg.micro_batches, comm)
+            shards, opt, metrics = step_fn(shards, opt, batch)
+            loss = float(metrics["loss"])
+            self.watchdog.record(step, time.perf_counter() - t0)
+            losses.append(loss)
+            if self._saves(step, num_steps):
+                local = tree_from_flat({path: x.local for path, x in flatten_with_paths(shards)})
+                host = [_whole_on_host(t, shapes, specs, comm, rank == 0) for t in (local, opt.m, opt.v)]
+                if rank == 0:
+                    self._save(step, host[0], AdamWState(step=opt.step, m=host[1], v=host[2]))
+                del host
+        blocks = tree_from_flat({path: x.local for path, x in flatten_with_paths(shards)})
+        return self._finish(num_steps, losses, blocks, start if start > 0 else None)
+
+    def _finish(self, num_steps: int, losses: list, params: Any, restored_from: Optional[int]) -> TrainResult:
         self.mgr.wait()
         if self.mesh is not None:
             dist.barrier()  # rank 0's last checkpoint is committed before any rank returns

@@ -5,7 +5,7 @@ widths; a reduced modal config's multimodal prefill launching the flash
 kernel for its decoder self layers only; and the mesh on a one-rank NCCL
 world (a 1×1 cold start equal to none, ``compressed_psum`` over one rank);
 the cost counter on a card matmul and dry-run cells with fake tensors on
-the card.
+the card; ``ThreadComm`` refusing a CUDA backward.
 Needs an NVIDIA GPU and nvcc (the
 kernel has no CPU mode); skips elsewhere. Imports no JAX (and
 ``--noconftest`` skips the JAX fixtures of tests/conftest.py), so it runs
@@ -1508,3 +1508,21 @@ def test_dryrun_cells_on_card_allocate_nothing(card):
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated(card) == before
     assert {name: fn.launches for name, fn in kernel_wrappers().items()} == launches
+
+
+@pytest.mark.gpu
+def test_thread_ranks_refuse_a_cuda_backward(card):
+    """``ThreadComm`` raises, and nothing hangs, when a rank's backward
+    reaches a collective on CUDA tensors (the autograd engine would run every
+    rank's CUDA backward on one device thread); the forward alone runs."""
+    from repro_torch.sharding.comm import run_ranks
+
+    def rank(comm):
+        x = torch.ones(4, device="cuda", requires_grad=True)
+        y = comm.all_reduce(comm.enter(x, "model") * 2.0, "model")
+        if comm.index("model") == 0:
+            assert torch.equal(y, torch.full_like(y, 4.0))
+        y.sum().backward()
+
+    with pytest.raises(RuntimeError, match="ThreadComm cannot run a CUDA backward"):
+        run_ranks({"data": 1, "model": 2}, rank)

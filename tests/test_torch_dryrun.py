@@ -226,22 +226,73 @@ def _port_cell(arch, mesh, kind, remat="full"):
                            extra_cfg=dict(_reduced_fields(arch), remat=remat))
 
 
+def _train_micro_batches(mesh: tuple) -> int:
+    """The dry run's micro-batches for a B=4 train cell of a reduced config:
+    4, at most one batch row per data rank each (``dryrun.build_cell``)."""
+    return max(1, min(4, 4 // mesh[0]))
+
+
 def _router_gap(arch: str, mesh: tuple, kind: str) -> int:
     """Per-device dot FLOPs the reference counts and the port does not, at
-    2×2. One op: a MoE layer's prefill router. The reference's GSPMD runs it
-    on each data rank's 128 tokens whole over ``model`` (a (128, 64) × (64,
-    E) dot per MoE layer), the port splits its contraction over ``model``
-    and all-reduces the partial logits (a (128, 32) × (32, E) dot), as both
-    do in decode: reduced Mixtral's 2 layers × 32,768 = 65,536 FLOPs, 0.21%
-    of the reference's 30,605,312; reduced DeepSeek-V2-Lite's 2 MoE layers
-    (its dense lead layer has no router) × 65,536 = 131,072, 0.45% of its
-    28,835,840. Every other dot of the cells is the reference's quarter."""
+    2×2. One op: a MoE layer's router. The reference's GSPMD runs it on
+    each data rank's tokens whole over ``model`` (a (T_d, 64) × (64, E) dot
+    per MoE layer), the port splits its contraction over ``model`` and
+    all-reduces the partial logits (a (T_d, 32) × (32, E) dot), as both do
+    in decode.
+
+      * prefill: T_d = 128 tokens. Reduced Mixtral's 2 layers × 32,768 =
+        65,536 FLOPs, 0.21% of the reference's 30,605,312; reduced
+        DeepSeek-V2-Lite's 2 MoE layers (its dense lead layer has no
+        router) × 65,536 = 131,072, 0.45% of its 28,835,840;
+      * train: 2 micro-batches of T_d = 64 tokens. The reference runs three
+        of the router's four dots whole (its compiled HLO: the forward, the
+        recompute under remat "full" and the input gradient, each a (64,
+        64) × (64, 4) or (64, 4) × (4, 64) dot of 32,768 FLOPs) and splits
+        the weight gradient over ``model`` as the port splits all four:
+        2 layers × 2 micro-batches × 3 dots × 16,384 = 196,608 on reduced
+        Mixtral, 0.20% of the reference's 96,927,744.
+
+    Every other dot of the cells is the reference's quarter, but for the
+    train cell's experts (``_capacity_gap``)."""
     cfg = get_reduced(arch)
-    if cfg.moe is None or kind != "prefill" or mesh == (1, 1):
+    if cfg.moe is None or kind == "decode" or mesh == (1, 1):
         return 0
     D, M = mesh
     moe_layers = cfg.num_layers - cfg.moe.first_dense_layers
-    return moe_layers * (4 * 64 // D) * cfg.d_model * cfg.moe.num_experts * 2 * (M - 1) // M
+    if kind == "prefill":
+        return moe_layers * (4 * 64 // D) * cfg.d_model * cfg.moe.num_experts * 2 * (M - 1) // M
+    n = _train_micro_batches(mesh)
+    return moe_layers * n * 3 * (4 // n * 64 // D) * cfg.d_model * cfg.moe.num_experts * 2 * (M - 1) // M
+
+
+def _capacity_gap(arch: str, mesh: tuple, kind: str) -> int:
+    """Per-device dot FLOPs the port counts and the reference does not (a
+    negative gap), in a MoE train cell: the experts' capacity slots. Both
+    take training's capacity over the global tokens of a micro-batch, C =
+    ceil(k · T · capacity_factor / E) (2 · 128 · 1.25 / 4 = 80 on reduced
+    Mixtral at 2×2). The reference's GSPMD splits the capacity dim over
+    ``data`` (C / D = 40 slots an expert a device). The port keeps each
+    rank's tokens on the rank, and a rank may route all of its T_loc = 64
+    tokens of a micro-batch to one expert, so its buffers hold min(C,
+    T_loc) = 64 slots an expert. Each of the three expert matmuls (gate,
+    up, down: 2 · E_loc · slots · d · f_loc FLOPs, E_loc = 2 experts of the
+    rank's EP share, f_loc = 128) runs four times a micro-batch (forward,
+    recompute under remat "full", and the two gradient dots): 2 layers × 2
+    micro-batches × 4 × 3 × 2 · 2 · (64 − 40) · 64 · 128 = 37,748,736
+    FLOPs, 38.9% of the reference's 96,927,744. None at 1×1 (min(C, T) =
+    C)."""
+    cfg = get_reduced(arch)
+    if cfg.moe is None or kind != "train":
+        return 0
+    D, M = mesh
+    m = cfg.moe
+    n = _train_micro_batches(mesh)
+    T = 4 // n * 64  # global tokens of one micro-batch
+    C = max(1, min(T, math.ceil(m.top_k * T * m.capacity_factor / m.num_experts)))
+    ep = m.num_experts % M == 0  # experts over ``model`` (EP), else ``ffn`` within each expert
+    E_loc, f_loc = (m.num_experts // M, m.expert_d_ff) if ep else (m.num_experts, m.expert_d_ff // M)
+    moe_layers = cfg.num_layers - m.first_dense_layers
+    return -moe_layers * n * 4 * 3 * 2 * E_loc * (min(C, T // D) - C // D) * cfg.d_model * f_loc
 
 
 def _key_block_gap(arch: str, mesh: tuple, kind: str) -> int:
@@ -275,8 +326,13 @@ def test_dryrun_cells_match_the_reference(arch, reference_cells):
     num_chips`` against the reference's compiled per-device count; at 2×2
     the serving cells compute on shards, the multimodal ones on the cells'
     ``frames``, ``image_embeds`` and cross caches, up to the ops of
-    ``_router_gap`` and ``_key_block_gap``); and every record's argument
-    bytes equal the closed form of its shardings."""
+    ``_router_gap`` and ``_key_block_gap``); dot FLOPs per device equal for
+    the train cells of ``TRAIN_ARCHS`` too, which compute on shards (the
+    record's ``train_on_shards``; at 2×2 each weight's gradient is
+    reduce-scattered into its block, so the collectives hold a
+    reduce-scatter), up to the ops of ``_router_gap`` and
+    ``_capacity_gap``; and every record's argument bytes equal the closed
+    form of its shardings."""
     for mesh in MESHES:
         for kind in _kinds(arch):
             ref = reference_cells[(arch, mesh, kind, "full")]
@@ -286,11 +342,13 @@ def test_dryrun_cells_match_the_reference(arch, reference_cells):
                 assert rec[key] == ref[key], (mesh, kind, key)
             args = rec["memory"]["argument_size_in_bytes"]
             assert args == ref["argument_size_in_bytes"] == rec["closed_form_argument_bytes"], (mesh, kind)
-            if kind != "train":
-                per_device = rec["hlo_dot_flops"] / rec["num_chips"]
-                gap = _router_gap(arch, mesh, kind) + _key_block_gap(arch, mesh, kind)
-                assert ref["dot_flops"] - per_device == gap, (mesh, kind)
+            per_device = rec["hlo_dot_flops"] / rec["num_chips"]
+            gap = _router_gap(arch, mesh, kind) + _key_block_gap(arch, mesh, kind) + _capacity_gap(arch, mesh, kind)
+            assert ref["dot_flops"] - per_device == gap, (mesh, kind)
             assert rec["collective_bytes"] == 0.0 if mesh == (1, 1) else rec["collective_bytes"] > 0
+            if kind == "train":
+                assert rec["train_on_shards"] is True, mesh
+                assert ("reduce-scatter" in rec["collectives"]["bytes"]) == (mesh != (1, 1)), mesh
 
 
 def _score_recompute_flops(arch: str) -> int:
