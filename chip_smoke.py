@@ -281,11 +281,13 @@ Phases (any failure exits non-zero before the result line):
    ``production_mesh_shape()``; each cell's arguments, peak, ``fits``, dot
    FLOPs and collective bytes by kind printed, and the train cell on shards
    (``train_on_shards``), with a reduce-scatter among its collectives and
-   ``fits`` true. (c) In the serial section after (b): the 1×1 train anchor,
-   Mixtral-8x22B at full width cut to DRYRUN_TRAIN_ANCHOR's 1 layer, B=1 ×
-   1024, fp32 masters and AdamW moments: the train cell traced on a
-   one-rank fake world, then run on a one-rank NCCL world on seeded
-   weights: arguments and peak traced against measured as in (b); the loss
+   ``fits`` true. (c) In the serial section after (b): the 1×1 train
+   anchors of DRYRUN_TRAIN_ANCHORS one after another, each at full width
+   cut in depth, B=1 × 1024, fp32 masters and AdamW moments (Mixtral-8x22B
+   at 1 layer, Gemma-3-27B at 1, DeepSeek-V2-Lite at 2: its dense lead and
+   one MoE layer, RecurrentGemma-9B at 3: rec, rec, attn): each train cell
+   traced on a one-rank fake world, then run on a one-rank NCCL world on
+   seeded weights: arguments and peak traced against measured as in (b); the loss
    and every gradient leaf of the step on shards (``sharded_grads``) bit-equal
    to the unsharded ``accumulated_grads`` of ``Model.loss_fn``, which
    ``make_train_step`` runs; the median step beside its roofline bound; no
@@ -441,6 +443,10 @@ DRYRUN_ANCHOR = ("mixtral-8x22b", "decode_32k", 1)
 # the caching allocator rounds each block up to a multiple of 512 B, so the
 # measured arguments may exceed their bytes by under 512 B a tensor
 ALLOC_ROUND = 512
+# and a request of 10 MiB or more gets a segment rounded up to 2 MiB whose
+# rest it keeps in the block when the rest is no more than 1 MiB (it splits
+# off only a larger one): Gemma-3's 441 MiB fp32 MLP blocks take 442 MiB
+ALLOC_LARGE, ALLOC_SEGMENT, ALLOC_UNSPLIT = 10 * 2**20, 2 * 2**20, 2**20
 # measured peak (arguments + the step's temporaries) against the traced peak:
 # within 2% of the traced peak plus 64 MiB (a cached block reused for a
 # smaller request keeps up to 1 MiB unsplit, and library workspaces)
@@ -448,11 +454,16 @@ DRYRUN_PEAK_REL_TOL, DRYRUN_PEAK_ABS_TOL = 0.02, 64 * 2**20
 # the anchor's limits: its traced peak, and its whole wall time
 DRYRUN_ANCHOR_MAX_BYTES, DRYRUN_ANCHOR_MAX_S = 30e9, 30.0
 DRYRUN_STEP_REPS = 7  # timed steps (the median is kept)
-# [dryrun] (c): the 1×1 train anchor, (arch, B, S, layers): Mixtral-8x22B at
-# full width cut to 1 layer (2.91e9 params: 34.9 GB of fp32 masters and
-# moments, 11.6 GB of fp32 gradients beside them), B=1 × 1024
-DRYRUN_TRAIN_ANCHOR = ("mixtral-8x22b", 1, 1024, 1)
-# its traced peak, and its whole wall time (trace, placement, both
+# [dryrun] (c): the 1×1 train anchors, (arch, B, S, layers), each at full
+# width and B=1 × 1024: Mixtral-8x22B cut to 1 layer (2.91e9 params: 34.9 GB
+# of fp32 masters and moments, 11.6 GB of fp32 gradients beside them);
+# Gemma-3-27B cut to 1 layer, its fewest (a local one; 1.82e9 params, 1.41e9
+# of them the tied 262,144-row table: 21.9 GB of fp32 state); DeepSeek-V2-Lite
+# cut to 2 layers, the dense lead and one MoE layer (1.1e9 params);
+# RecurrentGemma-9B cut to 3 layers, rec, rec, attn (1.7e9 params)
+DRYRUN_TRAIN_ANCHORS = (("mixtral-8x22b", 1, 1024, 1), ("gemma3-27b", 1, 1024, 1),
+                        ("deepseek-v2-lite-16b", 1, 1024, 2), ("recurrentgemma-9b", 1, 1024, 3))
+# each anchor's traced peak, and its whole wall time (trace, placement, both
 # gradients' comparison, the timed steps)
 DRYRUN_TRAIN_MAX_BYTES, DRYRUN_TRAIN_MAX_S = 78e9, 90.0
 # [mesh] (d): Mixtral-8x22B's first layer at full width as the 16 "model"
@@ -2610,8 +2621,24 @@ def _anchor_verdict(tag: str, cell, shape, mem: dict, cost, measured_peak: int, 
     return {"launches": counts, "wall_s": wall, "step_ms": step_ms, "bound_ms": roof.bound_s * 1e3}
 
 
-def dryrun_train_anchor_phase(wrappers: dict) -> dict:
-    """[dryrun] (c) The 1×1 train anchor on the card (module docstring)."""
+def _unsplit_rest(nbytes: int) -> int:
+    """The bytes past its 512-B rounding that the caching allocator books
+    for a fresh block of ``nbytes``: the rest of its 2-MiB-rounded segment,
+    where the block is at least ALLOC_LARGE and the rest at most
+    ALLOC_UNSPLIT."""
+    size = -(-nbytes // ALLOC_ROUND) * ALLOC_ROUND
+    rest = -size % ALLOC_SEGMENT
+    return rest if size >= ALLOC_LARGE and rest <= ALLOC_UNSPLIT else 0
+
+
+def dryrun_train_anchors_phase(wrappers: dict) -> dict:
+    """[dryrun] (c) The 1×1 train anchors on the card, one after another
+    (module docstring): {arch: the anchor's summary}."""
+    return {anchor[0]: dryrun_train_anchor(wrappers, *anchor) for anchor in DRYRUN_TRAIN_ANCHORS}
+
+
+def dryrun_train_anchor(wrappers: dict, arch: str, B: int, S: int, layers: int) -> dict:
+    """[dryrun] (c) One 1×1 train anchor on the card (module docstring)."""
     import torch
     import torch.distributed as dist
 
@@ -2622,9 +2649,8 @@ def dryrun_train_anchor_phase(wrappers: dict) -> dict:
     from repro_torch.training.train_loop import accumulated_grads, sharded_grads
     from repro_torch.utils.tree import flatten_with_paths
 
-    arch, B, S, layers = DRYRUN_TRAIN_ANCHOR
     shape = ShapeSpec(f"train_b{B}s{S}", S, B, "train")
-    tag = "[dryrun] (c)"
+    tag = f"[dryrun] (c) {arch}"
     t0 = time.perf_counter()
     dryrun.fake_world(1)
     try:
@@ -2634,8 +2660,8 @@ def dryrun_train_anchor_phase(wrappers: dict) -> dict:
     finally:
         dist.destroy_process_group()
     mem, cost = traced["memory"], traced["cost"]
-    print(f"{tag} {arch} × {shape.name} × 1x1 at {layers} layer, on shards {cell.train_on_shards}, "
-          f"{cell.micro_batches} micro-batch, traced in {traced['trace_s']:.1f} s: arguments "
+    print(f"{tag} × {shape.name} × 1x1 at {layers} layer{'s' if layers > 1 else ''}, on shards "
+          f"{cell.train_on_shards}, {cell.micro_batches} micro-batch, traced in {traced['trace_s']:.1f} s: arguments "
           f"{mem['argument_size_in_bytes']} B, peak {mem['peak_size_in_bytes']} B, flops {cost.flops:.6e} "
           f"(dot {cost.dot_flops:.6e}), bytes {cost.bytes:.6e}, collectives {cost.collective_bytes}", flush=True)
     if not cell.train_on_shards or mem["peak_size_in_bytes"] > DRYRUN_TRAIN_MAX_BYTES:
@@ -2656,11 +2682,13 @@ def dryrun_train_anchor_phase(wrappers: dict) -> dict:
             t.random_(0, cfg.vocab_size, generator=gen)
         torch.cuda.synchronize()
         measured_args = torch.cuda.memory_allocated() - base
-        n_tensors = len(dryrun.local_tensors(args))
-        over = measured_args - mem["argument_size_in_bytes"]
+        tensors = dryrun.local_tensors(args)
+        kept = sum(_unsplit_rest(t.numel() * t.element_size()) for t in tensors)
+        over = measured_args - mem["argument_size_in_bytes"] - kept
         print(f"{tag} arguments traced {mem['argument_size_in_bytes']} B, measured {measured_args} B "
-              f"({n_tensors} tensors, {over} B of rounding, limit {ALLOC_ROUND} B a tensor)", flush=True)
-        if not 0 <= over < ALLOC_ROUND * n_tensors:
+              f"({len(tensors)} tensors, {kept} B of unsplit segment rests, {over} B of rounding, limit "
+              f"{ALLOC_ROUND} B a tensor)", flush=True)
+        if not 0 <= over < ALLOC_ROUND * len(tensors):
             raise AssertionError(f"{tag} measured arguments differ from the traced ones by more than rounding")
         for fn in wrappers.values():
             fn.launches = 0  # the anchor's path starts here
@@ -3423,7 +3451,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.dryrun_alone:
         dryrun_anchor_phase(wrappers)
-        dryrun_train_anchor_phase(wrappers)
+        dryrun_train_anchors_phase(wrappers)
         dryrun_grid_phase(workdir)
         phase_s["total"] = time.perf_counter() - t_start
         print("[time] " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
@@ -3481,8 +3509,9 @@ def main(argv: list[str] | None = None) -> int:
     paths["dryrun-1x1-anchor"] = dryrun_anchor_phase(wrappers)["launches"]  # its fake world ends here
     phase_s["dryrun (b) 1x1 anchor"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    paths["dryrun-1x1-train"] = dryrun_train_anchor_phase(wrappers)["launches"]  # its worlds end here
-    phase_s["dryrun (c) 1x1 train anchor"] = time.perf_counter() - t_phase
+    for arch, summary in dryrun_train_anchors_phase(wrappers).items():  # their worlds end here
+        paths[f"dryrun-1x1-train-{arch}"] = summary["launches"]
+    phase_s["dryrun (c) 1x1 train anchors"] = time.perf_counter() - t_phase
 
     t_phase = time.perf_counter()
     trace = workdir / "retier_trace.json"  # the modes phase's after2 run profiles for [retier]
@@ -3555,7 +3584,8 @@ def main(argv: list[str] | None = None) -> int:
                          ("xlstm-125m", set()), ("xlstm-125m-train", set()), ("reduced-train", set()),
                          ("reduced", {"flash_attention"}), ("modes-after2 (retier profile)", {"flash_attention"}),
                          ("retier-serve", {"flash_attention"}), ("mesh-1x1-launcher", {"flash_attention"}),
-                         ("xlstm-125m-train-mesh", set()), ("dryrun-1x1-anchor", set()), ("dryrun-1x1-train", set()),
+                         ("xlstm-125m-train-mesh", set()), ("dryrun-1x1-anchor", set()),
+                         *((f"dryrun-1x1-train-{a[0]}", set()) for a in DRYRUN_TRAIN_ANCHORS),
                          ("mesh-16-ranks-mixtral-8x22b", {"flash_attention"}),
                          ("mesh-16-ranks-gemma3-27b", {"flash_attention"}), ("mesh-16-ranks-deepseek-v2-lite-16b", set()),
                          ("mesh-16-ranks-deepseek-v2-lite-16b-fp32", set()),

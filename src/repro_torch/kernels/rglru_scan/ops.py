@@ -31,11 +31,14 @@ _lib: Optional[ctypes.CDLL] = None
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The recurrence step by step in fp32 (``rglru_scan_ref``'s semantics).
     The output is stacked rather than written in place, so a traced graph of
-    it holds no mutation (the analyzer treats a mutated input as live)."""
+    it holds no mutation (the analyzer treats a mutated input as live). The
+    inputs are unbound into their steps once, so under autograd (the
+    training loss) the steps' gradients are stacked once, where indexing a
+    step at a time would add S whole-size gradients."""
     s = torch.zeros_like(a[:, 0], dtype=torch.float32)
     steps = []
-    for t in range(a.shape[1]):
-        s = a[:, t].to(torch.float32) * s + b[:, t].to(torch.float32)
+    for a_t, b_t in zip(a.to(torch.float32).unbind(1), b.to(torch.float32).unbind(1)):
+        s = a_t * s + b_t
         steps.append(s)
     return torch.stack(steps, dim=1)
 

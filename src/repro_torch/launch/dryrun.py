@@ -26,9 +26,10 @@ model is placed and stepped with no memory allocated:
     replicated;
   * a train cell runs the step as ``Trainer(mesh=)`` does, by family
     (``training.train_loop.on_shards``, the record's
-    ``train_on_shards``): for the uniform GQA stacks on a ("data",
-    "model") mesh, 1×1 included, the step on shards on rank 0's fp32
-    master and moment blocks (``sharded_grads``: each block cast once,
+    ``train_on_shards``): for the GQA, MLA and RG-LRU stacks (all but
+    xLSTM, Whisper and Llama-3.2-Vision) on a ("data", "model") mesh, 1×1
+    included, the step on shards on rank 0's fp32 master and moment
+    blocks (``sharded_grads``: each block cast once,
     ``Model.loss_fn_sharded`` per micro-batch with each weight gathered
     over ``data`` at its use and its gradient reduce-scattered into the
     block, then the norm over blocks and AdamW in place on the blocks);

@@ -494,17 +494,23 @@ def gqa_decode_sharded(params: dict, x: torch.Tensor, pos: torch.Tensor, k_cache
     return _row_parallel(params["wo"], o.reshape(B, (H // M) * hd), comm, tp)[:, None, :], k_cache, v_cache
 
 
-def _mla_latent_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, comm):
+def _mla_latent_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, comm, *,
+                        x_model: Optional[torch.Tensor] = None):
     """``_mla_latent`` on a rank's rows: ``w_dkv`` and ``w_kr`` gathered
     over ``data``, their contraction split over ``model`` where ``model``
     divides d_model (the rank's slice of x times its rows of the weights,
     the partial sums all-reduced before the norm and the rope), as GSPMD
-    partitions them; whole on every rank otherwise."""
+    partitions them; whole on every rank otherwise. Under autograd the
+    weights (replicated over ``model``) and ``x`` enter the ``model`` region
+    before the slice, so the shares of their gradients are summed (``x_model``:
+    ``x`` as the caller entered it for its other ``model`` share, one enter
+    for both)."""
     w_dkv, w_kr = params["w_dkv"].gathered(comm, ("data",)), params["w_kr"].gathered(comm, ("data",))
     M, d = comm.size("model"), x.shape[-1]
     if M > 1 and d % M == 0:
         c, j = d // M, comm.index("model")
-        xs = x[..., j * c:(j + 1) * c]
+        xs = (comm.enter(x, "model") if x_model is None else x_model)[..., j * c:(j + 1) * c]
+        w_dkv, w_kr = comm.enter(w_dkv, "model"), comm.enter(w_kr, "model")
         c_kv = comm.all_reduce(xs @ w_dkv[j * c:(j + 1) * c].to(x.dtype), "model")
         k_r = comm.all_reduce(xs @ w_kr[j * c:(j + 1) * c].to(x.dtype), "model")
     else:
@@ -520,18 +526,24 @@ def mla_forward_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, 
     (``_mla_latent_sharded``), the expanded heads through
     ``flash_attention_plain`` (the reference's MLA prefill reaches no
     kernel), ``wo`` row-parallel. Returns ``(out, (c_kv, k_r))``, the rank's
-    rows of the latent cache, whole on the slot axis."""
+    rows of the latent cache, whole on the slot axis. Under autograd, with
+    the heads split: ``x`` enters the ``model`` region before the rank's q
+    columns (and its latent slice), and the normed latent and the roped key
+    before the rank's heads read them, so ``kv_norm``'s gradient and the
+    rope's see every head's share."""
     m = cfg.mla
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
     tp = _heads_split(params, cfg, comm)
     h_loc = cfg.num_heads // comm.size("model") if tp else cfg.num_heads
     B, S, _ = x.shape
-    q = _split_heads(_proj(params["wq"], x, comm, tp), h_loc)
+    xq = comm.enter(x, "model") if tp else x
+    q = _split_heads(_proj(params["wq"], xq, comm, tp), h_loc)
     q_nope, q_rope = q[..., : m.qk_nope_head_dim], apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
-    c_kv, k_r = _mla_latent_sharded(params, x, positions, cfg, comm)
-    k_nope = _split_heads(_proj(params["w_uk"], c_kv, comm, tp), h_loc)
-    value = _split_heads(_proj(params["w_uv"], c_kv, comm, tp), h_loc)
-    k_full = torch.cat([k_nope, k_r[:, :, None, :].expand(B, S, h_loc, m.qk_rope_head_dim)], dim=-1)
+    c_kv, k_r = _mla_latent_sharded(params, x, positions, cfg, comm, x_model=xq if tp else None)
+    ckv_h, kr_h = (comm.enter(c_kv, "model"), comm.enter(k_r, "model")) if tp else (c_kv, k_r)
+    k_nope = _split_heads(_proj(params["w_uk"], ckv_h, comm, tp), h_loc)
+    value = _split_heads(_proj(params["w_uv"], ckv_h, comm, tp), h_loc)
+    k_full = torch.cat([k_nope, kr_h[:, :, None, :].expand(B, S, h_loc, m.qk_rope_head_dim)], dim=-1)
     v_pad = torch.nn.functional.pad(value, (0, qd - m.v_head_dim))
     o = flash_attention_plain(torch.cat([q_nope, q_rope], dim=-1), k_full, v_pad, causal=True)[..., : m.v_head_dim]
     return _row_parallel(params["wo"], o.reshape(B, S, h_loc * m.v_head_dim), comm, tp), (c_kv, k_r)

@@ -134,9 +134,13 @@ def rglru_block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelCon
 # ``model`` where the rules split them: ``w_in`` and ``w_gate_branch``
 # column-parallel, the depthwise conv and the scan on the rank's channels,
 # ``w_out`` row-parallel. ``w_r`` and ``w_i`` split their contraction, so
-# their partial pre-activations are all-reduced over ``model`` before the
-# sigmoid and cut to the rank's channels, as GSPMD partitions them (a
-# quarter of the dot FLOPs a device on a 2×2 mesh, as the reference's).
+# their partial pre-activations are reduce-scattered over ``model`` to the
+# rank's channels before the sigmoid, as GSPMD partitions them (a quarter of
+# the dot FLOPs a device on a 2×2 mesh, as the reference's). Under autograd
+# (``sharding.comm``) ``x`` enters the ``model`` region before the
+# column-parallel weights, the reduce-scatter's backward all-gathers the
+# gates' gradient to every channel, and ``b_r`` / ``b_i`` / ``lam``
+# (replicated over ``model``) enter it before each rank cuts its channels.
 
 
 def _channels(params: dict, comm) -> tuple[tuple, int, int]:
@@ -152,12 +156,15 @@ def _gates_sharded(params: dict, h: torch.Tensor, comm):
 
     def pre(w) -> torch.Tensor:
         out = h @ w.gathered(comm, ("data",)).to(h.dtype)
-        for ax in dims:
-            out = comm.all_reduce(out, ax)
-        return out[..., c0:c0 + n]
+        for ax in dims:  # the first dim outermost, as the channels' blocks
+            out = comm.reduce_scatter(out, ax, out.dim() - 1)
+        return out
 
     def mine(t) -> torch.Tensor:  # a whole per-channel vector cut to the rank's channels
-        return t.gathered(comm)[c0:c0 + n]
+        t = t.gathered(comm)
+        for ax in dims:
+            t = comm.enter(t, ax)
+        return t[c0:c0 + n]
 
     return _gate_math(pre(params["w_r"]), pre(params["w_i"]), mine(params["b_r"]), mine(params["b_i"]),
                       mine(params["lam"]), h)
@@ -165,6 +172,8 @@ def _gates_sharded(params: dict, h: torch.Tensor, comm):
 
 def _temporal_sharded(params: dict, x: torch.Tensor, comm, state: Optional[torch.Tensor]):
     """The gate branch and the conv on the rank's channels: (gate, h, conv state)."""
+    for ax in params["w_in"].split(1):
+        x = comm.enter(x, ax)
     g = x @ params["w_gate_branch"].gathered(comm, ("data",)).to(x.dtype)
     gate = F.gelu(g.float(), approximate="tanh").to(x.dtype)
     h = x @ params["w_in"].gathered(comm, ("data",)).to(x.dtype)

@@ -23,7 +23,8 @@ weights, and the analyzer leaves them dead.
 Entry points: ``loss_fn`` (the training forward and its cross-entropy),
 ``prefill`` (last-token logits + caches) and ``decode_step`` (one token
 against the caches); on a rank's shards ``prefill_sharded``,
-``decode_step_sharded`` and, for the uniform GQA stacks, ``loss_fn_sharded``.
+``decode_step_sharded`` and, for the GQA, MLA and RG-LRU stacks
+(``train_on_shards``), ``loss_fn_sharded``.
 
 Kernels on the training path. The loss runs the stack without collecting
 caches, and there every block names the plain versions itself:
@@ -590,28 +591,34 @@ def _sharded_mlp(cfg, p, h, comm, dims, cache: dict, usage_rows=None):
     return out[0]
 
 
-def _sharded_mixer(cfg, kind, p, h, positions, comm, rows):
+def _sharded_mixer(cfg, kind, p, h, positions, comm, *, plain: bool):
     """The block's sequence mixer on a rank's blocks, by kind: the RG-LRU
-    (``rec``), MLA, or GQA self-attention with the kind's window. Returns
-    (out, cache) with the cache leaves in the ``cache_axes`` layout."""
-    dims, layout = rows
-    plain = _PLAIN_VERSIONS.on
+    (``rec``), MLA, or GQA self-attention with the kind's window; attention
+    and the scan through their plain versions where ``plain``. Returns (out,
+    cache), the cache as the rank computes it (``_mixer_cache`` lays it out)."""
     if kind == "rec":
-        o, c = rec_mod.rglru_block_forward_sharded(p["rglru"], h, cfg, comm,
+        return rec_mod.rglru_block_forward_sharded(p["rglru"], h, cfg, comm,
                                                    scan=rglru_scan_plain if plain else None)
-        chans = p["rglru"]["w_in"].split(1) or None
-        return o, {"conv": constrain(c["conv"], _CACHE_AXES["conv"], comm=comm,
-                                     layout=PartitionSpec(dims or None, None, chans)),
-                   "lru": constrain(c["lru"], _CACHE_AXES["lru"], comm=comm, layout=PartitionSpec(dims or None, chans))}
     if cfg.mla is not None:
         o, (ckv, kr) = attn.mla_forward_sharded(p["attn"], h, positions, cfg, comm)
-        return o, {"ckv": constrain(ckv, _CACHE_AXES["ckv"], comm=comm, layout=layout),
-                   "kr": constrain(kr, _CACHE_AXES["kr"], comm=comm, layout=layout)}
+        return o, {"ckv": ckv, "kr": kr}
     o, (k, v) = attn.gqa_forward_sharded(p["attn"], h, positions, cfg, comm, causal=True,
                                          window=_kind_window(cfg, kind),
                                          attend=flash_attention_plain if plain else None)
-    return o, {"k": constrain(k, _CACHE_AXES["k"], comm=comm, layout=layout),
-               "v": constrain(v, _CACHE_AXES["v"], comm=comm, layout=layout)}
+    return o, {"k": k, "v": v}
+
+
+def _mixer_cache(kind, p, cache: dict, comm, rows) -> dict:
+    """A mixer's prefill cache as its blocks of the ``cache_axes`` layout:
+    the RG-LRU's conv and LRU state of the rank's channels, K/V or MLA's
+    latent rows of the rank's rows."""
+    dims, layout = rows
+    if kind == "rec":
+        chans = p["rglru"]["w_in"].split(1) or None
+        layouts = {"conv": PartitionSpec(dims or None, None, chans), "lru": PartitionSpec(dims or None, chans)}
+    else:
+        layouts = dict.fromkeys(cache, layout)
+    return {name: constrain(t, _CACHE_AXES[name], comm=comm, layout=layouts[name]) for name, t in cache.items()}
 
 
 def _cross_cache(mem_kv: tuple, comm, layout) -> dict:
@@ -661,7 +668,9 @@ def _sharded_block(cfg, kind, p, x, positions, memory, comm, rows):
                                                 comm, gated=True)
         cache, gate = _cross_cache(mem_kv, comm, layout), torch.tanh(p["gate_ffn"].gathered(comm).to(x.dtype))
     else:
-        o, cache = _sharded_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), positions, comm, rows)
+        o, cache = _sharded_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), positions, comm,
+                                  plain=_PLAIN_VERSIONS.on)
+        cache = _mixer_cache(kind, p, cache, comm, rows)
         x = x + o
         if cfg.encdec is not None and memory.get("enc") is not None:
             mem_kv = attn.cross_attn_memory_sharded(p["cross"], memory["enc"], cfg, comm)
@@ -757,28 +766,38 @@ def prefill_sharded(cfg: ModelConfig, params: dict, batch: dict, comm):
 def train_on_shards(cfg: ModelConfig) -> bool:
     """True for the families whose train step computes on shards
     (``loss_fn_sharded``): the uniform GQA stacks, dense or MoE (Mixtral,
-    Yi, Phi-3, Mistral-Large). The others train with every rank holding the
-    whole tree (``training.train_loop``)."""
-    return (cfg.mla is None and cfg.recurrent is None and cfg.xlstm is None and cfg.local_global_pattern is None
-            and cfg.vlm is None and cfg.encdec is None)
+    Yi, Phi-3, Mistral-Large), Gemma-3's 5:1 local/global stack,
+    DeepSeek-V2-Lite's MLA stack and RecurrentGemma's rec/rec/attn stack.
+    The others (xLSTM, Whisper, Llama-3.2-Vision) train with every rank
+    holding the whole tree (``training.train_loop``)."""
+    return cfg.xlstm is None and cfg.vlm is None and cfg.encdec is None
+
+
+# the leaves besides ``embed`` that the loss reads in fp32 whatever
+# ``cfg.dtype``: a MoE router, the RG-LRU's gate biases and decay
+_FP32_LEAVES = ("router", "b_r", "b_i", "lam")
 
 
 def master_compute_dtype(cfg: ModelConfig, path: str) -> torch.dtype:
     """The dtype the loss reads leaf ``path`` in, to which a sharded train
-    step casts its fp32 master block once a step: fp32 for a MoE router
-    (``moe.router_probs`` computes in fp32) and for the embedding table
-    (``embed`` looks its rows up in fp32 and casts them, so the gradients of
-    a repeated token add in fp32), ``cfg.dtype`` for every other leaf."""
-    return torch.float32 if path == "embed" or path.rsplit(".", 1)[-1] == "router" else _model_dtype(cfg)
+    step casts its fp32 master block once a step: fp32 for the embedding
+    table (``embed`` looks its rows up in fp32 and casts them, so the
+    gradients of a repeated token add in fp32; a tied head casts the same
+    fp32 block), for the head under ``cfg.logits_chunk`` (each chunk casts
+    it, so the chunks' gradients add in fp32), for a MoE router
+    (``moe.router_probs`` computes in fp32) and for the RG-LRU's ``b_r`` /
+    ``b_i`` / ``lam``; ``cfg.dtype`` for every other leaf."""
+    fp32 = path == "embed" or (path == "head" and cfg.logits_chunk) or path.rsplit(".", 1)[-1] in _FP32_LEAVES
+    return torch.float32 if fp32 else _model_dtype(cfg)
 
 
 def _train_block_sharded(cfg, kind, p, x, positions, comm, dims):
-    """``_block_body`` of a GQA block for the loss, on a rank's blocks: no
-    cache, attention through the plain version, the MoE at training's
-    capacity over the global token count."""
+    """``_block_body`` of a GQA, MLA or RG-LRU block for the loss, on a
+    rank's blocks: the mixer of ``_sharded_mixer`` through the plain
+    versions, its cache dropped; the MoE at training's capacity over the
+    global token count."""
     eps = cfg.norm_eps
-    o, _ = attn.gqa_forward_sharded(p["attn"], rmsnorm(x, p["norm1"].gathered(comm), eps), positions, cfg, comm,
-                                    causal=True, window=_kind_window(cfg, kind), attend=flash_attention_plain)
+    o, _ = _sharded_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), positions, comm, plain=True)
     x = x + o
     h = rmsnorm(x, p["norm2"].gathered(comm), eps)
     if "moe" in p:
@@ -796,9 +815,13 @@ def loss_fn_sharded(cfg: ModelConfig, params: dict, batch: dict, comm) -> torch.
     gradient lands in. Each weight is all-gathered over ``data`` at its use
     and its gradient reduce-scattered into the master block in the backward
     (``Shard.gathered``). TP, EP and the vocab-parallel embedding are
-    ``prefill_sharded``'s, the routing global at training's capacity; the
+    ``prefill_sharded``'s, and so is the mixer of each block by kind
+    (``_sharded_mixer``: GQA with the kind's window, MLA, the RG-LRU on the
+    rank's channels), the routing global at training's capacity; the
     cross-entropy is vocab-parallel (``layers.xent_sharded``), per
-    ``cfg.logits_chunk`` chunk when it is set. ``cfg.remat`` wraps each
+    ``cfg.logits_chunk`` chunk when it is set. A tied table is read twice,
+    by the embedding and by the head, and both reads' gradients add into
+    its one fp32 master block. ``cfg.remat`` wraps each
     scanned group (and, under "inner", each block of a multi-block group),
     as ``forward_hidden`` does; its checkpoints are non-reentrant, so a
     recomputed forward issues its collectives in the same order on every
@@ -806,7 +829,7 @@ def loss_fn_sharded(cfg: ModelConfig, params: dict, batch: dict, comm) -> torch.
     ``loss_fn``'s."""
     if not train_on_shards(cfg):
         raise ValueError(f"{cfg.name} trains with the whole tree on every rank; loss_fn_sharded covers the "
-                         "uniform GQA stacks")
+                         "GQA, MLA and RG-LRU stacks")
     dims = batch["tokens"].split(0)
     tokens, labels = batch["tokens"].local, batch["labels"].local
     B, S = tokens.shape

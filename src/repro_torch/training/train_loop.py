@@ -24,14 +24,16 @@ are stored whole, so any mesh size restores them.
 Under a mesh (``Trainer(mesh=)``) the step depends on the family
 (``on_shards``), on a ("data", "model") mesh:
 
-  * the uniform GQA stacks (Mixtral, Yi, Phi-3, Mistral-Large) train on
-    shards (``make_train_step(comm=)``): each rank holds its fp32 blocks
-    of the params and of both AdamW moments under ``param_shardings(...,
-    fsdp=True)``, casts each block to its compute dtype once a step, and
-    runs ``Model.loss_fn_sharded`` on its rows of the batch: each weight is
-    all-gathered over ``data`` at its use and its gradient reduce-scattered
-    into the rank's fp32 block in the backward, every micro-batch (TP, EP
-    and the vocab-parallel head and loss over ``model``). The rows are cut
+  * the GQA stacks (Mixtral, Yi, Phi-3, Mistral-Large, Gemma-3's 5:1
+    local/global stack), DeepSeek-V2-Lite's MLA stack and RecurrentGemma's
+    RG-LRU hybrid train on shards (``make_train_step(comm=)``): each rank
+    holds its fp32 blocks of the params and of both AdamW moments under
+    ``param_shardings(..., fsdp=True)``, casts each block to its compute
+    dtype once a step, and runs ``Model.loss_fn_sharded`` on its rows of
+    the batch: each weight is all-gathered over ``data`` at its use and its
+    gradient reduce-scattered into the rank's fp32 block in the backward,
+    every micro-batch (TP, EP and the vocab-parallel head and loss over
+    ``model``). The rows are cut
     so that micro-batch i is the rank's block of the same global rows as
     the unsharded step's micro-batch i (``cut_batch``): the MoE's capacity
     sees the same tokens. ``global_norm`` and clipping see the whole
@@ -44,8 +46,8 @@ Under a mesh (``Trainer(mesh=)``) the step depends on the family
     alone copies it to its host and writes the files, in the unsharded
     format. On a mesh of 1s no collective runs and a step is bit-equal to
     the step with no mesh;
-  * the other families (and a mesh with a ``pod`` dim) keep data
-    parallelism with the whole tree on every rank: the steps run under
+  * xLSTM, Whisper and Llama-3.2-Vision (and a mesh with a ``pod`` dim)
+    keep data parallelism with the whole tree on every rank: the steps run under
     ``use_mesh(mesh)``, each rank takes its block of the batch rows over the
     mesh dims that ``ACT_RULES["batch"]`` resolves the batch to (all rows
     when those dims do not divide the batch), the gradients and the loss are
@@ -314,10 +316,10 @@ class TrainResult:
 
 def on_shards(model: Model, mesh) -> bool:
     """True when ``Trainer(mesh=)`` (and the dry run's train cell) runs the
-    step on shards: a family of ``transformer.train_on_shards`` (the
-    uniform GQA stacks) on a mesh of no dims but ``data`` and ``model``. The
-    other families, and a mesh with a ``pod`` dim, keep data parallelism
-    with the whole tree on every rank."""
+    step on shards: a family of ``transformer.train_on_shards`` (the GQA,
+    MLA and RG-LRU stacks) on a mesh of no dims but ``data`` and ``model``.
+    The other families (xLSTM, Whisper, Llama-3.2-Vision), and a mesh with a
+    ``pod`` dim, keep data parallelism with the whole tree on every rank."""
     return train_on_shards(model.cfg) and mesh_dims_supported(tuple(mesh_sizes(mesh)))
 
 
@@ -341,9 +343,10 @@ def _whole_on_host(tree: Any, shapes: dict, specs: dict, comm, keep: bool) -> Op
 
 class Trainer:
     """Checkpointed, watchdogged training loop on one device, or one rank of
-    ``mesh`` (module docstring): on shards for the uniform GQA stacks
-    (Mixtral, Yi, Phi-3, Mistral-Large; ``on_shards``), data parallel
-    with the whole tree on every rank for the other families. After ``run``
+    ``mesh`` (module docstring): on shards for the GQA, MLA and RG-LRU
+    stacks (Mixtral, Yi, Phi-3, Mistral-Large, Gemma-3, DeepSeek-V2-Lite,
+    RecurrentGemma; ``on_shards``), data parallel with the whole tree on
+    every rank for xLSTM, Whisper and Llama-3.2-Vision. After ``run``
     the last params stay on the device as ``params``: the whole tree, or
     this rank's fp32 blocks when the step ran on shards."""
 

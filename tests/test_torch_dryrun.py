@@ -23,6 +23,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import production_mesh_shape
+from repro_torch.models.transformer import stack_layout
 from repro_torch.models.zoo import WHISPER_DECODE_ENC_LEN, build_model
 from repro_torch.sharding import param_shardings, resolve_pspec
 from repro_torch.sharding.rules import ACT_RULES, spec_shard_divisor
@@ -34,10 +35,10 @@ from repro_torch.utils.tree import flatten_with_paths
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("prefill", "decode", "train")
 MESHES = ((1, 1), (2, 2))
-TRAIN_ARCHS = ("mixtral-8x22b", "yi-34b")  # every cell, train included
+# every cell, train included
+TRAIN_ARCHS = ("mixtral-8x22b", "yi-34b", "gemma3-27b", "deepseek-v2-lite-16b", "recurrentgemma-9b")
 # their prefill and decode cells only (each compiles in a few seconds)
-SERVE_ARCHS = ("gemma3-27b", "deepseek-v2-lite-16b", "recurrentgemma-9b", "whisper-base", "llama-3.2-vision-90b",
-               "xlstm-125m")
+SERVE_ARCHS = ("whisper-base", "llama-3.2-vision-90b", "xlstm-125m")
 PARITY_ARCHS = TRAIN_ARCHS + SERVE_ARCHS
 TRAIN_REMATS = ("none", "full")
 
@@ -250,10 +251,16 @@ def _router_gap(arch: str, mesh: tuple, kind: str) -> int:
         64) × (64, 4) or (64, 4) × (4, 64) dot of 32,768 FLOPs) and splits
         the weight gradient over ``model`` as the port splits all four:
         2 layers × 2 micro-batches × 3 dots × 16,384 = 196,608 on reduced
-        Mixtral, 0.20% of the reference's 96,927,744.
+        Mixtral, 0.20% of the reference's 96,927,744; on reduced
+        DeepSeek-V2-Lite, whose router has E = 8 columns, each dot is
+        (64, 64) × (64, 8), 65,536 FLOPs whole and 32,768 split: 2 MoE
+        layers × 2 micro-batches × 3 dots × 32,768 = 393,216, 0.45% of its
+        88,145,920.
 
     Every other dot of the cells is the reference's quarter, but for the
-    train cell's experts (``_capacity_gap``)."""
+    train cell's experts (``_capacity_gap``), DeepSeek-V2-Lite's latent
+    projections (``_latent_gap``) and RecurrentGemma's attention scores
+    (``_score_gap``)."""
     cfg = get_reduced(arch)
     if cfg.moe is None or kind == "decode" or mesh == (1, 1):
         return 0
@@ -279,8 +286,13 @@ def _capacity_gap(arch: str, mesh: tuple, kind: str) -> int:
     rank's EP share, f_loc = 128) runs four times a micro-batch (forward,
     recompute under remat "full", and the two gradient dots): 2 layers × 2
     micro-batches × 4 × 3 × 2 · 2 · (64 − 40) · 64 · 128 = 37,748,736
-    FLOPs, 38.9% of the reference's 96,927,744. None at 1×1 (min(C, T) =
-    C)."""
+    FLOPs, 38.9% of the reference's 96,927,744. Reduced DeepSeek-V2-Lite:
+    C = ceil(2 · 128 · 1.25 / 8) = 40, under T_loc = 64, so a rank's
+    buffers hold C = 40 slots an expert against the reference's C / D = 20,
+    E_loc = 4 experts of f = 32 (its shared expert is not routed and takes
+    no slot): 2 MoE layers × 2 micro-batches × 4 × 3 × 2 · 4 · (40 − 20) ·
+    64 · 32 = 15,728,640 FLOPs, 17.8% of the reference's 88,145,920. None at
+    1×1 (min(C, T) = C)."""
     cfg = get_reduced(arch)
     if cfg.moe is None or kind != "train":
         return 0
@@ -293,6 +305,55 @@ def _capacity_gap(arch: str, mesh: tuple, kind: str) -> int:
     E_loc, f_loc = (m.num_experts // M, m.expert_d_ff) if ep else (m.num_experts, m.expert_d_ff // M)
     moe_layers = cfg.num_layers - m.first_dense_layers
     return -moe_layers * n * 4 * 3 * 2 * E_loc * (min(C, T // D) - C // D) * cfg.d_model * f_loc
+
+
+def _latent_gap(arch: str, mesh: tuple, kind: str) -> int:
+    """Per-device dot FLOPs the reference counts and the port does not in
+    DeepSeek-V2-Lite's train cell at 2×2: MLA's latent projections ``w_dkv``
+    (d × r) and ``w_kr`` (d × rope), whose rows are replicated over
+    ``model``. The port splits their contraction over ``model`` in every
+    dot (the rank's slice of x times its rows, the partial sums
+    all-reduced), as in prefill, where the reference does the same. In the
+    train cell the reference's GSPMD does so as with the router
+    (``_router_gap``): of a scanned layer's four dots a micro-batch (the
+    forward, the recompute under remat "full", the input and the weight
+    gradients) it runs three whole and splits the weight gradient, and of
+    the unscanned lead layer's three (no recompute) it runs two whole. Its
+    compiled HLO holds 16 more of these dots at twice the port's size.
+    Each whole dot of both weights is 2 · 64 · 64 · (32 + 8) = 327,680
+    FLOPs against the port's half: 2 micro-batches × (2 + 2 × 3) dots ×
+    163,840 = 2,621,440, 2.97% of the reference's 88,145,920."""
+    cfg = get_reduced(arch)
+    if cfg.mla is None or kind != "train" or mesh == (1, 1):
+        return 0
+    D, M = mesh
+    n = _train_micro_batches(mesh)
+    lead = cfg.moe.first_dense_layers if cfg.moe else 0
+    whole_dots = 2 * lead + 3 * (cfg.num_layers - lead)
+    rows = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    return n * whole_dots * 2 * (4 // n * 64 // D) * cfg.d_model * rows * (M - 1) // M
+
+
+def _score_gap(arch: str, mesh: tuple, kind: str) -> int:
+    """Per-device dot FLOPs the reference counts and the port does not in
+    RecurrentGemma's train cell at 2×2: one QK^T score matmul a micro-batch
+    in its attention layer, on the rank's heads, 2 · B_loc · (H / M) · S ·
+    S · hd = 2 · 1 · 2 · 64 · 64 · 16 = 262,144 FLOPs × 2 micro-batches =
+    524,288, 0.65% of the reference's 80,216,064. The reference's plain
+    attention checkpoints its k-block body (``_score_recompute_flops``), so
+    its backward may recompute the scores: its compiled HLO holds one more
+    dot of that shape a micro-batch than the port's at 2×2, and none more at
+    1×1, where XLA merges the recompute with the forward's scores (the
+    stack is one scanned group, a loop of one trip, which XLA turns into
+    straight-line code). The port keeps the probabilities for its
+    backward."""
+    if arch != "recurrentgemma-9b" or kind != "train" or mesh == (1, 1):
+        return 0
+    cfg = get_reduced(arch)
+    D, M = mesh
+    n = _train_micro_batches(mesh)
+    attn_layers = sum(k == "attn" for k in cfg.attn_kinds)
+    return n * attn_layers * 2 * (4 // n // D) * (cfg.num_heads // M) * 64 * 64 * cfg.resolved_head_dim
 
 
 def _key_block_gap(arch: str, mesh: tuple, kind: str) -> int:
@@ -330,8 +391,8 @@ def test_dryrun_cells_match_the_reference(arch, reference_cells):
     the train cells of ``TRAIN_ARCHS`` too, which compute on shards (the
     record's ``train_on_shards``; at 2×2 each weight's gradient is
     reduce-scattered into its block, so the collectives hold a
-    reduce-scatter), up to the ops of ``_router_gap`` and
-    ``_capacity_gap``; and every record's argument bytes equal the closed
+    reduce-scatter), up to the ops of ``_router_gap``, ``_capacity_gap``,
+    ``_latent_gap`` and ``_score_gap``; and every record's argument bytes equal the closed
     form of its shardings."""
     for mesh in MESHES:
         for kind in _kinds(arch):
@@ -343,7 +404,8 @@ def test_dryrun_cells_match_the_reference(arch, reference_cells):
             args = rec["memory"]["argument_size_in_bytes"]
             assert args == ref["argument_size_in_bytes"] == rec["closed_form_argument_bytes"], (mesh, kind)
             per_device = rec["hlo_dot_flops"] / rec["num_chips"]
-            gap = _router_gap(arch, mesh, kind) + _key_block_gap(arch, mesh, kind) + _capacity_gap(arch, mesh, kind)
+            gap = (_router_gap(arch, mesh, kind) + _key_block_gap(arch, mesh, kind) + _capacity_gap(arch, mesh, kind)
+                   + _latent_gap(arch, mesh, kind) + _score_gap(arch, mesh, kind))
             assert ref["dot_flops"] - per_device == gap, (mesh, kind)
             assert rec["collective_bytes"] == 0.0 if mesh == (1, 1) else rec["collective_bytes"] > 0
             if kind == "train":
@@ -352,8 +414,12 @@ def test_dryrun_cells_match_the_reference(arch, reference_cells):
 
 
 def _score_recompute_flops(arch: str) -> int:
-    """One QK^T matmul per layer and micro-batch (1 row of 64 tokens each)."""
+    """One QK^T matmul per layer and micro-batch (1 row of 64 tokens each),
+    where the reference's recompute survives: a GQA stack of more than one
+    scanned group (``test_dryrun_train_flops_match_the_reference``)."""
     cfg = get_reduced(arch)
+    if cfg.mla is not None or stack_layout(cfg).n_groups < 2:
+        return 0
     return 2 * 1 * cfg.num_heads * 64 * 64 * cfg.resolved_head_dim * cfg.num_layers * 4
 
 
@@ -368,7 +434,16 @@ def test_dryrun_train_flops_match_the_reference(remat, reference_cells):
     micro-batch, 524,288 FLOPs × 2 layers × 4 micro-batches = 4,194,304 on
     reduced Mixtral (1.4% of its count, inside 2%) and on reduced Yi (2.2%).
     The port keeps the probabilities for its backward. Under "full" both
-    recompute the whole group body and the counts are equal."""
+    recompute the whole group body and the counts are equal.
+
+    The other three show no gap under "none" either. DeepSeek-V2-Lite's
+    MLA asks the reference's attention for its cache in training too
+    (``src/repro/models/transformer.py:228``, ``return_cache=True``), which
+    takes its ``differentiable=False`` path, with no checkpoint. Gemma-3's
+    and RecurrentGemma's stacks are one scanned group, a loop of one trip,
+    which XLA turns into straight-line code where the recomputed scores
+    merge with the forward's (reduced Mixtral cut to one layer shows the
+    same: 176,553,984 dot FLOPs on both sides)."""
     for arch in TRAIN_ARCHS:
         ref = reference_cells[(arch, (1, 1), "train", remat)]
         rec = _port_cell(arch, (1, 1), "train", remat)

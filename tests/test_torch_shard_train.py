@@ -4,10 +4,13 @@
 on the CPU.
 
 Reduced Mixtral (MoE) and Yi (dense) at 1×2, 2×1 and 2×2, reduced Phi-3 and
-Mistral-Large at 2×2, all in fp32, on the reference's weights
+Mistral-Large at 2×2, reduced Gemma-3 (5:1 local/global, tied table),
+DeepSeek-V2-Lite (MLA, a dense lead, a MoE with a shared expert) and
+RecurrentGemma (rec/rec/attn, MQA, tied table) at 1×2 and 2×2, all in fp32, on the reference's weights
 (``jax.random.PRNGKey(0)``, as numpy) and one seeded B=4 × 16 batch. One gloo
 spawn per world (``torch.multiprocessing``, a ``file://`` rendezvous) runs
-every arch of the world, and on 2×2 ``Trainer(mesh=)`` too; each rank saves
+every arch of the world, and on 2×2 ``Trainer(mesh=)`` too (Mixtral and
+DeepSeek-V2-Lite); each rank saves
 what the tests read. Held to the reference:
 
   * the loss, the grad norm and every leaf's gradient (each rank's blocks
@@ -20,8 +23,8 @@ what the tests read. Held to the reference:
     rows are cut by ``cut_batch``, so each micro-batch holds the
     reference's micro-batch's rows in its order, and the MoE's capacity
     drops the same tokens;
-  * Mixtral's expert ids of every layer (the router's top-k, caught at its
-    dispatch) equal the reference's, before any gradient is compared: a
+  * the MoE archs' expert ids of every layer (the router's top-k, caught at
+    its dispatch) equal the reference's, before any gradient is compared: a
     near-tie broken apart would show here first, and no seed is chosen to
     avoid one;
   * each rank's gradient bytes equal the closed form of its shardings
@@ -46,7 +49,7 @@ reduced Mixtral against the same reference (at 1×8 neither the heads nor
 the experts divide ``model``); the chunked vocab-parallel cross-entropy of
 Yi and Phi-3 (``cfg.logits_chunk``) at 2×2 on threads against the
 reference's chunked loss; and on the 2×2 world ``Trainer(mesh=)`` on reduced
-Mixtral at 2 micro-batches, two steps and then one more resumed from its
+Mixtral and DeepSeek-V2-Lite at 2 micro-batches, two steps and then one more resumed from its
 checkpoint, whose losses and rank 0's checkpoints (restored by the
 reference's ``CheckpointManager``, and byte for byte by the port's) equal
 the unsharded port ``Trainer``'s over three steps.
@@ -77,12 +80,15 @@ from repro_torch.utils.tree import flatten_with_paths, tree_from_flat, tree_map
 # imported inside the functions that run in the test process only.
 
 PAIR = ("mixtral-8x22b", "yi-34b")
-WORLDS = {(1, 2): PAIR, (2, 1): PAIR, (2, 2): PAIR + ("phi3-medium-14b", "mistral-large-123b")}
+# Gemma-3's 5:1 stack with its tied table, DeepSeek-V2-Lite's MLA with a
+# dense lead and a MoE with a shared expert, RecurrentGemma's rec/rec/attn
+FAMILIES = ("gemma3-27b", "deepseek-v2-lite-16b", "recurrentgemma-9b")
+WORLDS = {(1, 2): PAIR + FAMILIES, (2, 1): PAIR, (2, 2): PAIR + ("phi3-medium-14b", "mistral-large-123b") + FAMILIES}
 B, S = 4, 16
 MICRO = 2  # the two-step runs' micro-batches
 GRAD_TOL = 1e-5  # loss, grad norm and gradients (module docstring)
 STEP_TOL = 1e-4  # the params and moments after two AdamW steps
-TRAINER_ARCH = "mixtral-8x22b"
+TRAINER_ARCHS = ("mixtral-8x22b", "deepseek-v2-lite-16b")  # Trainer(mesh=) on the 2×2 world
 TRAINER_STEPS = 3  # two, a checkpoint, and one more resumed from it
 
 
@@ -239,6 +245,7 @@ def _trainer_tc() -> TrainConfig:
 
 
 def _train_rank(rank: int, world: tuple, init: str, ref_path: str, out_dir: str) -> None:
+    torch.set_num_threads(1)  # eight ranks share the host, at these widths threads only contend
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world[0] * world[1])
     try:
         mesh = make_debug_mesh(*world, device="cpu")
@@ -247,17 +254,18 @@ def _train_rank(rank: int, world: tuple, init: str, ref_path: str, out_dir: str)
         rec = {arch: _rank_run(build_model(get_reduced(arch).replace(dtype="float32")), ref[arch], ref["batch"], comm)
                for arch in WORLDS[world]}
         rec["coord"] = (comm.index("data"), comm.index("model"))
-        if world == (2, 2):  # two steps, then a new Trainer resumes from the checkpoint for the third
-            model = build_model(get_reduced(TRAINER_ARCH).replace(dtype="float32"))
+        for arch in TRAINER_ARCHS if world == (2, 2) else ():
+            # two steps, then a new Trainer resumes from the checkpoint for the third
+            model = build_model(get_reduced(arch).replace(dtype="float32"))
             runs = []
             for num_steps in (2, TRAINER_STEPS):
-                trainer = Trainer(model, _trainer_tc(), _trainer_data(model), os.path.join(out_dir, "ckpt"),
+                trainer = Trainer(model, _trainer_tc(), _trainer_data(model), os.path.join(out_dir, "ckpt", arch),
                                   mesh=mesh, device="cpu")
                 r = trainer.run(num_steps)
                 runs.append(dict(losses=r.losses, restored_from=r.restored_from,
                                  param_bytes=sum(x.numel() * x.element_size()
                                                  for _, x in flatten_with_paths(trainer.params))))
-            rec["trainer"] = runs
+            rec[("trainer", arch)] = runs
         torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -317,7 +325,7 @@ def test_sharded_gradients_match_the_reference(world, arch, reference, world_res
     """Loss, grad norm and every leaf's gathered gradient against the
     reference's ``value_and_grad``, on every rank (the model ranks of a row
     block hold the same loss, and every rank the whole gradient once
-    gathered); Mixtral's expert ids equal the reference's first."""
+    gathered); the MoE archs' expert ids equal the reference's first."""
     ref, ranks = reference[arch], world_result(world)["ranks"]
     for rank, rec in enumerate(ranks):
         got = rec[arch]
@@ -395,21 +403,31 @@ def test_trainer_on_a_2x2_mesh_matches_the_unsharded_trainer(tmp_path, world_res
     are the global rows' slices, as the reference's); the port's
     ``CheckpointManager`` restores the same files byte for byte; each rank
     keeps only its blocks as ``params``."""
-    got = world_result((2, 2))
-    model = build_model(get_reduced(TRAINER_ARCH).replace(dtype="float32"))
+    _check_trainer("mixtral-8x22b", tmp_path, world_result((2, 2)))
+
+
+def test_trainer_on_a_2x2_mesh_trains_mla_as_the_unsharded_trainer(tmp_path, world_result):
+    """The same on reduced DeepSeek-V2-Lite: MLA, a dense lead layer and a
+    MoE with a shared expert on shards."""
+    _check_trainer("deepseek-v2-lite-16b", tmp_path, world_result((2, 2)))
+
+
+def _check_trainer(arch: str, tmp_path, got: dict) -> None:
+    model = build_model(get_reduced(arch).replace(dtype="float32"))
     plain = Trainer(model, _trainer_tc(), _trainer_data(model), str(tmp_path / "plain"), device="cpu")
     r = plain.run()
     whole_bytes = sum(x.numel() * x.element_size() for _, x in flatten_with_paths(plain.params))
     for rec in got["ranks"]:
-        first, resumed = rec["trainer"]
+        first, resumed = rec[("trainer", arch)]
         assert first["restored_from"] is None and resumed["restored_from"] == 2
         _close(first["losses"] + resumed["losses"], r.losses, "losses")
         assert first["param_bytes"] < whole_bytes and resumed["param_bytes"] < whole_bytes
     from repro.checkpoint import CheckpointManager as RefManager
     from repro.utils.tree import flatten_with_paths as ref_flatten
 
+    ckpt = os.path.join(got["dir"], "ckpt", arch)
     for step in (2, TRAINER_STEPS):
-        mine = RefManager(os.path.join(got["dir"], "ckpt")).restore(step)
+        mine = RefManager(ckpt).restore(step)
         want = RefManager(str(tmp_path / "plain")).restore(step)
         assert mine.step == want.step == step
         flat = dict(ref_flatten(mine.collections))
@@ -417,7 +435,7 @@ def test_trainer_on_a_2x2_mesh_matches_the_unsharded_trainer(tmp_path, world_res
         for path, a in ref_flatten(want.collections):
             assert np.shape(flat[path]) == np.shape(a), path
             _close(flat[path], a, f"step {step} {path}", STEP_TOL)
-        ours = CheckpointManager(os.path.join(got["dir"], "ckpt")).restore(step)
+        ours = CheckpointManager(ckpt).restore(step)
         assert ours.step == mine.step
         ours_flat = dict(flatten_with_paths(ours.collections))
         assert set(ours_flat) == set(flat)
@@ -528,7 +546,8 @@ def test_cut_batch_gives_each_rank_its_block_of_every_micro_batch():
         assert mine == [2 * d, 2 * d + 1, 4 + 2 * d, 5 + 2 * d] and shape == (8, 3)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b", "recurrentgemma-9b", "gemma3-27b",
+                                  "deepseek-v2-lite-16b"])
 def test_block_init_draws_the_whole_init_numbers(arch):
     """``Model.init(blocks=)`` (the ``Trainer``'s init on shards) at 2×2 on
     threads: each rank's blocks are bit-equal to its blocks of the whole
@@ -554,3 +573,56 @@ def test_block_init_draws_the_whole_init_numbers(arch):
     for differ, held, closed in run_ranks({"data": 2, "model": 2}, rank):
         assert not differ
         assert held == closed
+
+
+def test_train_on_shards_covers_the_gqa_mla_and_rglru_stacks():
+    """The families whose train step computes on shards: every GQA stack
+    (Gemma-3's 5:1 stack too), DeepSeek-V2-Lite's MLA and RecurrentGemma's
+    RG-LRU hybrid; xLSTM, Whisper and Llama-3.2-Vision still train with the
+    whole tree on every rank, and ``loss_fn_sharded`` refuses them rather
+    than gather at use."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.transformer import train_on_shards
+
+    whole = {"xlstm-125m", "whisper-base", "llama-3.2-vision-90b"}
+    assert whole < set(ARCH_IDS)
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch)
+        assert train_on_shards(cfg) is (arch not in whole), arch
+        if arch in whole:
+            with pytest.raises(ValueError):
+                build_model(cfg).loss_fn_sharded({}, {}, None)
+
+
+@pytest.mark.parametrize("chunk", [0, 32], ids=["whole", "chunked"])
+@pytest.mark.parametrize("arch", FAMILIES + ("yi-34b",))
+def test_one_rank_step_is_the_unsharded_step_bit_for_bit(arch, chunk):
+    """On a mesh of 1s in bf16 (the compute dtype of the card's train
+    anchors), at one and two micro-batches, with the logits whole and per
+    chunk of 32 (two a row, as the dry run's train cells chunk a large
+    vocab): the loss and every gradient leaf of ``sharded_grads`` equal
+    ``accumulated_grads`` of the unsharded loss bit for bit. Each fp32
+    master block is cast once to the dtype the loss reads the leaf in
+    (``master_compute_dtype``: the embedding table, the router and the
+    RG-LRU's gate biases and decay stay fp32, and so does a head read once
+    a chunk, whose chunks' gradients add in fp32)."""
+    from repro_torch.training.train_loop import accumulated_grads
+
+    model = build_model(get_reduced(arch).replace(logits_chunk=chunk))
+    assert model.cfg.dtype == "bfloat16"
+    params = model.init(torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    rs = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rs.integers(0, 512, (2, 64))).long() for k in ("tokens", "labels")}
+
+    def rank(comm, n):
+        mesh = MeshShape(tuple(comm.sizes), tuple(comm.sizes.values()))
+        specs = tree_map(lambda sh: sh.spec, param_shardings(model.logical_axes(), model.abstract(), mesh))
+        return sharded_grads(model, cut_tree(tree_map(lambda x: x.clone(), params), specs, comm),
+                             cut_batch(batch, n, comm), n, comm)
+
+    for n in (1, 2):
+        want_loss, want = accumulated_grads(model.loss_fn, params, batch, n)
+        (loss, grads), = run_ranks({"data": 1, "model": 1}, lambda comm: rank(comm, n))
+        assert torch.equal(loss, want_loss), n
+        differ = [p for p, g in flatten_with_paths(want) if not torch.equal(grads[p], g)]
+        assert not differ, (n, differ)
