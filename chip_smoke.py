@@ -226,8 +226,9 @@ Phases (any failure exits non-zero before the result line):
    collective, so the warm set is still captured as CUDA graphs). (b) On the
    in-process thread after [train]: ``reshard_for_mesh`` of [train]'s last
    checkpoint onto a 1×1 mesh on the card, every leaf bit-equal to the host
-   arrays; one resumed ``Trainer(mesh=1×1)`` step beside the same step with
-   no mesh, loss and params bit-equal, no kernel launched. (c) Then
+   arrays; one resumed ``Trainer(mesh=1×1)`` step (xLSTM's step on shards,
+   ``Trainer._run_on_shards``) beside the same step with no mesh, loss and
+   params bit-equal, no kernel launched. (c) Then
    ``gpipe_forward`` over a 1-stage mesh equals ``stage_fn`` on each
    microbatch and ``compressed_psum`` over a 1-rank ``pod`` dim equals
    ``dequantize_int8(quantize_int8(g))``, bit for bit. (d) In the serial
@@ -285,7 +286,10 @@ Phases (any failure exits non-zero before the result line):
    anchors of DRYRUN_TRAIN_ANCHORS one after another, each at full width
    cut in depth, B=1 × 1024, fp32 masters and AdamW moments (Mixtral-8x22B
    at 1 layer, Gemma-3-27B at 1, DeepSeek-V2-Lite at 2: its dense lead and
-   one MoE layer, RecurrentGemma-9B at 3: rec, rec, attn): each train cell
+   one MoE layer, RecurrentGemma-9B at 3: rec, rec, attn, whisper-base whole
+   over (1, 1024, 512) frames, Llama-3.2-Vision-90B at one gated cross
+   block over (1, 1601, 7680) image embeddings, xlstm-125m at 2: m, s, at
+   B=1 × 256): each train cell
    traced on a one-rank fake world, then run on a one-rank NCCL world on
    seeded weights: arguments and peak traced against measured as in (b); the loss
    and every gradient leaf of the step on shards (``sharded_grads``) bit-equal
@@ -443,10 +447,11 @@ DRYRUN_ANCHOR = ("mixtral-8x22b", "decode_32k", 1)
 # the caching allocator rounds each block up to a multiple of 512 B, so the
 # measured arguments may exceed their bytes by under 512 B a tensor
 ALLOC_ROUND = 512
-# and a request of 10 MiB or more gets a segment rounded up to 2 MiB whose
-# rest it keeps in the block when the rest is no more than 1 MiB (it splits
-# off only a larger one): Gemma-3's 441 MiB fp32 MLP blocks take 442 MiB
-ALLOC_LARGE, ALLOC_SEGMENT, ALLOC_UNSPLIT = 10 * 2**20, 2 * 2**20, 2**20
+# and a request of 1 MiB or more keeps in its block a rest of its segment
+# or of a cached block of no more than 1 MiB (it splits off only a larger
+# one): Gemma-3's 441 MiB fp32 MLP blocks take 442 MiB, and a rank's 1-10 MiB
+# tensors may fill the end of a 20 MiB segment. The train anchors read each
+# block's size from the allocator's snapshot (``_block_rests``)
 # measured peak (arguments + the step's temporaries) against the traced peak:
 # within 2% of the traced peak plus 64 MiB (a cached block reused for a
 # smaller request keeps up to 1 MiB unsplit, and library workspaces)
@@ -460,9 +465,17 @@ DRYRUN_STEP_REPS = 7  # timed steps (the median is kept)
 # Gemma-3-27B cut to 1 layer, its fewest (a local one; 1.82e9 params, 1.41e9
 # of them the tied 262,144-row table: 21.9 GB of fp32 state); DeepSeek-V2-Lite
 # cut to 2 layers, the dense lead and one MoE layer (1.1e9 params);
-# RecurrentGemma-9B cut to 3 layers, rec, rec, attn (1.7e9 params)
+# RecurrentGemma-9B cut to 3 layers, rec, rec, attn (1.7e9 params);
+# whisper-base whole, 6 encoder and 6 decoder layers, its batch with
+# (1, 1024, 512) frames; Llama-3.2-Vision-90B cut to one gated cross block
+# (a fifth field: ``vlm.cross_attn_every`` 1, so its one layer is the cross
+# kind; 2.95e9 params, a 1.05e9 embedding, a 1.05e9 head and a 0.85e9 cross
+# block), its batch with (1, 1601, 7680) image embeddings; xlstm-125m cut to
+# 2 layers, m and s, at B=1 × 256 (its plain sLSTM loop is launch-bound)
 DRYRUN_TRAIN_ANCHORS = (("mixtral-8x22b", 1, 1024, 1), ("gemma3-27b", 1, 1024, 1),
-                        ("deepseek-v2-lite-16b", 1, 1024, 2), ("recurrentgemma-9b", 1, 1024, 3))
+                        ("deepseek-v2-lite-16b", 1, 1024, 2), ("recurrentgemma-9b", 1, 1024, 3),
+                        ("whisper-base", 1, 1024, 6), ("llama-3.2-vision-90b", 1, 1024, 1, 1),
+                        ("xlstm-125m", 1, 256, 2))
 # each anchor's traced peak, and its whole wall time (trace, placement, both
 # gradients' comparison, the timed steps)
 DRYRUN_TRAIN_MAX_BYTES, DRYRUN_TRAIN_MAX_S = 78e9, 90.0
@@ -2353,7 +2366,7 @@ def mesh_train_phase(model, tc, data, ckpt: Path, workdir: Path, wrappers: dict)
     of one (NCCL on an in-memory store). (b) ``reshard_for_mesh`` of
     [train]'s last checkpoint onto a 1×1 mesh on the card: every leaf
     bit-equal to the host arrays; one resumed ``Trainer(mesh=1×1)`` step
-    from that checkpoint beside the same step with no mesh: loss and params
+    (on shards) from that checkpoint beside the same step with no mesh: loss and params
     bit-equal, no kernel launched. (c) ``gpipe_forward`` over a 1-stage mesh
     equals ``stage_fn`` on each microbatch, and ``compressed_psum`` over a
     1-rank ``pod`` dim equals ``dequantize_int8(quantize_int8(g))``, bit for
@@ -2621,14 +2634,17 @@ def _anchor_verdict(tag: str, cell, shape, mem: dict, cost, measured_peak: int, 
     return {"launches": counts, "wall_s": wall, "step_ms": step_ms, "bound_ms": roof.bound_s * 1e3}
 
 
-def _unsplit_rest(nbytes: int) -> int:
-    """The bytes past its 512-B rounding that the caching allocator books
-    for a fresh block of ``nbytes``: the rest of its 2-MiB-rounded segment,
-    where the block is at least ALLOC_LARGE and the rest at most
-    ALLOC_UNSPLIT."""
-    size = -(-nbytes // ALLOC_ROUND) * ALLOC_ROUND
-    rest = -size % ALLOC_SEGMENT
-    return rest if size >= ALLOC_LARGE and rest <= ALLOC_UNSPLIT else 0
+def _block_rests(tensors: list) -> int:
+    """The bytes past their 512-B rounding that the caching allocator books
+    for ``tensors`` (each the start of its own block): each block's size in
+    ``torch.cuda.memory_snapshot()`` less its tensor's rounded bytes, the
+    unsplit rest of a segment or of a reused cached block. Which rests a
+    block keeps depends on what earlier phases left cached."""
+    import torch
+
+    rounded = {t.data_ptr(): -(-t.numel() * t.element_size() // ALLOC_ROUND) * ALLOC_ROUND for t in tensors}
+    return sum(b["size"] - rounded[b["address"]] for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+               if b["state"] == "active_allocated" and b["address"] in rounded)
 
 
 def dryrun_train_anchors_phase(wrappers: dict) -> dict:
@@ -2637,11 +2653,15 @@ def dryrun_train_anchors_phase(wrappers: dict) -> dict:
     return {anchor[0]: dryrun_train_anchor(wrappers, *anchor) for anchor in DRYRUN_TRAIN_ANCHORS}
 
 
-def dryrun_train_anchor(wrappers: dict, arch: str, B: int, S: int, layers: int) -> dict:
-    """[dryrun] (c) One 1×1 train anchor on the card (module docstring)."""
+def dryrun_train_anchor(wrappers: dict, arch: str, B: int, S: int, layers: int, cross_every: int = 0) -> dict:
+    """[dryrun] (c) One 1×1 train anchor on the card (module docstring);
+    ``cross_every`` (a VLM's) overrides ``vlm.cross_attn_every``."""
+    from dataclasses import replace
+
     import torch
     import torch.distributed as dist
 
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.sharding.comm import DistComm
@@ -2655,7 +2675,10 @@ def dryrun_train_anchor(wrappers: dict, arch: str, B: int, S: int, layers: int) 
     dryrun.fake_world(1)
     try:
         mesh = dryrun.make_mesh((1, 1), ("data", "model"), "cuda")
-        cell = dryrun.build_cell(arch, shape, mesh, extra_cfg={"num_layers": layers})
+        extra = {"num_layers": layers}
+        if cross_every:
+            extra["vlm"] = replace(get_config(arch).vlm, cross_attn_every=cross_every)
+        cell = dryrun.build_cell(arch, shape, mesh, extra_cfg=extra)
         traced = dryrun.trace_cell(cell, mesh, "cuda")
     finally:
         dist.destroy_process_group()
@@ -2678,15 +2701,18 @@ def dryrun_train_anchor(wrappers: dict, arch: str, B: int, S: int, layers: int) 
         for t in dryrun.local_tensors(args[0]):
             t.normal_(0.0, 0.02, generator=gen)
         batch = {k: dryrun.local_part(v) for k, v in args[2].items()}
-        for t in batch.values():
-            t.random_(0, cfg.vocab_size, generator=gen)
+        for t in batch.values():  # token ids and labels; frames and image embeddings from a normal
+            if t.is_floating_point():
+                t.normal_(0.0, 1.0, generator=gen)
+            else:
+                t.random_(0, cfg.vocab_size, generator=gen)
         torch.cuda.synchronize()
         measured_args = torch.cuda.memory_allocated() - base
         tensors = dryrun.local_tensors(args)
-        kept = sum(_unsplit_rest(t.numel() * t.element_size()) for t in tensors)
+        kept = _block_rests(tensors)
         over = measured_args - mem["argument_size_in_bytes"] - kept
         print(f"{tag} arguments traced {mem['argument_size_in_bytes']} B, measured {measured_args} B "
-              f"({len(tensors)} tensors, {kept} B of unsplit segment rests, {over} B of rounding, limit "
+              f"({len(tensors)} tensors, {kept} B of unsplit block rests, {over} B of rounding, limit "
               f"{ALLOC_ROUND} B a tensor)", flush=True)
         if not 0 <= over < ALLOC_ROUND * len(tensors):
             raise AssertionError(f"{tag} measured arguments differ from the traced ones by more than rounding")
@@ -2694,7 +2720,7 @@ def dryrun_train_anchor(wrappers: dict, arch: str, B: int, S: int, layers: int) 
             fn.launches = 0  # the anchor's path starts here
         # the step on shards' gradients against the unsharded step's, bit for bit
         comm, params = DistComm(mesh), shard_tree(args[0])
-        rows = {k: v.long() for k, v in batch.items()}
+        rows = {k: v if v.is_floating_point() else v.long() for k, v in batch.items()}
         loss, grads = sharded_grads(model, params, shard_tree(args[2]), cell.micro_batches, comm)
         whole = {p: x.local for p, x in flatten_with_paths(params)}
         ref_loss, ref_grads = accumulated_grads(model.loss_fn, whole, rows, cell.micro_batches)

@@ -24,17 +24,16 @@ model is placed and stepped with no memory allocated:
     serves them; a serving cell on a mesh with a ``pod`` dim gathers its
     params, caches and batch at use (``sharding.gather_tree``) and computes
     replicated;
-  * a train cell runs the step as ``Trainer(mesh=)`` does, by family
+  * a train cell runs the step as ``Trainer(mesh=)`` does, by mesh
     (``training.train_loop.on_shards``, the record's
-    ``train_on_shards``): for the GQA, MLA and RG-LRU stacks (all but
-    xLSTM, Whisper and Llama-3.2-Vision) on a ("data", "model") mesh, 1×1
+    ``train_on_shards``): for every family on a ("data", "model") mesh, 1×1
     included, the step on shards on rank 0's fp32 master and moment
     blocks (``sharded_grads``: each block cast once,
-    ``Model.loss_fn_sharded`` per micro-batch with each weight gathered
+    ``Model.loss_fn_sharded`` per micro-batch on the rank's rows of the
+    batch, ``frames`` and ``image_embeds`` too, with each weight gathered
     over ``data`` at its use and its gradient reduce-scattered into the
     block, then the norm over blocks and AdamW in place on the blocks);
-    for the other families, and on a mesh with a ``pod`` dim, the
-    Trainer's data parallelism (each rank its block of the batch rows,
+    on a mesh with a ``pod`` dim, the Trainer's data parallelism (each rank its block of the batch rows,
     gradients averaged over the batch's mesh dims) on params cast to bf16
     at their shards and gathered at use, with the AdamW update applied to
     each rank's local blocks;
@@ -205,7 +204,7 @@ def build_cell(arch: str, shape_name, mesh, *, logits_chunk: int = 512, remat: s
 
         hooks: dict = {}  # "repeats": the tracing counter's, so one micro-batch stands for all
 
-        if on_shards(model, mesh):
+        if on_shards(mesh):
             def train_step(params, opt_state, batch):
                 comm = DistComm(mesh)  # at the trace: a cell may be built on a shape-only mesh
                 shards = shard_tree(params)

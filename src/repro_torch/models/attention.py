@@ -401,11 +401,21 @@ def gqa_forward_sharded(params: dict, x: torch.Tensor, positions: torch.Tensor, 
 def cross_attn_memory_sharded(params: dict, memory: torch.Tensor, cfg: ModelConfig, comm) -> tuple:
     """``cross_attn_memory`` on a rank's rows of the memory: ``wk`` / ``wv``
     gathered over ``data`` (their ``embed`` dim is the memory's width), k
-    and v of every kv head (``_kv_proj``), (B_loc, T, Hkv, hd)."""
-    kv_split = _kv_split(params, _heads_split(params, cfg, comm))
+    and v of every kv head (``_kv_proj``), (B_loc, T, Hkv, hd). Under
+    autograd, as ``gqa_forward_sharded``'s k and v: the memory enters the
+    ``model`` region before the rank's k, v columns, or with the kv
+    projections whole, k and v enter it before each rank takes the kv heads
+    of its own q heads (``cross_attn_forward_sharded``)."""
+    tp = _heads_split(params, cfg, comm)
+    kv_split = _kv_split(params, tp)
     Hkv = cfg.num_kv_heads
-    return (_split_heads(_kv_proj(params["wk"], memory, comm, kv_split), Hkv),
-            _split_heads(_kv_proj(params["wv"], memory, comm, kv_split), Hkv))
+    if kv_split:
+        memory = comm.enter(memory, "model")
+    k = _split_heads(_kv_proj(params["wk"], memory, comm, kv_split), Hkv)
+    v = _split_heads(_kv_proj(params["wv"], memory, comm, kv_split), Hkv)
+    if tp and not kv_split:
+        k, v = comm.enter(k, "model"), comm.enter(v, "model")
+    return k, v
 
 
 def cross_attn_forward_sharded(params: dict, x: torch.Tensor, memory_kv: tuple, cfg: ModelConfig, comm, *,
@@ -415,7 +425,10 @@ def cross_attn_forward_sharded(params: dict, x: torch.Tensor, memory_kv: tuple, 
     reference's cross-attention, which reaches no kernel), ``wo`` row-
     parallel. ``memory_kv`` holds every kv head (a prefill's memory, or a
     cache whose kv heads are not split), from which the rank's q heads take
-    theirs, or the rank's own block of them (a cache split over ``model``)."""
+    theirs, or the rank's own block of them (a cache split over ``model``).
+    Under autograd ``x`` enters the ``model`` region before the rank's q
+    columns; the ``gate`` scales an output that is whole on every ``model``
+    rank, so its gradient is too."""
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     tp = _heads_split(params, cfg, comm)
     h_loc = H // comm.size("model") if tp else H
@@ -424,7 +437,7 @@ def cross_attn_forward_sharded(params: dict, x: torch.Tensor, memory_kv: tuple, 
         raise ValueError(f"a cross cache split to {k.shape[2]} of {Hkv} kv heads against q heads that are not")
     if tp and k.shape[2] == Hkv:
         k, v = _local_kv(k, v, comm.index("model") * h_loc, h_loc, H // Hkv)
-    q = _split_heads(_proj(params["wq"], x, comm, tp), h_loc)
+    q = _split_heads(_proj(params["wq"], comm.enter(x, "model") if tp else x, comm, tp), h_loc)
     o = flash_attention_plain(q, k, v, causal=False)
     out = _row_parallel(params["wo"], o.reshape(*o.shape[:2], h_loc * hd), comm, tp)
     if gated:

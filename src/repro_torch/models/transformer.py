@@ -22,9 +22,8 @@ weights, and the analyzer leaves them dead.
 
 Entry points: ``loss_fn`` (the training forward and its cross-entropy),
 ``prefill`` (last-token logits + caches) and ``decode_step`` (one token
-against the caches); on a rank's shards ``prefill_sharded``,
-``decode_step_sharded`` and, for the GQA, MLA and RG-LRU stacks
-(``train_on_shards``), ``loss_fn_sharded``.
+against the caches); on a rank's shards, for every family,
+``prefill_sharded``, ``decode_step_sharded`` and ``loss_fn_sharded``.
 
 Kernels on the training path. The loss runs the stack without collecting
 caches, and there every block names the plain versions itself:
@@ -81,7 +80,7 @@ from repro_torch.models.layers import (
     xent_sharded,
 )
 from repro_torch.models.spec import ParamSpec, stack_specs
-from repro_torch.sharding.rules import PartitionSpec, constrain, spec_dims
+from repro_torch.sharding.rules import PartitionSpec, Shard, constrain, spec_dims
 from repro_torch.utils.tree import tree_map
 
 
@@ -370,8 +369,12 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _records_grad(tree: Any) -> bool:
+    """True when a leaf of ``tree`` requires grad (a ``Shard`` through its
+    fp32 master)."""
     if isinstance(tree, dict):
         return any(_records_grad(v) for v in tree.values())
+    if isinstance(tree, Shard):
+        tree = tree.master
     return isinstance(tree, torch.Tensor) and tree.requires_grad
 
 
@@ -687,15 +690,19 @@ def _encode_sharded(cfg: ModelConfig, params: dict, frames: torch.Tensor, comm) 
     """``_encode`` on a rank's rows of ``frames``: each layer's
     self-attention through ``gqa_forward_sharded`` (not causal, plain on
     every device, as the reference's encoder), its SwiGLU through
-    ``swiglu_sharded``."""
+    ``swiglu_sharded``, each layer under ``cfg.remat`` as ``_encode``'s."""
     eps = cfg.norm_eps
     x, positions = _encoder_input(frames)
-    blocks = params["encoder"]["blocks"]
-    for i in range(cfg.encdec.num_encoder_layers):
-        p = _select(blocks, i)
+
+    def body(x, p):
         x = x + attn.gqa_forward_sharded(p["attn"], rmsnorm(x, p["norm1"].gathered(comm), eps), positions, cfg, comm,
                                          causal=False, attend=flash_attention_plain)[0]
-        x = x + swiglu_sharded(p["dense"], rmsnorm(x, p["norm2"].gathered(comm), eps), comm)
+        return x + swiglu_sharded(p["dense"], rmsnorm(x, p["norm2"].gathered(comm), eps), comm)
+
+    body = _remat(cfg.remat, body)
+    blocks = params["encoder"]["blocks"]
+    for i in range(cfg.encdec.num_encoder_layers):
+        x = body(x, _select(blocks, i))
     return rmsnorm(x, params["encoder"]["final_norm"].gathered(comm), eps)
 
 
@@ -763,19 +770,11 @@ def prefill_sharded(cfg: ModelConfig, params: dict, batch: dict, comm):
     return logits_sharded(x, table.gathered(comm, ("data",))), caches
 
 
-def train_on_shards(cfg: ModelConfig) -> bool:
-    """True for the families whose train step computes on shards
-    (``loss_fn_sharded``): the uniform GQA stacks, dense or MoE (Mixtral,
-    Yi, Phi-3, Mistral-Large), Gemma-3's 5:1 local/global stack,
-    DeepSeek-V2-Lite's MLA stack and RecurrentGemma's rec/rec/attn stack.
-    The others (xLSTM, Whisper, Llama-3.2-Vision) train with every rank
-    holding the whole tree (``training.train_loop``)."""
-    return cfg.xlstm is None and cfg.vlm is None and cfg.encdec is None
-
-
 # the leaves besides ``embed`` that the loss reads in fp32 whatever
-# ``cfg.dtype``: a MoE router, the RG-LRU's gate biases and decay
-_FP32_LEAVES = ("router", "b_r", "b_i", "lam")
+# ``cfg.dtype``: a MoE router, the RG-LRU's gate biases and decay, the
+# mLSTM's gate bias, the xLSTM's group-norm scales and the sLSTM's recurrent
+# weights (multiplied with its fp32 state)
+_FP32_LEAVES = ("router", "b_r", "b_i", "lam", "b_if", "gn_scale", "r_zifo")
 
 
 def master_compute_dtype(cfg: ModelConfig, path: str) -> torch.dtype:
@@ -784,61 +783,86 @@ def master_compute_dtype(cfg: ModelConfig, path: str) -> torch.dtype:
     table (``embed`` looks its rows up in fp32 and casts them, so the
     gradients of a repeated token add in fp32; a tied head casts the same
     fp32 block), for the head under ``cfg.logits_chunk`` (each chunk casts
-    it, so the chunks' gradients add in fp32), for a MoE router
-    (``moe.router_probs`` computes in fp32) and for the RG-LRU's ``b_r`` /
-    ``b_i`` / ``lam``; ``cfg.dtype`` for every other leaf."""
+    it, so the chunks' gradients add in fp32) and for the leaves of
+    ``_FP32_LEAVES`` (a MoE router, which ``moe.router_probs`` reads in
+    fp32, the RG-LRU's ``b_r`` / ``b_i`` / ``lam``, the mLSTM's ``b_if``, the
+    xLSTM's ``gn_scale`` and the sLSTM's ``r_zifo``); ``cfg.dtype`` for every
+    other leaf."""
     fp32 = path == "embed" or (path == "head" and cfg.logits_chunk) or path.rsplit(".", 1)[-1] in _FP32_LEAVES
     return torch.float32 if fp32 else _model_dtype(cfg)
 
 
-def _train_block_sharded(cfg, kind, p, x, positions, comm, dims):
-    """``_block_body`` of a GQA, MLA or RG-LRU block for the loss, on a
-    rank's blocks: the mixer of ``_sharded_mixer`` through the plain
-    versions, its cache dropped; the MoE at training's capacity over the
+def _train_block_sharded(cfg, kind, p, x, positions, memory, comm, dims):
+    """``_block_body`` for the loss on a rank's blocks, by kind as
+    ``_sharded_block`` dispatches, with the caches dropped: an xLSTM block
+    on the rank's heads, the VLM's gated ``cross`` block (skipped whole
+    without an image), or the mixer of ``_sharded_mixer`` through the plain
+    versions, then Whisper's cross-attention over the encoder output where
+    the batch has one; then the MLP, the MoE at training's capacity over the
     global token count."""
     eps = cfg.norm_eps
-    o, _ = _sharded_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), positions, comm, plain=True)
-    x = x + o
+    if kind in ("m", "s"):
+        key, forward, _ = _xlstm_sharded(kind)
+        return x + forward(p[key], rmsnorm(x, p["norm"].gathered(comm), eps), cfg, comm)[0]
+    if kind == "cross":
+        if memory.get("image") is None:
+            return x
+        mem_kv = attn.cross_attn_memory_sharded(p["cross"], memory["image"], cfg, comm)
+        x = x + attn.cross_attn_forward_sharded(p["cross"], rmsnorm(x, p["norm1"].gathered(comm), eps), mem_kv, cfg,
+                                                comm, gated=True)
+        gate = torch.tanh(p["gate_ffn"].gathered(comm).to(x.dtype))
+    else:
+        o, _ = _sharded_mixer(cfg, kind, p, rmsnorm(x, p["norm1"].gathered(comm), eps), positions, comm, plain=True)
+        x = x + o
+        if cfg.encdec is not None and memory.get("enc") is not None:
+            mem_kv = attn.cross_attn_memory_sharded(p["cross"], memory["enc"], cfg, comm)
+            x = x + attn.cross_attn_forward_sharded(p["cross"], rmsnorm(x, p["norm_x"].gathered(comm), eps), mem_kv,
+                                                    cfg, comm)
+        gate = None
     h = rmsnorm(x, p["norm2"].gathered(comm), eps)
     if "moe" in p:
-        return x + moe_mod.moe_forward_sharded(p["moe"], h, cfg, comm, batch_dims=dims, serving=False)
-    return x + swiglu_sharded(p["dense"], h, comm)
+        y = moe_mod.moe_forward_sharded(p["moe"], h, cfg, comm, batch_dims=dims, serving=False)
+    else:
+        y = swiglu_sharded(p["dense"], h, comm)
+    return x + (y if gate is None else gate * y)
 
 
 def loss_fn_sharded(cfg: ModelConfig, params: dict, batch: dict, comm) -> torch.Tensor:
-    """``loss_fn`` on a rank's blocks, for the families of ``train_on_shards``:
-    this rank's share of the global mean next-token cross-entropy (its rows'
-    mean over the ``data`` size; the shares of the ``data`` ranks sum to the
-    loss, and the ``model`` ranks of one row block hold the same share).
+    """``loss_fn`` on a rank's blocks, for every family: this rank's share
+    of the global mean next-token cross-entropy (its rows' mean over the
+    ``data`` size; the shares of the ``data`` ranks sum to the loss, and the
+    ``model`` ranks of one row block hold the same share).
 
     ``params`` are ``Shard`` leaves whose ``master`` is the fp32 block the
     gradient lands in. Each weight is all-gathered over ``data`` at its use
     and its gradient reduce-scattered into the master block in the backward
     (``Shard.gathered``). TP, EP and the vocab-parallel embedding are
-    ``prefill_sharded``'s, and so is the mixer of each block by kind
-    (``_sharded_mixer``: GQA with the kind's window, MLA, the RG-LRU on the
-    rank's channels), the routing global at training's capacity; the
-    cross-entropy is vocab-parallel (``layers.xent_sharded``), per
-    ``cfg.logits_chunk`` chunk when it is set. A tied table is read twice,
-    by the embedding and by the head, and both reads' gradients add into
-    its one fp32 master block. ``cfg.remat`` wraps each
-    scanned group (and, under "inner", each block of a multi-block group),
-    as ``forward_hidden`` does; its checkpoints are non-reentrant, so a
+    ``prefill_sharded``'s, and so is each block by kind
+    (``_train_block_sharded``: GQA with the kind's window, MLA, the RG-LRU on
+    the rank's channels, the mLSTM / sLSTM on the rank's heads, the VLM's
+    gated cross block, Whisper's cross-attention), the routing global at
+    training's capacity, and the memory of a multimodal batch
+    (``_memory_sharded``: ``frames`` through the encoder on the rank's rows,
+    or the rank's rows of ``image_embeds``); the cross-entropy is
+    vocab-parallel (``layers.xent_sharded``), per ``cfg.logits_chunk`` chunk
+    when it is set. A tied table is read twice, by the embedding and by the
+    head, and both reads' gradients add into its one fp32 master block.
+    ``cfg.remat`` wraps each encoder layer and each scanned group (and,
+    under "inner", each block of a multi-block group), as ``_encode`` and
+    ``forward_hidden`` do; its checkpoints are non-reentrant, so a
     recomputed forward issues its collectives in the same order on every
     rank. On a mesh of 1s every collective is skipped and the math is
     ``loss_fn``'s."""
-    if not train_on_shards(cfg):
-        raise ValueError(f"{cfg.name} trains with the whole tree on every rank; loss_fn_sharded covers the "
-                         "GQA, MLA and RG-LRU stacks")
     dims = batch["tokens"].split(0)
     tokens, labels = batch["tokens"].local, batch["labels"].local
     B, S = tokens.shape
+    memory = _memory_sharded(cfg, params, batch, comm)
     x = embed_sharded(params["embed"], tokens, _model_dtype(cfg), cfg.d_model, comm)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     lay = stack_layout(cfg)
 
     def block(kind, p, x):
-        return _train_block_sharded(cfg, kind, p, x, positions, comm, dims)
+        return _train_block_sharded(cfg, kind, p, x, positions, memory, comm, dims)
 
     for i, kind in enumerate(lay.lead_kinds):
         x = block(kind, params["lead"][f"b{i}"], x)

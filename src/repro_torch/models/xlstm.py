@@ -94,12 +94,13 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None):
 
     q, k, v (B, S, H, hd) fp32; log_i, log_f (B, S, H) fp32; ``state`` is
     (C (B, H, hd, hd), n (B, H, hd), m (B, H)) or None.
-    Returns (h (B, S, H, hd) fp32, final state)."""
+    Returns (h (B, S, H, hd) fp32, final state). The inputs are unbound
+    into steps once (a step indexed at a time would add a whole-size
+    gradient a step in the backward)."""
     B, S, H, hd = q.shape
     C, n, m = state if state is not None else _initial_state(B, H, hd, q.device)
     hs = []
-    for t in range(S):
-        qt, kt, vt, li, lf = q[:, t], k[:, t], v[:, t], log_i[:, t], log_f[:, t]
+    for qt, kt, vt, li, lf in zip(*(t.unbind(1) for t in (q, k, v, log_i, log_f))):
         m_new = torch.maximum(lf + m, li)
         i_bar = torch.exp(li - m_new)[..., None]
         f_bar = torch.exp(lf + m - m_new)[..., None]
@@ -137,8 +138,8 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int, state=None):
         # li_t) with mlstm_scan's operations, not the cumsum form, whose
         # float32 rounding drifts by ~eps·|B_t|
         m_steps, m = [], m_prev
-        for t in range(L):
-            m = torch.maximum(lf[:, t] + m, li[:, t])
+        for lf_t, li_t in zip(lf.unbind(1), li.unbind(1)):
+            m = torch.maximum(lf_t + m, li_t)
             m_steps.append(m)
         m_t = torch.stack(m_steps, dim=1)  # (B, L, H)
         # inter-chunk: exp(B_t + m_prev - m_t) * q_t C_prev
@@ -272,8 +273,8 @@ def _slstm_steps(r_zifo: torch.Tensor, x_pre: torch.Tensor, H: int, hd: int, sta
         zeros = torch.zeros(B, H, hd, dtype=torch.float32, device=x_pre.device)
         state = (zeros, zeros, zeros, torch.full((B, H, hd), M_INIT, dtype=torch.float32, device=x_pre.device))
     hs = []
-    for t in range(S):
-        state, h = _slstm_cell_step(r_zifo, x_pre[:, t], state, H, hd)
+    for xt in x_pre.unbind(1):  # once, as ``mlstm_scan``'s inputs
+        state, h = _slstm_cell_step(r_zifo, xt, state, H, hd)
         hs.append(h)
     return torch.stack(hs, dim=1), state
 
@@ -314,9 +315,22 @@ def slstm_block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelCon
 # ``w_up`` / ``ffn_up`` are chunked afterwards, since a rank's block of their
 # columns is not its channels of both halves); one whose rows (the
 # contraction) are split takes the rank's block of its input, the partial
-# sums all-reduced over ``model`` before anything nonlinear (``_contract``).
-# The recurrence runs on the rank's heads where ``model`` divides them, else
-# on every head on every rank (``rank_heads``).
+# sums reduced over ``model`` before anything nonlinear (``_contract``). The
+# recurrence runs on the rank's heads where ``model`` divides them, its
+# inputs' partial sums reduce-scattered to those heads, else on every head on
+# every rank (``rank_heads``).
+#
+# Under autograd (``sharding.comm``) each rank's output of a block is whole
+# (all-reduced), and the gradient of every whole tensor inside it is a share
+# on each rank: a rank reads only its block of the channels into a row-
+# parallel weight, or only its heads. So ``x`` enters the ``model`` region
+# before the column-parallel weights, and so does a whole leaf read for
+# part of its use (a weight the rules leave whole over ``model``, a bias, a
+# group-norm scale or the sLSTM's recurrent weights cut to the rank's
+# heads); the all-gathers' backward reduce-scatters the shares to the
+# rank's columns or heads. Where every rank runs every head, the partial
+# sums that feed the recurrence are all-reduced and then enter the region,
+# so their shares are summed before the backward leaves the recurrence.
 
 
 def rank_heads(cfg: ModelConfig, comm) -> tuple[int, int]:
@@ -331,18 +345,23 @@ def rank_heads(cfg: ModelConfig, comm) -> tuple[int, int]:
 
 def _cols_whole(w, x: torch.Tensor, comm) -> torch.Tensor:
     """``x @ w`` whole on every rank: the rank's columns of ``w`` (gathered
-    over ``data``), all-gathered over ``model`` where the rules split them."""
-    out = x @ w.gathered(comm, ("data",)).to(x.dtype)
-    return comm.all_gather(out, "model", out.dim() - 1) if "model" in w.split(1) else out
+    over ``data``), all-gathered over ``model`` where the rules split them;
+    a weight whole over ``model`` enters the region (each rank reads a part
+    of the product)."""
+    wl = w.gathered(comm, ("data",))
+    if "model" in w.split(1):
+        out = x @ wl.to(x.dtype)
+        return comm.all_gather(out, "model", out.dim() - 1)
+    return x @ comm.enter(wl, "model").to(x.dtype)
 
 
-def _contract(w, h: torch.Tensor, comm) -> torch.Tensor:
-    """``h @ w`` with the contraction (``w``'s rows) split over ``model``:
-    the rank's block of the rows where the rules split them, else rows
-    [j·c, (j+1)·c) with c = ceil(rows / model) (the last block shorter), as
-    GSPMD splits a dim that ``model`` does not divide, by padding it. ``h``
-    is whole (cut here) or already that block. The partial sums are
-    all-reduced over ``model``."""
+def _partial(w, h: torch.Tensor, comm) -> torch.Tensor:
+    """This rank's partial sum of ``h @ w`` with the contraction (``w``'s
+    rows) split over ``model``: the rank's block of the rows where the rules
+    split them, else rows [j·c, (j+1)·c) with c = ceil(rows / model) (the
+    last block shorter), as GSPMD splits a dim that ``model`` does not
+    divide, by padding it (the whole weight entering the region). ``h`` is
+    whole (cut here) or already that block."""
     wl = w.gathered(comm, ("data",))
     M, n = comm.size("model"), w.shape[0]
     if M == 1:
@@ -354,18 +373,26 @@ def _contract(w, h: torch.Tensor, comm) -> torch.Tensor:
         c = -(-n // M)
         lo = min(comm.index("model") * c, n)
         hi = min(lo + c, n)
-        wl = wl[lo:hi]
+        wl = comm.enter(wl, "model")[lo:hi]
     if h.shape[-1] == n:
         h = h[..., lo:hi]
-    return comm.all_reduce(h @ wl.to(h.dtype), "model")
+    return h @ wl.to(h.dtype)
+
+
+def _contract(w, h: torch.Tensor, comm) -> torch.Tensor:
+    """``h @ w`` whole on every rank: ``_partial``'s sums all-reduced over
+    ``model``."""
+    return comm.all_reduce(_partial(w, h, comm), "model")
 
 
 def _mlstm_qkv_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, comm, conv_state=None):
     """``_mlstm_qkv`` on a rank's rows: ``up`` whole (``_cols_whole``), the
     conv on the rank's channels of ``z`` (``conv_w``'s block), q / k / v and
-    the gates with their contraction over those channels (``_contract``),
-    then the rank's heads (``rank_heads``)."""
+    the gates with their contraction over those channels (``_partial``),
+    reduce-scattered to the rank's heads where ``model`` divides them, else
+    all-reduced (``rank_heads``)."""
     H = cfg.num_heads
+    x = comm.enter(x, "model")
     z, o_gate = torch.chunk(_cols_whole(params["w_up"], x, comm), 2, dim=-1)
     conv_w = params["conv_w"]
     lo = conv_w.start(1, comm)
@@ -374,17 +401,25 @@ def _mlstm_qkv_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, comm, co
                                    state=conv_state)
     zc = F.silu(zc.to(torch.float32)).to(x.dtype)
     h0, nh = rank_heads(cfg, comm)
+    split = nh < H
 
-    def heads(t: torch.Tensor) -> torch.Tensor:
-        return _mlstm_heads(t, H)[:, :, h0:h0 + nh].to(torch.float32)
+    def heads(w, h: torch.Tensor) -> torch.Tensor:  # (B, S, nh, hd) fp32
+        t = _partial(w, h, comm)
+        t = comm.reduce_scatter(t, "model", t.dim() - 1) if split else \
+            comm.enter(comm.all_reduce(t, "model"), "model")
+        return _mlstm_heads(t, nh).to(torch.float32)
 
-    q, k, v = heads(_contract(params["w_q"], zc, comm)), heads(_contract(params["w_k"], zc, comm)), \
-        heads(_contract(params["w_v"], z_c, comm))
+    q, k, v = heads(params["w_q"], zc), heads(params["w_k"], zc), heads(params["w_v"], z_c)
     k = k / math.sqrt(k.shape[-1])
-    gates = _contract(params["w_if"], zc, comm).to(torch.float32) + params["b_if"].gathered(comm).to(torch.float32)
-    log_i, f_raw = torch.chunk(gates, 2, dim=-1)
-    log_f = -F.softplus(-f_raw[..., h0:h0 + nh])
-    return q, k, v, log_i[..., h0:h0 + nh], log_f, o_gate, conv_state
+    g, b = _partial(params["w_if"], zc, comm), params["b_if"].gathered(comm)
+    if split:  # the (i, f) pair of the rank's heads
+        g = comm.reduce_scatter(g.unflatten(-1, (2, H)), "model", g.dim())
+        log_i, f_raw = (g.to(torch.float32) + comm.enter(b, "model").view(2, H)[:, h0:h0 + nh].to(torch.float32)) \
+            .unbind(-2)
+    else:
+        gates = comm.enter(comm.all_reduce(g, "model").to(torch.float32) + b.to(torch.float32), "model")
+        log_i, f_raw = torch.chunk(gates, 2, dim=-1)
+    return q, k, v, log_i, -F.softplus(-f_raw), o_gate, conv_state
 
 
 def _mlstm_out_sharded(params: dict, h: torch.Tensor, o_gate: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
@@ -395,7 +430,7 @@ def _mlstm_out_sharded(params: dict, h: torch.Tensor, o_gate: torch.Tensor, x: t
     H = cfg.num_heads
     h0, nh = rank_heads(cfg, comm)
     hd = h.shape[-1]
-    gn = params["gn_scale"].gathered(comm).reshape(H, hd)[h0:h0 + nh]
+    gn = comm.enter(params["gn_scale"].gathered(comm), "model").reshape(H, hd)[h0:h0 + nh]
     h = _groupnorm(h.to(x.dtype), gn).reshape(x.shape[0], x.shape[1], nh * hd)
     h = h * F.silu(o_gate[..., h0 * hd:(h0 + nh) * hd].to(torch.float32)).to(x.dtype)
     return _contract(params["w_down"], h, comm)
@@ -435,13 +470,15 @@ def _slstm_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, comm, state=
     hd = cfg.d_model // H
     h0, nh = rank_heads(cfg, comm)
     w, b = params["w_zifo"], params["b_zifo"]
+    x = comm.enter(x, "model")
     if nh < H:
-        pre = x @ w.gathered(comm, ("data",)).to(x.dtype) + b.local.to(x.dtype)
+        pre = x @ w.gathered(comm, ("data",)).to(x.dtype) + b.gathered(comm, ("data",)).to(x.dtype)
     else:
-        pre = _cols_whole(w, x, comm) + b.gathered(comm).to(x.dtype)
-    h, state = _slstm_steps(params["r_zifo"].gathered(comm)[h0:h0 + nh], pre, nh, hd, state)
+        pre = _cols_whole(w, x, comm) + comm.enter(b.gathered(comm), "model").to(x.dtype)
+    r = comm.enter(params["r_zifo"].gathered(comm), "model")[h0:h0 + nh]
+    h, state = _slstm_steps(r, pre, nh, hd, state)
     B, S = x.shape[0], x.shape[1]
-    gn = params["gn_scale"].gathered(comm).reshape(H, hd)[h0:h0 + nh]
+    gn = comm.enter(params["gn_scale"].gathered(comm), "model").reshape(H, hd)[h0:h0 + nh]
     h = _groupnorm(h.to(x.dtype), gn).reshape(B, S, nh * hd)
     if nh < H:
         h = comm.all_gather(h, "model", 2)

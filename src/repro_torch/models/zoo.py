@@ -13,10 +13,8 @@ Under a mesh of more than one rank every family computes on shards
 stacks, dense or MoE (Mixtral, Yi, Phi-3, Mistral-Large), Gemma-3's 5:1
 local/global stack, DeepSeek-V2-Lite's MLA, RecurrentGemma's RG-LRU hybrid,
 xLSTM's mLSTM / sLSTM stack, Whisper's encoder-decoder and the VLM's gated
-cross blocks, multimodal batches too. The train step computes on shards
-for the GQA, MLA and RG-LRU stacks (``transformer.train_on_shards``,
-``loss_fn_sharded``); xLSTM, Whisper and Llama-3.2-Vision train with the
-whole tree on every rank.
+cross blocks, multimodal batches too, and so does the train step
+(``Model.loss_fn_sharded``).
 """
 
 from __future__ import annotations

@@ -21,40 +21,40 @@ Elastic restart: ``reshard_for_mesh`` places a restored host checkpoint
 on any ("data", "model") mesh as DTensors by the param rules; checkpoints
 are stored whole, so any mesh size restores them.
 
-Under a mesh (``Trainer(mesh=)``) the step depends on the family
-(``on_shards``), on a ("data", "model") mesh:
+Under a mesh (``Trainer(mesh=)``) the step depends on the mesh's dims
+(``on_shards``):
 
-  * the GQA stacks (Mixtral, Yi, Phi-3, Mistral-Large, Gemma-3's 5:1
-    local/global stack), DeepSeek-V2-Lite's MLA stack and RecurrentGemma's
-    RG-LRU hybrid train on shards (``make_train_step(comm=)``): each rank
-    holds its fp32 blocks of the params and of both AdamW moments under
-    ``param_shardings(..., fsdp=True)``, casts each block to its compute
-    dtype once a step, and runs ``Model.loss_fn_sharded`` on its rows of
-    the batch: each weight is all-gathered over ``data`` at its use and its
-    gradient reduce-scattered into the rank's fp32 block in the backward,
-    every micro-batch (TP, EP and the vocab-parallel head and loss over
-    ``model``). The rows are cut
-    so that micro-batch i is the rank's block of the same global rows as
-    the unsharded step's micro-batch i (``cut_batch``): the MoE's capacity
-    sees the same tokens. ``global_norm`` and clipping see the whole
-    gradient, each leaf counted once, and AdamW runs in place on the local
-    blocks (``adamw_update_``). No rank holds a whole fp32 gradient tree or
-    a whole compute-dtype param tree: the params are initialised block by
-    block (``Model.init(blocks=)``), a restore reads each rank's blocks from
-    the mapped files, and the moments are zeros of the blocks' shapes. For a
-    checkpoint each leaf is gathered one stacked group at a time and rank 0
-    alone copies it to its host and writes the files, in the unsharded
-    format. On a mesh of 1s no collective runs and a step is bit-equal to
-    the step with no mesh;
-  * xLSTM, Whisper and Llama-3.2-Vision (and a mesh with a ``pod`` dim)
-    keep data parallelism with the whole tree on every rank: the steps run under
-    ``use_mesh(mesh)``, each rank takes its block of the batch rows over the
-    mesh dims that ``ACT_RULES["batch"]`` resolves the batch to (all rows
-    when those dims do not divide the batch), the gradients and the loss are
-    averaged over those dims before the AdamW update, so every rank keeps
-    the same replicated params, and only rank 0 writes checkpoints. On a
-    mesh whose batch dims are all 1 a step is bit-equal to the step with no
-    mesh.
+  * on a ("data", "model") mesh every family trains on shards
+    (``make_train_step(comm=)``): the GQA stacks, dense or MoE, Gemma-3's
+    5:1 local/global stack, DeepSeek-V2-Lite's MLA, RecurrentGemma's RG-LRU
+    hybrid, xLSTM's mLSTM / sLSTM stack, Whisper's encoder-decoder and
+    Llama-3.2-Vision's gated cross blocks. Each rank holds its fp32 blocks
+    of the params and of both AdamW moments under ``param_shardings(...,
+    fsdp=True)``, casts each block to its compute dtype once a step, and
+    runs ``Model.loss_fn_sharded`` on its rows of the batch (``frames`` and
+    ``image_embeds`` too): each weight is all-gathered over ``data`` at its
+    use and its gradient reduce-scattered into the rank's fp32 block in the
+    backward, every micro-batch (TP, EP and the vocab-parallel head and
+    loss over ``model``). The rows are cut so that micro-batch i is the
+    rank's block of the same global rows as the unsharded step's
+    micro-batch i (``cut_batch``): the MoE's capacity sees the same tokens.
+    ``global_norm`` and clipping see the whole gradient, each leaf counted
+    once, and AdamW runs in place on the local blocks (``adamw_update_``).
+    No rank holds a whole fp32 gradient tree or a whole compute-dtype param
+    tree: the params are initialised block by block (``Model.init(blocks=)``,
+    the encoder's and the cross blocks' leaves too), a restore reads each
+    rank's blocks from the mapped files, and the moments are zeros of the
+    blocks' shapes. For a checkpoint each leaf is gathered one stacked
+    group at a time and rank 0 alone copies it to its host and writes the
+    files, in the unsharded format. On a mesh of 1s no collective runs and
+    a step is bit-equal to the step with no mesh;
+  * a mesh with a ``pod`` dim keeps data parallelism with the whole tree on
+    every rank: the steps run under ``use_mesh(mesh)``, each rank takes its
+    block of the batch rows over the mesh dims that ``ACT_RULES["batch"]``
+    resolves the batch to (all rows when those dims do not divide the
+    batch), the gradients and the loss are averaged over those dims before
+    the AdamW update, so every rank keeps the same replicated params, and
+    only rank 0 writes checkpoints.
 
 The GPipe forward is ``training.pipeline``.
 """
@@ -72,7 +72,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticTokenPipeline
-from repro_torch.models.transformer import master_compute_dtype, train_on_shards
+from repro_torch.models.transformer import master_compute_dtype
 from repro_torch.models.zoo import Model
 from repro_torch.optim import (
     AdamWConfig,
@@ -156,8 +156,9 @@ def cut_batch(batch: dict, n_micro: int, comm) -> dict:
     i of the rank's rows is its block of micro-batch i of the unsharded step
     (global rows [i·B/n, (i+1)·B/n), cut over the mesh dims that split the
     batch), so each micro-batch holds the unsharded step's rows in their
-    order. Raises ValueError when a micro-batch's rows do not split evenly."""
-    specs = act_specs({k: ("batch", "seq") for k in batch}, batch, comm)
+    order; ``frames`` and ``image_embeds`` are cut by the same rows as the
+    tokens. Raises ValueError when a micro-batch's rows do not split evenly."""
+    specs = act_specs(Model.batch_axes(batch, "train"), batch, comm)
     parts = math.prod(comm.size(ax) for ax in spec_dims(specs["tokens"], 0))
     rows = batch["tokens"].shape[0]
     if rows % (parts * n_micro):
@@ -223,8 +224,8 @@ def make_train_step(model: Model, tcfg: TrainConfig, *, reduce: Optional[Callabl
     ``reduce(tensor)`` (data parallelism) averages the loss and every
     gradient over the ranks in place before the update.
 
-    With ``comm`` (a ``sharding.comm.Comm``: the step on shards, for a
-    family of ``transformer.train_on_shards``): ``params`` are ``Shard``
+    With ``comm`` (a ``sharding.comm.Comm``: the step on shards):
+    ``params`` are ``Shard``
     leaves of the rank's fp32 master blocks, ``opt_state``'s moments trees
     of the rank's blocks and ``batch`` ``Shard`` leaves of its rows
     (``cut_batch``). The gradients come from ``sharded_grads``, the norm
@@ -314,13 +315,12 @@ class TrainResult:
     restored_from: Optional[int]
 
 
-def on_shards(model: Model, mesh) -> bool:
+def on_shards(mesh) -> bool:
     """True when ``Trainer(mesh=)`` (and the dry run's train cell) runs the
-    step on shards: a family of ``transformer.train_on_shards`` (the GQA,
-    MLA and RG-LRU stacks) on a mesh of no dims but ``data`` and ``model``.
-    The other families (xLSTM, Whisper, Llama-3.2-Vision), and a mesh with a
-    ``pod`` dim, keep data parallelism with the whole tree on every rank."""
-    return train_on_shards(model.cfg) and mesh_dims_supported(tuple(mesh_sizes(mesh)))
+    step on shards: a mesh of no dims but ``data`` and ``model``, for every
+    family. A mesh with a ``pod`` dim keeps data parallelism with the whole
+    tree on every rank."""
+    return mesh_dims_supported(tuple(mesh_sizes(mesh)))
 
 
 def _whole_on_host(tree: Any, shapes: dict, specs: dict, comm, keep: bool) -> Optional[dict]:
@@ -343,10 +343,9 @@ def _whole_on_host(tree: Any, shapes: dict, specs: dict, comm, keep: bool) -> Op
 
 class Trainer:
     """Checkpointed, watchdogged training loop on one device, or one rank of
-    ``mesh`` (module docstring): on shards for the GQA, MLA and RG-LRU
-    stacks (Mixtral, Yi, Phi-3, Mistral-Large, Gemma-3, DeepSeek-V2-Lite,
-    RecurrentGemma; ``on_shards``), data parallel with the whole tree on
-    every rank for xLSTM, Whisper and Llama-3.2-Vision. After ``run``
+    ``mesh`` (module docstring): on shards on a ("data", "model") mesh, for
+    every family (``on_shards``), data parallel with the whole tree on every
+    rank on a mesh with a ``pod`` dim. After ``run``
     the last params stay on the device as ``params``: the whole tree, or
     this rank's fp32 blocks when the step ran on shards."""
 
@@ -389,7 +388,7 @@ class Trainer:
     def run(self, num_steps: Optional[int] = None) -> TrainResult:
         tcfg = self.tcfg
         num_steps = num_steps or tcfg.num_steps
-        if self.mesh is not None and on_shards(self.model, self.mesh):
+        if self.mesh is not None and on_shards(self.mesh):
             return self._run_on_shards(num_steps)
         start, params, opt = self._init_state()
         restored_from = start if start > 0 else None

@@ -35,10 +35,14 @@ from repro_torch.utils.tree import flatten_with_paths
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("prefill", "decode", "train")
 MESHES = ((1, 1), (2, 2))
-# every cell, train included
-TRAIN_ARCHS = ("mixtral-8x22b", "yi-34b", "gemma3-27b", "deepseek-v2-lite-16b", "recurrentgemma-9b")
-# their prefill and decode cells only (each compiles in a few seconds)
-SERVE_ARCHS = ("whisper-base", "llama-3.2-vision-90b", "xlstm-125m")
+# every cell, train included (Whisper's and the VLM's with their ``frames`` /
+# ``image_embeds``)
+TRAIN_ARCHS = ("mixtral-8x22b", "yi-34b", "gemma3-27b", "deepseek-v2-lite-16b", "recurrentgemma-9b", "whisper-base",
+               "llama-3.2-vision-90b")
+# their prefill and decode cells only (each compiles in a few seconds). xLSTM's
+# train cells trace in 7-9 s each and differ from the reference's compiled
+# dot FLOPs in its recurrences' backward (PERF.md §7), so they stay out
+SERVE_ARCHS = ("xlstm-125m",)
 PARITY_ARCHS = TRAIN_ARCHS + SERVE_ARCHS
 TRAIN_REMATS = ("none", "full")
 
@@ -336,24 +340,43 @@ def _latent_gap(arch: str, mesh: tuple, kind: str) -> int:
 
 def _score_gap(arch: str, mesh: tuple, kind: str) -> int:
     """Per-device dot FLOPs the reference counts and the port does not in
-    RecurrentGemma's train cell at 2×2: one QK^T score matmul a micro-batch
-    in its attention layer, on the rank's heads, 2 · B_loc · (H / M) · S ·
-    S · hd = 2 · 1 · 2 · 64 · 64 · 16 = 262,144 FLOPs × 2 micro-batches =
-    524,288, 0.65% of the reference's 80,216,064. The reference's plain
-    attention checkpoints its k-block body (``_score_recompute_flops``), so
-    its backward may recompute the scores: its compiled HLO holds one more
-    dot of that shape a micro-batch than the port's at 2×2, and none more at
-    1×1, where XLA merges the recompute with the forward's scores (the
-    stack is one scanned group, a loop of one trip, which XLA turns into
-    straight-line code). The port keeps the probabilities for its
-    backward."""
-    if arch != "recurrentgemma-9b" or kind != "train" or mesh == (1, 1):
+    the train cells at 2×2 of RecurrentGemma, Whisper and Llama-3.2-Vision:
+    score matmuls that the reference's backward recomputes. Its plain
+    attention checkpoints its k-block body (``_score_recompute_flops``), and
+    at 2×2 its compiled HLO keeps some of those recomputes, each a dot of
+    the shape of a QK^T score matmul on the rank's heads, 2 · B_loc · (H /
+    M) · S · T · hd FLOPs (B_loc = 1 row of a micro-batch, H / M = 2 heads,
+    S = 64 queries, hd = 16); the port keeps the probabilities for its
+    backward. At 1×1 XLA merges them with the forward's scores and there is
+    no gap.
+
+      * RecurrentGemma: one in its attention layer a micro-batch, T = 64:
+        262,144 × 2 micro-batches = 524,288, 0.65% of the reference's
+        80,216,064;
+      * Whisper: three in each of its attention modules a micro-batch (the
+        2 decoder self-attentions, the 2 cross-attentions over the 64
+        encoder frames and the 2 encoder self-attentions, all T = 64): its
+        compiled HLO holds 11 score-shaped dots a module where the port's
+        trace holds 8 (the forward's QK^T and PV, their recompute under
+        remat "full", and the four gradient dots), 3 × 6 × 262,144 × 2 =
+        9,437,184, 6.57% of the reference's 143,654,912;
+      * Llama-3.2-Vision: one in its gated cross block a micro-batch, over
+        the 16 image tokens (T = 16): 65,536 × 2 = 131,072, 0.11% of the
+        reference's 123,109,376; its four self-attention layers have none
+        (the five layers are one scanned group)."""
+    if kind != "train" or mesh == (1, 1):
         return 0
     cfg = get_reduced(arch)
     D, M = mesh
     n = _train_micro_batches(mesh)
-    attn_layers = sum(k == "attn" for k in cfg.attn_kinds)
-    return n * attn_layers * 2 * (4 // n // D) * (cfg.num_heads // M) * 64 * 64 * cfg.resolved_head_dim
+    one = 2 * (4 // n // D) * (cfg.num_heads // M) * 64 * cfg.resolved_head_dim
+    if arch == "recurrentgemma-9b":
+        return n * sum(k == "attn" for k in cfg.attn_kinds) * one * 64
+    if arch == "whisper-base":
+        return n * 3 * (2 * cfg.num_layers + cfg.encdec.num_encoder_layers) * one * 64
+    if arch == "llama-3.2-vision-90b":
+        return n * sum(k == "cross" for k in cfg.attn_kinds) * one * cfg.vlm.num_image_tokens
+    return 0
 
 
 def _key_block_gap(arch: str, mesh: tuple, kind: str) -> int:
@@ -389,7 +412,8 @@ def test_dryrun_cells_match_the_reference(arch, reference_cells):
     ``frames``, ``image_embeds`` and cross caches, up to the ops of
     ``_router_gap`` and ``_key_block_gap``); dot FLOPs per device equal for
     the train cells of ``TRAIN_ARCHS`` too, which compute on shards (the
-    record's ``train_on_shards``; at 2×2 each weight's gradient is
+    record's ``train_on_shards``; Whisper's and the VLM's on the cells'
+    ``frames`` and ``image_embeds``; at 2×2 each weight's gradient is
     reduce-scattered into its block, so the collectives hold a
     reduce-scatter), up to the ops of ``_router_gap``, ``_capacity_gap``,
     ``_latent_gap`` and ``_score_gap``; and every record's argument bytes equal the closed
@@ -414,13 +438,16 @@ def test_dryrun_cells_match_the_reference(arch, reference_cells):
 
 
 def _score_recompute_flops(arch: str) -> int:
-    """One QK^T matmul per layer and micro-batch (1 row of 64 tokens each),
-    where the reference's recompute survives: a GQA stack of more than one
-    scanned group (``test_dryrun_train_flops_match_the_reference``)."""
+    """One QK^T matmul per attention module and micro-batch (1 row of 64
+    tokens each), where the reference's recompute survives: a GQA stack of
+    more than one scanned group (``test_dryrun_train_flops_match_the_reference``).
+    Whisper's layers hold two modules each (the self-attention and the
+    cross-attention over the 64 encoder frames) and its encoder one a layer."""
     cfg = get_reduced(arch)
     if cfg.mla is not None or stack_layout(cfg).n_groups < 2:
         return 0
-    return 2 * 1 * cfg.num_heads * 64 * 64 * cfg.resolved_head_dim * cfg.num_layers * 4
+    modules = cfg.num_layers * (2 if cfg.encdec else 1) + (cfg.encdec.num_encoder_layers if cfg.encdec else 0)
+    return 2 * 1 * cfg.num_heads * 64 * 64 * cfg.resolved_head_dim * modules * 4
 
 
 @pytest.mark.parametrize("remat", TRAIN_REMATS)
@@ -436,11 +463,14 @@ def test_dryrun_train_flops_match_the_reference(remat, reference_cells):
     The port keeps the probabilities for its backward. Under "full" both
     recompute the whole group body and the counts are equal.
 
-    The other three show no gap under "none" either. DeepSeek-V2-Lite's
+    Whisper's two scanned decoder layers show the same gap for each of its
+    six attention modules (two self, two cross over the 64 frames, two in
+    the encoder): 12,582,912, 2.9% of its 440,401,920. The other four show
+    no gap under "none". DeepSeek-V2-Lite's
     MLA asks the reference's attention for its cache in training too
     (``src/repro/models/transformer.py:228``, ``return_cache=True``), which
-    takes its ``differentiable=False`` path, with no checkpoint. Gemma-3's
-    and RecurrentGemma's stacks are one scanned group, a loop of one trip,
+    takes its ``differentiable=False`` path, with no checkpoint. Gemma-3's,
+    RecurrentGemma's and Llama-3.2-Vision's stacks are one scanned group, a loop of one trip,
     which XLA turns into straight-line code where the recomputed scores
     merge with the forward's (reduced Mixtral cut to one layer shows the
     same: 176,553,984 dot FLOPs on both sides)."""

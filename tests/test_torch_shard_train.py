@@ -65,7 +65,7 @@ import torch.multiprocessing as mp
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import get_reduced
+from repro_torch.configs import ARCH_IDS, get_reduced
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import build_model
@@ -83,6 +83,9 @@ PAIR = ("mixtral-8x22b", "yi-34b")
 # Gemma-3's 5:1 stack with its tied table, DeepSeek-V2-Lite's MLA with a
 # dense lead and a MoE with a shared expert, RecurrentGemma's rec/rec/attn
 FAMILIES = ("gemma3-27b", "deepseek-v2-lite-16b", "recurrentgemma-9b")
+# the encoder-decoder, the gated cross blocks and the mLSTM / sLSTM stack
+# (their worlds: ``tests/test_torch_shard_train_modal.py``)
+MODAL = ("whisper-base", "llama-3.2-vision-90b", "xlstm-125m")
 WORLDS = {(1, 2): PAIR + FAMILIES, (2, 1): PAIR, (2, 2): PAIR + ("phi3-medium-14b", "mistral-large-123b") + FAMILIES}
 B, S = 4, 16
 MICRO = 2  # the two-step runs' micro-batches
@@ -92,15 +95,15 @@ TRAINER_ARCHS = ("mixtral-8x22b", "deepseek-v2-lite-16b")  # Trainer(mesh=) on t
 TRAINER_STEPS = 3  # two, a checkpoint, and one more resumed from it
 
 
-def _tc(micro: int = MICRO) -> TrainConfig:
-    return TrainConfig(num_steps=4, warmup_steps=1, micro_batches=micro, adamw=AdamWConfig(lr=1e-3))
+def _tc(micro: int = MICRO, eps: float = 1e-8) -> TrainConfig:
+    return TrainConfig(num_steps=4, warmup_steps=1, micro_batches=micro, adamw=AdamWConfig(lr=1e-3, eps=eps))
 
 
-def _ref_tc():
+def _ref_tc(eps: float = 1e-8):
     from repro.optim import AdamWConfig as RefAdamWConfig
     from repro.training import TrainConfig as RefTrainConfig
 
-    return RefTrainConfig(num_steps=4, warmup_steps=1, micro_batches=MICRO, adamw=RefAdamWConfig(lr=1e-3))
+    return RefTrainConfig(num_steps=4, warmup_steps=1, micro_batches=MICRO, adamw=RefAdamWConfig(lr=1e-3, eps=eps))
 
 
 def _batch() -> dict:
@@ -164,10 +167,10 @@ def _ref_models() -> dict:
     return out
 
 
-def _reference(models: dict, batch: dict) -> dict:
+def _reference(models: dict, batch: dict, eps: float = 1e-8) -> dict:
     """Per arch: the reference's loss, grad norm and gradients at one
     micro-batch, the expert ids (MoE), and two jitted ``make_train_step``
-    steps at MICRO micro-batches."""
+    steps at MICRO micro-batches (AdamW's ``eps``)."""
     import jax
     import jax.numpy as jnp
 
@@ -184,7 +187,7 @@ def _reference(models: dict, batch: dict) -> dict:
                    grads={p: np.asarray(v) for p, v in ref_flatten(grads)})
         if ref_model.cfg.moe is not None:
             rec["ids"] = _ref_routing(ref_model, params, jb)
-        step = jax.jit(ref_make_train_step(ref_model, _ref_tc()))
+        step = jax.jit(ref_make_train_step(ref_model, _ref_tc(eps)))
         p, opt, metrics = params, ref_init_adamw(params), []
         for _ in range(2):
             p, opt, m = step(p, opt, jb)
@@ -199,15 +202,16 @@ def _whole(blocks: dict, specs: dict, comm) -> dict:
     return {p: Shard(x, (), specs[p]).gathered(comm) for p, x in blocks.items()}
 
 
-def _rank_run(model, params_np: dict, batch_np: dict, comm) -> dict:
+def _rank_run(model, params_np: dict, batch_np: dict, comm, eps: float = 1e-8) -> dict:
     """One arch on this rank: ``sharded_grads`` at one micro-batch (loss,
     norm, gathered gradients, this rank's gradient bytes, the expert ids of
-    its rows), then two steps of ``make_train_step(comm=)`` at MICRO."""
+    its rows), then two steps of ``make_train_step(comm=)`` at MICRO
+    (AdamW's ``eps``)."""
     mesh = MeshShape(tuple(comm.sizes), tuple(comm.sizes.values()))
     specs = tree_map(lambda sh: sh.spec, param_shardings(model.logical_axes(), model.abstract(), mesh))
     flat_specs = dict(flatten_with_paths(specs))
     whole = tree_from_flat({p: torch.from_numpy(np.array(v)) for p, v in params_np.items()})
-    batch = {k: torch.from_numpy(v).long() for k, v in batch_np.items()}
+    batch = {k: torch.from_numpy(v).long() if v.dtype.kind == "i" else torch.from_numpy(v) for k, v in batch_np.items()}
     rows = cut_batch(batch, 1, comm)
 
     def shards():
@@ -226,7 +230,7 @@ def _rank_run(model, params_np: dict, batch_np: dict, comm) -> dict:
         out["ids"] = [t.numpy() for t in routing.ids]
     p = shards()
     opt = init_adamw(tree_map(lambda s: s.local, p))
-    step_fn, metrics, micro_rows = make_train_step(model, _tc(), comm=comm), [], cut_batch(batch, MICRO, comm)
+    step_fn, metrics, micro_rows = make_train_step(model, _tc(eps=eps), comm=comm), [], cut_batch(batch, MICRO, comm)
     for _ in range(2):
         p, opt, m = step_fn(p, opt, micro_rows)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
@@ -547,7 +551,7 @@ def test_cut_batch_gives_each_rank_its_block_of_every_micro_batch():
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "yi-34b", "recurrentgemma-9b", "gemma3-27b",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", *MODAL])
 def test_block_init_draws_the_whole_init_numbers(arch):
     """``Model.init(blocks=)`` (the ``Trainer``'s init on shards) at 2×2 on
     threads: each rank's blocks are bit-equal to its blocks of the whole
@@ -576,43 +580,68 @@ def test_block_init_draws_the_whole_init_numbers(arch):
 
 
 def test_train_on_shards_covers_the_gqa_mla_and_rglru_stacks():
-    """The families whose train step computes on shards: every GQA stack
-    (Gemma-3's 5:1 stack too), DeepSeek-V2-Lite's MLA and RecurrentGemma's
-    RG-LRU hybrid; xLSTM, Whisper and Llama-3.2-Vision still train with the
-    whole tree on every rank, and ``loss_fn_sharded`` refuses them rather
-    than gather at use."""
-    from repro_torch.configs import ARCH_IDS
-    from repro_torch.models.transformer import train_on_shards
+    """Every arch trains on shards on a ("data", "model") mesh, 1×1
+    included (``train_loop.on_shards``: no per-family rule is left, and
+    ``loss_fn_sharded`` refuses none: on 1×2 threads, with a multimodal
+    batch where the arch takes one, each arch's loss is finite and the same
+    on both ``model`` ranks), while a mesh with a ``pod`` dim keeps the
+    whole tree on every rank (``data_parallel``)."""
+    from repro_torch.training.train_loop import on_shards
 
-    whole = {"xlstm-125m", "whisper-base", "llama-3.2-vision-90b"}
-    assert whole < set(ARCH_IDS)
+    for names, sizes, sharded in ((("data", "model"), (1, 1), True), (("data", "model"), (2, 2), True),
+                                  (("pod", "data", "model"), (2, 2, 2), False)):
+        assert on_shards(MeshShape(names, sizes)) is sharded, names
     for arch in ARCH_IDS:
-        cfg = get_reduced(arch)
-        assert train_on_shards(cfg) is (arch not in whole), arch
-        if arch in whole:
-            with pytest.raises(ValueError):
-                build_model(cfg).loss_fn_sharded({}, {}, None)
+        model = build_model(get_reduced(arch).replace(dtype="float32"))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+        batch = _modal_batch(model.cfg, 2, 8, np.random.default_rng(5), torch.float32)
+
+        def rank(comm):
+            mesh = MeshShape(tuple(comm.sizes), tuple(comm.sizes.values()))
+            specs = tree_map(lambda sh: sh.spec, param_shardings(model.logical_axes(), model.abstract(), mesh))
+            with torch.no_grad():
+                return float(model.loss_fn_sharded(cut_tree(params, specs, comm), cut_batch(batch, 1, comm), comm))
+
+        losses = run_ranks({"data": 1, "model": 2}, rank)
+        assert np.isfinite(losses[0]) and losses[0] == losses[1], arch
+
+
+def _modal_batch(cfg, rows: int, seq: int, rs, dtype) -> dict:
+    """A seeded batch of ``rows`` × ``seq`` tokens and labels, plus the
+    config's modal input: Whisper's ``frames`` (rows, seq, d_model), the
+    VLM's ``image_embeds`` (rows, image tokens, vision_dim), in ``dtype``."""
+    batch = {k: torch.from_numpy(rs.integers(0, 512, (rows, seq))).long() for k in ("tokens", "labels")}
+    if cfg.encdec is not None:
+        batch["frames"] = torch.from_numpy(rs.standard_normal((rows, seq, cfg.d_model), dtype=np.float32)).to(dtype)
+    if cfg.vlm is not None:
+        shape = (rows, cfg.vlm.num_image_tokens, cfg.vlm.vision_dim)
+        batch["image_embeds"] = torch.from_numpy(rs.standard_normal(shape, dtype=np.float32)).to(dtype)
+    return batch
 
 
 @pytest.mark.parametrize("chunk", [0, 32], ids=["whole", "chunked"])
-@pytest.mark.parametrize("arch", FAMILIES + ("yi-34b",))
+@pytest.mark.parametrize("arch", FAMILIES + ("yi-34b",) + MODAL)
 def test_one_rank_step_is_the_unsharded_step_bit_for_bit(arch, chunk):
     """On a mesh of 1s in bf16 (the compute dtype of the card's train
     anchors), at one and two micro-batches, with the logits whole and per
     chunk of 32 (two a row, as the dry run's train cells chunk a large
     vocab): the loss and every gradient leaf of ``sharded_grads`` equal
-    ``accumulated_grads`` of the unsharded loss bit for bit. Each fp32
+    ``accumulated_grads`` of the unsharded loss bit for bit, Whisper's and
+    the VLM's on a multimodal batch (bf16 ``frames`` / ``image_embeds``, the
+    VLM's gates nonzero). Each fp32
     master block is cast once to the dtype the loss reads the leaf in
-    (``master_compute_dtype``: the embedding table, the router and the
-    RG-LRU's gate biases and decay stay fp32, and so does a head read once
-    a chunk, whose chunks' gradients add in fp32)."""
+    (``master_compute_dtype``: the embedding table, the router, the
+    RG-LRU's gate biases and decay, the mLSTM's gate bias, the xLSTM's
+    group-norm scales and the sLSTM's recurrent weights stay fp32, and so
+    does a head read once a chunk, whose chunks' gradients add in fp32)."""
     from repro_torch.training.train_loop import accumulated_grads
 
     model = build_model(get_reduced(arch).replace(logits_chunk=chunk))
     assert model.cfg.dtype == "bfloat16"
     params = model.init(torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
-    rs = np.random.default_rng(1)
-    batch = {k: torch.from_numpy(rs.integers(0, 512, (2, 64))).long() for k in ("tokens", "labels")}
+    params = tree_from_flat({p: x.fill_(0.8) if p.endswith(("cross.gate", "gate_ffn")) else x
+                             for p, x in flatten_with_paths(params)})
+    batch = _modal_batch(model.cfg, 2, 64, np.random.default_rng(1), torch.bfloat16)
 
     def rank(comm, n):
         mesh = MeshShape(tuple(comm.sizes), tuple(comm.sizes.values()))
